@@ -13,17 +13,27 @@ failure exits non-zero, nothing is caught and carried on:
      for matmuls and cuDNN (a float32 reference must be float32).
   2. build: compile every kernel under mxnet_tpu_torch/csrc with nvcc.
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the serving path's shapes and edge cases, with times beside the
-     card's bound and the one-call PyTorch equivalent.
+     the main paths' shapes and edge cases, with times beside the card's
+     bound and the one-call PyTorch equivalent: the attention forward, the
+     two attention backward kernels, the optimizer ladder.
   4. model parity: a 2-layer BERT at full width in float32, once on CUDA
-     (through the kernel) and once on the CPU (its plain version).
-  5. serving, the main path: BERT-base (bf16, seq 384) with its SQuAD head
+     (through the kernels) and once on the CPU (their plain versions): the
+     logits, then the loss and every gradient of one training step.
+  5. serving, a main path: BERT-base (bf16, seq 384) with its SQuAD head
      served through InferenceEngine from two client threads; launch counts
      are zeroed just before and read just after.
-  6. a ``{"kernels": [...]}`` line, the card line, and as the last line
+  6. training, a main path: BERT-base (bf16 weights, f32 masters, seq 384,
+     batch 8, dropout 0.1) takes 5 fine-tune steps through
+     ``autograd.record()`` -> ``autograd.backward`` -> ``Trainer.step``,
+     with no setting beyond the defaults; after 2 warm-up steps the launch
+     counts are zeroed just before the 5 counted steps and read just after.
+     Then, without dropout, 3 steps through the kernels against 3 steps
+     through their plain versions from the same weights.
+  7. a ``{"kernels": [...]}`` line, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 """
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -33,6 +43,34 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor cores
               "float32": 67e12}    # float32 outside the tensor cores
+
+
+_FA = "mxnet_tpu_torch.ops.flash_attention"
+#: every kernel of the port: its launch counter's name, its source, the TPU
+#: kernel it replaces, and where its wrapper and its plain version live
+KERNELS = [
+    dict(name="flash_attention_fwd", route="cuda",
+         source="mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+         replaces="mxnet_tpu/ops/pallas_attention.py:85",
+         wrapper=f"{_FA}:flash_attention_fwd",
+         plain=f"{_FA}:flash_attention_reference"),
+    dict(name="flash_attention_bwd_dq", route="cuda",
+         source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+         replaces="mxnet_tpu/ops/pallas_attention.py:259",
+         wrapper=f"{_FA}:flash_attention_bwd",
+         plain=f"{_FA}:flash_attention_bwd_reference"),
+    dict(name="flash_attention_bwd_dkv", route="cuda",
+         source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+         replaces="mxnet_tpu/ops/pallas_attention.py:305",
+         wrapper=f"{_FA}:flash_attention_bwd",
+         plain=f"{_FA}:flash_attention_bwd_reference"),
+    dict(name="opt_ladder", route="cuda",
+         source="mxnet_tpu_torch/csrc/opt_ladder.cu",
+         replaces="mxnet_tpu/kernels/opt.py:95",
+         wrapper="mxnet_tpu_torch.kernels.opt:param_step",
+         plain="mxnet_tpu_torch.optimizer.optimizer:"
+               "Optimizer._fused_param_step"),
+]
 
 
 def fail(msg):
@@ -89,15 +127,34 @@ def attention_bound(b, h, s, d, dtype_name, causal):
                                        else "operations")
 
 
-def phase_kernels(torch, fa):
-    import torch.nn.functional as F
+def attention_bwd_bound(b, h, s, d, dtype_name, causal):
+    """``{"dq": (ms, bound_by), "dkv": (ms, bound_by)}``, the least time of
+    each backward kernel. dq reads q, k, v, dO, out and lse and writes dq
+    and delta; dk/dv reads q, k, v, dO, lse and delta and writes dk and dv:
+    six (B, H, S, D) tensors and two f32 rows each. Operations per live
+    (q, k) pair: 6*D for dq (three products, plus 2*D per row for delta)
+    and 8*D for dk/dv (four products)."""
+    esize = 2 if dtype_name == "bfloat16" else 4
+    n = b * h * s * d
+    nbytes = 6 * n * esize + 2 * 4 * b * h * s
+    pairs = s * (s + 1) // 2 if causal else s * s
+    out = {}
+    for key, flops in (("dq", 6 * b * h * pairs * d + 2 * n),
+                       ("dkv", 8 * b * h * pairs * d)):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[dtype_name]
+        out[key] = (1e3 * max(t_bytes, t_ops),
+                    "bytes" if t_bytes >= t_ops else "operations")
+    return out
 
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    # (label, B, H, S, D, dtype, causal, dropout_p); the first is the
-    # serving path's call: q, k, v are strided views of the fused QKV
-    cases = [
+
+def attention_cases(torch):
+    # (label, B, H, S, D, dtype, causal, dropout_p); the first two are the
+    # main paths' calls (serving; training, with dropout): q, k, v are
+    # strided views of the fused QKV
+    return [
         ("serve_bf16", 8, 12, 384, 64, torch.bfloat16, False, 0.0),
+        ("train_bf16_dropout", 8, 12, 384, 64, torch.bfloat16, False, 0.1),
         ("serve_f32", 8, 12, 384, 64, torch.float32, False, 0.0),
         ("ragged_s200", 8, 12, 200, 64, torch.float32, False, 0.0),
         ("causal", 8, 12, 384, 64, torch.float32, True, 0.0),
@@ -106,8 +163,15 @@ def phase_kernels(torch, fa):
         ("d128", 8, 12, 384, 128, torch.float32, False, 0.0),
         ("d128_bf16_causal", 8, 12, 384, 128, torch.bfloat16, True, 0.0),
     ]
+
+
+def phase_kernels(torch, fa):
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1234)
     rows = []
-    for label, b, h, s, d, dt, causal, p in cases:
+    for label, b, h, s, d, dt, causal, p in attention_cases(torch):
         qkv = torch.randn(b, s, 3, h, d, device=dev, generator=gen).to(dt)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         seed = 7 if p else None
@@ -144,6 +208,252 @@ def phase_kernels(torch, fa):
         say("kernel_case " + json.dumps(row))
         rows.append(row)
     return rows
+
+
+def phase_kernels_bwd(torch, fa):
+    """The two backward kernels against the plain backward, at the shapes
+    of :func:`attention_cases` (``train_bf16_dropout`` is the training
+    path's call)."""
+    import math
+
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rows = []
+    for label, b, h, s, d, dt, causal, p in attention_cases(torch):
+        qkv = torch.randn(b, s, 3, h, d, device=dev, generator=gen).to(dt)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        # dO as autograd hands it: a transposed view of a (B, S, H*D) tensor
+        do = torch.randn(b, s, h, d, device=dev,
+                         generator=gen).to(dt).transpose(1, 2)
+        seed = 7 if p else None
+        scale = 1.0 / math.sqrt(d)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          dropout_p=p, dropout_seed=seed)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                     dropout_p=p, dropout_seed=seed)
+        want = fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal=causal, dropout_p=p,
+            dropout_seed=seed)
+        torch.cuda.synchronize()
+        errs = [(a.float() - w.float()).abs().max().item()
+                for a, w in zip(got, want)]
+        big = max(w.float().abs().max().item() for w in want)
+        # f32: the same operations summed in another order. bf16: dS, P_d
+        # and the outputs round to bf16 (8 mantissa bits): two ulps of the
+        # largest gradient
+        tol = (2.0 ** -7 * big if dt == torch.bfloat16
+               else 1e-4 * max(1.0, big))
+        check(all(bool(torch.isfinite(a.float()).all()) for a in got),
+              f"bwd {label}: non-finite gradient")
+        check(max(errs) <= tol,
+              f"bwd {label}: kernels disagree with the plain backward: "
+              f"dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} "
+              f"(tol {tol:.3g})")
+        _, delta = fa.launch_bwd_dq(q, k, v, out, lse, do, causal, scale, p,
+                                    seed)
+        dq_ms = cuda_ms(torch, lambda: fa.launch_bwd_dq(
+            q, k, v, out, lse, do, causal, scale, p, seed))
+        dkv_ms = cuda_ms(torch, lambda: fa.launch_bwd_dkv(
+            q, k, v, lse, delta, do, causal, scale, p, seed))
+        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal=causal, dropout_p=p,
+            dropout_seed=seed), iters=5)
+        library_ms = None
+        if not p:  # SDPA's dropout mask is another function
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+            library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                o, (ql, kl, vl), do, retain_graph=True))
+        dname = str(dt).replace("torch.", "")
+        bound = attention_bwd_bound(b, h, s, d, dname, causal)
+        row = dict(case=label, shape=[b, h, s, d], dtype=dname,
+                   causal=causal, dropout_p=p, dq_max_abs_err=errs[0],
+                   dkv_max_abs_err=max(errs[1:]), tol=tol, dq_ms=dq_ms,
+                   dkv_ms=dkv_ms, plain_ms_dq_dk_dv_together=plain_ms,
+                   library_ms_sdpa_backward_dq_dk_dv_together=library_ms,
+                   dq_bound_ms=bound["dq"][0], dq_bound_by=bound["dq"][1],
+                   dkv_bound_ms=bound["dkv"][0],
+                   dkv_bound_by=bound["dkv"][1])
+        say("kernel_case_bwd " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def _ladder_operands(torch, dev, gen, shape, mp, n_state):
+    """(w, state, g) of one parameter as the Trainer holds them."""
+    master = torch.randn(shape, device=dev, generator=gen) * 0.05
+    dt = torch.bfloat16 if mp else torch.float32
+    g = (torch.randn(shape, device=dev, generator=gen) * 0.01).to(dt)
+    inner = [torch.rand(shape, device=dev, generator=gen) * 1e-4
+             for _ in range(n_state)]
+    inner = None if not inner else (inner[0] if n_state == 1
+                                    else tuple(inner))
+    w = master.to(dt)
+    return w, ((master, inner) if mp else inner), g
+
+
+def _clone_state(x):
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(_clone_state(y) for y in x)
+    return x.clone()
+
+
+F32_EPS = 2.0 ** -23
+
+
+def check_ladder(label, kopt, kernel_side, plain_side, before):
+    """Hold two (w, state) pairs against each other after the same updates
+    from ``before``; returns ``(largest error, largest error / tolerance)``
+    over the leaves.
+
+    The kernel does the plain ladder's f32 operations in the same order
+    without contraction, so an f32 leaf may differ by a few ulps of its
+    values (4 allowed) and, in Adam, by the difference between the host's
+    powf and numpy's in ``1 - beta^t`` (2e-5 of the step). The tolerance of
+    a leaf is therefore 4 ulps of its largest value plus 1e-3 of its
+    largest CHANGE over these updates: a kernel that left a leaf unwritten,
+    or scaled its step wrongly by a percent, fails. The bf16 weight is the
+    master rounded: the kernel's must equal its own master rounded, and
+    lie within one bf16 ulp of the plain side's."""
+    worst = worst_ratio = 0.0
+    kl, pl, bl = (kopt._leaves(x) for x in (kernel_side, plain_side, before))
+    check(len(kl) == len(pl) == len(bl), f"opt {label}: leaf count")
+    for j, (a, w, w0) in enumerate(zip(kl, pl, bl)):
+        err = (a.float() - w.float()).abs().max().item()
+        big = w.float().abs().max().item()
+        if a.dtype.itemsize == 2:
+            master = kopt._leaves(kernel_side)[1]
+            check(bool((a == master.to(a.dtype)).all()),
+                  f"opt {label}: the bf16 weight is not the rounded master")
+            tol = 2.0 ** -7 * max(big, 1e-3)
+        else:
+            moved = (w.float() - w0.float()).abs().max().item()
+            check(moved > 0, f"opt {label}: leaf {j} did not change; the "
+                             f"case checks nothing")
+            tol = 4 * F32_EPS * big + 1e-3 * moved
+        check(err <= tol,
+              f"opt {label}: kernel disagrees with the plain ladder on leaf "
+              f"{j} ({a.dtype}): {err:.3g} (tol {tol:.3g})")
+        worst, worst_ratio = max(worst, err), max(worst_ratio, err / tol)
+    return worst, worst_ratio
+
+
+def phase_kernels_opt(torch, kopt, topt, dispatch):
+    """The optimizer ladder kernel against ``_fused_param_step`` over two
+    updates, at BERT-base's parameter shapes, and its time beside the
+    bytes it must move."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(99)
+    adam = dict(beta1=0.9, beta2=0.999, eps=1e-8, rescale_grad=1.0 / 8)
+    sgd = dict(momentum=0.9, rescale_grad=1.0 / 8)
+    # (label, rule, shape, mp, n_state, clip, global-norm scale or None)
+    cases = [
+        ("adamw_mp_bf16_ffn", "AdamW", (3072, 768), True, 2, None, 0.5),
+        ("adamw_mp_bf16_embed", "AdamW", (30522, 768), True, 2, None, 0.5),
+        ("adamw_mp_bf16_bias768", "AdamW", (768,), True, 2, None, 0.5),
+        ("adamw_mp_bf16_tail30522", "AdamW", (30522,), True, 2, None, 0.5),
+        ("adamw_f32_embed", "AdamW", (30522, 768), False, 2, None, None),
+        ("adam_f32_clip", "Adam", (3072, 768), False, 2, 0.001, None),
+        ("sgd_momentum_f32", "SGD", (3072, 768), False, 1, None, None),
+        ("sgd_stateless_mp_gn", "SGD", (3072, 768), True, 0, None, 0.5),
+    ]
+    rows = []
+    for label, rule, shape, mp, n_state, clip, gscale in cases:
+        cls = getattr(topt, rule)
+        hyper = adam if n_state == 2 else sgd
+        w, st, g = _ladder_operands(torch, dev, gen, shape, mp, n_state)
+        pw, pst = w.clone(), _clone_state(st)
+        w0, st0 = w.clone(), _clone_state(st)
+        gn, scale = gscale is not None, gscale or 1.0
+        for t in (1, 2):
+            args = (1e-3, 0.01, t, scale, hyper)
+            before = kopt.LAUNCHES.value
+            kopt.param_step(cls, clip, gn, mp, w, st, g, *args)
+            check(kopt.LAUNCHES.value == before + 1,
+                  f"opt {label}: the wrapper did not launch the kernel")
+            topt.Optimizer._fused_param_step(cls, clip, gn, mp, pw, pst, g,
+                                             *args)
+        torch.cuda.synchronize()
+        err, err_over_tol = check_ladder(label, kopt, (w, st), (pw, pst),
+                                         (w0, st0))
+        args = (1e-3, 0.01, 3, scale, hyper)
+        ms = cuda_ms(torch, lambda: kopt.param_step(
+            cls, clip, gn, mp, w, st, g, *args))
+        plain_ms = cuda_ms(torch, lambda: topt.Optimizer._fused_param_step(
+            cls, clip, gn, mp, pw, pst, g, *args))
+        library_ms = library = None
+        if label == "adamw_f32_embed":
+            # another function (no bf16 copy, torch's own bias correction
+            # and epsilon placement), timed as an indication only
+            library = "torch.optim.AdamW(fused=True).step"
+            lw = torch.nn.Parameter(w.clone())
+            lw.grad = g.clone()
+            lopt = torch.optim.AdamW([lw], lr=1e-3, weight_decay=0.01,
+                                     fused=True)
+            library_ms = cuda_ms(torch, lopt.step)
+        n = w.numel()
+        _, kernel_bytes = dispatch.optimizer_region_bytes(
+            n, w.element_size(), n_state, mp)
+        row = dict(case=label, rule=rule, shape=list(shape), mp=mp,
+                   n_state=n_state, clip=clip, global_norm_scale=gscale,
+                   max_abs_err=err, max_err_over_tol=err_over_tol, ms=ms,
+                   plain_ms=plain_ms, bound_ms=1e3 * kernel_bytes / HBM_BYTES_PER_S,
+                   bound_by="bytes", bytes_per_element=kernel_bytes / n,
+                   library_ms=library_ms, library=library)
+        say("kernel_case_opt " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def phase_opt_sweep(torch, kopt, topt, dispatch, trainer):
+    """The ladder over every trainable parameter of the trained BERT-base,
+    one launch each, back to back as ``update_fused`` launches them: the
+    optimizer's share of one training step. Works on copies of the
+    Trainer's weights and states."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hyper = dict(trainer.optimizer._hyper(), rescale_grad=1.0 / 8)
+    cls = type(trainer.optimizer)
+    sets = {"kernel": [], "plain": [], "before": []}
+    nbytes = 0
+    for i, p in enumerate(trainer._params):
+        if p.grad_req == "null":
+            continue
+        w, st = p.data().detach(), trainer._states[i]
+        mp = trainer.optimizer._is_mp_state(w, st)
+        g = (torch.randn(w.shape, device=dev, generator=gen) * 0.01
+             ).to(w.dtype)
+        for side in sets.values():
+            side.append((mp, w.clone(), _clone_state(st), g))
+        nbytes += dispatch.optimizer_region_bytes(
+            w.numel(), w.element_size(), 2, mp)[1]
+
+    def sweep(step_one, side, t):
+        for mp, w, st, g in side:
+            step_one(cls, None, True, mp, w, st, g, 1e-4, 0.01, t, 0.5,
+                     hyper)
+
+    sweep(kopt.param_step, sets["kernel"], 6)
+    sweep(topt.Optimizer._fused_param_step, sets["plain"], 6)
+    torch.cuda.synchronize()
+    errs = [check_ladder(f"sweep parameter {j}", kopt, a[1:3], b[1:3], c[1:3])
+            for j, (a, b, c) in enumerate(zip(
+                sets["kernel"], sets["plain"], sets["before"]))]
+    del sets["before"]
+    err, err_over_tol = (max(e[i] for e in errs) for i in (0, 1))
+    ms = cuda_ms(torch, lambda: sweep(kopt.param_step, sets["kernel"], 7),
+                 iters=5)
+    plain_ms = cuda_ms(torch, lambda: sweep(
+        topt.Optimizer._fused_param_step, sets["plain"], 7), iters=5)
+    row = dict(parameters=len(sets["kernel"]), bytes=nbytes,
+               max_abs_err=err, max_err_over_tol=err_over_tol, ms=ms, plain_ms=plain_ms,
+               bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
+    say("opt_sweep " + json.dumps(row))
+    return row
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -254,6 +564,168 @@ def phase_serving(torch, mt, bert, serving, build, fa):
     return summary
 
 
+# -- training parity ---------------------------------------------------------
+
+def phase_train_parity(torch, mt, finetune, fa):
+    """One training step of a 2-layer BERT at full width in float32 without
+    dropout: the loss and every gradient, once on CUDA (attention forward
+    and backward through the kernels) and once on the CPU (plain)."""
+    res = {}
+    for where in (mt.gpu(0), mt.cpu()):
+        net, trainer, step = finetune.build_bert_finetune(
+            batch=2, seq=384, dropout=0.0, dtype="float32", device=where,
+            seed=3, num_layers=2)
+        before = (fa.LAUNCHES.value, fa.LAUNCHES_BWD_DQ.value,
+                  fa.LAUNCHES_BWD_DKV.value)
+        loss = step().cpu()
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            after = (fa.LAUNCHES.value, fa.LAUNCHES_BWD_DQ.value,
+                     fa.LAUNCHES_BWD_DKV.value)
+            check([a - b for a, b in zip(after, before)] == [2, 2, 2],
+                  "the CUDA step did not launch each attention kernel once "
+                  "per layer")
+        grads = {k: p.grad().float().cpu()
+                 for k, p in net.collect_params().items()
+                 if p.grad_req != "null"}
+        res[where.type] = (loss, grads)
+        del net, trainer, step
+    (closs, cgrads), (ploss, pgrads) = res["cuda"], res["cpu"]
+    loss_err = (closs - ploss).abs().max().item()
+    worst, worst_name, big = 0.0, "", 0.0
+    for k, g in pgrads.items():
+        check(bool(torch.isfinite(cgrads[k]).all()), f"non-finite grad {k}")
+        err = (cgrads[k] - g).abs().max().item()
+        big = max(big, g.abs().max().item())
+        if err > worst:
+            worst, worst_name = err, k
+    qkv = "bert.encoder.layers.0.attention.qkv.weight"
+    qkv_big = cgrads[qkv].abs().max().item()
+    # f32 on both sides; GEMMs and reductions sum in another order through
+    # two layers: 1e-3 of the largest gradient
+    tol = 1e-3 * max(big, 1e-3)
+    say(f"train_parity bert 2x768 f32 b2 s384: loss max_abs_err "
+        f"{loss_err:.3g} (tol 1e-3), grads max_abs_err {worst:.3g} at "
+        f"{worst_name} (largest |grad| {big:.3g}, tol {tol:.3g}), "
+        f"|grad {qkv}| max {qkv_big:.3g}")
+    check(loss_err <= 1e-3, f"CUDA and CPU losses disagree: {loss_err:.3g}")
+    check(worst <= tol, f"CUDA and CPU gradients disagree: {worst:.3g} at "
+                        f"{worst_name}")
+    check(qkv_big > 0, "no gradient reached q, k, v through attention")
+    return worst
+
+
+# -- training, a main path ----------------------------------------------------
+
+TRAIN_LR = 1e-4
+TRAIN_WARMUP = 2   # steps before the counted ones: allocator, cuBLAS plans
+TRAIN_STEPS = 5
+
+
+def _run_steps(torch, step, n):
+    """Mean loss and synchronised host seconds of each of n steps."""
+    losses, secs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        losses.append(loss.float().mean().item())     # synchronises
+        secs.append(time.perf_counter() - t0)
+    return losses, secs
+
+
+def phase_training(torch, mt, finetune, build, fa, kopt, topt, dispatch):
+    batch, seq = 8, 384
+    net, trainer, step = finetune.build_bert_finetune(
+        batch=batch, seq=seq, dropout=0.1, dtype="bfloat16",
+        learning_rate=TRAIN_LR, device=mt.gpu(0), seed=0)
+    n_train = len(net.trainable_param_names())
+
+    warm_losses, _ = _run_steps(torch, step, TRAIN_WARMUP)
+    build.reset_counters()                       # main path: counts from 0
+    dispatch.reset_counts()
+    losses, secs = _run_steps(torch, step, TRAIN_STEPS)
+    launches = {c.name: c.value for c in build.COUNTERS.values()}  # after
+    outcomes = {f"{k}:{o}": n for (k, o), n in dispatch.COUNTS.items()}
+
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        check(launches[name] == 12 * TRAIN_STEPS,
+              f"{name}: {launches[name]} launches != 12 x {TRAIN_STEPS}")
+    check(launches["opt_ladder"] == TRAIN_STEPS * n_train,
+          f"opt_ladder: {launches['opt_ladder']} launches != {TRAIN_STEPS} x "
+          f"{n_train} trainable parameters")
+    check(outcomes == {"opt_adamw:kernel": TRAIN_STEPS * n_train},
+          f"dispatch outcomes {outcomes}")
+    check(all(l == l and abs(l) != float("inf")
+              for l in warm_losses + losses),
+          f"non-finite loss {warm_losses + losses}")
+    check(losses[-1] < losses[0] and losses[-1] < warm_losses[0],
+          f"the loss did not fall over the {TRAIN_STEPS} counted steps at "
+          f"lr {TRAIN_LR}: warm-up {warm_losses}, counted {losses}")
+    qkv = net.collect_params()["bert.encoder.layers.0.attention.qkv.weight"]
+    check(qkv.grad().float().abs().max().item() > 0,
+          "no gradient reached layer 0's qkv.weight")
+    for name, p in net.collect_params().items():
+        check(bool(torch.isfinite(p.data().float()).all()),
+              f"non-finite parameter {name}")
+    steady = sorted(secs)[len(secs) // 2]
+    summary = dict(model="BERTForQA(bert_12_768_12)", dtype="bfloat16+f32 "
+                   "masters", batch=batch, seq=seq, dropout=0.1,
+                   optimizer="adamw", lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                   warmup_losses=warm_losses, steps=TRAIN_STEPS,
+                   trainable_parameters=n_train, losses=losses,
+                   step_ms=[1e3 * x for x in secs], step_ms_p50=1e3 * steady,
+                   samples_per_s=batch / steady, launches=launches,
+                   dispatch=outcomes,
+                   peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   card=card_line())
+    say(f"training: {json.dumps(summary)}")
+    sweep = phase_opt_sweep(torch, kopt, topt, dispatch, trainer)
+    del net, trainer, step, qkv
+    torch.cuda.empty_cache()
+
+    # kernels against their plain versions, from the same weights, without
+    # dropout. The port has no switch that sends CUDA tensors to the plain
+    # ladder, so for the plain run this script puts ``_fused_param_step`` in
+    # ``param_step``'s place; MXTPU_FLASH_ATTENTION=0 takes the masked-softmax
+    # attention and torch's own backward.
+    runs = {}
+    kernel_step = kopt.param_step
+    for label in ("kernels", "plain"):
+        if label == "plain":
+            kopt.param_step = topt.Optimizer._fused_param_step
+            os.environ["MXTPU_FLASH_ATTENTION"] = "0"
+        build.reset_counters()
+        try:
+            net, trainer, step = finetune.build_bert_finetune(
+                batch=batch, seq=seq, dropout=0.0, dtype="bfloat16",
+                learning_rate=TRAIN_LR, device=mt.gpu(0), seed=0)
+            runs[label], _ = _run_steps(torch, step, 3)
+        finally:
+            kopt.param_step = kernel_step
+            os.environ.pop("MXTPU_FLASH_ATTENTION", None)
+        used = {c.name: c.value for c in build.COUNTERS.values()}
+        check(all(n > 0 for n in used.values()) if label == "kernels"
+              else not any(used.values()),
+              f"{label} run: kernel launches {used}")
+        del net, trainer, step
+        torch.cuda.empty_cache()
+    diffs = [abs(a - b) for a, b in zip(runs["kernels"], runs["plain"])]
+    # bf16 activations: the two attention paths round P at other points
+    # (8 mantissa bits), and after a step AdamW has moved every weight by
+    # about lr in a direction that such rounding can flip for the smallest
+    # gradients; 0.03 is 0.25% of a loss near 12
+    say(f"training kernels vs plain (dropout 0, 3 steps): kernels "
+        f"{runs['kernels']} plain {runs['plain']} max diff {max(diffs):.3g} "
+        f"(tol 0.03)")
+    check(max(diffs) <= 0.03,
+          f"kernel and plain training disagree: {diffs}")
+    summary["kernels_vs_plain_max_loss_diff"] = max(diffs)
+    summary["opt_sweep"] = sweep
+    return summary
+
+
 def main():
     import torch
 
@@ -286,22 +758,76 @@ def main():
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import serving
     from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.kernels import dispatch, opt as kopt
     from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.optimizer import optimizer as topt
+    from mxnet_tpu_torch.tools import finetune
 
-    # 3-5
+    check(sorted({Path(k["source"]).stem for k in KERNELS}) == names,
+          "the kernel table does not name every source under csrc")
+
+    # 3-6
     cases = phase_kernels(torch, fa)
+    bwd_cases = phase_kernels_bwd(torch, fa)
+    phase_kernels_opt(torch, kopt, topt, dispatch)
     phase_model_parity(torch, mt, bert, fa)
+    phase_train_parity(torch, mt, finetune, fa)
     serve = phase_serving(torch, mt, bert, serving, build, fa)
+    train = phase_training(torch, mt, finetune, build, fa, kopt, topt,
+                           dispatch)
 
-    # 6. the kernels line (main-path case: the serving call), card, ok
-    main = cases[0]
-    kernels = [dict(
-        name=fa.KERNEL, route="cuda",
-        source="mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
-        replaces="mxnet_tpu/ops/pallas_attention.py:85",
-        launches=serve["kernel_launches"], max_abs_err=main["max_abs_err"],
-        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], library_ms=main["library_ms"])]
+    # 7. the kernels line, card, ok. Each row's case is the main paths'
+    # call: attention at (8, 12, 384, 64) bf16, the ladder as the sweep over
+    # BERT-base's parameters. The two backward kernels run as a pair and
+    # their plain version and the library call compute dq, dk and dv in
+    # one: both rows carry the PAIR's ms, plain_ms, library_ms and bound_ms
+    # (like beside like), and each kernel's own time and bound as own_ms
+    # and own_bound_ms. The pair is timed with dropout 0.1, as training
+    # runs it; the library (SDPA's backward through autograd, whose dropout
+    # mask is another function) at the same shape without dropout.
+    # Launches: from the path that runs the kernel most.
+    by_label = {r["case"]: r for r in cases}
+    bwd_by_label = {r["case"]: r for r in bwd_cases}
+    fwd, sweep = by_label["serve_bf16"], train["opt_sweep"]
+    bwd = bwd_by_label["train_bf16_dropout"]
+    bwd_nodrop = bwd_by_label["serve_bf16"]
+    check(bwd["shape"] == bwd_nodrop["shape"]
+          and bwd["dtype"] == bwd_nodrop["dtype"], "backward rows' shapes")
+    pair = dict(
+        ms=bwd["dq_ms"] + bwd["dkv_ms"],
+        plain_ms=bwd["plain_ms_dq_dk_dv_together"],
+        library_ms=bwd_nodrop["library_ms_sdpa_backward_dq_dk_dv_together"],
+        bound_ms=bwd["dq_bound_ms"] + bwd["dkv_bound_ms"],
+        times_cover="dq and dk/dv kernels together; own_ms is this kernel's",
+        library_case="same shape, dropout 0")
+    measured = {
+        "flash_attention_fwd": dict(
+            launches=max(serve["kernel_launches"],
+                         train["launches"]["flash_attention_fwd"]),
+            max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
+            plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+            bound_by=fwd["bound_by"], library_ms=fwd["library_ms"]),
+        "flash_attention_bwd_dq": dict(
+            launches=train["launches"]["flash_attention_bwd_dq"],
+            max_abs_err=bwd["dq_max_abs_err"], bound_by=bwd["dq_bound_by"],
+            own_ms=bwd["dq_ms"], own_bound_ms=bwd["dq_bound_ms"], **pair),
+        "flash_attention_bwd_dkv": dict(
+            launches=train["launches"]["flash_attention_bwd_dkv"],
+            max_abs_err=bwd["dkv_max_abs_err"], bound_by=bwd["dkv_bound_by"],
+            own_ms=bwd["dkv_ms"], own_bound_ms=bwd["dkv_bound_ms"], **pair),
+        "opt_ladder": dict(
+            launches=train["launches"]["opt_ladder"],
+            max_abs_err=sweep["max_abs_err"], ms=sweep["ms"],
+            plain_ms=sweep["plain_ms"], bound_ms=sweep["bound_ms"],
+            bound_by=sweep["bound_by"], library_ms=None),
+    }
+    kernels = []
+    for k in KERNELS:
+        m = measured[k["name"]]
+        check(m["launches"] > 0, f"{k['name']} was never launched on a "
+                                 "main path")
+        kernels.append(dict(name=k["name"], route=k["route"],
+                            source=k["source"], replaces=k["replaces"], **m))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {

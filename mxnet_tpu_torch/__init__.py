@@ -7,9 +7,10 @@ passes a CPU device.
 """
 from __future__ import annotations
 
-from . import autograd, env
+from . import amp, autograd, env, gluon, lr_scheduler, optimizer
 from .base import MXNetError
 from .device import cpu, default_device, gpu, tpu
 
-__all__ = ["autograd", "env", "MXNetError", "cpu", "gpu", "tpu",
+__all__ = ["amp", "autograd", "env", "gluon", "lr_scheduler", "optimizer",
+           "MXNetError", "cpu", "gpu", "tpu",
            "default_device"]

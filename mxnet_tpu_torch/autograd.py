@@ -1,18 +1,25 @@
-"""Train/predict and recording flags (counterpart of the mode scopes in
-mxnet_tpu/autograd.py).
+"""Train/predict and recording flags, ``backward`` and ``grad``
+(counterpart of mxnet_tpu/autograd.py).
 
-Thread-local, like the JAX package's: ``Dropout`` and ``MultiHeadAttention``
-read :func:`is_training`, and ``Block.__call__`` lets torch autograd record
-only inside :func:`record`. The default is predict mode, not recording.
-Gradients themselves are torch autograd's.
+The flags are thread-local, like the JAX package's: ``Dropout`` and
+``MultiHeadAttention`` read :func:`is_training`, and ``Block.__call__`` lets
+torch autograd record only inside :func:`record`. The default is predict
+mode, not recording. The tape is torch autograd's: :func:`backward` and
+:func:`grad` run it with MXNet's rules (a head without a head gradient gets
+ones, whatever its shape; several heads are summed in one pass), and
+gradients land in the buffers that ``gluon.Parameter`` or
+:func:`mark_variables` attached, by their ``grad_req``. ``Function``
+(custom differentiable functions) is not ported yet.
 """
 from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
 
+import torch
+
 __all__ = ["is_recording", "is_training", "record", "pause", "train_mode",
-           "predict_mode"]
+           "predict_mode", "backward", "grad", "mark_variables"]
 
 
 class _State(threading.local):
@@ -67,3 +74,88 @@ def train_mode():
 def predict_mode():
     """Scope forcing inference-mode behavior."""
     return _scope(training=False)
+
+
+def _heads_and_grads(heads, head_grads):
+    if isinstance(heads, torch.Tensor):
+        heads = [heads]
+    heads = list(heads)
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    elif isinstance(head_grads, torch.Tensor):
+        head_grads = [head_grads]
+    if len(head_grads) != len(heads):
+        raise ValueError(f"{len(heads)} heads but {len(head_grads)} "
+                         "head gradients")
+    for h in heads:
+        if not h.requires_grad:
+            raise ValueError(
+                "one of the backward heads was not computed inside a "
+                "record() scope and has no attached grad")
+    # MXNet's rule: the default head gradient is ones, for any shape
+    grads = [torch.ones_like(h) if g is None else g
+             for h, g in zip(heads, head_grads)]
+    return heads, grads
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):  # noqa: ARG001
+    """Run backward from ``heads`` (a tensor or a list), landing gradients
+    in the attached buffers (autograd.py:backward).
+
+    A head without a head gradient gets ones, so a per-sample loss vector
+    needs no reduction first (``tensor.backward()`` would raise); a list of
+    heads is summed in one pass over the tape. ``grad_req`` 'write'
+    replaces a parameter's gradient, 'add' accumulates across calls."""
+    heads, grads = _heads_and_grads(heads, head_grads)
+    torch.autograd.backward(heads, grads, retain_graph=bool(retain_graph))
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):  # noqa: ARG001
+    """Gradients of ``heads`` with respect to ``variables``, returned as a
+    list instead of written to the attached buffers (autograd.py:grad). A
+    variable the heads do not depend on gets zeros. With
+    ``create_graph=True`` the gradients are themselves recorded."""
+    single = isinstance(variables, torch.Tensor)
+    variables = [variables] if single else list(variables)
+    heads, grads = _heads_and_grads(heads, head_grads)
+    if retain_graph is None:
+        retain_graph = create_graph
+    out = torch.autograd.grad(heads, variables, grads,
+                              retain_graph=bool(retain_graph),
+                              create_graph=bool(create_graph),
+                              allow_unused=True)
+    return [torch.zeros_like(v) if g is None else g
+            for v, g in zip(variables, out)]
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Attach gradient buffers to leaf tensors (autograd.py:mark_variables):
+    after this, :func:`backward` writes into ``gradients`` by ``grad_req``
+    ('write' replaces the buffer's value, 'add' accumulates, 'null' records
+    nothing), and ``variable.grad`` stays empty."""
+    if isinstance(variables, torch.Tensor):
+        variables, gradients = [variables], [gradients]
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, buf, req in zip(variables, gradients, grad_reqs):
+        if req not in ("write", "add", "null"):
+            raise ValueError(
+                f"grad_req must be 'write', 'add' or 'null', got {req!r}")
+        old = getattr(var, "_mxtpu_grad_hook", None)
+        if old is not None:
+            old.remove()
+        var.requires_grad_(req != "null")
+        if req == "null":
+            var._mxtpu_grad_hook = None
+            continue
+
+        def land(v, buf=buf, req=req):
+            with torch.no_grad():
+                if req == "add":
+                    buf.add_(v.grad)
+                else:
+                    buf.copy_(v.grad)
+            v.grad = None
+
+        var._mxtpu_grad_hook = var.register_post_accumulate_grad_hook(land)

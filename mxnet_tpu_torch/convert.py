@@ -1,15 +1,18 @@
-"""Carry weights across from the JAX package.
+"""Carry weights and optimizer states across from the JAX package.
 
 ``load_jax_params(block, params)`` takes ``{name: numpy array}`` as the JAX
 package's ``collect_params()`` gives them (``p.data().asnumpy()``) and
 copies each into the port block's parameter of the same dotted name.
+``load_jax_trainer_states(trainer, states)`` does the same for a Trainer's
+optimizer states (masters, momenta, Adam's m and v, the update counts), so
+that both packages take the same step k+1.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["to_tensor", "load_jax_params"]
+__all__ = ["to_tensor", "load_jax_params", "load_jax_trainer_states"]
 
 
 def to_tensor(arr):
@@ -42,3 +45,43 @@ def load_jax_params(block, params):
         p.shape = tuple(value.shape)
         p.set_data(value)
     return block
+
+
+def _state_to_tensors(state, device):
+    if state is None:
+        return None
+    if isinstance(state, (list, tuple)):
+        return tuple(_state_to_tensors(s, device) for s in state)
+    return to_tensor(state).to(device)
+
+
+def load_jax_trainer_states(trainer, states):
+    """Put the JAX Trainer's optimizer states into the port's ``trainer``.
+
+    ``states`` is a dict with ``"states"``: ``{parameter name: state}``,
+    each state as the JAX optimizer nests it (None, an array, a tuple of
+    arrays, or ``(master, inner)`` under multi-precision) with numpy
+    leaves; ``"index_update_count"``: ``{parameter name: t}``; and
+    ``"num_update"``. Names are the dotted names both Trainers were built
+    from (``collect_params()``). Every trainable parameter of the port's
+    trainer must be named; leaves land on the parameter's device."""
+    names = trainer._param_names
+    given = states["states"]
+    trainable = [n for n, p in zip(names, trainer._params)
+                 if p.grad_req != "null"]
+    missing = sorted(set(trainable) - set(given))
+    unexpected = sorted(set(given) - set(names))
+    if missing or unexpected:
+        raise KeyError(f"state names differ: missing {missing}, "
+                       f"unexpected {unexpected}")
+    counts = states.get("index_update_count") or {}
+    opt = trainer._optimizer
+    opt._index_update_count = {}
+    for i, (name, p) in enumerate(zip(names, trainer._params)):
+        if name in given:
+            trainer._states[i] = _state_to_tensors(given[name], p.device)
+            trainer._states_created[i] = True
+        if name in counts:
+            opt._index_update_count[i] = int(counts[name])
+    opt.num_update = int(states.get("num_update", 0))
+    return trainer

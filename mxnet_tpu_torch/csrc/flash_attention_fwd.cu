@@ -29,50 +29,20 @@
 // ends of S and of D are masked in the kernel, so nothing is padded in
 // device memory. Tensor cores (mma.sync / wgmma), TMA and a tuned tile
 // shape are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
+using namespace mxtpu;  // to_f32, from_f32, dropout_keep, row_sum
+
 constexpr int kBlockQ = 64;                  // query rows per CTA
 constexpr int kBlockK = 32;                  // keys per shared-memory tile
-constexpr int kLanesPerRow = 4;              // threads sharing one query row
 constexpr int kThreads = kBlockQ * kLanesPerRow;
 
 // element strides of (batch, head, seq) for q, k, v, out; head dim stride 1
 struct Strides {
   long long q[3], k[3], v[3], o[3];
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-// pallas_attention.py:_dropout_keep, uint32 arithmetic wrapping mod 2^32
-__device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t bh,
-                                             uint32_t q_pos, uint32_t k_pos,
-                                             uint32_t thresh) {
-  uint32_t h = q_pos * 0x9E3779B1u + k_pos * 0x85EBCA6Bu + seed +
-               bh * 0xC2B2AE35u;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h <= thresh;
-}
 
 // DQ: head-dim elements per lane (the head dim padded to 4*DQ)
 template <typename T, int DQ>
@@ -142,9 +112,7 @@ __global__ void __launch_bounds__(kThreads)
         part = fmaf(qr[4 * c4 + 2], kv.z, part);
         part = fmaf(qr[4 * c4 + 3], kv.w, part);
       }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      float sv = part * scale;
+      float sv = row_sum(part) * scale;
       const int k_pos = k0 + j;
       if (k_pos >= S || (causal && k_pos > q_pos)) sv = -INFINITY;
       s[j] = sv;

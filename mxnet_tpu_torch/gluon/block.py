@@ -71,14 +71,33 @@ class Block(torch.nn.Module):
         """Initialize every parameter on ``device`` (default ``cuda:0``;
         raises without CUDA), drawing from ``generator`` (default: a CPU
         generator seeded 0). Parameters are drawn in ``collect_params()``
-        order; a deferred one draws at the first forward."""
+        order; a deferred one draws at the first forward.
+
+        After the parameters, two seeds are drawn from ``generator`` for
+        the net's training noise: one CPU generator (the attention
+        layers' dropout seeds) and one generator on ``device`` (the
+        Dropout layers' masks), handed to every block that has none of
+        its own. A training run is then reproducible from ``generator``
+        alone."""
         device = _device.resolve(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for p in self.collect_params().values():
             p.initialize(default_init=init, device=device,
                          generator=generator, force_reinit=force_reinit)
+        seeds = torch.randint(0, 2 ** 62, (2,), generator=generator,
+                              device=generator.device).tolist()
+        self._set_generators(
+            torch.Generator().manual_seed(seeds[0]),
+            torch.Generator(device=device).manual_seed(seeds[1]))
         return self
+
+    def _set_generators(self, cpu_generator, device_generator):
+        """Hand the net's noise generators down; a block that draws noise
+        overrides this to keep the one it needs."""
+        for child in self.children():
+            if isinstance(child, Block):
+                child._set_generators(cpu_generator, device_generator)
 
     @property
     def device(self):
@@ -91,6 +110,25 @@ class Block(torch.nn.Module):
         for child in self.children():
             if isinstance(child, Block):
                 child.hybridize(active)
+
+    def cast(self, dtype):
+        """Cast every parameter (and its gradient buffer) to ``dtype``."""
+        for p in self.collect_params().values():
+            p.cast(dtype)
+        return self
+
+    def zero_grad(self):
+        """Zero the gradient buffer of every initialized parameter that has
+        one. (Named like ``nn.Module.zero_grad`` and doing the same job, on
+        the Parameters' own buffers.)"""
+        for p in self.collect_params().values():
+            if p.grad_req != "null" and p._var is not None:
+                p.zero_grad()
+
+    def trainable_param_names(self):
+        """Names of the parameters with ``grad_req != 'null'``, sorted."""
+        return [n for n, p in sorted(self.collect_params().items())
+                if p.grad_req != "null"]
 
 
 class HybridBlock(Block):

@@ -28,10 +28,21 @@ __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
 
 
 class MultiHeadAttention(HybridBlock):
-    """Self-attention with fused QKV projection."""
+    """Self-attention with fused QKV projection.
 
-    def __init__(self, units, num_heads, dropout=0.0, dtype="float32"):
+    On the flash path, attention-probability dropout runs inside the kernel
+    from a per-call integer seed. That seed is drawn from
+    ``seed_generator``, an explicit CPU ``torch.Generator``: the one given
+    here, else the one ``initialize(generator=...)`` derives for the whole
+    net from its generator. Drawing on the CPU costs no device
+    synchronisation. (The JAX package draws the seed from its global key
+    stream; the two streams differ, so a parity test sets the seeds
+    itself.)"""
+
+    def __init__(self, units, num_heads, dropout=0.0, dtype="float32",
+                 seed_generator=None):
         super().__init__()
+        self.seed_generator = seed_generator
         if units % num_heads:
             raise ValueError(f"units {units} not divisible by "
                              f"num_heads {num_heads}")
@@ -43,6 +54,21 @@ class MultiHeadAttention(HybridBlock):
         self.out_proj = Dense(units, flatten=False, dtype=dtype,
                               in_units=units)
         self.dropout = Dropout(dropout)
+
+    def _set_generators(self, cpu_generator, device_generator):
+        if self.seed_generator is None:
+            self.seed_generator = cpu_generator
+        super()._set_generators(cpu_generator, device_generator)
+
+    def _next_dropout_seed(self):
+        """The next call's dropout seed, an int in [0, 2**31 - 1), drawn
+        on the CPU from ``seed_generator``."""
+        if self.seed_generator is None:
+            raise RuntimeError(
+                "attention dropout needs a seed generator: call "
+                "initialize() on the net, or pass seed_generator=")
+        return int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=self.seed_generator))
 
     def forward(self, x, mask=None):
         # x: (B, S, D); mask: (B, S) or (B, S, S), both 1=valid/0=masked
@@ -58,12 +84,8 @@ class MultiHeadAttention(HybridBlock):
             # matrix in device memory; attention-prob dropout runs inside
             # the kernel with the counter-hash mask
             if drop_active:
-                gen = self.dropout.generator
-                seed = int(torch.randint(
-                    0, 2 ** 31 - 1, (1,), generator=gen,
-                    device=gen.device if gen is not None else "cpu"))
                 ctx = flash_attention(q, k, v, dropout_p=self.dropout._rate,
-                                      dropout_seed=seed)
+                                      dropout_seed=self._next_dropout_seed())
             else:
                 ctx = flash_attention(q, k, v)
             ctx = ctx.transpose(1, 2).reshape(b, s, h * d)

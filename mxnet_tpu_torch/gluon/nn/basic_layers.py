@@ -84,14 +84,19 @@ class Dense(HybridBlock):
 
 class Dropout(HybridBlock):
     """Inverted dropout, active only in train mode. ``generator`` is the
-    ``torch.Generator`` the mask is drawn from (None: the device's default
-    generator)."""
+    ``torch.Generator`` the mask is drawn from, on the input's device: the
+    one given here, else the one the net's ``initialize(generator=...)``
+    derives (before either: the device's default generator)."""
 
     def __init__(self, rate, axes=(), generator=None):
         super().__init__()
         self._rate = rate
         self._axes = axes
         self.generator = generator
+
+    def _set_generators(self, cpu_generator, device_generator):
+        if self.generator is None:
+            self.generator = device_generator
 
     def forward(self, x):
         if self._rate <= 0:

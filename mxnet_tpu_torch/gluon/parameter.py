@@ -7,6 +7,13 @@ first forward, ``data()`` and ``set_data()``. The value is a
 ``torch.nn.Parameter`` on one device; every Block that holds the Parameter
 also exposes that tensor to ``nn.Module`` under the same attribute name, so
 ``named_parameters()`` gives the dotted keys ``collect_params()`` gives.
+
+Gradients follow MXNet's ``grad_req``, not torch's habit of accumulating
+into ``.grad``: a hook that torch runs once per backward, after it has
+summed every use of the tensor, moves ``.grad`` into the Parameter's own
+buffer ('write' replaces the buffer, 'add' adds to it, 'null' has none) and
+bumps a version counter. ``grad()`` returns that buffer, and the Trainer
+reads the counter to tell a fresh gradient from a stale one.
 """
 from __future__ import annotations
 
@@ -26,16 +33,21 @@ def _shape_known(shape):
 class Parameter:
     def __init__(self, name="weight", grad_req="write", shape=None,
                  dtype="float32", init=None, allow_deferred_init=False,
-                 differentiable=True):
+                 differentiable=True, lr_mult=1.0, wd_mult=1.0):
         if grad_req not in ("write", "add", "null"):
             raise ValueError(
                 f"grad_req must be 'write', 'add' or 'null', got {grad_req!r}")
         self.name = name
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = normalize_dtype(dtype)
         self.init = init
         self.allow_deferred_init = allow_deferred_init
-        self.grad_req = grad_req if differentiable else "null"
+        self._differentiable = differentiable
+        self._grad_req = grad_req if differentiable else "null"
+        self._grad = None      # the gradient buffer (zeros until a backward)
+        self._grad_version = 0  # bumped whenever the buffer is written
         self._var = None       # torch.nn.Parameter once initialized
         self._deferred = None  # (init, device, generator) until shape known
         self._owners = []      # (module, attribute) exposing _var
@@ -107,6 +119,8 @@ class Parameter:
         # any inference_mode scope (call_cached_graph) it was made under
         self._var = torch.nn.Parameter(
             data, requires_grad=self.grad_req != "null")
+        self._var.register_post_accumulate_grad_hook(self._land_grad)
+        self._grad = None
         for module, attr in self._owners:
             module._parameters[attr] = self._var
 
@@ -170,3 +184,62 @@ class Parameter:
                 f"!= {tuple(self._var.shape)}")
         with torch.inference_mode(False), torch.no_grad():
             self._var.copy_(data)
+
+    # -- gradients ---------------------------------------------------------
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        """Live: 'add' starts accumulating into fresh zeros, 'null' drops
+        the buffer, a non-differentiable parameter stays 'null'."""
+        if req not in ("write", "add", "null"):
+            raise ValueError(
+                f"grad_req must be 'write', 'add' or 'null', got {req!r}")
+        if not self._differentiable:
+            req = "null"
+        if req == self._grad_req:
+            return
+        self._grad_req = req
+        self._grad = None
+        if self._var is not None:
+            self._var.requires_grad_(req != "null")
+            self._var.grad = None
+
+    def _land_grad(self, var):
+        # runs once per backward, after torch has summed every use of var
+        g, var.grad = var.grad, None
+        if self._grad_req == "add" and self._grad is not None:
+            with torch.no_grad():
+                self._grad.add_(g)
+        else:
+            self._grad = g  # 'write': the new gradient replaces the buffer
+        self._grad_version += 1
+
+    def grad(self):
+        """The gradient buffer, in the parameter's dtype and on its device
+        (zeros before the first backward)."""
+        if self.grad_req == "null":
+            raise RuntimeError(
+                f"Parameter {self.name} has grad_req='null'")
+        if self._grad is None:
+            self._grad = torch.zeros_like(self.data(), requires_grad=False)
+        return self._grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        if self.grad_req != "null" and self._var is not None:
+            self.grad().zero_()
+            self._grad_version += 1
+
+    def cast(self, dtype):
+        """Change the dtype of the value and of its gradient buffer."""
+        self.dtype = normalize_dtype(dtype)
+        if self._var is not None:
+            with torch.inference_mode(False), torch.no_grad():
+                self._var.data = self._var.data.to(self.dtype)
+                if self._grad is not None:
+                    self._grad = self._grad.to(self.dtype)

@@ -4,8 +4,8 @@ Each kernel is one CUDA C++ source under ``mxnet_tpu_torch/csrc/`` with a
 plain C interface. It is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library under ``build/kernels/`` at the repository root (listed in
 ``.gitignore``) and loaded with ``ctypes``. The library's file name carries
-a digest of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. :func:`build` starts one ``nvcc`` per source, all
+a digest of the source, the shared headers and the flags, so an edited
+source rebuilds and an unchanged one is reused. :func:`build` starts one ``nvcc`` per source, all
 at once. Nothing here runs at import: the CPU tests import every module on a
 machine without ``nvcc``.
 
@@ -58,10 +58,13 @@ def _source(name):
 
 
 def library_path(name):
-    """Where ``name``'s library lives for the current source and flags."""
-    digest = hashlib.sha256(
-        _source(name).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """Where ``name``'s library lives for the current source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256(_source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

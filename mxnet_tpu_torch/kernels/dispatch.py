@@ -1,0 +1,69 @@
+"""Kernel dispatch: who decides, and how the decision is counted
+(counterpart of mxnet_tpu/kernels/dispatch.py).
+
+A call site that has a hand-written kernel and a plain PyTorch version (the
+optimizer ladder, kernels/opt.py) decides between them from static
+properties only, before anything is launched: where the tensors live
+(:func:`platform_ok`), and what the kernel supports (the rule, the dtypes).
+CUDA tensors that the kernel supports launch it, and a build or launch
+failure raises; CPU tensors take the plain version. There is no mode
+switch: the JAX package's ``MXTPU_KERNELS`` off/auto/force and its ``auto``
+thresholds were tuned for another device, and on the card the kernel is the
+faster path at every size and dtype measured (PERF.md).
+
+Every decision is counted by ``(kernel, outcome)`` in :data:`COUNTS`, a
+plain dict until telemetry is ported. :func:`optimizer_region_bytes` is the
+JAX package's byte model of one parameter's update; here it gates nothing
+and gives the least bytes the ladder must move, for a time bound.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+__all__ = ["platform_ok", "record", "COUNTS", "reset_counts",
+           "optimizer_region_bytes"]
+
+#: {(kernel, outcome): number of decisions}
+COUNTS = {}
+_LOCK = threading.Lock()
+
+
+def platform_ok(*tensors):
+    """True when the kernels can run on these tensors: every one is a CUDA
+    tensor."""
+    return all(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors)
+
+
+def record(kernel, outcome):
+    """Count one decision."""
+    with _LOCK:
+        COUNTS[(kernel, outcome)] = COUNTS.get((kernel, outcome), 0) + 1
+
+
+def reset_counts():
+    with _LOCK:
+        COUNTS.clear()
+
+
+def optimizer_region_bytes(w_size, w_itemsize, n_state, mp):
+    """``(plain_bytes, kernel_bytes)`` that ONE parameter's update chain
+    moves through device memory (own copy of
+    mxnet_tpu/passes/memory.py:optimizer_region_bytes).
+
+    The floor both paths pay: read the gradient, read and write each state
+    leaf, read and write the master or weight, write the low-precision
+    weight copy (mp). Under mp the plain path additionally writes and reads
+    the widened f32 gradient across the cast; without mp there is no
+    widening, and the model predicts zero savings."""
+    n = int(w_size)
+    bw = int(w_itemsize)
+    if mp:
+        floor = (n * bw                 # read low-precision grad
+                 + 2 * n * 4            # master read+write
+                 + n_state * 2 * n * 4  # state leaves read+write (f32)
+                 + n * bw)              # write low-precision weight copy
+        return floor + 2 * n * 4, floor
+    floor = n * bw + 2 * n * bw + n_state * 2 * n * bw
+    return floor, floor

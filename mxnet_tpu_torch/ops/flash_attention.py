@@ -1,14 +1,21 @@
-"""Flash attention forward: the CUDA kernel and its plain PyTorch version.
+"""Flash attention, forward and backward: the CUDA kernels and their plain
+PyTorch versions.
 
 Counterpart of mxnet_tpu/ops/pallas_attention.py. The TPU kernel
 ``_fwd_kernel`` (launched by ``_flash_fwd``) becomes the hand-written CUDA
-kernel ``csrc/flash_attention_fwd.cu``; :func:`flash_attention_reference`
-is the plain twin of ``attention_reference`` and repeats the kernel's
-arithmetic with one tile spanning the whole key row.
+kernel ``csrc/flash_attention_fwd.cu``; ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` (launched by ``_flash_bwd``) become the two kernels of
+``csrc/flash_attention_bwd.cu``. :func:`flash_attention_reference` is the
+plain twin of ``attention_reference`` and
+:func:`flash_attention_bwd_reference` that of ``_flash_bwd``: each repeats
+its kernels' arithmetic with one tile spanning the whole row.
+:func:`flash_attention` joins forward and backward in a
+``torch.autograd.Function``, as ``_flash`` does with ``jax.custom_vjp``.
 
-Which one runs is decided by the tensors' device alone: CPU tensors take the
-plain version, CUDA tensors launch the kernel or raise. There is no fallback
-from the kernel to the plain version and no option that selects it.
+Which one runs is decided by the tensors' device alone, in the backward as
+in the forward: CPU tensors take the plain version, CUDA tensors launch the
+kernel or raise. There is no fallback from a kernel to its plain version
+and no option that selects it.
 """
 from __future__ import annotations
 
@@ -19,12 +26,20 @@ import torch
 
 from ..kernels import build as _build
 
-__all__ = ["flash_attention", "flash_attention_fwd",
-           "flash_attention_reference", "LAUNCHES"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_reference", "flash_attention_bwd_reference",
+           "launch_bwd_dq", "launch_bwd_dkv", "LAUNCHES", "LAUNCHES_BWD_DQ",
+           "LAUNCHES_BWD_DKV"]
 
 KERNEL = "flash_attention_fwd"
 #: launches of the CUDA kernel (plain-version calls are not counted)
 LAUNCHES = _build.counter(KERNEL)
+#: the backward's source, and one launch counter per kernel in it
+KERNEL_BWD = "flash_attention_bwd"
+KERNEL_BWD_DQ = "flash_attention_bwd_dq"
+KERNEL_BWD_DKV = "flash_attention_bwd_dkv"
+LAUNCHES_BWD_DQ = _build.counter(KERNEL_BWD_DQ)
+LAUNCHES_BWD_DKV = _build.counter(KERNEL_BWD_DKV)
 MAX_HEAD_DIM = 128
 
 _H1 = 0x9E3779B1
@@ -130,8 +145,10 @@ def _lib():
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(q, k, v, causal, scale, dropout_p, dropout_seed):
-    b, h, s, d = q.shape
+def _check_kernel_takes(q, k, v):
+    """Raise for CUDA inputs the kernels (forward and backward alike) do
+    not take, so that a recorded forward never fails later, in backward."""
+    b, h, _, d = q.shape
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -144,10 +161,19 @@ def _launch(q, k, v, causal, scale, dropout_p, dropout_seed):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in its head dim")
-    # out in (B, S, H, D) memory, returned as a (B, H, S, D) view: the
-    # caller's transpose back to (B, S, H*D) is then free
-    out = torch.empty((b, s, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+
+
+def _empty_bshd(b, h, s, d, like):
+    """An uninitialized (B, H, S, D) view of (B, S, H, D) memory: the
+    caller's transpose back to (B, S, H*D) is then free."""
+    return torch.empty((b, s, h, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _launch(q, k, v, causal, scale, dropout_p, dropout_seed):
+    b, h, s, d = q.shape
+    _check_kernel_takes(q, k, v)
+    out = _empty_bshd(b, h, s, d, q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
@@ -187,6 +213,191 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, dropout_p=0.0,
     return _launch(q, k, v, causal, scale, dropout_p, dropout_seed)
 
 
+def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal=False,
+                                  scale=None, dropout_p=0.0,
+                                  dropout_seed=None):
+    """Plain PyTorch flash-attention backward: ``(dq, dk, dv)``.
+
+    The arithmetic of ``_flash_bwd`` with one tile spanning the row, in
+    explicit formulas (no ``torch.autograd``): delta = rowsum(dO * O) in
+    f32; P = exp(q k^T * scale - lse), 0 where masked or lse is -inf;
+    dP = dO v^T, kept pairs divided by 1 - p under dropout; dS =
+    P * (dP - delta) * scale cast to the inputs' dtype before dS k and
+    dS^T q; P_d (kept P / (1 - p)) cast to dO's dtype before P_d^T dO; f32
+    accumulation; dq, dk, dv in the inputs' dtypes."""
+    _check_args(q, k, v, dropout_p, dropout_seed)
+    b, h, s, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, -math.inf)
+    lse_col = lse[..., None]
+    live = torch.isfinite(lse_col)
+    lse_safe = torch.where(live, lse_col, torch.zeros_like(lse_col))
+    p = torch.where(live, torch.exp(scores - lse_safe),
+                    torch.zeros_like(scores))
+    delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    p_d = p
+    if dropout_p > 0.0:
+        dev = q.device
+        bh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
+        q_pos = torch.arange(s, device=dev).reshape(1, 1, s, 1)
+        k_pos = torch.arange(s, device=dev).reshape(1, 1, 1, s)
+        keep = _dropout_keep(int(dropout_seed), bh, q_pos, k_pos, dropout_p)
+        zero = torch.zeros_like(p)
+        p_d = torch.where(keep, p, zero) / (1.0 - dropout_p)
+        dp = torch.where(keep, dp, zero) / (1.0 - dropout_p)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_d.to(dout.dtype).float(),
+                      dout.float())
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _lib_bwd():
+    lib = _build.load(KERNEL_BWD)
+    dq_fn = lib.mxtpu_flash_attention_bwd_dq
+    if dq_fn.argtypes is None:
+        tail = ([ctypes.c_int] * 5
+                + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p])
+        for fn in (dq_fn, lib.mxtpu_flash_attention_bwd_dkv):
+            fn.argtypes = [ctypes.c_void_p] * 8 + tail
+            fn.restype = ctypes.c_int
+        lib.mxtpu_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mxtpu_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bwd_tail(q, tensors, causal, scale, dropout_p, dropout_seed):
+    """The arguments both backward kernels share after their pointers;
+    ``tensors``: q, k, v, out, dout, dq, dk, dv (or None), whose strides
+    the kernels take in that order."""
+    b, h, s, d = q.shape
+    strides = (ctypes.c_longlong * 24)(*(
+        n for t in tensors
+        for n in (t.stride()[:3] if t is not None else (0, 0, 0))))
+    return (_KERNEL_DTYPES[q.dtype], b, h, s, d, strides, scale,
+            int(bool(causal)), int(dropout_p > 0.0), 1.0 - dropout_p,
+            0 if dropout_seed is None else int(dropout_seed) & _M32,
+            _threshold(dropout_p))
+
+
+def _check_bwd_takes(q, k, v, out, lse, dout):
+    _check_kernel_takes(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t is not None and t.stride(3) != 1:
+            raise ValueError(f"{name} must be contiguous in its head dim")
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("lse must be a contiguous float32 (B, H, S) tensor")
+
+
+def launch_bwd_dq(q, k, v, out, lse, dout, causal, scale, dropout_p,
+                  dropout_seed):
+    """Launch the dQ kernel on CUDA tensors: ``(dq, delta)``. It also
+    computes delta = rowsum(dO * O), which the dK/dV kernel reads."""
+    b, h, s, d = q.shape
+    _check_bwd_takes(q, k, v, out, lse, dout)
+    delta = torch.empty_like(lse)
+    dq = _empty_bshd(b, h, s, d, q)
+    tail = _bwd_tail(q, (q, k, v, out, dout, dq, None, None), causal, scale,
+                     dropout_p, dropout_seed)
+    lib = _lib_bwd()
+    with torch.cuda.device(q.device):
+        err = lib.mxtpu_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), *tail,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("flash_attention dq kernel launch failed: "
+                           + lib.mxtpu_cuda_error_string(err).decode())
+    LAUNCHES_BWD_DQ.add()
+    return dq, delta
+
+
+def launch_bwd_dkv(q, k, v, lse, delta, dout, causal, scale, dropout_p,
+                   dropout_seed):
+    """Launch the dK/dV kernel on CUDA tensors: ``(dk, dv)``. ``delta`` is
+    what :func:`launch_bwd_dq` returned for the same inputs."""
+    b, h, s, d = q.shape
+    _check_bwd_takes(q, k, v, None, lse, dout)
+    dk = _empty_bshd(b, h, s, d, q)
+    dv = _empty_bshd(b, h, s, d, q)
+    tail = _bwd_tail(q, (q, k, v, None, dout, None, dk, dv), causal, scale,
+                     dropout_p, dropout_seed)
+    lib = _lib_bwd()
+    with torch.cuda.device(q.device):
+        err = lib.mxtpu_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *tail, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("flash_attention dk/dv kernel launch failed: "
+                           + lib.mxtpu_cuda_error_string(err).decode())
+    LAUNCHES_BWD_DKV.add()
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, scale, dropout_p,
+                dropout_seed):
+    if dout.stride(3) != 1:
+        # the kernels read rows of the head dim; a gradient that arrives
+        # strided there is copied once, here
+        dout = dout.contiguous()
+    lse = lse.contiguous()
+    # dq first: it also writes delta, which the dk/dv kernel reads
+    dq, delta = launch_bwd_dq(q, k, v, out, lse, dout, causal, scale,
+                              dropout_p, dropout_seed)
+    dk, dv = launch_bwd_dkv(q, k, v, lse, delta, dout, causal, scale,
+                            dropout_p, dropout_seed)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
+                        dropout_p=0.0, dropout_seed=None):
+    """``(dq, dk, dv)`` from the forward's inputs, its ``out`` and ``lse``
+    and the output gradient ``dout`` (the ``_flash_bwd`` contract): the two
+    CUDA kernels for CUDA tensors, the plain version for CPU tensors."""
+    dropout_p = float(dropout_p)
+    _check_args(q, k, v, dropout_p, dropout_seed)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(
+        q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, out, lse, dout, causal, scale, dropout_p, dropout_seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda tensors, "
+                         f"got {q.device}")
+    return _launch_bwd(q, k, v, out, lse, dout, causal, scale, dropout_p,
+                       dropout_seed)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward saves (q, k, v, out, lse) and the seed, what
+    ``_flash_vjp_fwd`` saves; backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, dropout_p, dropout_seed):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale, dropout_p,
+                                       dropout_seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attn_args = (causal, scale, dropout_p, dropout_seed)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         *ctx.attn_args)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, causal=False, scale=None, dropout_p=0.0,
                     dropout_seed=None):
     """Fused multi-head attention ``softmax(q k^T * scale) v`` over
@@ -194,6 +405,13 @@ def flash_attention(q, k, v, causal=False, scale=None, dropout_p=0.0,
 
     ``dropout_p > 0`` with an int ``dropout_seed`` applies attention-prob
     dropout with the counter-hash mask (numerator only, inverted scaling).
-    Forward only: gradients are a later slice's backward kernels."""
+    Differentiable in q, k and v: when torch autograd is recording, the
+    backward runs the backward kernels on CUDA tensors and the plain
+    backward on CPU tensors. A CUDA input the kernels do not take raises
+    here, in the forward."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale, dropout_p,
+                                     dropout_seed)
     return flash_attention_fwd(q, k, v, causal, scale, dropout_p,
                                dropout_seed)[0]

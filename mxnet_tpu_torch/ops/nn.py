@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["fully_connected", "layer_norm", "activation", "softmax",
-           "embedding", "dropout"]
+           "log_softmax", "softmax_cross_entropy", "embedding", "dropout"]
 
 
 def fully_connected(x, weight, bias=None, flatten=True):
@@ -88,6 +88,23 @@ def softmax(x, axis=-1, length=None, temperature=None):
         shape[axis] = x.shape[axis]
         x = x.masked_fill(~mask.reshape(shape), float("-inf"))
     return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x, axis=-1, temperature=None):
+    """Log-softmax (ops/nn.py:554). The row's maximum, sum and logarithm
+    are taken in f32 whatever x's dtype, and the result is cast back."""
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    return torch.log_softmax(x.float(), dim=axis).to(x.dtype)
+
+
+def softmax_cross_entropy(data, label):
+    """Scalar cross entropy summed over the batch
+    (ops/tensor.py:softmax_cross_entropy): ``-sum(log_softmax(data)[i,
+    label[i]])``."""
+    logp = log_softmax(data, axis=-1)
+    picked = torch.take_along_dim(logp, label.long()[:, None], dim=-1)
+    return -picked.sum()
 
 
 def embedding(indices, weight):

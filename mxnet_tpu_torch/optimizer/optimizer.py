@@ -1,0 +1,452 @@
+"""Optimizer base and the five rules BERT training needs (counterpart of
+mxnet_tpu/optimizer/optimizer.py).
+
+API parity with the JAX package: ``create_state(index, weight)`` /
+``update(index, weight, grad, state)``, ``lr_scheduler`` with lr/wd
+multipliers, ``rescale_grad``, ``clip_gradient``, ``clip_global_norm`` and
+``update_multi_precision`` (f32 master weights beside bf16 parameters).
+Each rule is ``_rule(w, g, state, lr, wd, hyper) -> (new_w, new_state)``, a
+function of tensors that allocates its results.
+
+List inputs take the fused path, ``update_fused``: parameters are bucketed
+by (weight dtype, multi-precision), their hyperparameters are resolved in
+list order (so a schedule driven by ``num_update`` sees the per-parameter
+sequence), and every member runs the ladder: rescale -> global-norm scale
+-> per-element clip -> ``_rule`` -> cast of the master back. The ladder
+runs through kernels/opt.py:param_step: the CUDA ladder kernel for CUDA
+tensors, and ``_fused_param_step``, the kernel's plain version, for CPU
+tensors.
+
+Updates are IN PLACE under ``torch.no_grad()``: the weight, the master and
+the state tensors keep their identity and are overwritten, which is the
+port's form of the JAX package's buffer donation.
+
+Scalars follow the JAX package's weak-typed f32 scalars: a hyperparameter
+is rounded to f32 before it meets a tensor, and expressions of scalars only
+(``1 - beta1``, ``beta2 ** t``, Adam's ``lr_t``) are evaluated in f32.
+
+Ported now: SGD, NAG, Signum, Adam, AdamW. The other rules of the JAX
+package and row-sparse gradients wait for a later slice; ``create`` raises
+``NotImplementedError`` for them.
+"""
+from __future__ import annotations
+
+import numpy as _np
+import torch
+
+from ..kernels import opt as _kopt
+
+__all__ = ["Optimizer", "register", "create", "SGD", "NAG", "Signum",
+           "Adam", "AdamW"]
+
+_REG = {}
+
+#: rules of the JAX package that a later slice ports
+_LATER_RULES = frozenset((
+    "sgld", "dcasgd", "nadam", "adabelief", "adamax", "ftml", "rmsprop",
+    "adagrad", "adadelta", "ftrl", "lamb", "lans", "lars", "groupadagrad"))
+
+
+def register(klass):
+    _REG[klass.__name__.lower()] = klass
+    return klass
+
+
+def create(name, **kwargs):
+    """An Optimizer from its registered name (case-insensitive), or ``name``
+    itself when it already is one."""
+    if isinstance(name, Optimizer):
+        return name
+    key = str(name).lower()
+    if key in _LATER_RULES:
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported yet: the PyTorch port has "
+            f"{sorted(_REG)}; the remaining rules come with the slice that "
+            f"ports ResNet training")
+    if key not in _REG:
+        raise ValueError(f"unknown optimizer {name!r}; choose from "
+                         f"{sorted(_REG)}")
+    return _REG[key](**kwargs)
+
+
+_F32 = _np.float32
+_ONE = _F32(1.0)
+
+
+def _s(x):
+    """A Python float holding ``x`` rounded to f32: what a weak-typed f32
+    scalar of the JAX package is when it meets an f32 tensor."""
+    return float(_F32(x))
+
+
+def _write_state(state, new_state):
+    """Copy new state values into the state tensors, in place."""
+    if state is None:
+        return
+    if isinstance(state, torch.Tensor):
+        state.copy_(new_state)
+        return
+    for s, ns in zip(state, new_state):
+        _write_state(s, ns)
+
+
+class Optimizer:
+    """Base optimizer (optimizer.py:Optimizer)."""
+
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, clip_global_norm=None,
+                 learning_rate=None, lr_scheduler=None,
+                 multi_precision=False, param_dict=None, aggregate_num=None,
+                 use_fused_step=True, lazy_update=True, **kwargs):  # noqa: ARG002
+        self.lazy_update = lazy_update
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate if learning_rate is not None else 0.01
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None and learning_rate is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.wd = wd
+        self.clip_gradient = clip_gradient
+        # scale the WHOLE gradient set so its joint L2 norm stays under
+        # this bound (fused path only). None = off.
+        self.clip_global_norm = clip_global_norm
+        self.multi_precision = multi_precision
+        self.num_update = 0
+        self._index_update_count = {}
+        self.idx2name = param_idx2name or {}
+        self.param_dict = param_dict or {}
+        self.lr_mult = {}
+        self.wd_mult = {}
+
+    # -- hyperparameter plumbing -------------------------------------------
+    @property
+    def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
+        return self.lr
+
+    def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise ValueError("lr_scheduler is set; cannot set learning rate")
+        self.lr = lr
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        self.wd_mult = dict(args_wd_mult)
+
+    def _update_count(self, index):
+        if index not in self._index_update_count:
+            self._index_update_count[index] = 0
+        self._index_update_count[index] += 1
+        self.num_update = max(self.num_update,
+                              self._index_update_count[index])
+
+    def _get_lr(self, index):
+        lr = self.learning_rate
+        param = self.param_dict.get(index)
+        if param is not None:
+            lr *= getattr(param, "lr_mult", 1.0)
+        elif index in self.lr_mult:
+            lr *= self.lr_mult[index]
+        elif index in self.idx2name:
+            lr *= self.lr_mult.get(self.idx2name[index], 1.0)
+        return lr
+
+    def _get_wd(self, index):
+        wd = self.wd
+        param = self.param_dict.get(index)
+        if param is not None:
+            wd *= getattr(param, "wd_mult", 1.0)
+        elif index in self.wd_mult:
+            wd *= self.wd_mult[index]
+        elif index in self.idx2name:
+            wd *= self.wd_mult.get(self.idx2name[index], 1.0)
+        return wd
+
+    # -- state -------------------------------------------------------------
+    def create_state(self, index, weight):  # noqa: ARG002
+        return None
+
+    def create_state_multi_precision(self, index, weight):
+        low_precision = weight.dtype in (torch.float16, torch.bfloat16)
+        if self.multi_precision and low_precision:
+            master = weight.detach().float()  # a new f32 tensor
+            return (master, self.create_state(index, master))
+        return self.create_state(index, weight)
+
+    def _hyper(self):
+        """The rule's own hyperparameters as a dict of scalars."""
+        return {}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        raise NotImplementedError
+
+    def _supports_fused(self):
+        """The fused step runs the class ``_rule`` under a shared
+        rescale/clip prologue: an optimizer that overrides ``update`` or
+        ``update_multi_precision``, or defines no ``_rule``, takes the
+        per-parameter loop."""
+        cls = type(self)
+        return (cls.update is Optimizer.update
+                and cls.update_multi_precision
+                is Optimizer.update_multi_precision
+                and cls._rule is not Optimizer._rule)
+
+    @staticmethod
+    def _fused_param_step(cls, clip, gn, mp, w, st, g, lr, wd, t, scale,
+                          hyper):
+        """One parameter's ladder: rescale -> global-norm scale ->
+        per-element clip -> ``cls._rule`` (-> cast of the master back), in
+        place. Returns ``(w, st)``, the tensors it was given.
+
+        Plain PyTorch, and the plain version of the CUDA ladder kernel
+        (kernels/opt.py:param_step), which computes the same function in
+        one pass."""
+        h = dict(hyper)
+        h["t"] = t
+        with torch.no_grad():
+            if mp:
+                # cast the low-precision gradient to f32 FIRST, then
+                # rescale and clip on the f32 master's side
+                master, inner = st
+                g = g.float()
+            g = g * _s(h["rescale_grad"])
+            if gn:
+                g = g * _s(scale)
+            if clip is not None:
+                g = g.clamp(-clip, clip)
+            if mp:
+                nm, ni = cls._rule(master, g, inner, lr, wd, h)
+                master.copy_(nm)
+                _write_state(inner, ni)
+                w.copy_(nm)  # rounds to w's dtype
+                return w, st
+            nw, ns = cls._rule(w, g, st, lr, wd, h)
+            w.copy_(nw)
+            _write_state(st, ns)
+            return w, st
+
+    @staticmethod
+    def _fused_sqnorm(gs, rescale):
+        """Sum of squares of the rescaled gradients of one bucket, f32
+        accumulation: the pre-pass of ``clip_global_norm``. Returns a
+        0-dim tensor on the gradients' device."""
+        total = torch.zeros((), dtype=torch.float32, device=gs[0].device)
+        for g in gs:
+            g32 = g.detach().float() * _s(rescale)
+            total = total + torch.sum(g32 * g32)
+        return total
+
+    # -- public update -----------------------------------------------------
+    def update(self, index, weight, grad, state):
+        """Single-parameter update, in place; list inputs take the fused
+        bucketed step."""
+        if isinstance(index, (list, tuple)):
+            self._update_list(index, weight, grad, state,
+                              multi_precision=False)
+            return
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        hyper = dict(self._hyper())
+        hyper["rescale_grad"] = self.rescale_grad
+        _kopt.param_step(
+            type(self), self.clip_gradient, False, False, weight, state,
+            grad, lr, wd, self._index_update_count[index], 1.0, hyper)
+
+    def _update_list(self, index, weight, grad, state, multi_precision):
+        if self._supports_fused():
+            self.update_fused(index, weight, grad, state,
+                              multi_precision=multi_precision)
+            return
+        for i, w, g, s in zip(index, weight, grad, state):
+            if multi_precision:
+                self.update_multi_precision(i, w, g, s)
+            else:
+                self.update(i, w, g, s)
+
+    @staticmethod
+    def _is_mp_state(weight, state):
+        return (isinstance(state, tuple) and len(state) == 2
+                and isinstance(state[0], torch.Tensor)
+                and state[0].dtype == torch.float32
+                and weight.dtype != torch.float32)
+
+    def update_fused(self, index, weight, grad, state,
+                     multi_precision=False):
+        """Fused multi-tensor update over the whole list: rescale ->
+        global-norm clip -> per-element clip -> ``_rule``, bucketed by
+        (weight dtype, multi-precision), with per-parameter lr/wd/t
+        resolved in list order. Each member runs
+        kernels/opt.py:param_step: the CUDA ladder kernel for CUDA tensors,
+        ``_fused_param_step`` for CPU tensors."""
+        buckets = {}
+        for i, w, g, s in zip(index, weight, grad, state):
+            self._update_count(i)
+            lr, wd = self._get_lr(i), self._get_wd(i)
+            t = self._index_update_count[i]
+            use_mp = multi_precision and self._is_mp_state(w, s)
+            buckets.setdefault((str(w.dtype), use_mp), []).append(
+                (i, w, g, s, lr, wd, t))
+        if not buckets:
+            return
+        hyper = dict(self._hyper())
+        hyper["rescale_grad"] = self.rescale_grad
+        scale = 1.0
+        gn = self.clip_global_norm is not None
+        if gn:
+            # one partial sum per bucket, combined on the host into the
+            # one global scale (one device-to-host read per bucket)
+            sq = 0.0
+            for items in buckets.values():
+                sq += float(self._fused_sqnorm([it[2] for it in items],
+                                               self.rescale_grad))
+            gnorm = sq ** 0.5
+            if gnorm > self.clip_global_norm:
+                scale = self.clip_global_norm / gnorm
+        cls, clip = type(self), self.clip_gradient
+        for (_, use_mp), items in buckets.items():
+            for _, w, g, s, lr, wd, t in items:
+                _kopt.param_step(cls, clip, gn, use_mp, w, s, g, lr, wd, t,
+                                 scale, hyper)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        if isinstance(index, (list, tuple)):
+            self._update_list(index, weight, grad, state,
+                              multi_precision=True)
+            return
+        if not self._is_mp_state(weight, state):
+            self.update(index, weight, grad, state)
+            return
+        master, inner = state
+        self.update(index, master, grad.detach().float(), inner)
+        with torch.no_grad():
+            weight.copy_(master)
+
+    def __repr__(self):
+        return f"{type(self).__name__}(learning_rate={self.learning_rate})"
+
+
+# ---------------------------------------------------------------------------
+# rules
+# ---------------------------------------------------------------------------
+
+
+@register
+class SGD(Optimizer):
+    """SGD with momentum (optimizer.py:SGD)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, lazy_update=True,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate,
+                         lazy_update=lazy_update, **kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight, requires_grad=False)
+
+    def _hyper(self):
+        return {"momentum": self.momentum}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        lr, wd = _s(lr), _s(wd)
+        g = g + wd * w
+        if state is None:
+            return w - lr * g, None
+        mom = _s(hyper["momentum"]) * state - lr * g
+        return w + mom, mom
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD (optimizer.py:NAG)."""
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        lr, wd = _s(lr), _s(wd)
+        g = g + wd * w
+        if state is None:
+            return w - lr * g, None
+        momentum = _s(hyper["momentum"])
+        mom = momentum * state - lr * g
+        return w + momentum * mom - lr * g, mom
+
+
+@register
+class Signum(Optimizer):
+    """Sign-momentum SGD (optimizer.py:Signum)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight, requires_grad=False)
+
+    def _hyper(self):
+        return {"momentum": self.momentum, "wd_lh": self.wd_lh}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        g = g + _s(wd) * w
+        if state is None:
+            return w - _s(lr) * torch.sign(g), None
+        momentum = _F32(hyper["momentum"])
+        mom = float(momentum) * state - float(_ONE - momentum) * g
+        lr_wd_lh = float(_F32(lr) * _F32(hyper["wd_lh"]))
+        new_w = w + _s(lr) * torch.sign(mom) - lr_wd_lh * w
+        return new_w, mom
+
+
+def _adam_moments(g, state, hyper):
+    """New (m, v) and the f32 scalars ``1 - beta1^t``, ``1 - beta2^t``."""
+    m, v = state
+    b1, b2, t = _F32(hyper["beta1"]), _F32(hyper["beta2"]), _F32(hyper["t"])
+    m = float(b1) * m + float(_ONE - b1) * g
+    v = float(b2) * v + float(_ONE - b2) * g * g
+    return m, v, _ONE - _np.power(b1, t), _ONE - _np.power(b2, t)
+
+
+@register
+class Adam(Optimizer):
+    """Adam (optimizer.py:Adam)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, requires_grad=False),
+                torch.zeros_like(weight, requires_grad=False))
+
+    def _hyper(self):
+        return {"beta1": self.beta1, "beta2": self.beta2, "eps": self.epsilon}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        g = g + _s(wd) * w
+        m, v, c1, c2 = _adam_moments(g, state, hyper)
+        lr_t = float(_F32(lr) * _np.sqrt(c2) / c1)
+        return w - lr_t * m / (torch.sqrt(v) + _s(hyper["eps"])), (m, v)
+
+
+@register
+class AdamW(Adam):
+    """Adam with decoupled weight decay (optimizer.py:AdamW)."""
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        m, v, c1, c2 = _adam_moments(g, state, hyper)
+        mhat = m / float(c1)
+        vhat = v / float(c2)
+        upd = mhat / (torch.sqrt(vhat) + _s(hyper["eps"])) + _s(wd) * w
+        return w - _s(lr) * upd, (m, v)

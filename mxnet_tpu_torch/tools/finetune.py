@@ -1,0 +1,65 @@
+"""The BERT-base fine-tune step of the port, built the way a user would
+(counterpart of bench.py:build_bert_finetune, which times the same model
+with a bare ``p - 1e-5 * g``; here the update is the Trainer's, the entry
+point users call).
+
+``BERTForQA(bert_12_768_12)`` with its SQuAD span head, bf16 weights with
+f32 masters through ``amp.convert_hybrid_block`` and
+``multi_precision=True``, AdamW with weight decay and a global-norm clip, a
+synthetic batch with SQuAD shapes from a seeded generator. Shared by
+chip_smoke.py and tools/profile_training.py.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import amp, autograd
+from .. import device as _device
+from ..gluon.loss import SoftmaxCrossEntropyLoss
+from ..gluon.model_zoo import bert
+from ..gluon.trainer import Trainer
+
+__all__ = ["build_bert_finetune"]
+
+VOCAB = 30522
+
+
+def build_bert_finetune(batch=8, seq=384, dropout=0.1, dtype="bfloat16",
+                        learning_rate=1e-4, device=None, seed=0,
+                        **model_kwargs):
+    """``(net, trainer, step)``: ``step()`` runs one recorded forward on
+    the one fixed batch, backward on the per-sample loss vector and
+    ``trainer.step(batch)``, and returns that loss vector (on the device,
+    f32). ``model_kwargs`` override the BERT-base config (``num_layers=2``
+    cuts the depth). Weights and batch are drawn from ``seed``."""
+    device = _device.resolve(device)
+    net = bert.BERTForQA(bert.bert_12_768_12(
+        vocab_size=VOCAB, max_length=512, dropout=dropout, **model_kwargs))
+    net.initialize(device=device,
+                   generator=torch.Generator().manual_seed(seed))
+    opt = dict(learning_rate=learning_rate, wd=0.01, clip_global_norm=1.0)
+    if dtype == "bfloat16":
+        amp.convert_hybrid_block(net, "bfloat16")
+        opt["multi_precision"] = True
+    elif dtype != "float32":
+        raise ValueError(f"dtype must be bfloat16 or float32, got {dtype!r}")
+    trainer = Trainer(net.collect_params(), "adamw", opt)
+    gen = torch.Generator().manual_seed(seed + 1)
+    tokens = torch.randint(0, VOCAB, (batch, seq), generator=gen,
+                           dtype=torch.int32).to(device)
+    segments = torch.zeros_like(tokens)
+    starts = torch.randint(0, seq, (batch,), generator=gen).to(device)
+    ends = torch.randint(0, seq, (batch,), generator=gen).to(device)
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def step():
+        with autograd.record():
+            s_logits, e_logits = net(tokens, segments)
+            # the loss in f32, as mixed-precision training takes it
+            loss = (loss_fn(s_logits.float(), starts)
+                    + loss_fn(e_logits.float(), ends))
+        autograd.backward(loss)
+        trainer.step(batch)
+        return loss.detach()
+
+    return net, trainer, step

@@ -1,6 +1,8 @@
-"""The PyTorch port's CUDA kernels against their plain versions, on the
-card. These tests are marked ``cuda`` and skip without a card. The file
-imports no JAX, so it also runs where JAX is absent:
+"""The PyTorch port's forward attention kernel against its plain version,
+on the card (the training slice's kernels are in
+tests/test_torch_cuda_train.py). These tests are marked ``cuda`` and skip
+without a card. The file imports no JAX, so it also runs where JAX is
+absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """

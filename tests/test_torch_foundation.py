@@ -80,6 +80,48 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert offenders == []
 
 
+def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
+    """Every csrc/*.cu is the source of at least one row of chip_smoke.py's
+    kernel table (which becomes its ``kernels`` line); each row names a
+    wrapper and a plain version that exist, a launch counter that the
+    wrapper's module registers, and the TPU kernel it replaces."""
+    import importlib
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        chip_smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    from mxnet_tpu_torch.kernels import build
+
+    def resolve(spec):
+        mod, _, attr = spec.partition(":")
+        obj = importlib.import_module(mod)
+        for part in attr.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    sources = sorted(str(p.relative_to(ROOT))
+                     for p in (ROOT / "mxnet_tpu_torch/csrc").glob("*.cu"))
+    assert len(sources) == 3
+    assert sorted({k["source"] for k in chip_smoke.KERNELS}) == sources
+    for k in chip_smoke.KERNELS:
+        assert k["route"] in ("cuda", "triton")
+        assert callable(resolve(k["wrapper"])) and callable(
+            resolve(k["plain"]))
+        assert resolve(k["wrapper"]).__module__ == \
+            resolve(k["plain"]).__module__ or k["name"] == "opt_ladder"
+        assert isinstance(build.COUNTERS[k["name"]], build.LaunchCounter)
+        ref_file, _, line = k["replaces"].partition(":")
+        text = (ROOT / ref_file).read_text().splitlines()
+        assert "_kernel(" in text[int(line) - 1], k["replaces"]
+    # the sources share the dropout hash through one header
+    for name in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+        src = (ROOT / "mxnet_tpu_torch/csrc" / name).read_text()
+        assert '#include "flash_attention_common.cuh"' in src
+        assert "0x9E3779B1" not in src
+
+
 def test_port_imports_with_jax_unavailable():
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'mxnet_tpu'):\n"
@@ -87,7 +129,15 @@ def test_port_imports_with_jax_unavailable():
             "import mxnet_tpu_torch, mxnet_tpu_torch.serving, "
             "mxnet_tpu_torch.convert\n"
             "import mxnet_tpu_torch.gluon.model_zoo.bert\n"
-            "import mxnet_tpu_torch.ops.flash_attention\n")
+            "import mxnet_tpu_torch.ops.flash_attention\n"
+            "import importlib, pathlib\n"
+            "root = pathlib.Path('mxnet_tpu_torch')\n"
+            "mods = sorted('.'.join(p.with_suffix('').parts) "
+            "for p in root.rglob('*.py') if p.name != '__init__.py')\n"
+            "assert len(mods) > 25, mods\n"
+            "for m in mods:\n"
+            "    importlib.import_module(m)\n"
+            "import chip_smoke\n")
     env_ = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env=env_, timeout=120)
