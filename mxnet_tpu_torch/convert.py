@@ -2,7 +2,10 @@
 
 ``load_jax_params(block, params)`` takes ``{name: numpy array}`` as the JAX
 package's ``collect_params()`` gives them (``p.data().asnumpy()``) and
-copies each into the port block's parameter of the same dotted name.
+copies each into the port block's parameter of the same dotted name,
+BatchNorm's running stats (``grad_req='null'``) and channels-last
+convolution weights ``(O, *k, I/g)`` included: the two packages declare the
+same names and shapes.
 ``load_jax_trainer_states(trainer, states)`` does the same for a Trainer's
 optimizer states (masters, momenta, Adam's m and v, the update counts), so
 that both packages take the same step k+1.

@@ -88,3 +88,10 @@ register(
     "serving.InferenceEngine.stop(drain=True) default drain bound; the "
     "drain also never outlives the latest queued deadline, and "
     "requests still queued at the bound are force-dropped.")
+register(
+    "MXTPU_BN_COMPUTE", str, "f32",
+    "Element-wise dtype of the O(N*H*W*C) BatchNorm-training tensors "
+    "(ops/nn.py:_bn_ew_dtype): 'f32' (default) or 'bf16', which keeps the "
+    "elementwise chains in the activation's dtype and only the reductions' "
+    "accumulators in f32. The BatchNorm kernels (kernels/norm.py) and "
+    "their plain versions read the same setting.")

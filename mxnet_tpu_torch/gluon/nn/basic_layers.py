@@ -1,20 +1,25 @@
-"""Basic layers BERT needs (counterpart of mxnet_tpu/gluon/nn/basic_layers.py).
+"""Basic layers of BERT and ResNet (counterpart of
+mxnet_tpu/gluon/nn/basic_layers.py).
 
-Dense, Dropout, Embedding, LayerNorm and HybridSequential, with the JAX
-package's parameter names and child naming (``layers.0``, ``layers.1`` ...),
-so ``collect_params()`` keys match across the two packages. Unknown input
-dims (``in_units=0``) are inferred on the first forward.
+Dense, Dropout, Embedding, LayerNorm, BatchNorm, BatchNormReLU, Flatten,
+Activation and HybridSequential, with the JAX package's parameter names
+and child naming (``layers.0``, ``layers.1`` ...), so ``collect_params()``
+keys match across the two packages. Unknown input dims (``in_units=0``,
+``in_channels=0``) are inferred on the first forward.
 """
 from __future__ import annotations
 
 import math
+
+import torch
 
 from ... import autograd as _ag
 from ...ops import nn as _nn
 from ..block import HybridBlock
 from ..parameter import Parameter
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding"]
+__all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding",
+           "BatchNorm", "BatchNormReLU", "Flatten", "Activation"]
 
 
 class HybridSequential(HybridBlock):
@@ -151,3 +156,96 @@ class Embedding(HybridBlock):
 
     def extra_repr(self):
         return f"{self._input_dim} -> {self._output_dim}"
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalization with moving statistics (basic_layers.py:151).
+
+    In train mode (``autograd.record()`` or ``train_mode()``, and not
+    ``use_global_stats``) the batch statistics normalize, through
+    kernels/norm.py:bn_train (K1/K2 on the card), and the running stats are
+    updated in place, without gradient, as
+    ``running * momentum + batch * (1 - momentum)`` with the biased batch
+    variance. Otherwise the running stats normalize. The running stats are
+    ``grad_req='null'`` Parameters: no Trainer updates them."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):  # noqa: ARG002
+        super().__init__()
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        sh = (in_channels,)
+        self.gamma = Parameter("gamma", shape=sh, init=gamma_initializer,
+                               allow_deferred_init=True,
+                               differentiable=scale)
+        self.beta = Parameter("beta", shape=sh, init=beta_initializer,
+                              allow_deferred_init=True,
+                              differentiable=center)
+        self.running_mean = Parameter("running_mean", shape=sh,
+                                      init=running_mean_initializer,
+                                      grad_req="null", differentiable=False,
+                                      allow_deferred_init=True)
+        self.running_var = Parameter("running_var", shape=sh,
+                                     init=running_variance_initializer,
+                                     grad_req="null", differentiable=False,
+                                     allow_deferred_init=True)
+
+    def forward(self, x):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            if p._is_deferred:
+                p._finish_deferred_init((c,))
+        gamma = self.gamma.data()
+        if not self._scale:
+            gamma = torch.ones_like(gamma)
+        rmean, rvar = self.running_mean.data(), self.running_var.data()
+        training = _ag.is_training() and not self._use_global_stats
+        out, new_mean, new_var = _nn.batch_norm(
+            x, gamma, self.beta.data(), rmean, rvar, eps=self._epsilon,
+            momentum=self._momentum, training=training,
+            use_global_stats=self._use_global_stats, axis=self._axis)
+        if training:
+            with torch.no_grad():
+                rmean.copy_(new_mean)
+                rvar.copy_(new_var)
+        return out
+
+    def extra_repr(self):
+        return (f"axis={self._axis}, momentum={self._momentum}, "
+                f"in_channels={self.gamma.shape[0]}")
+
+
+class BatchNormReLU(BatchNorm):
+    """BatchNorm followed by ReLU (basic_layers.py:227)."""
+
+    def forward(self, x):
+        return torch.relu(super().forward(x))
+
+
+class Flatten(HybridBlock):
+    """Flatten to (N, -1) (basic_layers.py:362)."""
+
+    def forward(self, x):
+        return _nn.flatten(x)
+
+
+class Activation(HybridBlock):
+    """An activation by name: relu, sigmoid, tanh, gelu ...
+    (basic_layers.py:445)."""
+
+    def __init__(self, activation):
+        super().__init__()
+        self._act = activation
+
+    def forward(self, x):
+        return _nn.activation(x, self._act)
+
+    def extra_repr(self):
+        return self._act

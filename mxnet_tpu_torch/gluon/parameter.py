@@ -117,9 +117,12 @@ class Parameter:
     def _set_var(self, data):
         # callers make ``data`` outside inference mode: the value outlives
         # any inference_mode scope (call_cached_graph) it was made under
-        self._var = torch.nn.Parameter(
-            data, requires_grad=self.grad_req != "null")
+        # the hook can only be registered while the tensor requires a
+        # gradient; a 'null' parameter (BatchNorm's running stats) turns it
+        # off right after, and a later grad_req change turns it on again
+        self._var = torch.nn.Parameter(data, requires_grad=True)
         self._var.register_post_accumulate_grad_hook(self._land_grad)
+        self._var.requires_grad_(self.grad_req != "null")
         self._grad = None
         for module, attr in self._owners:
             module._parameters[attr] = self._var

@@ -2,7 +2,8 @@
 (counterpart of mxnet_tpu/kernels/dispatch.py).
 
 A call site that has a hand-written kernel and a plain PyTorch version (the
-optimizer ladder, kernels/opt.py) decides between them from static
+optimizer ladder, kernels/opt.py; BatchNorm training, kernels/norm.py)
+decides between them from static
 properties only, before anything is launched: where the tensors live
 (:func:`platform_ok`), and what the kernel supports (the rule, the dtypes).
 CUDA tensors that the kernel supports launch it, and a build or launch
@@ -12,9 +13,10 @@ thresholds were tuned for another device, and on the card the kernel is the
 faster path at every size and dtype measured (PERF.md).
 
 Every decision is counted by ``(kernel, outcome)`` in :data:`COUNTS`, a
-plain dict until telemetry is ported. :func:`optimizer_region_bytes` is the
-JAX package's byte model of one parameter's update; here it gates nothing
-and gives the least bytes the ladder must move, for a time bound.
+plain dict until telemetry is ported. :func:`optimizer_region_bytes` and
+:func:`norm_region_bytes` are the JAX package's byte models of one
+parameter's update and of one BatchNorm site; here they gate nothing and
+give the bytes a kernel moves, for a time bound.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import threading
 import torch
 
 __all__ = ["platform_ok", "record", "COUNTS", "reset_counts",
-           "optimizer_region_bytes"]
+           "optimizer_region_bytes", "norm_region_bytes"]
 
 #: {(kernel, outcome): number of decisions}
 COUNTS = {}
@@ -67,3 +69,26 @@ def optimizer_region_bytes(w_size, w_itemsize, n_state, mp):
         return floor + 2 * n * 4, floor
     floor = n * bw + 2 * n * bw + n_state * 2 * n * bw
     return floor, floor
+
+
+def norm_region_bytes(shape, x_itemsize, ew_itemsize):
+    """``(plain_bytes, kernel_bytes)`` that ONE BatchNorm training site
+    moves through device memory, forward and backward together (own copy
+    of mxnet_tpu/passes/memory.py:norm_region_bytes).
+
+    Plain (XLA's fusion boundaries): the forward reads x, round-trips the
+    centred population in the elementwise dtype across the sum/sum^2
+    reduction, writes out; the backward reads x and dy, round-trips x-hat
+    and the cast dy across the dbeta/dgamma reduction, writes dx. Kernel:
+    the forward reads x twice (statistics, then normalize) and writes out;
+    the backward reads x and dy twice and writes dx. Per-channel vectors
+    are ignored."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    bx, be = int(x_itemsize), int(ew_itemsize)
+    plain_fwd = n * bx + 2 * n * be + n * bx
+    plain_bwd = 2 * n * bx + 4 * n * be + n * bx
+    k_fwd = 2 * n * bx + n * bx
+    k_bwd = 2 * (2 * n * bx) + n * bx
+    return plain_fwd + plain_bwd, k_fwd + k_bwd

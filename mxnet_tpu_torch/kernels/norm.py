@@ -1,0 +1,257 @@
+"""BatchNorm training: the K1/K2 CUDA kernels' wrappers and the
+``torch.autograd.Function`` around them (counterpart of
+mxnet_tpu/kernels/norm.py).
+
+The TPU kernels ``_fwd_kernel`` (launched by ``_fwd_pallas``) and
+``_bwd_kernel`` (``_bwd_pallas``) become the hand-written CUDA kernels of
+``csrc/bn_train.cu``: per-CTA f32 partial sums over a fixed row chunk, a
+combine pass that adds them in a fixed order (no atomics: the bits repeat
+from run to run), and a normalize (forward) or dx (backward) pass. Their
+plain versions are ops/nn.py:``_bn_train_impl`` and ``_bn_train_bwd``,
+here with the wrappers' signatures as ``bn_train_fwd_reference`` and
+``bn_train_bwd_reference``.
+
+:func:`bn_train` has the JAX package's contract: ``(out, mean, var)`` from
+``(x, gamma, beta, shift, eps, axis)``, residuals (x, gamma, beta, shift,
+mean, inv), and a backward that takes the cotangents of out, mean and var
+and gives (dx, dgamma, dbeta, 0 for the shift). The device alone decides:
+CPU tensors take the plain versions (outcome ``platform``), CUDA tensors
+launch the kernels (outcome ``kernel``) or raise, for a dtype the kernels do
+not take (float16, float64) or an empty tensor. The TPU kernels' gates (C a
+multiple of 128, C <= 8192, M a multiple of 8, channels last) were lane
+rules: here any C >= 1 and M >= 1 run, with the channel axis anywhere; the
+tensor is read as (outer, C, inner), so NHWC (inner = 1) and NCHW (inner =
+H*W) are both one kernel. Decisions are counted in kernels/dispatch.py
+under ``bn_fwd`` and ``bn_bwd``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..ops import nn as _nn
+from . import build as _build
+from . import dispatch as _dispatch
+
+__all__ = ["bn_train", "bn_train_fwd", "bn_train_bwd",
+           "bn_train_fwd_reference", "bn_train_bwd_reference",
+           "launch_geometry", "KERNEL_FWD", "KERNEL_BWD", "LAUNCHES_FWD",
+           "LAUNCHES_BWD"]
+
+SOURCE = "bn_train"
+KERNEL_FWD = "bn_train_fwd"
+KERNEL_BWD = "bn_train_bwd"
+#: launches of the CUDA kernels (plain-version calls are not counted)
+LAUNCHES_FWD = _build.counter(KERNEL_FWD)
+LAUNCHES_BWD = _build.counter(KERNEL_BWD)
+
+_DTYPES = (torch.float32, torch.bfloat16)
+# the kernels' geometry (csrc/bn_train.cu): 32 channels per CTA when the
+# channel axis is innermost, else one; about 8 CTAs of 256 threads per SM
+_TILE_C = 32
+_TARGET_CTAS = 132 * 8
+_MIN_ROWS_LAST = 64
+_MIN_ROWS_FIRST = 2048
+
+
+def launch_geometry(shape, axis):
+    """``(outer, C, inner, chunks)`` of a launch: the tensor read as
+    (outer, C, inner) around the channel axis, and the number of row chunks
+    (rows = outer * inner) each channel's sums are split into, one CTA
+    each. Depends on the shape alone, so one shape always sums in one
+    order."""
+    outer = math.prod(shape[:axis])
+    c = shape[axis]
+    inner = math.prod(shape[axis + 1:])
+    rows = outer * inner
+    if inner == 1:
+        tiles, min_rows = -(-c // _TILE_C), _MIN_ROWS_LAST
+    else:
+        tiles, min_rows = c, _MIN_ROWS_FIRST
+    chunks = max(1, min(-(-_TARGET_CTAS // tiles), -(-rows // min_rows)))
+    return outer, c, inner, chunks
+
+
+def _lib():
+    lib = _build.load(SOURCE)
+    if lib.mxtpu_bn_train_fwd.argtypes is None:
+        lib.mxtpu_bn_train_fwd.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_longlong]
+            + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        lib.mxtpu_bn_train_bwd.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_longlong]
+            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+        for fn in (lib.mxtpu_bn_train_fwd, lib.mxtpu_bn_train_bwd):
+            fn.restype = ctypes.c_int
+        lib.mxtpu_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mxtpu_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, axis, what, *vectors):
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"the BatchNorm {what} kernel takes float32 or "
+                        f"bfloat16 tensors, not {x.dtype}")
+    if x.numel() == 0:
+        raise ValueError(f"the BatchNorm {what} kernel takes no empty tensor")
+    for v in vectors:
+        if v is not None and (v.device != x.device
+                              or v.numel() != x.shape[axis]):
+            raise ValueError(
+                f"the BatchNorm {what} kernel needs per-channel vectors of "
+                f"{x.shape[axis]} elements on {x.device}")
+
+
+def _f32(v):
+    return v.detach().float().contiguous()
+
+
+def _raise_on(lib, err, what):
+    if err:
+        raise RuntimeError(f"BatchNorm {what} kernel launch failed: "
+                           + lib.mxtpu_cuda_error_string(err).decode())
+
+
+def bn_train_fwd(x, gamma, beta, shift, eps, axis):
+    """K1 on CUDA tensors: ``(out, mean, var, inv)``, the contract of
+    ``_bn_train_impl``. x is read as (outer, C, inner) in its contiguous
+    layout (a non-contiguous x is copied first; the model's activations are
+    contiguous)."""
+    _check(x, axis, "forward", gamma, beta, shift)
+    x = x.contiguous()
+    outer, c, inner, chunks = launch_geometry(x.shape, axis)
+    ew_low = _nn._bn_ew_dtype(x) != torch.float32
+    out = torch.empty_like(x)
+    # separate tensors, not views of one: mean and var are outputs of the
+    # autograd Function
+    mean, var, inv = (torch.empty(c, dtype=torch.float32, device=x.device)
+                      for _ in range(3))
+    work = torch.empty((2 * chunks + 3) * c, dtype=torch.float32,
+                       device=x.device)
+    g, b, s = _f32(gamma), _f32(beta), _f32(shift)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mxtpu_bn_train_fwd(
+            x.data_ptr(), g.data_ptr(), b.data_ptr(), s.data_ptr(),
+            out.data_ptr(), mean.data_ptr(), var.data_ptr(), inv.data_ptr(),
+            work.data_ptr(), outer, c, inner, chunks,
+            int(x.dtype == torch.bfloat16), int(ew_low),
+            float(x.numel() // c), float(eps), stream)
+    _raise_on(lib, err, "forward")
+    LAUNCHES_FWD.add()
+    return out, mean, var, inv
+
+
+def bn_train_bwd(x, gamma, shift, mean, inv, dy, dmean, dvar, axis):
+    """K2 on CUDA tensors: ``(dx, dgamma, dbeta)`` with dgamma and dbeta in
+    f32, the contract of ``_bn_train_bwd``. ``dmean`` and ``dvar`` are the
+    cotangents of the batch statistics; None stands for zeros."""
+    _check(x, axis, "backward", gamma, shift, mean, inv, dmean, dvar)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    x, dy = x.contiguous(), dy.contiguous()
+    outer, c, inner, chunks = launch_geometry(x.shape, axis)
+    ew = _nn._bn_ew_dtype(x)
+    dx = torch.empty_like(x)
+    dgamma, dbeta = (torch.empty(c, dtype=torch.float32, device=x.device)
+                     for _ in range(2))
+    work = torch.empty((2 * chunks + 3) * c, dtype=torch.float32,
+                       device=x.device)
+    vecs = [_f32(v) for v in (gamma, mean, inv, shift)]
+    dm, dv = (None if v is None else _f32(v) for v in (dmean, dvar))
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mxtpu_bn_train_bwd(
+            x.data_ptr(), dy.data_ptr(), *(v.data_ptr() for v in vecs),
+            dm.data_ptr() if dm is not None else None,
+            dv.data_ptr() if dv is not None else None,
+            dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+            work.data_ptr(), outer, c, inner, chunks,
+            int(x.dtype == torch.bfloat16), int(ew != torch.float32),
+            _nn._n_in(x.numel() // c, ew), stream)
+    _raise_on(lib, err, "backward")
+    LAUNCHES_BWD.add()
+    return dx, dgamma, dbeta
+
+
+def bn_train_fwd_reference(x, gamma, beta, shift, eps, axis):
+    """K1's plain version, with the wrapper's signature:
+    ops/nn.py:_bn_train_impl."""
+    return _nn._bn_train_impl(x, gamma, beta, shift, eps, axis)
+
+
+def bn_train_bwd_reference(x, gamma, shift, mean, inv, dy, dmean, dvar,
+                           axis):
+    """K2's plain version, with the wrapper's signature:
+    ops/nn.py:_bn_train_bwd, dgamma and dbeta in f32 (None cotangents are
+    zeros)."""
+    zeros = torch.zeros_like(mean)
+    dx, dgamma, dbeta, _ = _nn._bn_train_bwd(
+        0.0, axis, (x, gamma.float(), gamma.float(), shift, mean, inv),
+        (dy, zeros if dmean is None else dmean,
+         zeros if dvar is None else dvar))
+    return dx, dgamma, dbeta
+
+
+def _on_card(x, *others):
+    """True for CUDA tensors (the kernels), False for CPU ones (the plain
+    versions); a mix raises."""
+    if not _dispatch.platform_ok(x):
+        return False
+    if not _dispatch.platform_ok(*others):
+        raise ValueError("bn_train: x is on the card but a per-channel "
+                         "vector is not")
+    return True
+
+
+class _BNTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, shift, eps, axis):
+        # the shift is the moving mean, which the BatchNorm layer updates in
+        # place right after this forward: the backward needs its value of
+        # now, so a copy of its C floats is what is saved
+        ctx.shift_dtype = shift.dtype
+        shift = shift.detach().to(torch.float32, copy=True)
+        if _on_card(x, gamma, beta, shift):
+            _dispatch.record("bn_fwd", "kernel")
+            out, mean, var, inv = bn_train_fwd(x, gamma, beta, shift, eps,
+                                               axis)
+        else:
+            _dispatch.record("bn_fwd", "platform")
+            out, mean, var, inv = bn_train_fwd_reference(x, gamma, beta,
+                                                         shift, eps, axis)
+        ctx.save_for_backward(x, gamma, beta, shift, mean, inv)
+        ctx.axis = axis
+        return out, mean, var
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dmean, dvar):
+        x, gamma, beta, shift, mean, inv = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        on_card = _on_card(x)
+        _dispatch.record("bn_bwd", "kernel" if on_card else "platform")
+        dx, dgamma, dbeta = (bn_train_bwd if on_card else
+                             bn_train_bwd_reference)(
+            x, gamma, shift, mean, inv, dy, dmean, dvar, ctx.axis)
+        dgamma, dbeta = dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+        dshift = (torch.zeros_like(shift, dtype=ctx.shift_dtype)
+                  if ctx.needs_input_grad[3] else None)
+        return dx, dgamma, dbeta, dshift, None, None
+
+
+def bn_train(x, gamma, beta, shift, eps, axis):
+    """Kernel-backed twin of the JAX package's ``_bn_train``:
+    ``(out, mean, var)`` of a BatchNorm training step over every axis but
+    ``axis``, differentiable in x, gamma and beta (and in the mean and var
+    outputs, whose cotangents reach dx). The shift (the moving mean) gets a
+    zero gradient."""
+    return _BNTrain.apply(x, gamma, beta, shift, float(eps), int(axis))

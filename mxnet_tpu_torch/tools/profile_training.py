@@ -1,20 +1,24 @@
-"""Where a BERT-base fine-tune step spends its time on the card.
+"""Where a training step spends its time on the card.
 
-    python -m mxnet_tpu_torch.tools.profile_training [--batch 8] [--iters 5]
-        [--plain-ladder]
+    python -m mxnet_tpu_torch.tools.profile_training [--model bert|resnet50]
+        [--batch N] [--iters 5] [--plain-ladder]
 
-Builds the fine-tune step of tools/finetune.py (BERTForQA(bert_12_768_12),
-bf16 weights with f32 masters, seq 384, dropout 0.1, AdamW through the
-Trainer) on cuda:0 with seeded weights, takes a few steps to warm up, then
-times ``--iters`` steps with the host clock (each ends in a synchronize)
-and profiles the same number with ``torch.profiler``. Prints one JSON
-object: host ms per step, device-busy ms per step (the union of kernel
-intervals), the device's idle share, launches per step, the share of the
-port's four kernels, of the library GEMMs and of everything else, and the
-kernels that take the most device time. ``--plain-ladder`` measures, for
-comparison, the same step with the optimizer ladder's plain version
-(``_fused_param_step`` put in ``param_step``'s place: the port itself has no
-such switch). Needs a CUDA card; exits non-zero without.
+``--model bert`` (the default) builds the fine-tune step of
+tools/finetune.py (BERTForQA(bert_12_768_12), bf16 weights with f32
+masters, seq 384, dropout 0.1, AdamW through the Trainer, batch 8);
+``--model resnet50`` the step of tools/train_resnet.py (resnet50_v1 NHWC
+with the space-to-depth stem, bf16 weights with f32 masters, 224x224, SGD
+momentum through the Trainer, batch 256). Both run on cuda:0 with seeded
+weights, take a few steps to warm up, then time ``--iters`` steps with the
+host clock (each ends in a synchronize) and profile the same number with
+``torch.profiler``. Prints one JSON object: host ms per step, device-busy ms
+per step (the union of kernel intervals), the device's idle share, launches
+per step, the share of the port's kernels, of the library GEMMs and
+convolutions and of everything else, and the kernels that take the most
+device time. ``--plain-ladder`` measures, for comparison, the same step
+with the optimizer ladder's plain version (``_fused_param_step`` put in
+``param_step``'s place: the port itself has no such switch). Needs a CUDA
+card; exits non-zero without.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from ..kernels import opt as kopt
 from ..optimizer.optimizer import Optimizer
 from .finetune import build_bert_finetune
 from .profile_serving import _busy_us
+from .train_resnet import build_resnet_train
 
 #: device-kernel name fragments -> group
 GROUPS = (
@@ -39,6 +44,9 @@ GROUPS = (
     ("flash_bwd_dq_kernel", "K5a flash_attention_bwd_dq"),
     ("flash_bwd_dkv_kernel", "K5b flash_attention_bwd_dkv"),
     ("opt_ladder_kernel", "K3 opt_ladder"),
+    ("bn_fwd_", "K1 bn_train_fwd"), ("bn_bwd_", "K2 bn_train_bwd"),
+    ("fprop", "library convolutions"), ("dgrad", "library convolutions"),
+    ("wgrad", "library convolutions"), ("conv", "library convolutions"),
     ("gemm", "library GEMMs"), ("nvjet", "library GEMMs"),
     ("cutlass", "library GEMMs"), ("xmma", "library GEMMs"),
     ("cublas", "library GEMMs"),
@@ -55,8 +63,10 @@ def _group(name):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=384)
+    ap.add_argument("--model", choices=("bert", "resnet50"), default="bert")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: 8 (bert), 256 (resnet50)")
+    ap.add_argument("--seq", type=int, default=384, help="bert only")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--plain-ladder", action="store_true")
     args = ap.parse_args(argv)
@@ -65,8 +75,14 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.plain_ladder:
         kopt.param_step = Optimizer._fused_param_step
-    net, trainer, step = build_bert_finetune(
-        batch=args.batch, seq=args.seq, device=torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    if args.model == "bert":
+        args.batch = args.batch or 8
+        net, trainer, step = build_bert_finetune(batch=args.batch,
+                                                 seq=args.seq, device=dev)
+    else:
+        args.batch = args.batch or 256
+        net, trainer, step = build_resnet_train(batch=args.batch, device=dev)
 
     for _ in range(3):
         step()
@@ -109,7 +125,8 @@ def main(argv=None):
         timeout=60).stdout.strip()
     n = args.iters
     print(json.dumps({
-        "card": card, "batch": args.batch, "seq": args.seq, "iters": n,
+        "card": card, "model": args.model, "batch": args.batch,
+        "seq": args.seq if args.model == "bert" else None, "iters": n,
         "ladder": "plain" if args.plain_ladder else "kernel",
         "trainable_parameters": len(net.trainable_param_names()),
         "host_ms_per_step_p50": 1e3 * sorted(host)[len(host) // 2],

@@ -103,7 +103,7 @@ def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
 
     sources = sorted(str(p.relative_to(ROOT))
                      for p in (ROOT / "mxnet_tpu_torch/csrc").glob("*.cu"))
-    assert len(sources) == 3
+    assert len(sources) == 4
     assert sorted({k["source"] for k in chip_smoke.KERNELS}) == sources
     for k in chip_smoke.KERNELS:
         assert k["route"] in ("cuda", "triton")
