@@ -41,9 +41,28 @@ failure exits non-zero, nothing is caught and carried on:
      launch counts are zeroed just before 5 counted steps and read just
      after. Then 3 float32 steps at batch 32 through the kernels against 3
      through their plain versions, each from the same state.
-  9. a ``{"kernels": [...]}`` line, the card line, and as the last line
+  9. runtime-compiled kernels (mx.rtc, K7), a main path: three CUDA C++
+     sources kept in this file (RTC_*: axpy in f32, a bf16 row sum into f32
+     with dynamic shared memory and a fixed shuffle tree, a strided __half
+     scale with int and long long scalars), compiled through
+     ``rtc.CudaModule`` while phase 2 builds, launched on ``mx.np`` arrays
+     of the card with the counts zeroed just before and read just after;
+     then each against its plain PyTorch version, timed beside its bound
+     and one library call; a refused launch (a 2048-thread block) and
+     dynamic shared memory above 48 KB without opting in must raise.
+ 10. LeNet parity: LeNet in f32 takes one imperative step on ``mx.np``
+     arrays on CUDA and on the CPU from the same weights: logits, loss,
+     every gradient and the parameters after the step.
+ 11. LeNet-MNIST imperative, a main path (BASELINE config #1 as
+     bench.py:288-306 builds it): lenet(classes=10), batch 256 of 1x28x28
+     from ``mx.np.random``, ``SoftmaxCrossEntropyLoss``, ``Trainer("sgd",
+     lr 0.05)``, ``autograd.record()`` -> ``L.backward()`` ->
+     ``trainer.step(256)``; 2 warm-up steps, then the counts are zeroed just
+     before 5 counted steps and read just after.
+ 12. a ``{"kernels": [...]}`` line, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 """
+import concurrent.futures
 import json
 import math
 import os
@@ -93,6 +112,91 @@ KERNELS = [
          replaces="mxnet_tpu/kernels/norm.py:202",
          wrapper="mxnet_tpu_torch.kernels.norm:bn_train_bwd",
          plain="mxnet_tpu_torch.kernels.norm:bn_train_bwd_reference"),
+    # K7: user CUDA C++ (the RTC_* sources below) through mx.rtc
+    dict(name="rtc", route="cuda", source="mxnet_tpu_torch/rtc.py",
+         replaces="mxnet_tpu/rtc.py:65",
+         wrapper="mxnet_tpu_torch.rtc:CudaKernel.launch",
+         plain="mxnet_tpu_torch.rtc:PallasKernel.launch"),
+]
+
+# -- the runtime-compiled kernels of phase 9 (user code of mx.rtc) ----------
+RTC_AXPY = r"""
+// y += alpha * x (MXNet's CudaModule example), one element a thread
+extern "C" __global__ void axpy(const float *x, float *y, float alpha, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] += alpha * x[i];
+}
+"""
+
+RTC_ROW_SUM = r"""
+#include <cuda_bf16.h>
+// out[r] = sum of row r of x (bf16 in, f32 out): one block a row, eight
+// values a thread through one 16-byte load where the row allows it, a
+// shuffle tree in each warp, the warps' sums in dynamic shared memory, a
+// last shuffle tree in warp 0. The order of the sums is fixed: the same
+// bits on every run.
+extern "C" __global__ void row_sum_bf16(const __nv_bfloat16 *x, float *out,
+                                        int cols) {
+    extern __shared__ float warp_sums[];
+    const __nv_bfloat16 *row = x + (long long)blockIdx.x * cols;
+    float s = 0.f;
+    if ((cols & 7) == 0 && (reinterpret_cast<unsigned long long>(x) & 15) == 0) {
+        for (int c = threadIdx.x * 8; c < cols; c += blockDim.x * 8) {
+            uint4 v = *reinterpret_cast<const uint4 *>(row + c);
+            const __nv_bfloat16 *h = reinterpret_cast<const __nv_bfloat16 *>(&v);
+            for (int k = 0; k < 8; ++k) s += __bfloat162float(h[k]);
+        }
+    } else {
+        for (int c = threadIdx.x; c < cols; c += blockDim.x)
+            s += __bfloat162float(row[c]);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_down_sync(0xffffffffu, s, off);
+    int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (lane == 0) warp_sums[warp] = s;
+    __syncthreads();
+    if (warp == 0) {
+        s = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0.f;
+        for (int off = 16; off > 0; off >>= 1)
+            s += __shfl_down_sync(0xffffffffu, s, off);
+        if (lane == 0) out[blockIdx.x] = s;
+    }
+}
+
+// y = each tile of x reversed, through a tile of dynamic shared memory
+// (64 KB at 16384 floats: above the 48 KB a launch may take unasked)
+extern "C" __global__ void tile_reverse(const float *x, float *y, int tile) {
+    extern __shared__ float buf[];
+    const float *src = x + (long long)blockIdx.x * tile;
+    float *dst = y + (long long)blockIdx.x * tile;
+    for (int i = threadIdx.x; i < tile; i += blockDim.x) buf[i] = src[i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < tile; i += blockDim.x)
+        dst[i] = buf[tile - 1 - i];
+}
+"""
+
+RTC_STRIDED = r"""
+#include <cuda_fp16.h>
+// y[i] = scale * x[offset + i * stride] in __half: an int and a long long
+// scalar (the offset may pass 2^31 elements)
+extern "C" __global__ void strided_scale_half(const __half *x, __half *y,
+                                              float scale, int n, int stride,
+                                              long long offset) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n)
+        y[i] = __float2half(scale * __half2float(x[offset + (long long)i * stride]));
+}
+"""
+
+#: (kernel, source, exports, signature)
+RTC_KERNELS = [
+    ("axpy", RTC_AXPY, ("axpy",), "const float *x, float *y, float alpha, int n"),
+    ("row_sum_bf16", RTC_ROW_SUM, ("row_sum_bf16", "tile_reverse"),
+     "const __nv_bfloat16 *x, float *out, int cols"),
+    ("strided_scale_half", RTC_STRIDED, ("strided_scale_half",),
+     "const __half *x, __half *y, float scale, int n, int stride, "
+     "long long offset"),
 ]
 
 
@@ -1124,6 +1228,280 @@ def phase_resnet_training(torch, mt, train_resnet, build, knorm, kopt, topt,
     return summary
 
 
+# -- mx.rtc (K7) ----------------------------------------------------------------
+
+RTC_AXPY_N = 1 << 26                    # f32 elements
+RTC_ROWS, RTC_COLS = 65536, 1024        # bf16
+RTC_HALF_N, RTC_STRIDE = 1 << 24, 2
+RTC_OFFSET = (1 << 31) + 4097           # elements: past a 32-bit int
+RTC_SMEM_TILE = 16384                   # floats: 64 KB of shared memory
+
+
+def build_rtc_modules(rtc):
+    """Each RTC_* source compiled through ``rtc.CudaModule``, one nvcc each,
+    all started together: ``{kernel: (CudaModule, build seconds)}``."""
+    with concurrent.futures.ThreadPoolExecutor(len(RTC_KERNELS)) as pool:
+        futs = {name: pool.submit(rtc.CudaModule, src, exports=exports)
+                for name, src, exports, _ in RTC_KERNELS}
+        return {name: (f.result(), f.result().build_seconds)
+                for name, f in futs.items()}
+
+
+def phase_rtc(torch, mt, rtc, build, modules):
+    """K7's main path, then each kernel against its plain version. The
+    kernels are user code compiled at run time; the path is a user's:
+    ``mx.np`` arrays of the card handed to ``CudaKernel.launch``."""
+    dev = torch.device("cuda", 0)
+    k = {name: modules[name][0].get_kernel(name, sig)
+         for name, _, _, sig in RTC_KERNELS}
+    mt.seed(21)
+    alpha, scale = 2.5, 0.75
+    x = mt.np.random.normal(size=(RTC_AXPY_N,), device=dev)
+    y = mt.np.random.uniform(size=(RTC_AXPY_N,), device=dev)
+    y0 = y.copy()
+    xb = mt.np.random.normal(size=(RTC_ROWS, RTC_COLS), dtype="bfloat16",
+                             device=dev)
+    rows = mt.np.zeros((RTC_ROWS,), device=dev)
+    xh = mt.np.random.normal(size=(RTC_OFFSET + RTC_HALF_N * RTC_STRIDE,),
+                             dtype="float16", device=dev)
+    yh = mt.np.zeros((RTC_HALF_N,), dtype="float16", device=dev)
+    n_warps = 128 // 32
+    launches = {
+        "axpy": lambda: k["axpy"].launch(
+            [x, y, alpha, RTC_AXPY_N], dev, (RTC_AXPY_N // 256,), (256,)),
+        "row_sum_bf16": lambda: k["row_sum_bf16"].launch(
+            [xb, rows, RTC_COLS], dev, (RTC_ROWS,), (128,),
+            shared_mem=4 * n_warps),
+        "strided_scale_half": lambda: k["strided_scale_half"].launch(
+            [xh, yh, scale, RTC_HALF_N, RTC_STRIDE, RTC_OFFSET], dev,
+            ((RTC_HALF_N + 255) // 256,), (256,)),
+    }
+    torch.cuda.synchronize()
+    build.reset_counters()                       # main path: counts from 0
+    v0 = y._version
+    for name in launches:
+        launches[name]()
+    torch.cuda.synchronize()
+    counts = {c.name: c.value for c in build.COUNTERS.values()}  # after
+    check(counts["rtc"] == len(launches) and sum(counts.values())
+          == len(launches), f"rtc main path: launch counts {counts}")
+    check(y._version == v0 + 1, "axpy's output was not marked as written")
+
+    strided = xh._data[RTC_OFFSET::RTC_STRIDE][:RTC_HALF_N]
+    plain = {
+        "axpy": lambda: y0._data + alpha * x._data,
+        "row_sum_bf16": lambda: xb._data.float().sum(1),
+        "strided_scale_half": lambda: (strided.float() * scale).half(),
+    }
+    library = {
+        "axpy": ("y.add_(x, alpha=a)",
+                 lambda: y0._data.add_(x._data, alpha=alpha)),
+        "row_sum_bf16": ("x.sum(1, dtype=torch.float32)",
+                         lambda: xb._data.sum(1, dtype=torch.float32)),
+        "strided_scale_half": ("torch.mul(x[offset::stride][:n], s, out=y)",
+                               lambda: torch.mul(strided, scale,
+                                                 out=yh._data)),
+    }
+    got = {"axpy": y._data, "row_sum_bf16": rows._data,
+           "strided_scale_half": yh._data}
+    wants = {name: fn() for name, fn in plain.items()}
+    torch.cuda.synchronize()
+    row_abs = xb._data.float().abs().sum(1).max().item()
+    # axpy: nvcc contracts y + a*x into one FMA, the plain version rounds
+    # twice: 2 ulps of the largest value. Row sums: f32 sums of 1024 bf16
+    # values in two fixed orders: 1e-5 of the largest row's sum of |x|.
+    # The half scale: one f32 product rounded once to half on both sides.
+    tols = {"axpy": 2 * F32_EPS * max(1.0, wants["axpy"].abs().max().item()),
+            "row_sum_bf16": 1e-5 * row_abs, "strided_scale_half": 0.0}
+    nbytes = {"axpy": 3 * 4 * RTC_AXPY_N,
+              "row_sum_bf16": 2 * RTC_ROWS * RTC_COLS + 4 * RTC_ROWS,
+              "strided_scale_half": 2 * 2 * RTC_HALF_N}
+    flops = {"axpy": 2 * RTC_AXPY_N, "row_sum_bf16": RTC_ROWS * RTC_COLS,
+             "strided_scale_half": RTC_HALF_N}
+    cases = []
+    for name in launches:
+        err = (got[name].float() - wants[name].float()).abs().max().item()
+        check(bool(torch.isfinite(got[name].float()).all()),
+              f"rtc {name}: non-finite output")
+        check(err <= tols[name], f"rtc {name}: kernel disagrees with its "
+                                 f"plain version: {err:.3g} (tol {tols[name]:.3g})")
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S
+        t_ops = flops[name] / PEAK_FLOPS["float32"]
+        lib_name, lib_fn = library[name]
+        row = dict(kernel=name, build_s=modules[name][1], max_abs_err=err,
+                   tol=tols[name], main_path_launches=1,
+                   ms=cuda_ms(torch, launches[name]),
+                   plain_ms=cuda_ms(torch, plain[name]),
+                   library_ms=cuda_ms(torch, lib_fn), library=lib_name,
+                   bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes[name])
+        say("rtc_case " + json.dumps(row))
+        cases.append(row)
+    del x, y, y0, xb, rows, xh, yh, strided, wants, got
+    torch.cuda.empty_cache()
+
+    # refused launches raise with cuGetErrorString's words; nothing falls
+    # back
+    small_x = mt.np.ones((4096,), device=dev)
+    small_y = mt.np.zeros((4096,), device=dev)
+    refused = []
+    try:
+        k["axpy"].launch([small_x, small_y, 1.0, 4096], dev, (2,), (2048,))
+    except mt.MXNetError as e:
+        refused.append(str(e))
+    check(len(refused) == 1 and "CUDA_ERROR" in refused[0],
+          f"a 2048-thread block was not refused: {refused}")
+    rev = modules["row_sum_bf16"][0].get_kernel(
+        "tile_reverse", "const float *x, float *y, int tile")
+    tx = mt.np.random.uniform(size=(8 * RTC_SMEM_TILE,), device=dev)
+    ty = mt.np.zeros((8 * RTC_SMEM_TILE,), device=dev)
+    smem = 4 * RTC_SMEM_TILE
+    try:
+        rev.launch([tx, ty, RTC_SMEM_TILE], dev, (8,), (1024,),
+                   shared_mem=smem)
+    except mt.MXNetError as e:
+        refused.append(str(e))
+    check(len(refused) == 2, "64 KB of dynamic shared memory was not "
+                             "refused without opting in")
+    rev.set_max_dynamic_shared_memory(smem)
+    rev.launch([tx, ty, RTC_SMEM_TILE], dev, (8,), (1024,), shared_mem=smem)
+    torch.cuda.synchronize()
+    check(torch.equal(ty._data, tx._data.view(8, -1).flip(1).reshape(-1)),
+          "tile_reverse with 64 KB of dynamic shared memory is wrong")
+    # the plain version does not run CUDA arrays, nor CudaModule CPU ones
+    pallas = rtc.PallasModule(lambda x_ref, o_ref: None).get_kernel(
+        "<lambda>")
+    for what, call in (
+            ("PallasModule on CUDA arrays", lambda: pallas.launch(
+                [small_x], out_shape=(4096,))),
+            ("CudaModule on CPU arrays", lambda: k["axpy"].launch(
+                [small_x.as_in_ctx(mt.cpu()), small_y.as_in_ctx(mt.cpu()),
+                 1.0, 4096], dev, (16,), (256,)))):
+        try:
+            call()
+        except (mt.MXNetError, ValueError):
+            continue
+        fail(f"{what} did not raise")
+    summary = dict(cases=cases, main_path_launches=counts["rtc"],
+                   refused=refused, card=card_line())
+    say("rtc: " + json.dumps(summary))
+    return summary
+
+
+# -- LeNet -------------------------------------------------------------------------
+
+LENET_BATCH = 256
+
+
+def phase_lenet_parity(torch, mt, vision, kopt):
+    """One f32 imperative step of LeNet (SGD momentum) on ``mx.np`` arrays,
+    once on CUDA (the update through K3, cuDNN convolutions in full f32) and
+    once on the CPU, from the same weights and batch."""
+    gen = torch.Generator().manual_seed(3)
+    xv = torch.rand((64, 1, 28, 28), generator=gen)
+    yv = torch.randint(0, 10, (64,), generator=gen, dtype=torch.int32)
+    res = []
+    for where in (mt.gpu(0), mt.cpu()):
+        net = vision.lenet(classes=10)
+        net.initialize(device=where, generator=torch.Generator().manual_seed(3))
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.05, "momentum": 0.9})
+        lossfn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        x, y = mt.np.array(xv, device=where), mt.np.array(yv, device=where)
+        before = kopt.LAUNCHES.value
+        with mt.autograd.record():
+            out = net(x)
+            loss = lossfn(out, y)
+        loss.backward()
+        trainer.step(64)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            check(kopt.LAUNCHES.value - before == 10,
+                  "the CUDA step did not launch the ladder once per parameter")
+        ps = net.collect_params()
+        res.append((out.asnumpy(), loss.asnumpy(),
+                    {k: p.grad().float().cpu() for k, p in ps.items()},
+                    {k: p.data().detach().float().cpu()
+                     for k, p in ps.items()}))
+    (co, cl, cg, cp), (po, pl, pg, pp) = res
+
+    def rel(a, b):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+
+    errs = dict(logits=rel(co, po), loss=rel(cl, pl),
+                grads=max(rel(cg[k], g) for k, g in pg.items()),
+                params=max(rel(cp[k], v) for k, v in pp.items()))
+    # f32 on both sides (TF32 off): convolutions, GEMMs and reductions sum
+    # in other orders. Logits, loss and the parameters after the step to
+    # 1e-4 of their largest value; each gradient to 1e-3 of its largest
+    say(f"lenet_parity f32 b64 sgd momentum, CUDA vs CPU, max error over "
+        f"the largest value: {json.dumps(errs)}")
+    check(errs["logits"] <= 1e-4 and errs["loss"] <= 1e-4
+          and errs["params"] <= 1e-4 and errs["grads"] <= 1e-3,
+          f"CUDA and CPU LeNet steps disagree: {errs}")
+    check(all(bool(torch.isfinite(g).all()) for g in cg.values()),
+          "non-finite CUDA gradient")
+    return errs
+
+
+def phase_lenet_training(torch, mt, train_lenet, build, dispatch):
+    net, trainer, step, (x, y) = train_lenet.build_lenet_train(
+        batch=LENET_BATCH, device=mt.gpu(0), seed=0)
+
+    def run(n):
+        """The mean loss and synchronised host seconds of each of n steps
+        (the loss an NDArray, as user code gets it)."""
+        losses, secs = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step()
+            losses.append(float(loss.mean()))    # synchronises
+            secs.append(time.perf_counter() - t0)
+        return losses, secs, loss
+
+    warm, warm_secs, _ = run(TRAIN_WARMUP)
+    build.reset_counters()                       # main path: counts from 0
+    dispatch.reset_counts()
+    losses, secs, loss = run(TRAIN_STEPS)
+    launches = {c.name: c.value for c in build.COUNTERS.values()}  # after
+    outcomes = {f"{k}:{o}": n for (k, o), n in dispatch.COUNTS.items()}
+    ps = net.collect_params()
+    n_train = len(net.trainable_param_names())
+    check(n_train == 10, f"LeNet has {n_train} trainable tensors, not 10")
+    check(launches["opt_ladder"] == n_train * TRAIN_STEPS
+          and sum(launches.values()) == launches["opt_ladder"],
+          f"launches {launches} != opt_ladder {n_train} x {TRAIN_STEPS}")
+    check(outcomes == {"opt_sgd:kernel": n_train * TRAIN_STEPS},
+          f"dispatch outcomes {outcomes}")
+    check(all(math.isfinite(v) for v in warm + losses),
+          f"non-finite loss {warm + losses}")
+    check(losses[-1] < warm[0], f"the loss did not fall over the "
+                                f"{TRAIN_WARMUP + TRAIN_STEPS} steps: "
+                                f"warm-up {warm}, counted {losses}")
+    on_cpu = [name for name, t in
+              [("x", x._data), ("y", y._data), ("loss", loss._data)]
+              + [(k, p.data()) for k, p in ps.items()]
+              + [(k + ".grad", p.grad()) for k, p in ps.items()]
+              if not t.is_cuda]
+    check(on_cpu == [], f"tensors of the loop on the CPU: {on_cpu}")
+    steady = sorted(secs)[len(secs) // 2]
+    summary = dict(model="lenet(classes=10)", dtype="float32",
+                   batch=LENET_BATCH, optimizer="sgd", lr=0.05,
+                   warmup_steps=TRAIN_WARMUP, warmup_losses=warm,
+                   warmup_step_ms=[1e3 * v for v in warm_secs],
+                   steps=TRAIN_STEPS, losses=losses,
+                   step_ms=[1e3 * v for v in secs], step_ms_p50=1e3 * steady,
+                   images_per_s=LENET_BATCH / steady, launches=launches,
+                   launches_per_step={k: v / TRAIN_STEPS
+                                      for k, v in launches.items()},
+                   dispatch=outcomes, card=card_line())
+    say(f"lenet_training: {json.dumps(summary)}")
+    return summary
+
+
 def main():
     import torch
 
@@ -1144,14 +1522,20 @@ def main():
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    # 2. build: one nvcc per source, all at once
+    # 2. build: one nvcc per source, all at once; the rtc sources of phase
+    # 9 compile through mx.rtc meanwhile
+    from mxnet_tpu_torch import rtc
     from mxnet_tpu_torch.kernels import build
 
     names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    built = build.build(names)
-    say(f"build: {names} in {time.perf_counter() - t0:.1f}s "
-        f"(per source {json.dumps(built)})")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        rtc_build = pool.submit(build_rtc_modules, rtc)
+        built = build.build(names)
+        rtc_modules = rtc_build.result()
+    say(f"build: {names} and {len(rtc_modules)} rtc sources in "
+        f"{time.perf_counter() - t0:.1f}s (per source {json.dumps(built)}; "
+        f"rtc {json.dumps({n: m[1] for n, m in rtc_modules.items()})})")
 
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import serving
@@ -1159,9 +1543,10 @@ def main():
     from mxnet_tpu_torch.kernels import dispatch, norm as knorm, opt as kopt
     from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.optimizer import optimizer as topt
-    from mxnet_tpu_torch.tools import finetune, train_resnet
+    from mxnet_tpu_torch.tools import finetune, train_lenet, train_resnet
 
-    check(sorted({Path(k["source"]).stem for k in KERNELS}) == names,
+    check(sorted({Path(k["source"]).stem for k in KERNELS
+                  if "/csrc/" in k["source"]}) == names,
           "the kernel table does not name every source under csrc")
 
     # 3-8
@@ -1177,8 +1562,11 @@ def main():
                            dispatch)
     resnet = phase_resnet_training(torch, mt, train_resnet, build, knorm,
                                    kopt, topt, dispatch)
+    rtc_run = phase_rtc(torch, mt, rtc, build, rtc_modules)
+    phase_lenet_parity(torch, mt, vision, kopt)
+    lenet_run = phase_lenet_training(torch, mt, train_lenet, build, dispatch)
 
-    # 9. the kernels line, card, ok. Each row's case is the main paths'
+    # 12. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16, the ladder as the sweep over
     # BERT-base's parameters, BatchNorm summed over ResNet-50's 53 sites at
     # batch 256 (bf16, NHWC). The two backward kernels run as a pair and
@@ -1189,7 +1577,10 @@ def main():
     # runs it; the library (SDPA's backward through autograd, whose dropout
     # mask is another function) at the same shape without dropout.
     # Launches: from the path that runs the kernel most (the ladder: the
-    # ResNet-50 path's 161 x 5 launches).
+    # ResNet-50 path's 161 x 5 launches). rtc (K7): the three user kernels
+    # of phase 9 at their main-path shapes, each timed alone; the row
+    # carries their sums and max_abs_err the largest of the three (each
+    # against its own tolerance), and "cases" each kernel's own numbers.
     by_label = {r["case"]: r for r in cases}
     bwd_by_label = {r["case"]: r for r in bwd_cases}
     fwd, sweep = by_label["serve_bf16"], train["opt_sweep"]
@@ -1224,8 +1615,24 @@ def main():
                          resnet["launches"]["opt_ladder"]),
             max_abs_err=sweep["max_abs_err"], ms=sweep["ms"],
             plain_ms=sweep["plain_ms"], bound_ms=sweep["bound_ms"],
-            bound_by=sweep["bound_by"], library_ms=None),
+            bound_by=sweep["bound_by"], library_ms=None,
+            lenet_launches=lenet_run["launches"]["opt_ladder"]),
     }
+    rc = rtc_run["cases"]
+    measured["rtc"] = dict(
+        launches=rtc_run["main_path_launches"],
+        max_abs_err=max(c["max_abs_err"] for c in rc),
+        ms=sum(c["ms"] for c in rc), plain_ms=sum(c["plain_ms"] for c in rc),
+        bound_ms=sum(c["bound_ms"] for c in rc), bound_by="bytes",
+        library_ms=sum(c["library_ms"] for c in rc),
+        times_cover="axpy 2^26 f32 + row sum (65536, 1024) bf16 + strided "
+                    "half scale 2^24, summed; see cases",
+        cases=[{key: c[key] for key in ("kernel", "build_s", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "library", "max_abs_err", "tol")}
+               for c in rc])
+    check(all(c["bound_by"] == "bytes" for c in rc), "an rtc kernel bound "
+                                                     "by operations")
     total = bn["resnet50_batch256_53_sites"]
     for name, side, err in (("bn_train_fwd", "fwd", bn["fwd_max_abs_err"]),
                             ("bn_train_bwd", "bwd", bn["bwd_max_abs_err"])):

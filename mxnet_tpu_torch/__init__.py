@@ -3,14 +3,22 @@
 Mirrors the JAX package's layout and names so that each module's
 counterpart is easy to find; imports torch, numpy and the standard library,
 never JAX or mxnet_tpu. Entry points run on ``cuda:0`` unless the caller
-passes a CPU device.
+passes a CPU device or opens a device scope (``with mx.cpu():``).
 """
 from __future__ import annotations
 
 from . import amp, autograd, env, gluon, lr_scheduler, optimizer
+from . import ndarray as nd
+from . import numpy as np
+from . import numpy_extension as npx
+from . import rtc
+from ._random import seed
 from .base import MXNetError
-from .device import cpu, default_device, gpu, tpu
+from .device import cpu, current_device, default_device, gpu, tpu
+from .ndarray import NDArray, waitall
+from .numpy import random
 
 __all__ = ["amp", "autograd", "env", "gluon", "lr_scheduler", "optimizer",
-           "MXNetError", "cpu", "gpu", "tpu",
+           "nd", "np", "npx", "random", "rtc", "seed", "waitall", "NDArray",
+           "MXNetError", "cpu", "gpu", "tpu", "current_device",
            "default_device"]

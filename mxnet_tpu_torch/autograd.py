@@ -8,7 +8,8 @@ mode, not recording. The tape is torch autograd's: :func:`backward` and
 :func:`grad` run it with MXNet's rules (a head without a head gradient gets
 ones, whatever its shape; several heads are summed in one pass), and
 gradients land in the buffers that ``gluon.Parameter`` or
-:func:`mark_variables` attached, by their ``grad_req``. ``Function``
+:func:`mark_variables` attached, by their ``grad_req``. Heads, head
+gradients and variables may be tensors or NDArrays. ``Function``
 (custom differentiable functions) is not ported yet.
 """
 from __future__ import annotations
@@ -76,14 +77,21 @@ def predict_mode():
     return _scope(training=False)
 
 
+def _tensors(xs):
+    """A list of tensors from a tensor, an NDArray or a list of either."""
+    from .ndarray.ndarray import NDArray
+
+    if isinstance(xs, (torch.Tensor, NDArray)):
+        xs = [xs]
+    return [x._data if isinstance(x, NDArray) else x for x in xs]
+
+
 def _heads_and_grads(heads, head_grads):
-    if isinstance(heads, torch.Tensor):
-        heads = [heads]
-    heads = list(heads)
+    heads = _tensors(heads)
     if head_grads is None:
         head_grads = [None] * len(heads)
-    elif isinstance(head_grads, torch.Tensor):
-        head_grads = [head_grads]
+    else:
+        head_grads = _tensors(head_grads)
     if len(head_grads) != len(heads):
         raise ValueError(f"{len(heads)} heads but {len(head_grads)} "
                          "head gradients")
@@ -116,8 +124,12 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     list instead of written to the attached buffers (autograd.py:grad). A
     variable the heads do not depend on gets zeros. With
     ``create_graph=True`` the gradients are themselves recorded."""
-    single = isinstance(variables, torch.Tensor)
-    variables = [variables] if single else list(variables)
+    from .ndarray.ndarray import NDArray
+
+    nd = isinstance(variables, NDArray) or (
+        isinstance(variables, (list, tuple))
+        and any(isinstance(v, NDArray) for v in variables))
+    variables = _tensors(variables)
     heads, grads = _heads_and_grads(heads, head_grads)
     if retain_graph is None:
         retain_graph = create_graph
@@ -125,17 +137,18 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                               retain_graph=bool(retain_graph),
                               create_graph=bool(create_graph),
                               allow_unused=True)
-    return [torch.zeros_like(v) if g is None else g
-            for v, g in zip(variables, out)]
+    out = [torch.zeros_like(v) if g is None else g
+           for v, g in zip(variables, out)]
+    return [NDArray(g) for g in out] if nd else out
 
 
 def mark_variables(variables, gradients, grad_reqs="write"):
     """Attach gradient buffers to leaf tensors (autograd.py:mark_variables):
     after this, :func:`backward` writes into ``gradients`` by ``grad_req``
     ('write' replaces the buffer's value, 'add' accumulates, 'null' records
-    nothing), and ``variable.grad`` stays empty."""
-    if isinstance(variables, torch.Tensor):
-        variables, gradients = [variables], [gradients]
+    nothing), and ``variable.grad`` stays empty. NDArrays are taken for
+    their tensors."""
+    variables, gradients = _tensors(variables), _tensors(gradients)
     if isinstance(grad_reqs, str):
         grad_reqs = [grad_reqs] * len(variables)
     for var, buf, req in zip(variables, gradients, grad_reqs):

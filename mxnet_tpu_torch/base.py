@@ -1,15 +1,16 @@
 """Framework errors and dtype names (counterpart of mxnet_tpu/base.py).
 
-Only what the port's serving slice reads: ``MXNetError``, the deferred-init
-error, and the mapping from the JAX package's dtype spellings ("float32",
-"bfloat16", numpy dtypes) to ``torch.dtype``.
+``MXNetError``, the deferred-init error, and the mapping from the JAX
+package's dtype spellings ("float32", "bfloat16", numpy dtypes) to
+``torch.dtype`` and back (:func:`numpy_dtype`).
 """
 from __future__ import annotations
 
 import numpy as _np
 import torch
 
-__all__ = ["MXNetError", "DeferredInitializationError", "normalize_dtype"]
+__all__ = ["MXNetError", "DeferredInitializationError", "normalize_dtype",
+           "numpy_dtype"]
 
 
 class MXNetError(RuntimeError):
@@ -24,8 +25,10 @@ class DeferredInitializationError(MXNetError):
 _DTYPES = {
     "float32": torch.float32, "float": torch.float32,
     "bfloat16": torch.bfloat16,
-    "float16": torch.float16,
+    "float16": torch.float16, "float64": torch.float64,
+    "int8": torch.int8, "int16": torch.int16,
     "int32": torch.int32, "int64": torch.int64,
+    "uint8": torch.uint8, "bool": torch.bool,
 }
 
 
@@ -41,3 +44,11 @@ def normalize_dtype(dtype):
         return _DTYPES[name]
     except KeyError:
         raise TypeError(f"unsupported dtype {dtype!r}") from None
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype of a ``torch.dtype``; ``torch.bfloat16``, which numpy
+    lacks, is returned as it is."""
+    if dtype == torch.bfloat16:
+        return dtype
+    return _np.dtype(str(dtype).replace("torch.", ""))

@@ -5,6 +5,12 @@ mxnet_tpu/gluon/block.py).
 first, then children in registration order), so weights carry across by
 name (``convert.load_jax_params``).
 
+``Block.__call__`` is the NDArray boundary: NDArray arguments are
+unwrapped, the children see tensors, and the outputs come back as NDArrays
+when any argument was one, so ``net(mx.np.array(...))`` returns an NDArray
+whose ``backward()`` reaches the parameters. Raw tensors in give raw tensors
+out. ``Parameter.data()`` stays a tensor (an NDArray in the JAX package).
+
 PyTorch runs eagerly, so ``hybridize()`` compiles nothing: it marks the
 block as the serving boundary. ``jit_trace_count()`` counts the input
 signatures (shapes and dtypes) a hybridized block has seen for the first
@@ -21,9 +27,18 @@ import torch
 
 from .. import autograd as _ag
 from .. import device as _device
+from ..ndarray.ndarray import NDArray
 from .parameter import Parameter
 
 __all__ = ["Block", "HybridBlock"]
+
+
+def _to_ndarrays(out):
+    if isinstance(out, torch.Tensor):
+        return NDArray(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_to_ndarrays(o) for o in out)
+    return out
 
 
 class Block(torch.nn.Module):
@@ -44,9 +59,18 @@ class Block(torch.nn.Module):
         super().__setattr__(name, value)
 
     def __call__(self, *args, **kwargs):
+        if any(isinstance(a, NDArray) for a in args) or any(
+                isinstance(v, NDArray) for v in kwargs.values()):
+            args = [a._data if isinstance(a, NDArray) else a for a in args]
+            kwargs = {k: v._data if isinstance(v, NDArray) else v
+                      for k, v in kwargs.items()}
+            return _to_ndarrays(self._call(*args, **kwargs))
+        return self._call(*args, **kwargs)
+
+    def _call(self, *args, **kwargs):
         # torch autograd records only inside autograd.record()
         with torch.set_grad_enabled(_ag.is_recording()):
-            return super().__call__(*args, **kwargs)
+            return torch.nn.Module.__call__(self, *args, **kwargs)
 
     # -- parameters --------------------------------------------------------
     def _collect_params_with_prefix(self, prefix=""):
@@ -68,8 +92,9 @@ class Block(torch.nn.Module):
 
     def initialize(self, init=None, device=None, generator=None,
                    force_reinit=False):
-        """Initialize every parameter on ``device`` (default ``cuda:0``;
-        raises without CUDA), drawing from ``generator`` (default: a CPU
+        """Initialize every parameter on ``device`` (default: the current
+        device, ``cuda:0`` outside a device scope; raises without CUDA),
+        drawing from ``generator`` (default: a CPU
         generator seeded 0). Parameters are drawn in ``collect_params()``
         order; a deferred one draws at the first forward.
 
@@ -150,10 +175,10 @@ class HybridBlock(Block):
             if isinstance(child, Block):
                 child.hybridize(False)
 
-    def __call__(self, *args, **kwargs):
+    def _call(self, *args, **kwargs):
         if self._active:
             self._note_signature(args)
-        return super().__call__(*args, **kwargs)
+        return super()._call(*args, **kwargs)
 
     def _note_signature(self, args):
         training = bool(_ag.is_training())

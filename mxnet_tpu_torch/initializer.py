@@ -1,8 +1,9 @@
 """Weight initializers (counterpart of mxnet_tpu/initializer.py).
 
 Each draws from an explicit ``torch.Generator``. Values are drawn on the
-host in f32 and then cast and moved to the parameter's device, so one seed
-gives the same weights on the CPU and on the card.
+host in f32 (whatever device scope is active) and then cast and moved to
+the parameter's device, so one seed gives the same weights on the CPU and
+on the card.
 """
 from __future__ import annotations
 
@@ -27,12 +28,12 @@ class Initializer:
 
 class Zero(Initializer):
     def _init_weight(self, shape, generator):  # noqa: ARG002
-        return torch.zeros(shape)
+        return torch.zeros(shape, device="cpu")
 
 
 class One(Initializer):
     def _init_weight(self, shape, generator):  # noqa: ARG002
-        return torch.ones(shape)
+        return torch.ones(shape, device="cpu")
 
 
 class Uniform(Initializer):
@@ -42,8 +43,8 @@ class Uniform(Initializer):
         self.scale = scale
 
     def _init_weight(self, shape, generator):
-        return torch.empty(shape).uniform_(-self.scale, self.scale,
-                                           generator=generator)
+        return torch.empty(shape, device="cpu").uniform_(
+            -self.scale, self.scale, generator=generator)
 
 
 class Normal(Initializer):
@@ -53,8 +54,8 @@ class Normal(Initializer):
         self.sigma = sigma
 
     def _init_weight(self, shape, generator):
-        return torch.empty(shape).normal_(0.0, self.sigma,
-                                          generator=generator)
+        return torch.empty(shape, device="cpu").normal_(
+            0.0, self.sigma, generator=generator)
 
 
 _NAMES = {"zeros": Zero, "zero": Zero, "ones": One, "one": One,

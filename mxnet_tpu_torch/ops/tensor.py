@@ -1,0 +1,608 @@
+"""Tensor ops over ``torch.Tensor`` (counterpart of the subset of
+mxnet_tpu/ops/tensor.py that the NDArray frontends call).
+
+Two families:
+
+* numpy-semantics reductions and scans (:data:`NP_REDUCE`, :func:`cumulate`),
+  shared by ``mx.np`` and the NDArray methods: ``axis`` None, an int or a
+  tuple, ``keepdims``, ``ddof``. Result dtypes are the JAX package's,
+  which runs with 64-bit types on: integer sums, products and indices are
+  int64, integer scans keep their dtype, means of integers are float32;
+  ``median`` and ``quantile`` interpolate as numpy does (torch's
+  ``median`` takes the lower middle value);
+* the legacy ``mx.nd`` operators, registered by name
+  (:func:`..registry.register_op`): elementwise unary and binary and the
+  ``broadcast_*`` family (comparisons return the left operand's dtype),
+  reductions with ``exclude``, ``argmax``/``argmin`` as float indices, the
+  reshape codes 0/-1/-2/-3/-4, ``transpose``, ``slice``, ``take``, ``clip``,
+  ``concat``, ``stack``, ``split``, ``dot``, ``batch_dot`` and ``cast``.
+
+Every function is differentiable through torch autograd where its math is.
+"""
+from __future__ import annotations
+
+import builtins
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..base import normalize_dtype
+from .registry import register_op
+
+__all__ = ["NP_REDUCE", "cumulate", "legacy_reshape_shape", "int_default",
+           "np_axes", "np_dot"]
+
+
+# ---------------------------------------------------------------------------
+# numpy-semantics reductions (mx.np and the NDArray methods)
+# ---------------------------------------------------------------------------
+
+def np_axes(ndim, axis):
+    """numpy's ``axis`` as a sorted tuple of non-negative dims."""
+    if axis is None:
+        return tuple(range(ndim))
+    if isinstance(axis, int):
+        axis = (axis,)
+    return tuple(sorted(int(a) % ndim for a in axis)) if ndim else ()
+
+
+def int_default(out, x):
+    """An int64 result of an int32 (or narrower) input comes back in the
+    input's dtype, where the JAX package keeps it (scans, searchsorted)."""
+    if out.dtype == torch.int64 and x.dtype != torch.int64 \
+            and not x.is_floating_point() and x.dtype != torch.bool:
+        return out.to(x.dtype)
+    return out
+
+
+def _over_last(x, axis, keepdims, fn):
+    """Apply ``fn``, which reduces its argument's last dim, over ``axis``
+    of ``x``: the reduced dims are moved last and merged into one."""
+    ax = np_axes(x.dim(), axis)
+    rest = [d for d in range(x.dim()) if d not in ax]
+    n = math.prod(x.shape[d] for d in ax)
+    t = x.permute(*rest, *ax).reshape(*[x.shape[d] for d in rest], n)
+    out = fn(t)
+    if keepdims:
+        out = out.reshape([1 if d in ax else x.shape[d]
+                           for d in range(x.dim())])
+    return out
+
+
+def _floating(x):
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _reducer(fn, *, to_float=False):
+    def reduce(a, axis=None, dtype=None, keepdims=False, **kwargs):
+        if dtype is not None:
+            a = a.to(normalize_dtype(dtype))
+        elif to_float:
+            a = _floating(a)
+        return _over_last(a, axis, keepdims, lambda t: fn(t, **kwargs))
+    return reduce
+
+
+def _index_reducer(fn):
+    def reduce(a, axis=None, keepdims=False):
+        return _over_last(a, axis, keepdims, fn)
+    return reduce
+
+
+def _nan_fill(t, value):
+    if not t.is_floating_point():
+        return t
+    return torch.where(torch.isnan(t), torch.full_like(t, value), t)
+
+
+def _nanext(t, largest):
+    m = _nan_fill(t, -math.inf if largest else math.inf)
+    m = m.amax(-1) if largest else m.amin(-1)
+    return torch.where(torch.isnan(t).all(-1), torch.full_like(m, math.nan),
+                       m)
+
+
+def _nanvar(t, ddof=0):
+    ok = ~torch.isnan(t)
+    n = ok.sum(-1)
+    mean = torch.nansum(t, -1) / n
+    dev = torch.where(ok, t - mean.unsqueeze(-1), torch.zeros_like(t))
+    return (dev * dev).sum(-1) / (n - ddof)
+
+
+def _var(t, ddof=0):
+    return t.var(-1, correction=ddof)
+
+
+def _median(t):
+    return torch.quantile(t, 0.5, dim=-1)
+
+
+def _nanmedian(t):
+    return torch.nanquantile(t, 0.5, dim=-1)
+
+
+def _quantile(name, scale, nan):
+    qfn = torch.nanquantile if nan else torch.quantile
+
+    def quantile(a, q, axis=None, method="linear", keepdims=False,
+                 interpolation=None):
+        a = _floating(a)
+        q = torch.as_tensor(q, dtype=a.dtype, device=a.device) / scale
+        out = _over_last(a, axis, False, lambda t: qfn(
+            t, q, dim=-1, interpolation=interpolation or method))
+        if keepdims:
+            kept = [1 if d in np_axes(a.dim(), axis) else a.shape[d]
+                    for d in range(a.dim())]
+            out = out.reshape(tuple(q.shape) + tuple(kept))
+        return out
+
+    quantile.__name__ = name
+    return quantile
+
+
+def _average(a, axis=None, weights=None, returned=False, keepdims=False):
+    a = _floating(a)
+    if weights is None:
+        avg = _over_last(a, axis, keepdims, lambda t: t.mean(-1))
+        wsum = torch.full_like(avg, a.numel() / max(avg.numel(), 1))
+    else:
+        w = torch.as_tensor(weights, device=a.device)
+        dt = torch.promote_types(a.dtype, w.dtype)
+        a, w = a.to(dt), w.to(dt)
+        if w.dim() == 1 and a.dim() > 1:
+            shape = [1] * a.dim()
+            shape[int(axis) % a.dim()] = -1
+            w = w.reshape(shape)
+        w = w.expand_as(a)
+        wsum = _over_last(w, axis, keepdims, lambda t: t.sum(-1))
+        avg = _over_last(a * w, axis, keepdims, lambda t: t.sum(-1)) / wsum
+    return (avg, wsum) if returned else avg
+
+
+def _count_nonzero(a, axis=None, keepdims=False):
+    return _over_last(a != 0, axis, keepdims, lambda t: t.sum(-1))
+
+
+#: mx.np's reductions by name, numpy semantics over tensors
+NP_REDUCE = {
+    "sum": _reducer(lambda t: t.sum(-1)),
+    "prod": _reducer(lambda t: t.prod(-1)),
+    "mean": _reducer(lambda t: t.mean(-1), to_float=True),
+    "max": _reducer(lambda t: t.amax(-1)),
+    "min": _reducer(lambda t: t.amin(-1)),
+    "amax": _reducer(lambda t: t.amax(-1)),
+    "amin": _reducer(lambda t: t.amin(-1)),
+    "ptp": _reducer(lambda t: t.amax(-1) - t.amin(-1)),
+    "all": _reducer(lambda t: t.bool().all(-1)),
+    "any": _reducer(lambda t: t.bool().any(-1)),
+    "std": _reducer(lambda t, ddof=0: _var(t, ddof).sqrt(), to_float=True),
+    "var": _reducer(_var, to_float=True),
+    "median": _reducer(_median, to_float=True),
+    "nansum": _reducer(lambda t: torch.nansum(t, -1)),
+    "nanprod": _reducer(lambda t: _nan_fill(t, 1.0).prod(-1)),
+    "nanmean": _reducer(lambda t: torch.nanmean(t, -1), to_float=True),
+    "nanmax": _reducer(lambda t: _nanext(t, True)),
+    "nanmin": _reducer(lambda t: _nanext(t, False)),
+    "nanstd": _reducer(lambda t, ddof=0: _nanvar(t, ddof).sqrt(),
+                       to_float=True),
+    "nanvar": _reducer(_nanvar, to_float=True),
+    "nanmedian": _reducer(_nanmedian, to_float=True),
+    "argmax": _index_reducer(lambda t: t.argmax(-1)),
+    "argmin": _index_reducer(lambda t: t.argmin(-1)),
+    "nanargmax": _index_reducer(
+        lambda t: _nan_fill(t, -math.inf).argmax(-1)),
+    "nanargmin": _index_reducer(
+        lambda t: _nan_fill(t, math.inf).argmin(-1)),
+    "count_nonzero": _count_nonzero,
+    "average": _average,
+    "quantile": _quantile("quantile", 1.0, False),
+    "percentile": _quantile("percentile", 100.0, False),
+    "nanquantile": _quantile("nanquantile", 1.0, True),
+    "nanpercentile": _quantile("nanpercentile", 100.0, True),
+}
+
+
+def np_dot(a, b):
+    """numpy's ``dot``: a product of scalars, a matrix product up to 2-D, and
+    above that a sum over ``a``'s last and ``b``'s second-to-last axis."""
+    if a.dim() == 0 or b.dim() == 0:
+        return a * b
+    if b.dim() == 1 or (a.dim() <= 2 and b.dim() <= 2):
+        return torch.matmul(a, b)
+    return torch.tensordot(a, b, dims=([a.dim() - 1], [b.dim() - 2]))
+
+
+def cumulate(name):
+    """numpy's ``cumsum``/``cumprod`` (and their nan forms): ``axis`` None
+    scans the flattened array."""
+    op = torch.cumsum if "sum" in name else torch.cumprod
+    nan_to = (0.0 if "sum" in name else 1.0) if name.startswith("nan") \
+        else None
+
+    def scan(a, axis=None, dtype=None):
+        if dtype is not None:
+            a = a.to(normalize_dtype(dtype))
+        t = a.reshape(-1) if axis is None else a
+        if nan_to is not None and t.is_floating_point():
+            t = _nan_fill(t, nan_to)
+        return int_default(op(t, 0 if axis is None else int(axis)), a)
+
+    scan.__name__ = name
+    return scan
+
+
+# ---------------------------------------------------------------------------
+# legacy mx.nd operators (registered)
+# ---------------------------------------------------------------------------
+
+_UNARY = {
+    "abs": torch.abs, "sign": torch.sign, "rint": torch.round,
+    "round": torch.round, "ceil": torch.ceil, "floor": torch.floor,
+    "trunc": torch.trunc, "fix": torch.trunc, "square": torch.square,
+    "sqrt": torch.sqrt, "rsqrt": torch.rsqrt,
+    "cbrt": lambda x: torch.sign(x) * torch.abs(x).pow(1.0 / 3.0),
+    "rcbrt": lambda x: 1.0 / (torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)),
+    "exp": torch.exp, "log": torch.log, "log10": torch.log10,
+    "log2": torch.log2, "log1p": torch.log1p, "expm1": torch.expm1,
+    "reciprocal": lambda x: 1.0 / x, "negative": torch.neg,
+    "logical_not": lambda x: (x == 0).to(x.dtype),
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
+    "degrees": torch.rad2deg, "radians": torch.deg2rad,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
+    "gamma": lambda x: torch.exp(torch.lgamma(x)), "gammaln": torch.lgamma,
+    "digamma": torch.digamma, "erf": torch.erf, "erfinv": torch.erfinv,
+    "sigmoid": torch.sigmoid, "log_sigmoid": F.logsigmoid,
+    "softsign": F.softsign, "relu": torch.relu,
+    "identity": lambda x: x.clone(),
+}
+
+for _name, _fn in _UNARY.items():
+    register_op(_name, _fn)
+
+
+@register_op("hard_sigmoid")
+def hard_sigmoid(x, alpha=0.2, beta=0.5):
+    """``alpha * x + beta`` clipped to [0, 1] (tensor.py:hard_sigmoid)."""
+    return torch.clamp(alpha * x + beta, 0.0, 1.0)
+
+
+def _both(fn):
+    # torch's binary functions want a tensor on each side; a Python scalar
+    # becomes a 0-dim tensor, which promotes like numpy's weak scalar
+    def binary(lhs, rhs):
+        if not isinstance(lhs, torch.Tensor):
+            lhs = torch.as_tensor(lhs, device=rhs.device)
+        if not isinstance(rhs, torch.Tensor):
+            rhs = torch.as_tensor(rhs, device=lhs.device)
+        return fn(lhs, rhs)
+    binary.__name__ = getattr(fn, "__name__", "binary")
+    return binary
+
+
+_BINARY = {
+    "elemwise_add": torch.add, "elemwise_sub": torch.sub,
+    "elemwise_mul": torch.mul, "elemwise_div": torch.div,
+    "broadcast_add": torch.add, "broadcast_plus": torch.add,
+    "broadcast_sub": torch.sub, "broadcast_minus": torch.sub,
+    "broadcast_mul": torch.mul, "broadcast_div": torch.div,
+    "broadcast_mod": torch.remainder, "broadcast_power": torch.pow,
+    "broadcast_maximum": torch.maximum, "broadcast_minimum": torch.minimum,
+    "broadcast_hypot": torch.hypot, "hypot": torch.hypot,
+}
+
+_BINARY_CMP = {
+    "broadcast_equal": torch.eq, "broadcast_not_equal": torch.ne,
+    "broadcast_greater": torch.gt, "broadcast_greater_equal": torch.ge,
+    "broadcast_lesser": torch.lt, "broadcast_lesser_equal": torch.le,
+    "broadcast_logical_and": torch.logical_and,
+    "broadcast_logical_or": torch.logical_or,
+    "broadcast_logical_xor": torch.logical_xor,
+}
+
+
+def _cmp(fn):
+    # legacy comparisons return the lhs dtype (0/1 valued), not bool
+    def compare(lhs, rhs):
+        dtype = lhs.dtype if isinstance(lhs, torch.Tensor) else torch.float32
+        return _both(fn)(lhs, rhs).to(dtype)
+    compare.__name__ = fn.__name__
+    return compare
+
+
+for _name, _fn in _BINARY.items():
+    register_op(_name, _both(_fn))
+for _name, _fn in _BINARY_CMP.items():
+    register_op(_name, _cmp(_fn))
+
+
+@register_op("add_n")
+def add_n(*args):
+    """Sum of n arrays (tensor.py:add_n)."""
+    out = args[0]
+    for a in args[1:]:
+        out = out + a
+    return out
+
+
+def _legacy_axes(axis, ndim, exclude=False):
+    if axis is None or axis == ():
+        return None
+    axes = np_axes(ndim, axis)
+    if exclude:
+        axes = tuple(i for i in range(ndim) if i not in axes)
+    return axes
+
+
+def _legacy_reduce(name):
+    fn = NP_REDUCE[name]
+
+    def reduce(data, axis=None, keepdims=False, exclude=False):
+        return fn(data, axis=_legacy_axes(axis, data.dim(), exclude),
+                  keepdims=keepdims)
+    reduce.__name__ = name
+    return register_op(name, reduce)
+
+
+for _name in ("sum", "nansum", "prod", "nanprod", "mean", "max", "min"):
+    _legacy_reduce(_name)
+register_op("sum_axis", _legacy_reduce("sum"))
+register_op("max_axis", _legacy_reduce("max"))
+register_op("min_axis", _legacy_reduce("min"))
+
+
+@register_op("norm")
+def norm(data, ord=2, axis=None, keepdims=False):  # noqa: A002
+    """L1 or L2 norm over ``axis`` or everything (tensor.py:norm)."""
+    dims = None if axis is None else np_axes(data.dim(), axis)
+    if ord == 1:
+        return data.abs().sum(dim=dims, keepdim=keepdims)
+    return data.square().sum(dim=dims, keepdim=keepdims).sqrt()
+
+
+@register_op("argmax")
+def argmax(data, axis=None, keepdims=False):
+    """Float indices, as the reference returns them."""
+    return NP_REDUCE["argmax"](data, axis, keepdims).to(torch.float32)
+
+
+@register_op("argmin")
+def argmin(data, axis=None, keepdims=False):
+    return NP_REDUCE["argmin"](data, axis, keepdims).to(torch.float32)
+
+
+@register_op("sort")
+def sort(data, axis=-1, is_ascend=True):
+    return torch.sort(data, dim=axis, descending=not is_ascend,
+                      stable=True).values
+
+
+@register_op("argsort")
+def argsort(data, axis=-1, is_ascend=True, dtype="float32"):
+    idx = torch.argsort(data, dim=axis, stable=True)
+    if not is_ascend:
+        idx = torch.flip(idx, (axis,))
+    return idx.to(normalize_dtype(dtype))
+
+
+@register_op("take")
+def take(a, indices, axis=0, mode="clip"):
+    """Rows of ``a`` along ``axis``; out-of-range indices clip or wrap."""
+    n = a.shape[axis]
+    idx = indices.long()
+    idx = idx.clamp(0, n - 1) if mode == "clip" else idx % n
+    out = a.movedim(axis, 0)[idx]
+    return out.movedim(tuple(range(idx.dim())),
+                       tuple(range(axis, axis + idx.dim())))
+
+
+@register_op("where")
+def where(condition, x, y):
+    return torch.where(condition.bool(), x, y)
+
+
+def legacy_reshape_shape(src, target, reverse=False):
+    """Resolve MXNet's reshape codes (matrix_op-inl.h InferReshapeShape):
+    0 copies a dim, -1 infers one, -2 copies the rest, -3 merges two, -4
+    splits one into the next two entries (tensor.py:legacy_reshape_shape)."""
+    src = list(src)
+    target = list(target)
+    if reverse:
+        src = src[::-1]
+        target = target[::-1]
+    out = []
+    i = j = 0
+    while j < len(target):
+        t = target[j]
+        if t == 0:
+            out.append(src[i])
+            i += 1
+        elif t == -1:
+            out.append(-1)
+            i += 1
+        elif t == -2:
+            out.extend(src[i:])
+            i = len(src)
+        elif t == -3:
+            out.append(src[i] * src[i + 1])
+            i += 2
+        elif t == -4:
+            if j + 2 >= len(target):
+                raise ValueError(
+                    "-4 needs two following entries in the (possibly "
+                    f"reversed) target shape, got {target[j:]}")
+            a, b = target[j + 1], target[j + 2]
+            if a == -1:
+                a = src[i] // b
+            if b == -1:
+                b = src[i] // a
+            if a * b != src[i]:
+                raise ValueError(
+                    f"split dims ({a}, {b}) do not divide source dim "
+                    f"{src[i]}")
+            out.extend([a, b])
+            i += 1
+            j += 2
+        else:
+            out.append(t)
+            i += 1
+        j += 1
+    if -1 in out:
+        known = math.prod(d for d in out if d != -1)
+        out[out.index(-1)] = math.prod(src) // known
+    if reverse:
+        out = out[::-1]
+    return tuple(out)
+
+
+@register_op("reshape")
+def reshape(data, shape=None, reverse=False):
+    return data.reshape(legacy_reshape_shape(data.shape, shape, reverse))
+
+
+@register_op("reshape_like")
+def reshape_like(lhs, rhs):
+    return lhs.reshape(rhs.shape)
+
+
+@register_op("flatten")
+def flatten(data):
+    """(N, everything else), as the legacy Flatten does."""
+    return data.reshape(data.shape[0], -1)
+
+
+@register_op("transpose")
+def transpose(data, axes=None):
+    axes = tuple(axes) if axes else tuple(range(data.dim() - 1, -1, -1))
+    return data.permute(*axes)
+
+
+@register_op("expand_dims")
+def expand_dims(data, axis):
+    return data.unsqueeze(axis)
+
+
+@register_op("squeeze")
+def squeeze(data, axis=None):
+    if axis is None:
+        return data.squeeze()
+    return data.squeeze(np_axes(data.dim(), axis))
+
+
+@register_op("slice")
+def slice(data, begin, end, step=None):  # noqa: A001
+    """None entries of begin/end/step take the whole range."""
+    step = step or (None,) * len(begin)
+    idx = tuple(builtins.slice(b, e, s) for b, e, s in zip(begin, end, step))
+    return data[idx]
+
+
+@register_op("slice_axis")
+def slice_axis(data, axis, begin, end):
+    idx = [builtins.slice(None)] * data.dim()
+    idx[axis] = builtins.slice(begin, end)
+    return data[tuple(idx)]
+
+
+@register_op("clip")
+def clip(data, a_min=None, a_max=None):
+    return torch.clamp(data, a_min, a_max)
+
+
+@register_op("repeat")
+def repeat(data, repeats, axis=None):
+    return torch.repeat_interleave(data, repeats, dim=axis)
+
+
+@register_op("tile")
+def tile(data, reps):
+    return torch.tile(data, tuple(reps) if not isinstance(reps, int)
+                      else (reps,))
+
+
+@register_op("reverse")
+def reverse(data, axis=0):
+    return torch.flip(data, np_axes(data.dim(), axis))
+
+
+register_op("flip", reverse)
+
+
+@register_op("cast")
+def cast(data, dtype):
+    return data.to(normalize_dtype(dtype))
+
+
+@register_op("swapaxes")
+def swapaxes(data, dim1=0, dim2=1):
+    return data.transpose(dim1, dim2)
+
+
+@register_op("stack")
+def stack(*data, axis=0):
+    return torch.stack(data, dim=axis)
+
+
+@register_op("concat")
+def concat(*data, dim=1):
+    return torch.cat(data, dim=dim)
+
+
+@register_op("split")
+def split(data, num_outputs, axis=1, squeeze_axis=False):
+    """Equal sections along ``axis`` (the legacy SliceChannel)."""
+    if data.shape[axis] % num_outputs:
+        raise ValueError(f"{num_outputs} sections do not divide axis "
+                         f"{axis} of {tuple(data.shape)}")
+    outs = torch.tensor_split(data, num_outputs, dim=axis)
+    if squeeze_axis:
+        outs = [o.squeeze(axis) for o in outs]
+    return tuple(outs)
+
+
+@register_op("broadcast_to")
+def broadcast_to(data, shape):
+    shape = tuple(s if s != 0 else d for s, d in zip(shape, data.shape))
+    return data.expand(shape)
+
+
+@register_op("broadcast_axis")
+def broadcast_axis(data, axis=None, size=None):
+    axis = (axis,) if isinstance(axis, int) else tuple(axis)
+    size = (size,) if isinstance(size, int) else tuple(size)
+    shape = list(data.shape)
+    for a, s in zip(axis, size):
+        shape[a] = s
+    return data.expand(shape)
+
+
+register_op("broadcast_axes", broadcast_axis)
+
+
+@register_op("dot")
+def dot(lhs, rhs, transpose_a=False, transpose_b=False):
+    if transpose_a and lhs.dim() > 1:
+        lhs = lhs.transpose(-1, -2)
+    if transpose_b and rhs.dim() > 1:
+        rhs = rhs.transpose(-1, -2)
+    return np_dot(lhs, rhs)
+
+
+@register_op("batch_dot")
+def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
+    if transpose_a:
+        lhs = lhs.transpose(-1, -2)
+    if transpose_b:
+        rhs = rhs.transpose(-1, -2)
+    return torch.matmul(lhs, rhs)
+
+
+@register_op("BlockGrad")
+def stop_gradient(data):
+    return data.detach()
+
+
+register_op("stop_gradient", stop_gradient)

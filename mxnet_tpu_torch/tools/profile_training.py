@@ -1,14 +1,17 @@
 """Where a training step spends its time on the card.
 
-    python -m mxnet_tpu_torch.tools.profile_training [--model bert|resnet50]
-        [--batch N] [--iters 5] [--plain-ladder]
+    python -m mxnet_tpu_torch.tools.profile_training
+        [--model bert|resnet50|lenet] [--batch N] [--iters 5]
+        [--plain-ladder]
 
 ``--model bert`` (the default) builds the fine-tune step of
 tools/finetune.py (BERTForQA(bert_12_768_12), bf16 weights with f32
 masters, seq 384, dropout 0.1, AdamW through the Trainer, batch 8);
 ``--model resnet50`` the step of tools/train_resnet.py (resnet50_v1 NHWC
 with the space-to-depth stem, bf16 weights with f32 masters, 224x224, SGD
-momentum through the Trainer, batch 256). Both run on cuda:0 with seeded
+momentum through the Trainer, batch 256); ``--model lenet`` the imperative
+LeNet-MNIST loop of tools/train_lenet.py (f32, ``mx.np`` arrays, SGD lr
+0.05 through the Trainer, batch 256). All run on cuda:0 with seeded
 weights, take a few steps to warm up, then time ``--iters`` steps with the
 host clock (each ends in a synchronize) and profile the same number with
 ``torch.profiler``. Prints one JSON object: host ms per step, device-busy ms
@@ -36,6 +39,7 @@ from ..kernels import opt as kopt
 from ..optimizer.optimizer import Optimizer
 from .finetune import build_bert_finetune
 from .profile_serving import _busy_us
+from .train_lenet import build_lenet_train
 from .train_resnet import build_resnet_train
 
 #: device-kernel name fragments -> group
@@ -63,16 +67,20 @@ def _group(name):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("bert", "resnet50"), default="bert")
+    ap.add_argument("--model", choices=("bert", "resnet50", "lenet"),
+                    default="bert")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default: 8 (bert), 256 (resnet50)")
+                    help="default: 8 (bert), 256 (resnet50, lenet)")
     ap.add_argument("--seq", type=int, default=384, help="bert only")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--plain-ladder", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_training needs a CUDA card")
+    # float32 stays float32 in matmuls and convolutions, as chip_smoke.py
+    # runs the same steps
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if args.plain_ladder:
         kopt.param_step = Optimizer._fused_param_step
     dev = torch.device("cuda", 0)
@@ -80,9 +88,13 @@ def main(argv=None):
         args.batch = args.batch or 8
         net, trainer, step = build_bert_finetune(batch=args.batch,
                                                  seq=args.seq, device=dev)
-    else:
+    elif args.model == "resnet50":
         args.batch = args.batch or 256
         net, trainer, step = build_resnet_train(batch=args.batch, device=dev)
+    else:
+        args.batch = args.batch or 256
+        net, trainer, step, _ = build_lenet_train(batch=args.batch,
+                                                  device=dev)
 
     for _ in range(3):
         step()

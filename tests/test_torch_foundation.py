@@ -104,7 +104,11 @@ def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
     sources = sorted(str(p.relative_to(ROOT))
                      for p in (ROOT / "mxnet_tpu_torch/csrc").glob("*.cu"))
     assert len(sources) == 4
-    assert sorted({k["source"] for k in chip_smoke.KERNELS}) == sources
+    assert sorted({k["source"] for k in chip_smoke.KERNELS
+                   if "/csrc/" in k["source"]}) == sources
+    # the runtime-compiled kernels (K7) come from user sources through rtc
+    assert [k["source"] for k in chip_smoke.KERNELS
+            if "/csrc/" not in k["source"]] == ["mxnet_tpu_torch/rtc.py"]
     for k in chip_smoke.KERNELS:
         assert k["route"] in ("cuda", "triton")
         assert callable(resolve(k["wrapper"])) and callable(
@@ -114,7 +118,8 @@ def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
         assert isinstance(build.COUNTERS[k["name"]], build.LaunchCounter)
         ref_file, _, line = k["replaces"].partition(":")
         text = (ROOT / ref_file).read_text().splitlines()
-        assert "_kernel(" in text[int(line) - 1], k["replaces"]
+        assert ("_kernel(" in text[int(line) - 1]
+                or "pallas_call(" in text[int(line) - 1]), k["replaces"]
     # the sources share the dropout hash through one header
     for name in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
         src = (ROOT / "mxnet_tpu_torch/csrc" / name).read_text()
@@ -141,3 +146,58 @@ def test_port_imports_with_jax_unavailable():
     env_ = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env=env_, timeout=120)
+
+
+SLICE4_MODULES = ["mxnet_tpu_torch/ndarray/__init__.py",
+                  "mxnet_tpu_torch/ndarray/ndarray.py",
+                  "mxnet_tpu_torch/ndarray/random.py",
+                  "mxnet_tpu_torch/ndarray/utils.py",
+                  "mxnet_tpu_torch/numpy/__init__.py",
+                  "mxnet_tpu_torch/numpy/multiarray.py",
+                  "mxnet_tpu_torch/numpy/random.py",
+                  "mxnet_tpu_torch/numpy_extension/__init__.py",
+                  "mxnet_tpu_torch/ops/registry.py",
+                  "mxnet_tpu_torch/ops/tensor.py",
+                  "mxnet_tpu_torch/_random.py", "mxnet_tpu_torch/rtc.py",
+                  "mxnet_tpu_torch/gluon/model_zoo/vision/lenet.py",
+                  "mxnet_tpu_torch/tools/train_lenet.py"]
+
+
+def test_ndarray_frontend_modules_import_no_jax():
+    """The NDArray frontend, rtc and LeNet import neither JAX nor the JAX
+    package, by their text and when JAX cannot be imported at all."""
+    offenders = [f"{f}: {m.group(0).strip()}" for f in SLICE4_MODULES
+                 for m in _FORBIDDEN.finditer((ROOT / f).read_text())]
+    assert offenders == []
+    mods = [f[:-3].replace("/", ".").removesuffix(".__init__")
+            for f in SLICE4_MODULES]
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'mxnet_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import mxnet_tpu_torch as mx\n"
+            "assert mx.np.zeros and mx.nd.zeros and mx.rtc.CudaModule\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=120)
+
+
+def test_creation_without_a_device_needs_a_card():
+    """mx.np.array with no device and no scope lands on cuda:0, and raises
+    where there is no card, instead of landing on the CPU."""
+    import mxnet_tpu_torch as mx
+
+    if torch.cuda.is_available():
+        assert mx.np.array([1.0]).device == torch.device("cuda", 0)
+        return
+    for make in (lambda: mx.np.array([1.0, 2.0]), lambda: mx.np.zeros((2,)),
+                 lambda: mx.np.random.uniform(size=(2,)),
+                 lambda: mx.nd.array([1.0])):
+        with pytest.raises(base.MXNetError, match="CUDA"):
+            make()
+    with mx.cpu():
+        assert mx.np.array([1.0]).device == torch.device("cpu")
+        assert mx.current_device() == torch.device("cpu")
+    with pytest.raises(base.MXNetError, match="CUDA"):
+        mx.current_device()
