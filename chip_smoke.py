@@ -14,21 +14,34 @@ failure exits non-zero, nothing is caught and carried on:
   2. build: compile every kernel under mxnet_tpu_torch/csrc with nvcc.
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and edge cases, with times beside the card's
-     bound and the one-call PyTorch equivalent: the attention forward, the
-     two attention backward kernels, the optimizer ladder, and the
-     BatchNorm-training forward and backward at every BatchNorm shape of
-     ResNet-50 at batch 256 (bf16, NHWC) and at edge cases.
+     bound and the one-call PyTorch equivalent: the attention forward and
+     the two attention backward kernels in both variants (the tensor-core
+     kernels for bf16: ragged S 200 and 37, causal, D 32, 64 and 128,
+     dropout, fused-QKV views, contiguous and misaligned tensors; the FP32
+     kernels for f32), each timed alone and SDPA the same way (summed kernel
+     events of the profiler, inputs rotated over copies that exceed the L2)
+     and back to back from the host (CUDA events around 20 calls), the
+     optimizer ladder, and the BatchNorm-training
+     forward and backward at every BatchNorm shape of ResNet-50 at batch
+     256 (bf16, NHWC) and at edge cases.
+ 3b. attention probes: the bf16 dropout mask of all three kernels bit for
+     bit against ``_dropout_keep`` at S = D = 64 and 128 (q = k = 0,
+     v = dO = I for out and dv; q = 0, k = I, v and dO one-hot for dq),
+     and two runs of the forward and backward bitwise equal.
   4. model parity: a 2-layer BERT at full width in float32, once on CUDA
-     (through the kernels) and once on the CPU (their plain versions): the
-     logits, then the loss and every gradient of one training step.
+     (through the FP32 attention kernels, counted) and once on the CPU
+     (their plain versions): the logits, then the loss and every gradient
+     of one training step.
   5. serving, a main path: BERT-base (bf16, seq 384) with its SQuAD head
      served through InferenceEngine from two client threads; launch counts
-     are zeroed just before and read just after.
+     are zeroed just before and read just after: every attention launch is
+     the tensor-core kernel's, 12 a batch.
   6. training, a main path: BERT-base (bf16 weights, f32 masters, seq 384,
      batch 8, dropout 0.1) takes 5 fine-tune steps through
      ``autograd.record()`` -> ``autograd.backward`` -> ``Trainer.step``,
      with no setting beyond the defaults; after 2 warm-up steps the launch
-     counts are zeroed just before the 5 counted steps and read just after.
+     counts are zeroed just before the 5 counted steps and read just after
+     (K4, K5a, K5b: 12 tensor-core launches a step each, no FP32 one).
      Then, without dropout, 3 steps through the kernels against 3 steps
      through their plain versions from the same weights.
   7. ResNet parity: a narrow ResNet (NHWC, space-to-depth stem) in float32,
@@ -70,29 +83,44 @@ import subprocess
 import sys
 import threading
 import time
+from functools import partial
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+L2_BYTES = 50 * 2 ** 20            # H100 SXM L2
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor cores
               "float32": 67e12}    # float32 outside the tensor cores
 
 
 _FA = "mxnet_tpu_torch.ops.flash_attention"
+_FA_FWD = "mxnet_tpu_torch/csrc/flash_attention_fwd.cu"
+_FA_BWD = "mxnet_tpu_torch/csrc/flash_attention_bwd.cu"
 #: every kernel of the port: its launch counter's name, its source, the TPU
-#: kernel it replaces, and where its wrapper and its plain version live
+#: kernel it replaces, and where its wrapper and its plain version live. The
+#: attention kernels come in two variants each, counted apart: ``_mma`` on
+#: the tensor cores for bfloat16 (the main paths'), ``_fp32`` for float32
 KERNELS = [
-    dict(name="flash_attention_fwd", route="cuda",
-         source="mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+    dict(name="flash_attention_fwd_mma", route="cuda", source=_FA_FWD,
          replaces="mxnet_tpu/ops/pallas_attention.py:85",
          wrapper=f"{_FA}:flash_attention_fwd",
          plain=f"{_FA}:flash_attention_reference"),
-    dict(name="flash_attention_bwd_dq", route="cuda",
-         source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+    dict(name="flash_attention_fwd_fp32", route="cuda", source=_FA_FWD,
+         replaces="mxnet_tpu/ops/pallas_attention.py:85",
+         wrapper=f"{_FA}:flash_attention_fwd",
+         plain=f"{_FA}:flash_attention_reference"),
+    dict(name="flash_attention_bwd_dq_mma", route="cuda", source=_FA_BWD,
          replaces="mxnet_tpu/ops/pallas_attention.py:259",
          wrapper=f"{_FA}:flash_attention_bwd",
          plain=f"{_FA}:flash_attention_bwd_reference"),
-    dict(name="flash_attention_bwd_dkv", route="cuda",
-         source="mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+    dict(name="flash_attention_bwd_dq_fp32", route="cuda", source=_FA_BWD,
+         replaces="mxnet_tpu/ops/pallas_attention.py:259",
+         wrapper=f"{_FA}:flash_attention_bwd",
+         plain=f"{_FA}:flash_attention_bwd_reference"),
+    dict(name="flash_attention_bwd_dkv_mma", route="cuda", source=_FA_BWD,
+         replaces="mxnet_tpu/ops/pallas_attention.py:305",
+         wrapper=f"{_FA}:flash_attention_bwd",
+         plain=f"{_FA}:flash_attention_bwd_reference"),
+    dict(name="flash_attention_bwd_dkv_fp32", route="cuda", source=_FA_BWD,
          replaces="mxnet_tpu/ops/pallas_attention.py:305",
          wrapper=f"{_FA}:flash_attention_bwd",
          plain=f"{_FA}:flash_attention_bwd_reference"),
@@ -230,6 +258,59 @@ def cuda_ms(torch, fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def same_layout_copy(torch, t):
+    """A copy of ``t`` with its sizes, strides and storage offset (so its
+    alignment too), in storage of its own."""
+    extent = sum((n - 1) * st for n, st in zip(t.shape, t.stride())) + 1
+    buf = torch.empty(t.storage_offset() + extent, dtype=t.dtype,
+                      device=t.device)
+    c = buf.as_strided(t.shape, t.stride(), t.storage_offset())
+    c.copy_(t)
+    return c
+
+
+def cold_copies(torch, tensors):
+    """Copies of ``tensors`` (None entries kept), each one's layout kept
+    (:func:`same_layout_copy`): enough sets that the input bytes over all of
+    them exceed twice the L2, so that calls made on the sets in turn read
+    their inputs from HBM, as the bounds assume."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    n = min(64, max(2, -(-2 * L2_BYTES // nbytes) + 1))
+    return [tuple(None if t is None else same_layout_copy(torch, t)
+                  for t in tensors) for _ in range(n)]
+
+
+def device_ms(torch, fns, iters=20):
+    """Mean device time of one call in ms: the summed durations of every
+    kernel that ``iters`` calls launch, from ``torch.profiler``'s CUDA
+    events, after a warm-up. ``fns`` compute one function each on its own
+    set of :func:`cold_copies` and are called in turn, so that a call finds
+    its inputs in HBM, not in the L2. Host time between launches is not in
+    it, so the host cannot bound a short kernel's number; a library call's
+    autograd kernels are in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fns = list(fns)
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    # the profiler now and then returns a window without its device
+    # events (once in four runs of ~75 windows): that window is taken again
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+        say(f"device_ms: the profiler recorded no device activity "
+            f"(window {attempt + 1} of 3)")
+    fail("the profiler recorded no device activity in 3 windows")
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -255,19 +336,25 @@ def attention_bound(b, h, s, d, dtype_name, causal):
 
 
 def attention_bwd_bound(b, h, s, d, dtype_name, causal):
-    """``{"dq": (ms, bound_by), "dkv": (ms, bound_by)}``, the least time of
-    each backward kernel. dq reads q, k, v, dO, out and lse and writes dq
-    and delta; dk/dv reads q, k, v, dO, lse and delta and writes dk and dv:
-    six (B, H, S, D) tensors and two f32 rows each. Operations per live
-    (q, k) pair: 6*D for dq (three products, plus 2*D per row for delta)
-    and 8*D for dk/dv (four products)."""
+    """``{"dq": (ms, bound_by), "dkv": (ms, bound_by), "pair": ...}``, the
+    least time of each backward kernel and of the function the two compute
+    together. dq reads q, k, v, dO, out and lse and writes dq and delta;
+    dk/dv reads q, k, v, dO, lse and delta and writes dk and dv: six
+    (B, H, S, D) tensors and two f32 rows each. The pair's function (dq, dk
+    and dv from q, k, v, out, lse and dO) reads five tensors and lse and
+    writes three. Operations per live (q, k) pair: 6*D for dq (three
+    products), 8*D for dk/dv (four) and 10*D for the function (QK^T, dO V^T,
+    dS K, dS^T Q, P^T dO), plus 2*D per row for delta where it is
+    computed."""
     esize = 2 if dtype_name == "bfloat16" else 4
     n = b * h * s * d
-    nbytes = 6 * n * esize + 2 * 4 * b * h * s
-    pairs = s * (s + 1) // 2 if causal else s * s
+    rows = b * h * s
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     out = {}
-    for key, flops in (("dq", 6 * b * h * pairs * d + 2 * n),
-                       ("dkv", 8 * b * h * pairs * d)):
+    for key, nbytes, flops in (
+            ("dq", 6 * n * esize + 2 * 4 * rows, 6 * pairs * d + 2 * n),
+            ("dkv", 6 * n * esize + 2 * 4 * rows, 8 * pairs * d),
+            ("pair", 8 * n * esize + 4 * rows, 10 * pairs * d + 2 * n)):
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[dtype_name]
         out[key] = (1e3 * max(t_bytes, t_ops),
@@ -276,34 +363,70 @@ def attention_bwd_bound(b, h, s, d, dtype_name, causal):
 
 
 def attention_cases(torch):
-    # (label, B, H, S, D, dtype, causal, dropout_p); the first two are the
-    # main paths' calls (serving; training, with dropout): q, k, v are
-    # strided views of the fused QKV
+    # (label, B, H, S, D, dtype, causal, dropout_p, layout); the first two
+    # are the main paths' calls (serving; training, with dropout). layout:
+    # "fused", q, k, v strided views of one (B, S, 3, H, D) tensor as BERT
+    # calls it; "contiguous", three (B, H, S, D) tensors; "offset", three
+    # (B, H, S, D) views that start 2 bytes past 16 (the tensor-core
+    # kernels' narrow staging, as for D 36)
+    bf, f32 = torch.bfloat16, torch.float32
     return [
-        ("serve_bf16", 8, 12, 384, 64, torch.bfloat16, False, 0.0),
-        ("train_bf16_dropout", 8, 12, 384, 64, torch.bfloat16, False, 0.1),
-        ("serve_f32", 8, 12, 384, 64, torch.float32, False, 0.0),
-        ("ragged_s200", 8, 12, 200, 64, torch.float32, False, 0.0),
-        ("causal", 8, 12, 384, 64, torch.float32, True, 0.0),
-        ("dropout_0.1_seed7", 8, 12, 384, 64, torch.float32, False, 0.1),
-        ("d32", 8, 12, 384, 32, torch.float32, False, 0.0),
-        ("d128", 8, 12, 384, 128, torch.float32, False, 0.0),
-        ("d128_bf16_causal", 8, 12, 384, 128, torch.bfloat16, True, 0.0),
+        ("serve_bf16", 8, 12, 384, 64, bf, False, 0.0, "fused"),
+        ("train_bf16_dropout", 8, 12, 384, 64, bf, False, 0.1, "fused"),
+        ("serve_f32", 8, 12, 384, 64, f32, False, 0.0, "fused"),
+        ("ragged_s200", 8, 12, 200, 64, f32, False, 0.0, "fused"),
+        ("causal", 8, 12, 384, 64, f32, True, 0.0, "fused"),
+        ("dropout_0.1_seed7", 8, 12, 384, 64, f32, False, 0.1, "fused"),
+        ("d32", 8, 12, 384, 32, f32, False, 0.0, "fused"),
+        ("d128", 8, 12, 384, 128, f32, False, 0.0, "fused"),
+        ("d128_bf16_causal", 8, 12, 384, 128, bf, True, 0.0, "fused"),
+        ("ragged_s200_bf16", 8, 12, 200, 64, bf, False, 0.0, "fused"),
+        ("ragged_s37_bf16", 8, 12, 37, 64, bf, False, 0.0, "fused"),
+        ("causal_bf16", 8, 12, 384, 64, bf, True, 0.0, "fused"),
+        ("d32_bf16", 8, 12, 384, 32, bf, False, 0.0, "fused"),
+        ("contiguous_bf16", 8, 12, 384, 64, bf, False, 0.0, "contiguous"),
+        ("ragged_causal_dropout_bf16", 2, 12, 200, 64, bf, True, 0.1,
+         "fused"),
+        ("d36_bf16_unaligned", 2, 12, 200, 36, bf, False, 0.1, "fused"),
+        ("offset_bf16_unaligned", 2, 12, 384, 64, bf, True, 0.0, "offset"),
     ]
 
 
+def attention_inputs(torch, gen, b, h, s, d, dt, layout):
+    """q, k, v of one case on the card, in the case's layout."""
+    dev = torch.device("cuda", 0)
+    if layout == "fused":
+        qkv = torch.randn(b, s, 3, h, d, device=dev, generator=gen).to(dt)
+        return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+    if layout == "contiguous":
+        return tuple(torch.randn(b, h, s, d, device=dev, generator=gen)
+                     .to(dt) for _ in range(3))
+    n = b * h * s * d
+    flat = torch.randn(3 * n + 1, device=dev, generator=gen).to(dt)
+    return tuple(flat[1 + i * n:1 + (i + 1) * n].view(b, h, s, d)
+                 for i in range(3))
+
+
 def phase_kernels(torch, fa):
+    """The forward kernel (each variant by its dtype) against its plain
+    version at :func:`attention_cases`. Times: ``ms`` the kernel alone
+    (:func:`device_ms`), ``ms_host_issued`` back to back from the host
+    (:func:`cuda_ms`, this script's older method); SDPA the same two ways."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1234)
     rows = []
-    for label, b, h, s, d, dt, causal, p in attention_cases(torch):
-        qkv = torch.randn(b, s, 3, h, d, device=dev, generator=gen).to(dt)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    for label, b, h, s, d, dt, causal, p, layout in attention_cases(torch):
+        q, k, v = attention_inputs(torch, gen, b, h, s, d, dt, layout)
         seed = 7 if p else None
+        variant, aligned = fa.tensor_route(q, k, v)
+        counter = fa.VARIANT_LAUNCHES[fa.KERNEL][variant]
+        before = counter.value
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                           dropout_p=p, dropout_seed=seed)
+        check(counter.value == before + 1,
+              f"{label}: the {variant} variant did not launch")
         ref, ref_lse = fa.flash_attention_reference(
             q, k, v, causal=causal, dropout_p=p, dropout_seed=seed)
         torch.cuda.synchronize()
@@ -317,20 +440,35 @@ def phase_kernels(torch, fa):
         check(err <= tol and lse_err <= lse_tol,
               f"{label}: kernel disagrees with its plain version: out "
               f"{err:.3g} (tol {tol}), lse {lse_err:.3g} (tol {lse_tol})")
-        ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
-            q, k, v, causal=causal, dropout_p=p, dropout_seed=seed))
+
+        def kernel(q=q, k=k, v=v):
+            return fa.flash_attention_fwd(q, k, v, causal=causal, dropout_p=p,
+                                          dropout_seed=seed)
+
+        copies = cold_copies(torch, (q, k, v))
+        ms = device_ms(torch, [partial(kernel, *c) for c in copies])
+        ms_host = cuda_ms(torch, kernel)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_reference(
             q, k, v, causal=causal, dropout_p=p, dropout_seed=seed))
-        library_ms = None
+        library_ms = library_ms_host = None
         if not p:  # SDPA's dropout mask is another function
-            library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal))
+            def sdpa(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+
+            library_ms = device_ms(torch, [partial(sdpa, *c)
+                                           for c in copies])
+            library_ms_host = cuda_ms(torch, sdpa)
+        del copies
         dname = str(dt).replace("torch.", "")
         bound_ms, bound_by = attention_bound(b, h, s, d, dname, causal)
         row = dict(case=label, shape=[b, h, s, d], dtype=dname,
-                   causal=causal, dropout_p=p, max_abs_err=err,
+                   causal=causal, dropout_p=p, layout=layout,
+                   variant=variant, aligned=aligned, max_abs_err=err,
                    lse_max_abs_err=lse_err, tol=tol, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
+                   ms_host_issued=ms_host, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   library_ms_host_issued=library_ms_host,
                    bound_ms=bound_ms, bound_by=bound_by)
         say("kernel_case " + json.dumps(row))
         rows.append(row)
@@ -340,7 +478,7 @@ def phase_kernels(torch, fa):
 def phase_kernels_bwd(torch, fa):
     """The two backward kernels against the plain backward, at the shapes
     of :func:`attention_cases` (``train_bf16_dropout`` is the training
-    path's call)."""
+    path's call); times as in :func:`phase_kernels`."""
     import math
 
     import torch.nn.functional as F
@@ -348,9 +486,8 @@ def phase_kernels_bwd(torch, fa):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4321)
     rows = []
-    for label, b, h, s, d, dt, causal, p in attention_cases(torch):
-        qkv = torch.randn(b, s, 3, h, d, device=dev, generator=gen).to(dt)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    for label, b, h, s, d, dt, causal, p, layout in attention_cases(torch):
+        q, k, v = attention_inputs(torch, gen, b, h, s, d, dt, layout)
         # dO as autograd hands it: a transposed view of a (B, S, H*D) tensor
         do = torch.randn(b, s, h, d, device=dev,
                          generator=gen).to(dt).transpose(1, 2)
@@ -358,8 +495,14 @@ def phase_kernels_bwd(torch, fa):
         scale = 1.0 / math.sqrt(d)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                           dropout_p=p, dropout_seed=seed)
+        variant, aligned = fa.tensor_route(q, k, v, out, do)
+        counters = [fa.VARIANT_LAUNCHES[n][variant]
+                    for n in (fa.KERNEL_BWD_DQ, fa.KERNEL_BWD_DKV)]
+        before = [c.value for c in counters]
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                      dropout_p=p, dropout_seed=seed)
+        check([c.value - n for c, n in zip(counters, before)] == [1, 1],
+              f"bwd {label}: the {variant} variants did not launch")
         want = fa.flash_attention_bwd_reference(
             q, k, v, out, lse, do, causal=causal, dropout_p=p,
             dropout_seed=seed)
@@ -380,32 +523,134 @@ def phase_kernels_bwd(torch, fa):
               f"(tol {tol:.3g})")
         _, delta = fa.launch_bwd_dq(q, k, v, out, lse, do, causal, scale, p,
                                     seed)
-        dq_ms = cuda_ms(torch, lambda: fa.launch_bwd_dq(
-            q, k, v, out, lse, do, causal, scale, p, seed))
-        dkv_ms = cuda_ms(torch, lambda: fa.launch_bwd_dkv(
-            q, k, v, lse, delta, do, causal, scale, p, seed))
+
+        def dq_kernel(q=q, k=k, v=v, out=out, lse=lse, do=do):
+            return fa.launch_bwd_dq(q, k, v, out, lse, do, causal, scale, p,
+                                    seed)
+
+        def dkv_kernel(q=q, k=k, v=v, lse=lse, do=do, delta=delta):
+            return fa.launch_bwd_dkv(q, k, v, lse, delta, do, causal, scale,
+                                     p, seed)
+
+        copies = cold_copies(torch, (q, k, v, out, lse, do, delta))
+        dq_ms = device_ms(torch, [partial(dq_kernel, *c[:6])
+                                  for c in copies])
+        dkv_ms = device_ms(torch, [partial(dkv_kernel, *c[:3], *c[4:])
+                                   for c in copies])
+        dq_host, dkv_host = cuda_ms(torch, dq_kernel), cuda_ms(torch,
+                                                               dkv_kernel)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
             q, k, v, out, lse, do, causal=causal, dropout_p=p,
             dropout_seed=seed), iters=5)
-        library_ms = None
+        library_ms = library_host = None
         if not p:  # SDPA's dropout mask is another function
-            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-            o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
-            library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-                o, (ql, kl, vl), do, retain_graph=True))
+            def sdpa_bwd_of(q, k, v, do):
+                ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                o = F.scaled_dot_product_attention(ql, kl, vl,
+                                                   is_causal=causal)
+                return lambda: torch.autograd.grad(o, (ql, kl, vl), do,
+                                                   retain_graph=True)
+
+            library_ms = device_ms(torch, [sdpa_bwd_of(*c[:3], c[5])
+                                           for c in copies])
+            library_host = cuda_ms(torch, sdpa_bwd_of(q, k, v, do))
+        del copies
         dname = str(dt).replace("torch.", "")
         bound = attention_bwd_bound(b, h, s, d, dname, causal)
         row = dict(case=label, shape=[b, h, s, d], dtype=dname,
-                   causal=causal, dropout_p=p, dq_max_abs_err=errs[0],
+                   causal=causal, dropout_p=p, layout=layout,
+                   variant=variant, aligned=aligned, dq_max_abs_err=errs[0],
                    dkv_max_abs_err=max(errs[1:]), tol=tol, dq_ms=dq_ms,
-                   dkv_ms=dkv_ms, plain_ms_dq_dk_dv_together=plain_ms,
+                   dkv_ms=dkv_ms, dq_ms_host_issued=dq_host,
+                   dkv_ms_host_issued=dkv_host,
+                   plain_ms_dq_dk_dv_together=plain_ms,
                    library_ms_sdpa_backward_dq_dk_dv_together=library_ms,
+                   library_ms_host_issued=library_host,
                    dq_bound_ms=bound["dq"][0], dq_bound_by=bound["dq"][1],
                    dkv_bound_ms=bound["dkv"][0],
-                   dkv_bound_by=bound["dkv"][1])
+                   dkv_bound_by=bound["dkv"][1],
+                   pair_bound_ms=bound["pair"][0],
+                   pair_bound_by=bound["pair"][1])
         say("kernel_case_bwd " + json.dumps(row))
         rows.append(row)
     return rows
+
+
+def mask_probe(torch, fa, b, h, s, p, seed):
+    """Where each kernel applies the dropout mask, at S = D = ``s``, against
+    ``_dropout_keep``: ``(mismatches of out, dv, dq, kept share)``. With
+    q = k = 0 every score is 0 and P = 1/S, so with v = I out[i, j] > 0
+    exactly where the hash keeps (i, j), and with dO = I dv[j, i] > 0 there
+    too. With q = 0, k = I and v, dO one-hot in column 0, dP[i, j] =
+    keep / (1 - p) and delta[i] = kept share of row i / (1 - p), so
+    dq[i, j] = dS[i, j] > 0 exactly where the hash keeps (i, j); a row the
+    hash keeps whole has dS = 0 up to rounding and is left out of dq's
+    count."""
+    dev = torch.device("cuda", 0)
+    bf = torch.bfloat16
+    zero = torch.zeros(b, h, s, s, device=dev, dtype=bf)
+    eye = torch.eye(s, device=dev, dtype=bf).expand(b, h, s, s)
+    onehot = torch.zeros(b, h, s, s, device=dev, dtype=bf)
+    onehot[..., 0] = 1
+    kw = dict(dropout_p=p, dropout_seed=seed)
+    out, lse = fa.flash_attention_fwd(zero, zero, eye, **kw)
+    _, _, dv = fa.flash_attention_bwd(zero, zero, eye, out, lse, eye, **kw)
+    o1, lse1 = fa.flash_attention_fwd(zero, eye, onehot, **kw)
+    dq, _, _ = fa.flash_attention_bwd(zero, eye, onehot, o1, lse1, onehot,
+                                      **kw)
+    keep = fa._dropout_keep(
+        seed, torch.arange(b * h, device=dev).reshape(b, h, 1, 1),
+        torch.arange(s, device=dev).reshape(1, 1, s, 1),
+        torch.arange(s, device=dev).reshape(1, 1, 1, s), p)
+    torch.cuda.synchronize()
+    partial_rows = ~keep.all(dim=-1, keepdim=True)
+    bad = (int(((out.float() > 0) != keep).sum().item()),
+           int(((dv.float().transpose(2, 3) > 0) != keep).sum().item()),
+           int((((dq.float() > 0) != keep) & partial_rows).sum().item()))
+    return bad + (keep.float().mean().item(),)
+
+
+def phase_attention_probes(torch, fa):
+    """3b. Two checks of the tensor-core kernels that a tolerance cannot
+    make. The dropout mask of all three kernels, bit for bit
+    (:func:`mask_probe`), at S = D = 64 (the main paths' head dim and tile
+    configuration) and 128, so that a fragment-layout slip in the mask
+    cannot hide under 3e-2. Determinism: two runs of K5 (and of K4) on the
+    training call give bitwise-equal results."""
+    dev = torch.device("cuda", 0)
+    b, h, p, seed = 2, 3, 0.1, 7
+    probes = {}
+    for s in (64, 128):
+        out_bad, dv_bad, dq_bad, kept = mask_probe(torch, fa, b, h, s, p,
+                                                   seed)
+        say(f"mask probe ({b}, {h}, {s}, {s}) bf16 p {p} seed {seed}: kept "
+            f"{kept:.4f}; mismatches out {out_bad}, dv {dv_bad}, "
+            f"dq {dq_bad}")
+        check(out_bad == dv_bad == dq_bad == 0,
+              f"the kernels' dropout mask differs from _dropout_keep at "
+              f"S = D = {s}: out {out_bad}, dv {dv_bad}, dq {dq_bad} of "
+              f"{b * h * s * s} pairs")
+        check(0.85 < kept < 0.95, f"kept share {kept} for p = {p}")
+        probes[f"s{s}"] = dict(mask_out_mismatches=out_bad,
+                               mask_dv_mismatches=dv_bad,
+                               mask_dq_mismatches=dq_bad, kept_share=kept)
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    q, k, v = attention_inputs(torch, gen, 8, 12, 384, 64, torch.bfloat16,
+                               "fused")
+    do = torch.randn(8, 384, 12, 64, device=dev,
+                     generator=gen).to(torch.bfloat16).transpose(1, 2)
+    runs = []
+    for _ in range(2):
+        o, l = fa.flash_attention_fwd(q, k, v, dropout_p=p, dropout_seed=seed)
+        runs.append((o, l) + fa.flash_attention_bwd(
+            q, k, v, o, l, do, dropout_p=p, dropout_seed=seed))
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(x, y)) for x, y in zip(*runs)]
+    say(f"determinism (8, 12, 384, 64) bf16 dropout: out, lse, dq, dk, dv "
+        f"bitwise equal over two runs: {same}")
+    check(all(same), f"two runs differ: out, lse, dq, dk, dv {same}")
+    return dict(mask=probes, deterministic=all(same))
 
 
 def _ladder_operands(torch, dev, gen, shape, mp, n_state):
@@ -550,7 +795,7 @@ def phase_opt_sweep(torch, kopt, topt, dispatch, trainer):
     for i, p in enumerate(trainer._params):
         if p.grad_req == "null":
             continue
-        w, st = p.data().detach(), trainer._states[i]
+        w, st = p._tensor().detach(), trainer._states[i]
         mp = trainer.optimizer._is_mp_state(w, st)
         g = (torch.randn(w.shape, device=dev, generator=gen) * 0.01
              ).to(w.dtype)
@@ -758,12 +1003,16 @@ def phase_model_parity(torch, mt, bert, fa):
         net.initialize(device=where,
                        generator=torch.Generator().manual_seed(0))
         net.hybridize()
-        before = fa.LAUNCHES.value
+        fp32 = fa.VARIANT_LAUNCHES[fa.KERNEL]
+        before = (fa.LAUNCHES.value, fp32["fp32"].value, fp32["mma"].value)
         start, end = net.call_cached_graph(ids.to(where), seg.to(where))
         if where.type == "cuda":
             torch.cuda.synchronize()
-            check(fa.LAUNCHES.value - before == cfg["num_layers"],
-                  "the CUDA forward did not launch the kernel per layer")
+            after = (fa.LAUNCHES.value, fp32["fp32"].value, fp32["mma"].value)
+            n = cfg["num_layers"]
+            check([x - y for x, y in zip(after, before)] == [n, n, 0],
+                  "the CUDA forward did not launch the FP32 kernel once per "
+                  f"layer: launches, fp32, mma {after} from {before}")
         outs[where.type] = torch.stack([start, end]).float().cpu()
         del net
     err = (outs["cuda"] - outs["cpu"]).abs().max().item()
@@ -817,12 +1066,16 @@ def phase_serving(torch, mt, bert, serving, build, fa):
     check(not any(t.is_alive() for t in threads), "clients did not finish")
     eng.stop()
     launches = fa.LAUNCHES.value                 # read just after
+    variants = {v: c.value for v, c in fa.VARIANT_LAUNCHES[fa.KERNEL].items()}
     st = eng.stats()
     n_req = sum(len(r) for r in requests)
     check(st["requests"] == {"ok": n_req}, f"request outcomes {st}")
     check(st["recompiles_since_warmup"] == 0, "a served shape was new")
     check(launches == 12 * st["dispatches"] and launches > 0,
           f"kernel launches {launches} != 12 x {st['dispatches']} batches")
+    check(variants == {"mma": launches, "fp32": 0},
+          f"serving's attention variants {variants}: all {launches} must be "
+          "the tensor-core kernel's")
 
     # every result: finite, and the same as a direct forward of its rows
     # (bf16 GEMMs of another batch size may sum in another order: a pad or
@@ -845,7 +1098,7 @@ def phase_serving(torch, mt, bert, serving, build, fa):
                    avg_batch_rows=st["avg_batch_rows"],
                    p50_ms=st["p50_ms"], p99_ms=st["p99_ms"],
                    req_per_s=n_req / wall, wall_s=wall,
-                   kernel_launches=launches,
+                   kernel_launches=launches, variant_launches=variants,
                    max_abs_err_vs_direct=worst, card=card_line())
     say(f"serving: {json.dumps(summary)}")
     return summary
@@ -862,16 +1115,17 @@ def phase_train_parity(torch, mt, finetune, fa):
         net, trainer, step = finetune.build_bert_finetune(
             batch=2, seq=384, dropout=0.0, dtype="float32", device=where,
             seed=3, num_layers=2)
-        before = (fa.LAUNCHES.value, fa.LAUNCHES_BWD_DQ.value,
-                  fa.LAUNCHES_BWD_DKV.value)
+        counters = [fa.VARIANT_LAUNCHES[n][v]
+                    for n in (fa.KERNEL, fa.KERNEL_BWD_DQ, fa.KERNEL_BWD_DKV)
+                    for v in ("fp32", "mma")]
+        before = [c.value for c in counters]
         loss = step().cpu()
         if where.type == "cuda":
             torch.cuda.synchronize()
-            after = (fa.LAUNCHES.value, fa.LAUNCHES_BWD_DQ.value,
-                     fa.LAUNCHES_BWD_DKV.value)
-            check([a - b for a, b in zip(after, before)] == [2, 2, 2],
-                  "the CUDA step did not launch each attention kernel once "
-                  "per layer")
+            got = [c.value - b for c, b in zip(counters, before)]
+            check(got == [2, 0, 2, 0, 2, 0],
+                  "the CUDA step did not launch each FP32 attention kernel "
+                  f"once per layer (fp32, mma of K4, K5a, K5b: {got})")
         grads = {k: p.grad().float().cpu()
                  for k, p in net.collect_params().items()
                  if p.grad_req != "null"}
@@ -937,8 +1191,11 @@ def phase_training(torch, mt, finetune, build, fa, kopt, topt, dispatch):
 
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
-        check(launches[name] == 12 * TRAIN_STEPS,
-              f"{name}: {launches[name]} launches != 12 x {TRAIN_STEPS}")
+        check(launches[name] == launches[f"{name}_mma"] == 12 * TRAIN_STEPS
+              and launches[f"{name}_fp32"] == 0,
+              f"{name}: {launches[name]} launches, {launches[name + '_mma']}"
+              f" tensor-core, {launches[name + '_fp32']} FP32; want 12 x "
+              f"{TRAIN_STEPS} tensor-core")
     check(launches["opt_ladder"] == TRAIN_STEPS * n_train,
           f"opt_ladder: {launches['opt_ladder']} launches != {TRAIN_STEPS} x "
           f"{n_train} trainable parameters")
@@ -954,7 +1211,7 @@ def phase_training(torch, mt, finetune, build, fa, kopt, topt, dispatch):
     check(qkv.grad().float().abs().max().item() > 0,
           "no gradient reached layer 0's qkv.weight")
     for name, p in net.collect_params().items():
-        check(bool(torch.isfinite(p.data().float()).all()),
+        check(bool(torch.isfinite(p._tensor().float()).all()),
               f"non-finite parameter {name}")
     steady = sorted(secs)[len(secs) // 2]
     summary = dict(model="BERTForQA(bert_12_768_12)", dtype="bfloat16+f32 "
@@ -1044,7 +1301,7 @@ def phase_resnet_parity(torch, mt, train_resnet, vision, knorm):
         ps = net.collect_params()
         grads = {k: p.grad().float().cpu() for k, p in ps.items()
                  if p.grad_req != "null"}
-        stats = {k: p.data().float().cpu() for k, p in ps.items()
+        stats = {k: p._tensor().float().cpu() for k, p in ps.items()
                  if p.grad_req == "null"}
         res[where.type] = (loss, grads, stats)
         del net, trainer, step
@@ -1118,9 +1375,9 @@ def phase_resnet_training(torch, mt, train_resnet, build, knorm, kopt, topt,
     check(stem.grad().float().abs().max().item() > 0,
           "no gradient reached the stem")
     for name, p in ps.items():
-        check(bool(torch.isfinite(p.data().float()).all()),
+        check(bool(torch.isfinite(p._tensor().float()).all()),
               f"non-finite parameter {name}")
-    rm = ps["features.1.running_var"].data()
+    rm = ps["features.1.running_var"]._tensor()
     check(not torch.equal(rm, torch.ones_like(rm)),
           "the stem's running variance was never updated")
     steady = sorted(secs)[len(secs) // 2]
@@ -1193,12 +1450,12 @@ def phase_resnet_training(torch, mt, train_resnet, build, knorm, kopt, topt,
                 ((kps[k].grad() - ops[k].grad()).abs().max().item() / big,
                  k) for k in trainable)[-3:])
             st["param"].append(sorted(
-                ((kps[k].data() - p.data()).abs().max().item()
-                 / (1e-5 * kps[k].data().abs().max().item() + floor), k)
+                ((kps[k]._tensor() - p._tensor()).abs().max().item()
+                 / (1e-5 * kps[k]._tensor().abs().max().item() + floor), k)
                 for k, p in ops.items())[-3:])
             with torch.no_grad():
                 for k, p in ops.items():
-                    p.data().copy_(kps[k].data())
+                    p._tensor().copy_(kps[k]._tensor())
                 for ks, os_ in zip(ktr._states, otr._states):
                     for a, b in zip(kopt._leaves(ks), kopt._leaves(os_)):
                         b.copy_(a)
@@ -1422,7 +1679,7 @@ def phase_lenet_parity(torch, mt, vision, kopt):
         ps = net.collect_params()
         res.append((out.asnumpy(), loss.asnumpy(),
                     {k: p.grad().float().cpu() for k, p in ps.items()},
-                    {k: p.data().detach().float().cpu()
+                    {k: p._tensor().detach().float().cpu()
                      for k, p in ps.items()}))
     (co, cl, cg, cp), (po, pl, pg, pp) = res
 
@@ -1483,7 +1740,7 @@ def phase_lenet_training(torch, mt, train_lenet, build, dispatch):
                                 f"warm-up {warm}, counted {losses}")
     on_cpu = [name for name, t in
               [("x", x._data), ("y", y._data), ("loss", loss._data)]
-              + [(k, p.data()) for k, p in ps.items()]
+              + [(k, p._tensor()) for k, p in ps.items()]
               + [(k + ".grad", p.grad()) for k, p in ps.items()]
               if not t.is_cuda]
     check(on_cpu == [], f"tensors of the loop on the CPU: {on_cpu}")
@@ -1552,10 +1809,13 @@ def main():
     # 3-8
     cases = phase_kernels(torch, fa)
     bwd_cases = phase_kernels_bwd(torch, fa)
+    probes = phase_attention_probes(torch, fa)
     phase_kernels_opt(torch, kopt, topt, dispatch)
     bn = phase_kernels_bn(torch, knorm, dispatch)
+    build.reset_counters()  # the FP32 attention kernels' launches in 4
     phase_model_parity(torch, mt, bert, fa)
     phase_train_parity(torch, mt, finetune, fa)
+    f32_launches = {c.name: c.value for c in build.COUNTERS.values()}
     phase_resnet_parity(torch, mt, train_resnet, vision, knorm)
     serve = phase_serving(torch, mt, bert, serving, build, fa)
     train = phase_training(torch, mt, finetune, build, fa, kopt, topt,
@@ -1567,15 +1827,22 @@ def main():
     lenet_run = phase_lenet_training(torch, mt, train_lenet, build, dispatch)
 
     # 12. the kernels line, card, ok. Each row's case is the main paths'
-    # call: attention at (8, 12, 384, 64) bf16, the ladder as the sweep over
+    # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
+    # same shape in f32, with their launches from the f32 parity of phase
+    # 4: no main path runs them), the ladder as the sweep over
     # BERT-base's parameters, BatchNorm summed over ResNet-50's 53 sites at
-    # batch 256 (bf16, NHWC). The two backward kernels run as a pair and
-    # their plain version and the library call compute dq, dk and dv in
-    # one: both rows carry the PAIR's ms, plain_ms, library_ms and bound_ms
-    # (like beside like), and each kernel's own time and bound as own_ms
-    # and own_bound_ms. The pair is timed with dropout 0.1, as training
-    # runs it; the library (SDPA's backward through autograd, whose dropout
-    # mask is another function) at the same shape without dropout.
+    # batch 256 (bf16, NHWC). Attention's ms and library_ms are the kernel
+    # alone and SDPA by the same method (summed kernel events of the
+    # profiler); ms_host_issued are back-to-back CUDA-event times, the
+    # method of this script's earlier rows.
+    # The two backward kernels run as a pair and their plain version and the
+    # library call compute dq, dk and dv in one: both rows carry the PAIR's
+    # ms, plain_ms, library_ms and bound_ms (like beside like; the bound is
+    # the function's own, each input read and each output written once),
+    # and each kernel's own time and bound as own_ms and own_bound_ms. The pair is
+    # timed with dropout 0.1, as training runs it; the library (SDPA's
+    # backward through autograd, whose dropout mask is another function) at
+    # the same shape without dropout.
     # Launches: from the path that runs the kernel most (the ladder: the
     # ResNet-50 path's 161 x 5 launches). rtc (K7): the three user kernels
     # of phase 9 at their main-path shapes, each timed alone; the row
@@ -1583,33 +1850,57 @@ def main():
     # against its own tolerance), and "cases" each kernel's own numbers.
     by_label = {r["case"]: r for r in cases}
     bwd_by_label = {r["case"]: r for r in bwd_cases}
-    fwd, sweep = by_label["serve_bf16"], train["opt_sweep"]
-    bwd = bwd_by_label["train_bf16_dropout"]
-    bwd_nodrop = bwd_by_label["serve_bf16"]
-    check(bwd["shape"] == bwd_nodrop["shape"]
-          and bwd["dtype"] == bwd_nodrop["dtype"], "backward rows' shapes")
-    pair = dict(
-        ms=bwd["dq_ms"] + bwd["dkv_ms"],
-        plain_ms=bwd["plain_ms_dq_dk_dv_together"],
-        library_ms=bwd_nodrop["library_ms_sdpa_backward_dq_dk_dv_together"],
-        bound_ms=bwd["dq_bound_ms"] + bwd["dkv_bound_ms"],
-        times_cover="dq and dk/dv kernels together; own_ms is this kernel's",
-        library_case="same shape, dropout 0")
-    measured = {
-        "flash_attention_fwd": dict(
-            launches=max(serve["kernel_launches"],
-                         train["launches"]["flash_attention_fwd"]),
+    sweep = train["opt_sweep"]
+    measured = {}
+    for variant, fwd_case, bwd_case, bwd_lib_case in (
+            ("mma", "serve_bf16", "train_bf16_dropout", "serve_bf16"),
+            ("fp32", "serve_f32", "dropout_0.1_seed7", "serve_f32")):
+        fwd, bwd = by_label[fwd_case], bwd_by_label[bwd_case]
+        bwd_nodrop = bwd_by_label[bwd_lib_case]
+        check(bwd["shape"] == bwd_nodrop["shape"] == fwd["shape"]
+              and bwd["dtype"] == bwd_nodrop["dtype"] == fwd["dtype"]
+              and fwd["variant"] == bwd["variant"] == variant,
+              "attention rows' shapes and variants")
+        if variant == "mma":
+            fwd_launches = max(serve["variant_launches"]["mma"],
+                               train["launches"]["flash_attention_fwd_mma"])
+            bwd_launches = {n: train["launches"][f"{n}_mma"] for n in (
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+            seen = "main paths: serving (phase 5), training (phase 6)"
+        else:
+            fwd_launches = f32_launches["flash_attention_fwd_fp32"]
+            bwd_launches = {n: f32_launches[f"{n}_fp32"] for n in (
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+            seen = "f32 parity phase 4 (no main path runs float32)"
+        pair = dict(
+            ms=bwd["dq_ms"] + bwd["dkv_ms"],
+            ms_host_issued=bwd["dq_ms_host_issued"]
+            + bwd["dkv_ms_host_issued"],
+            plain_ms=bwd["plain_ms_dq_dk_dv_together"],
+            library_ms=bwd_nodrop[
+                "library_ms_sdpa_backward_dq_dk_dv_together"],
+            library_ms_host_issued=bwd_nodrop["library_ms_host_issued"],
+            bound_ms=bwd["pair_bound_ms"], bound_by=bwd["pair_bound_by"],
+            times_cover="dq and dk/dv kernels together; own_ms is this "
+                        "kernel's", library_case="same shape, dropout 0",
+            launches_from=seen)
+        measured[f"flash_attention_fwd_{variant}"] = dict(
+            launches=fwd_launches, launches_from=seen,
             max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
-            plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
-            bound_by=fwd["bound_by"], library_ms=fwd["library_ms"]),
-        "flash_attention_bwd_dq": dict(
-            launches=train["launches"]["flash_attention_bwd_dq"],
-            max_abs_err=bwd["dq_max_abs_err"], bound_by=bwd["dq_bound_by"],
-            own_ms=bwd["dq_ms"], own_bound_ms=bwd["dq_bound_ms"], **pair),
-        "flash_attention_bwd_dkv": dict(
-            launches=train["launches"]["flash_attention_bwd_dkv"],
-            max_abs_err=bwd["dkv_max_abs_err"], bound_by=bwd["dkv_bound_by"],
-            own_ms=bwd["dkv_ms"], own_bound_ms=bwd["dkv_bound_ms"], **pair),
+            ms_host_issued=fwd["ms_host_issued"], plain_ms=fwd["plain_ms"],
+            bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"],
+            library_ms=fwd["library_ms"],
+            library_ms_host_issued=fwd["library_ms_host_issued"])
+        for name, key in (("flash_attention_bwd_dq", "dq"),
+                          ("flash_attention_bwd_dkv", "dkv")):
+            measured[f"{name}_{variant}"] = dict(
+                launches=bwd_launches[name],
+                max_abs_err=bwd[f"{key}_max_abs_err"], own_ms=bwd[f"{key}_ms"],
+                own_ms_host_issued=bwd[f"{key}_ms_host_issued"],
+                own_bound_ms=bwd[f"{key}_bound_ms"],
+                own_bound_by=bwd[f"{key}_bound_by"], **pair)
+    measured["flash_attention_fwd_mma"]["probes"] = probes
+    measured.update({
         "opt_ladder": dict(
             launches=max(train["launches"]["opt_ladder"],
                          resnet["launches"]["opt_ladder"]),
@@ -1617,7 +1908,7 @@ def main():
             plain_ms=sweep["plain_ms"], bound_ms=sweep["bound_ms"],
             bound_by=sweep["bound_by"], library_ms=None,
             lenet_launches=lenet_run["launches"]["opt_ladder"]),
-    }
+    })
     rc = rtc_run["cases"]
     measured["rtc"] = dict(
         launches=rtc_run["main_path_launches"],

@@ -9,7 +9,8 @@ name (``convert.load_jax_params``).
 unwrapped, the children see tensors, and the outputs come back as NDArrays
 when any argument was one, so ``net(mx.np.array(...))`` returns an NDArray
 whose ``backward()`` reaches the parameters. Raw tensors in give raw tensors
-out. ``Parameter.data()`` stays a tensor (an NDArray in the JAX package).
+out. ``Parameter.data()`` is an NDArray over the parameter's tensor, as in
+the JAX package.
 
 PyTorch runs eagerly, so ``hybridize()`` compiles nothing: it marks the
 block as the serving boundary. ``jit_trace_count()`` counts the input

@@ -219,8 +219,8 @@ class BERTModel(HybridBlock):
                 tuple(masked_positions.shape) + (1,))
             picked = torch.take_along_dim(seq, idx, dim=1)
             h = self.decoder_norm(self.decoder_transform(picked))
-            logits = (torch.matmul(h, self.word_embed.weight.data().T)
-                      + self.decoder_bias.data())
+            logits = (torch.matmul(h, self.word_embed.weight._tensor().T)
+                      + self.decoder_bias._tensor())
             outputs.append(logits)
         return outputs[0] if len(outputs) == 1 else tuple(outputs)
 

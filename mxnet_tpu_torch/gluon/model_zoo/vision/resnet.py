@@ -54,7 +54,7 @@ class SpaceToDepthStem(HybridBlock):
         if self.weight._is_deferred:
             self.weight._finish_deferred_init(
                 (self._channels, 7, 7, x.shape[-1]))
-        w = self.weight.data()
+        w = self.weight._tensor()
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
         n, h, wd, c = x.shape

@@ -76,8 +76,8 @@ class Dense(HybridBlock):
         if self.bias is not None and self.bias._is_deferred:
             self.bias._finish_deferred_init((self._units,))
         out = _nn.fully_connected(
-            x, self.weight.data(),
-            self.bias.data() if self.bias is not None else None,
+            x, self.weight._tensor(),
+            self.bias._tensor() if self.bias is not None else None,
             flatten=self._flatten)
         if self._activation is not None:
             out = _nn.activation(out, self._activation)
@@ -136,7 +136,7 @@ class LayerNorm(HybridBlock):
         for p in (self.gamma, self.beta):
             if p._is_deferred:
                 p._finish_deferred_init((c,))
-        return _nn.layer_norm(x, self.gamma.data(), self.beta.data(),
+        return _nn.layer_norm(x, self.gamma._tensor(), self.beta._tensor(),
                               axis=self._axis, eps=self._epsilon)
 
 
@@ -152,7 +152,7 @@ class Embedding(HybridBlock):
                                 dtype=dtype, init=weight_initializer)
 
     def forward(self, x):
-        return _nn.embedding(x, self.weight.data())
+        return _nn.embedding(x, self.weight._tensor())
 
     def extra_repr(self):
         return f"{self._input_dim} -> {self._output_dim}"
@@ -202,13 +202,13 @@ class BatchNorm(HybridBlock):
         for p in (self.gamma, self.beta, self.running_mean, self.running_var):
             if p._is_deferred:
                 p._finish_deferred_init((c,))
-        gamma = self.gamma.data()
+        gamma = self.gamma._tensor()
         if not self._scale:
             gamma = torch.ones_like(gamma)
-        rmean, rvar = self.running_mean.data(), self.running_var.data()
+        rmean, rvar = self.running_mean._tensor(), self.running_var._tensor()
         training = _ag.is_training() and not self._use_global_stats
         out, new_mean, new_var = _nn.batch_norm(
-            x, gamma, self.beta.data(), rmean, rvar, eps=self._epsilon,
+            x, gamma, self.beta._tensor(), rmean, rvar, eps=self._epsilon,
             momentum=self._momentum, training=training,
             use_global_stats=self._use_global_stats, axis=self._axis)
         if training:

@@ -57,8 +57,8 @@ class _Conv(HybridBlock):
         if self.weight._is_deferred:
             c_in = x.shape[-1 if self._channels_last else 1]
             self.weight._finish_deferred_init(self._weight_shape(c_in))
-        out = _nn.conv(x, self.weight.data(),
-                       self.bias.data() if self.bias is not None else None,
+        out = _nn.conv(x, self.weight._tensor(),
+                       self.bias._tensor() if self.bias is not None else None,
                        stride=self._strides, pad=self._padding,
                        dilate=self._dilation, groups=self._groups,
                        layout=self._layout)

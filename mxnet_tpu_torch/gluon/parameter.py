@@ -4,7 +4,10 @@ mxnet_tpu/gluon/parameter.py).
 Keeps the JAX package's surface: ``shape``, ``dtype``, ``init``, deferred
 initialization for unknown dims (``in_units=0``) completed by the layer's
 first forward, ``data()`` and ``set_data()``. The value is a
-``torch.nn.Parameter`` on one device; every Block that holds the Parameter
+``torch.nn.Parameter`` on one device. ``data()`` returns an NDArray over
+that tensor, as the JAX package returns its NDArray; the port's own layers,
+trainer and converters read the tensor through ``_tensor()``. Every Block
+that holds the Parameter
 also exposes that tensor to ``nn.Module`` under the same attribute name, so
 ``named_parameters()`` gives the dotted keys ``collect_params()`` gives.
 
@@ -21,8 +24,22 @@ import torch
 
 from .. import initializer as init_mod
 from ..base import DeferredInitializationError, normalize_dtype
+from ..ndarray.ndarray import NDArray
 
 __all__ = ["Parameter"]
+
+
+class _ParameterArray(NDArray):
+    """The NDArray ``Parameter.data()`` returns: an in-place write copies
+    into the parameter's tensor instead of swapping the handle, so the
+    parameter holds what was written."""
+
+    __slots__ = ()
+
+    def _assign(self, data):
+        with torch.no_grad():
+            self._data.copy_(data)
+        self._version += 1
 
 
 def _shape_known(shape):
@@ -155,7 +172,15 @@ class Parameter:
 
     # -- data access -------------------------------------------------------
     def data(self):
-        """The value, a ``torch.nn.Parameter``."""
+        """The value as an NDArray over the parameter's own storage
+        (mxnet_tpu/gluon/parameter.py:253): it reads the current value, a
+        write through it (``p.data()[:] = x``) lands in the parameter, and
+        a computation recorded on it sends its gradient to :meth:`grad`."""
+        return _ParameterArray(self._tensor())
+
+    def _tensor(self):
+        """The value, a ``torch.nn.Parameter``: what the port's layers,
+        trainer and converters read."""
         if self._var is None:
             if self._deferred is not None:
                 raise DeferredInitializationError(
@@ -227,7 +252,8 @@ class Parameter:
             raise RuntimeError(
                 f"Parameter {self.name} has grad_req='null'")
         if self._grad is None:
-            self._grad = torch.zeros_like(self.data(), requires_grad=False)
+            self._grad = torch.zeros_like(self._tensor(),
+                                          requires_grad=False)
         return self._grad
 
     def list_grad(self):

@@ -109,7 +109,7 @@ class Trainer:
             fresh = self._grad_versions.get(i) != p._grad_version
             if ignore_stale_grad and not fresh:
                 continue
-            w = p.data()
+            w = p._tensor()
             self._ensure_states(i, w)
             f_idx.append(i)
             f_w.append(w)

@@ -401,6 +401,15 @@ class NDArray:
                 else apply_op(fn, self, other)
         if isinstance(other, _np.ndarray):
             other = _host_to_tensor(other, None, self.device)
+        if isinstance(other, float) and not (
+                self._data.dtype.is_floating_point
+                or self._data.dtype.is_complex):
+            # an integer or bool array with a Python float computes in
+            # float64, as the JAX package does with 64-bit types on (its
+            # weak-typed float takes the default float dtype)
+            if reverse:
+                return apply_op(lambda x: fn(other, x.double()), self)
+            return apply_op(lambda x: fn(x.double(), other), self)
         if reverse:
             return apply_op(lambda x: fn(other, x), self)
         return apply_op(lambda x: fn(x, other), self)

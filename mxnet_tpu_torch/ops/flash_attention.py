@@ -12,10 +12,17 @@ its kernels' arithmetic with one tile spanning the whole row.
 :func:`flash_attention` joins forward and backward in a
 ``torch.autograd.Function``, as ``_flash`` does with ``jax.custom_vjp``.
 
-Which one runs is decided by the tensors' device alone, in the backward as
-in the forward: CPU tensors take the plain version, CUDA tensors launch the
-kernel or raise. There is no fallback from a kernel to its plain version
-and no option that selects it.
+Which one runs is decided by the tensors' device and dtype alone
+(:func:`kernel_route`), in the backward as in the forward: CPU tensors take
+the plain version; CUDA bfloat16 tensors launch the tensor-core kernels
+(``mma``: mma.sync, ldmatrix, cp.async) or raise; CUDA float32 tensors
+launch the FP32 kernels (``fp32``: FP32 FMAs, since TF32 would keep about
+three digits, above the float32 tolerance). Both variants live in the same
+sources behind the same C entry points, which choose them by the dtype
+argument. There is no fallback from a kernel to its plain version or from
+one variant to the other, and no option that selects one. The tensor-core
+kernels stage their tiles with 16-byte or 2-byte copies by a rule of the C
+launchers; :func:`tensor_route` asks the library which a call takes.
 """
 from __future__ import annotations
 
@@ -28,11 +35,13 @@ from ..kernels import build as _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_reference", "flash_attention_bwd_reference",
-           "launch_bwd_dq", "launch_bwd_dkv", "LAUNCHES", "LAUNCHES_BWD_DQ",
-           "LAUNCHES_BWD_DKV"]
+           "launch_bwd_dq", "launch_bwd_dkv", "kernel_route", "tensor_route",
+           "VARIANTS", "LAUNCHES", "LAUNCHES_BWD_DQ", "LAUNCHES_BWD_DKV",
+           "VARIANT_LAUNCHES"]
 
 KERNEL = "flash_attention_fwd"
-#: launches of the CUDA kernel (plain-version calls are not counted)
+#: launches of the CUDA kernel, both variants (plain-version calls are not
+#: counted)
 LAUNCHES = _build.counter(KERNEL)
 #: the backward's source, and one launch counter per kernel in it
 KERNEL_BWD = "flash_attention_bwd"
@@ -40,6 +49,15 @@ KERNEL_BWD_DQ = "flash_attention_bwd_dq"
 KERNEL_BWD_DKV = "flash_attention_bwd_dkv"
 LAUNCHES_BWD_DQ = _build.counter(KERNEL_BWD_DQ)
 LAUNCHES_BWD_DKV = _build.counter(KERNEL_BWD_DKV)
+#: the kernel variant a CUDA tensor of each dtype launches
+VARIANTS = {torch.bfloat16: "mma", torch.float32: "fp32"}
+#: {kernel: {variant: counter}}: each launch also counts under its variant,
+#: as "<kernel>_mma" or "<kernel>_fp32"
+VARIANT_LAUNCHES = {
+    k: {v: _build.counter(f"{k}_{v}") for v in VARIANTS.values()}
+    for k in (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV)}
+_TOTALS = {KERNEL: LAUNCHES, KERNEL_BWD_DQ: LAUNCHES_BWD_DQ,
+           KERNEL_BWD_DKV: LAUNCHES_BWD_DKV}
 MAX_HEAD_DIM = 128
 
 _H1 = 0x9E3779B1
@@ -139,19 +157,71 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.mxtpu_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mxtpu_cuda_error_string.restype = ctypes.c_char_p
+        lib.mxtpu_flash_attention_tiles_aligned.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int]
+        lib.mxtpu_flash_attention_tiles_aligned.restype = ctypes.c_int
     return lib
 
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check_kernel_takes(q, k, v):
-    """Raise for CUDA inputs the kernels (forward and backward alike) do
-    not take, so that a recorded forward never fails later, in backward."""
-    b, h, _, d = q.shape
-    if q.dtype not in _KERNEL_DTYPES:
+def kernel_route(dtype, device_type):
+    """Which version of the attention kernels a call takes, from its
+    operands' dtype and device type; :func:`flash_attention_fwd` and
+    :func:`flash_attention_bwd` dispatch on its answer.
+
+    ``"plain"`` for CPU tensors (the plain version), ``"mma"`` for CUDA
+    bfloat16 (the tensor-core kernels), ``"fp32"`` for CUDA float32 (the
+    FP32 kernels); another device type or CUDA dtype raises. A pure
+    function of its arguments."""
+    if device_type == "cpu":
+        return "plain"
+    if device_type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda tensors, "
+                         f"got {device_type}")
+    variant = VARIANTS.get(dtype)
+    if variant is None:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+                        f"got {dtype}")
+    return variant
+
+
+def tensor_route(*tensors):
+    """``(variant, aligned)`` of a call's operands (None entries skipped):
+    :func:`kernel_route` of the first one's dtype and device, and for the
+    tensor-core variant how its launcher stages their tiles (True: 16-byte
+    cp.async copies; False: 2-byte loads in the same kernel; None for the
+    other variants). ``aligned`` is the launchers' own rule
+    (``tiles_aligned`` in csrc/flash_attention_common.cuh), asked of the
+    built library with every operand's address and (batch, head, seq)
+    strides; the outputs the wrapper allocates never change its answer."""
+    ts = [t for t in tensors if t is not None]
+    variant = kernel_route(ts[0].dtype, ts[0].device.type)
+    if variant != "mma":
+        return variant, None
+    ptrs = (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+    strides = (ctypes.c_longlong * (3 * len(ts)))(
+        *(n for t in ts for n in t.stride()[:3]))
+    return variant, bool(_lib().mxtpu_flash_attention_tiles_aligned(
+        ptrs, strides, len(ts), ts[0].shape[-1]))
+
+
+def _count(kernel, variant):
+    _TOTALS[kernel].add()
+    VARIANT_LAUNCHES[kernel][variant].add()
+
+
+def _check_kernel_takes(q, k, v):
+    """The variant (:func:`kernel_route`) that q, k, v launch. Raises for
+    inputs the kernels (forward and backward alike) do not take, so that a
+    recorded forward never fails later, in backward."""
+    variant = kernel_route(q.dtype, q.device.type)
+    if variant == "plain":
+        raise ValueError("the attention kernels take CUDA tensors; CPU "
+                         "tensors take the plain version")
+    b, h, _, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes head dim <= "
                          f"{MAX_HEAD_DIM}, got {d}")
@@ -161,6 +231,7 @@ def _check_kernel_takes(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in its head dim")
+    return variant
 
 
 def _empty_bshd(b, h, s, d, like):
@@ -172,7 +243,7 @@ def _empty_bshd(b, h, s, d, like):
 
 def _launch(q, k, v, causal, scale, dropout_p, dropout_seed):
     b, h, s, d = q.shape
-    _check_kernel_takes(q, k, v)
+    variant = _check_kernel_takes(q, k, v)
     out = _empty_bshd(b, h, s, d, q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
@@ -191,7 +262,7 @@ def _launch(q, k, v, causal, scale, dropout_p, dropout_seed):
         raise RuntimeError(
             "flash_attention kernel launch failed: "
             + lib.mxtpu_cuda_error_string(err).decode())
-    LAUNCHES.add()
+    _count(KERNEL, variant)
     return out, lse
 
 
@@ -204,12 +275,9 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, dropout_p=0.0,
     _check_args(q, k, v, dropout_p, dropout_seed)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
-    if q.device.type == "cpu":
+    if kernel_route(q.dtype, q.device.type) == "plain":
         return flash_attention_reference(q, k, v, causal, scale, dropout_p,
                                          dropout_seed)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda tensors, "
-                         f"got {q.device}")
     return _launch(q, k, v, causal, scale, dropout_p, dropout_seed)
 
 
@@ -288,12 +356,13 @@ def _bwd_tail(q, tensors, causal, scale, dropout_p, dropout_seed):
 
 
 def _check_bwd_takes(q, k, v, out, lse, dout):
-    _check_kernel_takes(q, k, v)
+    variant = _check_kernel_takes(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if t is not None and t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in its head dim")
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous float32 (B, H, S) tensor")
+    return variant
 
 
 def launch_bwd_dq(q, k, v, out, lse, dout, causal, scale, dropout_p,
@@ -301,7 +370,7 @@ def launch_bwd_dq(q, k, v, out, lse, dout, causal, scale, dropout_p,
     """Launch the dQ kernel on CUDA tensors: ``(dq, delta)``. It also
     computes delta = rowsum(dO * O), which the dK/dV kernel reads."""
     b, h, s, d = q.shape
-    _check_bwd_takes(q, k, v, out, lse, dout)
+    variant = _check_bwd_takes(q, k, v, out, lse, dout)
     delta = torch.empty_like(lse)
     dq = _empty_bshd(b, h, s, d, q)
     tail = _bwd_tail(q, (q, k, v, out, dout, dq, None, None), causal, scale,
@@ -316,7 +385,7 @@ def launch_bwd_dq(q, k, v, out, lse, dout, causal, scale, dropout_p,
     if err:
         raise RuntimeError("flash_attention dq kernel launch failed: "
                            + lib.mxtpu_cuda_error_string(err).decode())
-    LAUNCHES_BWD_DQ.add()
+    _count(KERNEL_BWD_DQ, variant)
     return dq, delta
 
 
@@ -325,7 +394,7 @@ def launch_bwd_dkv(q, k, v, lse, delta, dout, causal, scale, dropout_p,
     """Launch the dK/dV kernel on CUDA tensors: ``(dk, dv)``. ``delta`` is
     what :func:`launch_bwd_dq` returned for the same inputs."""
     b, h, s, d = q.shape
-    _check_bwd_takes(q, k, v, None, lse, dout)
+    variant = _check_bwd_takes(q, k, v, None, lse, dout)
     dk = _empty_bshd(b, h, s, d, q)
     dv = _empty_bshd(b, h, s, d, q)
     tail = _bwd_tail(q, (q, k, v, None, dout, None, dk, dv), causal, scale,
@@ -339,7 +408,7 @@ def launch_bwd_dkv(q, k, v, lse, delta, dout, causal, scale, dropout_p,
     if err:
         raise RuntimeError("flash_attention dk/dv kernel launch failed: "
                            + lib.mxtpu_cuda_error_string(err).decode())
-    LAUNCHES_BWD_DKV.add()
+    _count(KERNEL_BWD_DKV, variant)
     return dk, dv
 
 
@@ -367,12 +436,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     _check_args(q, k, v, dropout_p, dropout_seed)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
-    if q.device.type == "cpu":
+    if kernel_route(q.dtype, q.device.type) == "plain":
         return flash_attention_bwd_reference(
             q, k, v, out, lse, dout, causal, scale, dropout_p, dropout_seed)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda tensors, "
-                         f"got {q.device}")
     return _launch_bwd(q, k, v, out, lse, dout, causal, scale, dropout_p,
                        dropout_seed)
 

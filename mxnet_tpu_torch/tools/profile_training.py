@@ -44,9 +44,12 @@ from .train_resnet import build_resnet_train
 
 #: device-kernel name fragments -> group
 GROUPS = (
-    ("flash_fwd_kernel", "K4 flash_attention_fwd"),
-    ("flash_bwd_dq_kernel", "K5a flash_attention_bwd_dq"),
-    ("flash_bwd_dkv_kernel", "K5b flash_attention_bwd_dkv"),
+    ("flash_fwd_mma_kernel", "K4 flash_attention_fwd"),
+    ("flash_bwd_dq_mma_kernel", "K5a flash_attention_bwd_dq"),
+    ("flash_bwd_dkv_mma_kernel", "K5b flash_attention_bwd_dkv"),
+    ("flash_fwd_kernel", "K4 flash_attention_fwd (fp32)"),
+    ("flash_bwd_dq_kernel", "K5a flash_attention_bwd_dq (fp32)"),
+    ("flash_bwd_dkv_kernel", "K5b flash_attention_bwd_dkv (fp32)"),
     ("opt_ladder_kernel", "K3 opt_ladder"),
     ("bn_fwd_", "K1 bn_train_fwd"), ("bn_bwd_", "K2 bn_train_bwd"),
     ("fprop", "library convolutions"), ("dgrad", "library convolutions"),

@@ -199,7 +199,7 @@ def test_batchnorm_layer_moving_stats_gradients_and_inference():
                                 atol=1e-5, rtol=1e-5)
     for name, p in tbn.collect_params().items():
         jp = jbn.collect_params()[name]
-        onp.testing.assert_allclose(p.data().detach().numpy(),
+        onp.testing.assert_allclose(p._tensor().detach().numpy(),
                                     jp.data().asnumpy(), atol=1e-5,
                                     rtol=1e-5, err_msg=name)
         if p.grad_req != "null":

@@ -103,8 +103,8 @@ def test_bf16_weights_carry_across_bit_for_bit():
     tnet.initialize(device=cpu())
     load_jax_params(tnet, params)
     got = tnet.collect_params()["encoder.layers.0.attention.qkv.weight"]
-    assert got.data().dtype == torch.bfloat16
-    assert (got.data().detach().view(torch.int16).numpy()
+    assert got._tensor().dtype == torch.bfloat16
+    assert (got._tensor().detach().view(torch.int16).numpy()
             == w.view(onp.int16)).all()
     # the bit view agrees with the value jnp itself gives in f32
     onp.testing.assert_array_equal(

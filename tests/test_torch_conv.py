@@ -121,7 +121,7 @@ def test_space_to_depth_stem_matches_7x7_conv_and_reference():
     load_jax_params(tstem, {"weight": jstem.weight.data().asnumpy()})
     got = tstem(torch.from_numpy(x))
     onp.testing.assert_allclose(got.numpy(), want, **TOL)
-    direct = tnn.conv(torch.from_numpy(x), tstem.weight.data().detach(),
+    direct = tnn.conv(torch.from_numpy(x), tstem.weight._tensor().detach(),
                       stride=2, pad=3, layout="NHWC")
     assert got.shape == direct.shape == (2, 8, 6, 8)
     onp.testing.assert_allclose(got.numpy(), direct.numpy(), **TOL)

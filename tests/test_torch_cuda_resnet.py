@@ -120,7 +120,7 @@ def test_cuda_resnet_step_launches_and_matches_cpu(cuda_device):
         dispatch.reset_counts()
         loss = step().cpu()
         launches = {c.name: c.value for c in build.COUNTERS.values()}
-        params = {k: p.data().detach().float().cpu()
+        params = {k: p._tensor().detach().float().cpu()
                   for k, p in net.collect_params().items()}
         grads = {k: p.grad().float().cpu()
                  for k, p in net.collect_params().items()

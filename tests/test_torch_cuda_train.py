@@ -160,7 +160,7 @@ def _check_trainer_step(cuda_device):
                 p._grad = g.to(p.dtype).to(dev)
                 p._grad_version += 1
             tr.step(4)
-        return [p.data().detach().float().cpu() for p in params.values()]
+        return [p._tensor().detach().float().cpu() for p in params.values()]
 
     dispatch.reset_counts()
     before = kopt.LAUNCHES.value

@@ -87,7 +87,7 @@ def test_three_imperative_sgd_momentum_steps_match_the_jax_package():
         for k in jps:
             _close(tps[k].grad().numpy(), jps[k].grad().asnumpy(),
                    f"step {step} grad {k}")
-            _close(tps[k].data().detach().numpy(), jps[k].data().asnumpy(),
+            _close(tps[k]._tensor().detach().numpy(), jps[k].data().asnumpy(),
                    f"step {step} param {k}")
         losses.append(float(tl.mean()))
     assert losses[-1] < losses[0]

@@ -180,7 +180,7 @@ def _run_updates(jps, tps, jtr, ttr, r, steps=3):
         ttr.step(4)
         for i, name in enumerate(sorted(jps)):
             what = f"step {step} {name}"
-            assert_leaves_close(tps[name].data(), jps[name].data()._data,
+            assert_leaves_close(tps[name]._tensor(), jps[name].data()._data,
                                 what, **FUSED_TOL)
             jst = jtr._states[i]
             jst = jax.tree_util.tree_map(
@@ -234,7 +234,7 @@ def test_per_parameter_loop_matches_the_fused_path():
                     r.standard_normal(tp.shape).astype("f")).to(tp.dtype)
                 tp._grad_version += 1
             ttr.step(2)
-        return [tp.data().detach().clone() for tp in tps.values()]
+        return [tp._tensor().detach().clone() for tp in tps.values()]
 
     for a, b in zip(run(topt.NAG), run(LoopNAG)):
         assert torch.equal(a, b)

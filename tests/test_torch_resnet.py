@@ -125,7 +125,7 @@ def test_narrow_resnet_training_matches_jax(version, layout, steps):
                 # a parameter that starts at 0 (beta) is lr times its
                 # gradients: held to 1e-4 of the largest gradient's step too
                 onp.testing.assert_allclose(
-                    p.data().detach().numpy(), jp[k], rtol=1e-4,
+                    p._tensor().detach().numpy(), jp[k], rtol=1e-4,
                     atol=max(1e-4 * onp.abs(jp[k]).max(),
                              1e-4 * OPT["learning_rate"] * steps * big),
                     err_msg=k)
@@ -156,7 +156,7 @@ def test_resnet50_v1_nhwc_parameters_match_jax():
         k: tuple(p.shape) for k, p in jp.items()}
     assert tnet.trainable_param_names() == jnet.trainable_param_names()
     assert len(tnet.trainable_param_names()) == 161
-    assert sum(p.data().numel() for k, p in tp.items()
+    assert sum(p._tensor().numel() for k, p in tp.items()
                if p.grad_req != "null") == 25_557_032
     assert sum(p.grad_req == "null" for p in tp.values()) == 106
 
@@ -172,7 +172,7 @@ def test_bf16_mixed_precision_step_keeps_batchnorm_f32():
     x, y = _batch("NHWC", seed=6)
     jnet, tnet = _build_pair(1, "NHWC", x, dtype="bfloat16")
     jd = {k: p.data().dtype.name for k, p in jnet.collect_params().items()}
-    td = {k: str(p.data().dtype).replace("torch.", "")
+    td = {k: str(p._tensor().dtype).replace("torch.", "")
           for k, p in tnet.collect_params().items()}
     assert td == jd
     assert {k.rsplit(".", 1)[1] for k, v in td.items() if v == "float32"} \
@@ -180,13 +180,13 @@ def test_bf16_mixed_precision_step_keeps_batchnorm_f32():
     jtr = mx.gluon.Trainer(jnet.collect_params(), "sgd", dict(OPT))
     ttr = mt.gluon.Trainer(tnet.collect_params(), "sgd", dict(OPT))
     _, jloss, _ = _jax_step(jnet, jtr, x, y)
-    before = {k: p.data().detach().float().clone()
+    before = {k: p._tensor().detach().float().clone()
               for k, p in tnet.collect_params().items()}
     _, tloss, grads = _torch_step(tnet, ttr, x, y)
     _close(tloss, jloss, 3e-2, "bf16 loss")
     lr, wd = OPT["learning_rate"], OPT["wd"]
     for name, state, p in zip(ttr._param_names, ttr._states, ttr._params):
-        w0, w = before[name], p.data().detach()
+        w0, w = before[name], p._tensor().detach()
         if p.grad_req == "null":  # running stats: the layer's update
             assert not torch.equal(w, w0), name
             continue

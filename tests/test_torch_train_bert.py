@@ -108,7 +108,7 @@ def test_three_f32_steps_match_jax():
     jp = jax_params(jnet)
     for k, p in tnet.collect_params().items():
         atol = 6 * OPT["learning_rate"] if k in noise else 1e-4
-        onp.testing.assert_allclose(p.data().detach().numpy(), jp[k],
+        onp.testing.assert_allclose(p._tensor().detach().numpy(), jp[k],
                                     atol=atol, rtol=0, err_msg=k)
     assert ttr.optimizer.num_update == jtr.optimizer.num_update == 3
 
@@ -152,8 +152,8 @@ def test_bf16_multi_precision_steps_match_jax():
     assert names == ttr._param_names
     data = batch()
     w_name = "bert.encoder.layers.1.ffn.ffn_1.weight"
-    assert tnet.collect_params()[w_name].data().dtype == torch.bfloat16
-    assert (tnet.collect_params()["bert.embed_layer_norm.gamma"].data().dtype
+    assert tnet.collect_params()[w_name]._tensor().dtype == torch.bfloat16
+    assert (tnet.collect_params()["bert.embed_layer_norm.gamma"]._tensor().dtype
             == torch.float32)
     for step in range(3):
         load_jax_params(tnet, jax_params(jnet))
@@ -166,15 +166,15 @@ def test_bf16_multi_precision_steps_match_jax():
         for i, name in enumerate(names):
             jst, tst = jtr._states[i], ttr._states[i]
             p = tnet.collect_params()[name]
-            if p.data().dtype == torch.bfloat16:
+            if p._tensor().dtype == torch.bfloat16:
                 jm = jst[0].asnumpy()
                 onp.testing.assert_allclose(tst[0].numpy(), jm, atol=1e-4,
                                             rtol=0, err_msg=name)
                 jw = to_tensor(jnet.collect_params()[name].data().asnumpy())
-                diff = (p.data().detach().float() - jw.float()).abs().max()
+                diff = (p._tensor().detach().float() - jw.float()).abs().max()
                 assert diff <= 2e-3 + 1e-4, name
                 # the weight is the master rounded to bf16, exactly
-                assert torch.equal(p.data().detach(),
+                assert torch.equal(p._tensor().detach(),
                                    tst[0].to(torch.bfloat16)), name
     assert ttr.optimizer._index_update_count == \
         jtr.optimizer._index_update_count

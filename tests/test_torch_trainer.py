@@ -42,7 +42,7 @@ def test_grad_req_write_add_null_and_zero_grad():
     mt.autograd.backward(_loss_of(tnet, x))
     g1 = w.grad().clone()
     assert g1.abs().max() > 0 and w._grad_version == 1
-    assert w.data().grad is None          # torch's own .grad stays empty
+    assert w._tensor().grad is None          # torch's own .grad stays empty
     mt.autograd.backward(_loss_of(tnet, x, 2.0))
     torch.testing.assert_close(w.grad(), 2 * g1)      # replaced, not summed
     w.grad_req = "add"
@@ -54,7 +54,7 @@ def test_grad_req_write_add_null_and_zero_grad():
     tnet.zero_grad()
     assert w.grad().abs().max() == 0 and w._grad_version == v + 1
     w.grad_req = "null"
-    assert not w.data().requires_grad
+    assert not w._tensor().requires_grad
     with pytest.raises(RuntimeError, match="grad_req='null'"):
         w.grad()
     mt.autograd.backward(_loss_of(tnet, x))     # the others still train
@@ -167,7 +167,7 @@ def test_dense_net_three_sgd_steps_match_jax():
                                     rtol=1e-5, atol=1e-6)
     for k, p in jnet.collect_params().items():
         onp.testing.assert_allclose(
-            tnet.collect_params()[k].data().detach().numpy(),
+            tnet.collect_params()[k]._tensor().detach().numpy(),
             p.data().asnumpy(), rtol=1e-5, atol=1e-6, err_msg=k)
 
 
@@ -176,16 +176,16 @@ def test_step_rescales_by_batch_size_and_set_learning_rate():
     p.initialize(device=mt.cpu())
     tr = mt.gluon.Trainer([p], "sgd", {"learning_rate": 1.0})
     with mt.autograd.record():
-        loss = (p.data() * torch.tensor([4.0, 8.0, 12.0]))
+        loss = (p._tensor() * torch.tensor([4.0, 8.0, 12.0]))
     mt.autograd.backward(loss)
     tr.step(4)
     assert tr.optimizer.rescale_grad == 0.25
-    assert torch.equal(p.data().detach(), torch.tensor([0.0, -1.0, -2.0]))
+    assert torch.equal(p._tensor().detach(), torch.tensor([0.0, -1.0, -2.0]))
     tr.set_learning_rate(0.5)
     assert tr.learning_rate == 0.5
-    mt.autograd.backward((p.data() * 4.0).sum().reshape(1))
+    mt.autograd.backward((p._tensor() * 4.0).sum().reshape(1))
     tr.update(2)                                  # update(): rescales too
-    assert torch.equal(p.data().detach(), torch.tensor([-1.0, -2.0, -3.0]))
+    assert torch.equal(p._tensor().detach(), torch.tensor([-1.0, -2.0, -3.0]))
     sched = mt.lr_scheduler.FactorScheduler(step=1, factor=0.5, base_lr=1.0)
     tr2 = mt.gluon.Trainer({"w": p}, "sgd", {"lr_scheduler": sched})
     with pytest.raises(ValueError, match="lr_scheduler"):
@@ -199,19 +199,19 @@ def test_stale_gradients_are_skipped_on_request():
     x = torch.from_numpy(onp.random.RandomState(0).randn(5, 8).astype("f"))
     mt.autograd.backward(_loss_of(tnet, x))
     tr.step(5)
-    w0 = tnet[0].weight.data().detach().clone()
+    w0 = tnet[0].weight._tensor().detach().clone()
     # only the second layer gets a new gradient
     with mt.autograd.record():
         loss = tnet[1](torch.ones(2, 16)).sum(dim=1)
     mt.autograd.backward(loss)
-    w1 = tnet[1].weight.data().detach().clone()
+    w1 = tnet[1].weight._tensor().detach().clone()
     tr.step(2, ignore_stale_grad=True)
-    assert torch.equal(tnet[0].weight.data(), w0)         # stale: skipped
-    assert not torch.equal(tnet[1].weight.data(), w1)
+    assert torch.equal(tnet[0].weight._tensor(), w0)         # stale: skipped
+    assert not torch.equal(tnet[1].weight._tensor(), w1)
     assert tr.optimizer._index_update_count[
         tr._param_names.index("0.weight")] == 1
     tr.step(2)             # without the flag a stale gradient is applied
-    assert not torch.equal(tnet[0].weight.data(), w0)
+    assert not torch.equal(tnet[0].weight._tensor(), w0)
     tr.zero_grad()
     assert all(p.grad().abs().max() == 0 for p in tr._params)
 
@@ -250,9 +250,9 @@ def test_amp_convert_casts_all_but_norm_parameters():
     assert mt.amp.convert_hybrid_block(net, "bfloat16") is net
     for name, p in net.collect_params().items():
         norm = name.endswith((".gamma", ".beta"))
-        assert p.data().dtype == (torch.float32 if norm
+        assert p._tensor().dtype == (torch.float32 if norm
                                   else torch.bfloat16), name
-        assert p.dtype == p.data().dtype
+        assert p.dtype == p._tensor().dtype
     tok = torch.zeros((2, 8), dtype=torch.int32)
     with mt.autograd.record():
         s, e = net(tok, tok)
@@ -262,7 +262,7 @@ def test_amp_convert_casts_all_but_norm_parameters():
     assert w.grad().dtype == torch.bfloat16 and w.grad().abs().max() > 0
     # cast() carries the gradient buffer along, and float inputs are cast
     net.cast("float32")
-    assert w.data().dtype == w.grad().dtype == torch.float32
+    assert w._tensor().dtype == w.grad().dtype == torch.float32
     d = tnn.Dense(3, in_units=4)
     d.initialize(device=mt.cpu())
     mt.amp.convert_hybrid_block(d)
