@@ -21,9 +21,12 @@ failure exits non-zero, nothing is caught and carried on:
      kernels for f32), each timed alone and SDPA the same way (summed kernel
      events of the profiler, inputs rotated over copies that exceed the L2)
      and back to back from the host (CUDA events around 20 calls), the
-     optimizer ladder, and the BatchNorm-training
-     forward and backward at every BatchNorm shape of ResNet-50 at batch
-     256 (bf16, NHWC) and at edge cases.
+     optimizer ladder, and the BatchNorm-training forward and backward at
+     every BatchNorm shape of ResNet-50 at batch 256 (bf16, NHWC; timed
+     alone L2-cold and L2-warm, host-issued, and beside a copy of the same
+     bytes) and at edge cases (C = 3 and 8, NCHW, a misaligned view), each
+     launched twice for a bitwise repeat, its path (16-byte vector or
+     scalar) the one launch_geometry predicts.
  3b. attention probes: the bf16 dropout mask of all three kernels bit for
      bit against ``_dropout_keep`` at S = D = 64 and 128 (q = k = 0,
      v = dO = I for out and dv; q = 0, k = I, v and dO one-hot for dq),
@@ -74,6 +77,13 @@ failure exits non-zero, nothing is caught and carried on:
      before 5 counted steps and read just after.
  12. a ``{"kernels": [...]}`` line, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --bn-sites ROOT`` runs no phase but this: K1 and
+K2 of the ``mxnet_tpu_torch`` package under ROOT (this checkout, or another
+one such as a parent commit's, unpacked with ``git archive``) timed at
+ResNet-50's 9 BatchNorm shapes exactly as phase 3 times them, so that two
+trees compare on one card in one call. It prints one ``bn_sites`` line,
+sums over the 53 sites, and no ``ok`` line.
 """
 import concurrent.futures
 import json
@@ -853,7 +863,44 @@ def bn_bounds(shape, itemsize):
             1e3 * 3 * n * itemsize / HBM_BYTES_PER_S)
 
 
-def phase_kernels_bn(torch, knorm, dispatch):
+def ptxas_report(log, fragment):
+    """``{kernel: [registers, spill stores, spill loads]}`` of the kernels
+    whose mangled name holds ``fragment``, from an ``-Xptxas -v`` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and fragment in name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out.setdefault(name, [None, nums[1], nums[2]])
+        elif name and fragment in name and "registers" in line:
+            words = line.split()
+            out.setdefault(name, [None, 0, 0])[0] = int(
+                words[words.index("registers,") - 1])
+    return out
+
+
+def bn_operands(torch, gen, dev, shape, axis, dt, cts, misalign):
+    """x, dy (views ``misalign`` elements into their storage), gamma, beta,
+    shift and the cotangents of mean and var (zeros unless ``cts``)."""
+    c, n = shape[axis], math.prod(shape)
+
+    def tensor(scale, offset):
+        t = torch.randn(n + misalign, device=dev, generator=gen)
+        return (t * scale + offset).to(dt)[misalign:].view(shape)
+
+    x, dy = tensor(2, 1), tensor(1, 0)
+    g = torch.rand(c, device=dev, generator=gen) + 0.5
+    b = torch.randn(c, device=dev, generator=gen)
+    sh = torch.randn(c, device=dev, generator=gen) * 0.1 + 1
+    dm, dv = ((torch.randn(c, device=dev, generator=gen),
+               torch.randn(c, device=dev, generator=gen)) if cts
+              else (torch.zeros(c, device=dev),) * 2)
+    return x, dy, g, b, sh, dm, dv
+
+
+def phase_kernels_bn(torch, knorm, dispatch, build):
     """K1 and K2 against their plain versions on the card:
     every BatchNorm shape of ResNet-50 at batch 256 (bf16, NHWC, the
     training path's calls) with times beside the bound, the plain versions
@@ -861,48 +908,69 @@ def phase_kernels_bn(torch, knorm, dispatch):
     backward through autograd): another function (zero shift, unbiased
     running variance, no running stats here), the same work. Then NCHW f32,
     the stem's NHWC shape in f32 at batch 32 (the comparison of whole
-    steps runs there), ragged rows with C = 3, ``MXTPU_BN_COMPUTE=bf16``
-    and non-zero
-    cotangents of the batch statistics. Beside the read-once bound, the
-    time of the bytes the kernels' own design moves (x read twice in each
-    direction: ``dispatch.norm_region_bytes``' kernel side)."""
+    steps runs there), ragged rows with C = 3 and with C = 8, a view whose
+    base is not on 16 bytes, ``MXTPU_BN_COMPUTE=bf16`` and non-zero
+    cotangents of the batch statistics. Every case: the path
+    ``launch_geometry`` chooses (16-byte vector or scalar) is the one the
+    case is there for, and a second launch of each kernel on the
+    same inputs repeats the bits. Times per site: kernel alone with the
+    inputs rotated over copies that exceed the L2 (L2-cold, the method of
+    the attention rows) and on the same inputs (L2-warm), host-issued back
+    to back (``cuda_ms``), and ``y.copy_(x)`` of the same tensor, the
+    rate this card reaches for that many bytes; beside the read-once bound,
+    the time of the bytes the kernels' own design moves (x read twice in
+    each direction: ``dispatch.norm_region_bytes``' kernel side)."""
     import torch.nn.functional as F
 
+    ptx = ptxas_report((build.BUILD_DIR / "bn_train.log").read_text(),
+                       "bn_")
+    say("bn ptxas (registers, spill stores, spill loads): "
+        + json.dumps({k.split("bn_train_cu")[-1]: v for k, v in ptx.items()
+                      if "_vec_" in k}))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(77)
+    sms = knorm.sm_count(dev)
     bf16 = torch.bfloat16
-    cases = [(f"resnet50_{s[1]}x{s[2]}x{s[3]}", s, -1, bf16, "f32", False, k)
-             for s, k in resnet50_bn_sites(256)]
+    cases = [(f"resnet50_{s[1]}x{s[2]}x{s[3]}", s, -1, bf16, "f32", False, 0,
+              k) for s, k in resnet50_bn_sites(256)]
     cases += [("nchw_f32", (32, 64, 56, 56), 1, torch.float32, "f32", True,
-               0),
+               0, 0),
               ("stem_nhwc_f32_b32", (32, 112, 112, 64), -1, torch.float32,
-               "f32", True, 0),
+               "f32", True, 0, 0),
               ("ragged_c3_f32", (7, 13, 17, 3), -1, torch.float32, "f32",
-               False, 0),
-              ("compute_bf16", (256, 14, 14, 1024), -1, bf16, "bf16", True,
+               False, 0, 0),
+              ("ragged_c8_bf16", (3, 7, 11, 8), -1, bf16, "f32", True, 0, 0),
+              ("misaligned_bf16", (4, 9, 9, 64), -1, bf16, "f32", True, 1, 0),
+              ("compute_bf16", (256, 14, 14, 1024), -1, bf16, "bf16", True, 0,
                0),
               ("cotangents_bf16", (256, 28, 28, 512), -1, bf16, "f32", True,
-               0)]
+               0, 0)]
     rows = []
-    for label, shape, axis, dt, compute, cts, sites in cases:
+    for label, shape, axis, dt, compute, cts, misalign, sites in cases:
         os.environ["MXTPU_BN_COMPUTE"] = compute
         try:
             axis = axis % len(shape)
-            c = shape[axis]
-            x = (torch.randn(shape, device=dev, generator=gen) * 2 + 1).to(dt)
-            dy = torch.randn(shape, device=dev, generator=gen).to(dt)
-            g = torch.rand(c, device=dev, generator=gen) + 0.5
-            b = torch.randn(c, device=dev, generator=gen)
-            sh = torch.randn(c, device=dev, generator=gen) * 0.1 + 1
-            dm, dv = ((torch.randn(c, device=dev, generator=gen),
-                       torch.randn(c, device=dev, generator=gen)) if cts
-                      else (torch.zeros(c, device=dev),) * 2)
+            x, dy, g, b, sh, dm, dv = bn_operands(torch, gen, dev, shape,
+                                                  axis, dt, cts, misalign)
             got_f = knorm.bn_train_fwd(x, g, b, sh, 1e-5, axis)
             want_f = knorm.bn_train_fwd_reference(x, g, b, sh, 1e-5, axis)
             bwd_args = (x, g, sh, want_f[1], want_f[3], dy, dm, dv, axis)
             got_b = knorm.bn_train_bwd(*bwd_args)
             want_b = knorm.bn_train_bwd_reference(*bwd_args)
+            again = (knorm.bn_train_fwd(x, g, b, sh, 1e-5, axis)
+                     + knorm.bn_train_bwd(*bwd_args))
             torch.cuda.synchronize()
+            check(all(torch.equal(a, w) for a, w in zip(got_f + got_b,
+                                                        again)),
+                  f"bn {label}: a second launch on the same inputs gave "
+                  "other bits")
+            vector = knorm.launch_geometry(
+                x.shape, axis, x.element_size(), sms,
+                x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0).vector
+            check(vector == (axis == len(shape) - 1 and misalign == 0 and
+                             shape[-1] * x.element_size() % 16 == 0),
+                  f"bn {label}: launch_geometry chose the "
+                  f"{'vector' if vector else 'scalar'} path")
             errs = {}
             for key, a, w in (("out", got_f[0], want_f[0]),
                               ("dx", got_b[0], want_b[0])):
@@ -929,63 +997,97 @@ def phase_kernels_bn(torch, knorm, dispatch):
                       f"{errs[key]:.3g} (scale {errs[key + '_scale']:.3g})")
             row = dict(case=label, shape=list(shape), axis=axis,
                        dtype=str(dt).replace("torch.", ""), compute=compute,
-                       nonzero_cotangents=cts, sites=sites,
+                       nonzero_cotangents=cts, misaligned=bool(misalign),
+                       vector_path=vector, bitwise_repeat=True, sites=sites,
                        out_max_abs_err=errs["out"], dx_max_abs_err=errs["dx"],
                        stats_max_rel_err=stat_err)
             if sites:
-                fwd_bound, bwd_bound = bn_bounds(shape, x.element_size())
-                _, design_bytes = dispatch.norm_region_bytes(
-                    shape, x.element_size(), 4)
-                xl = x.detach().movedim(-1, 1).requires_grad_()
-                gl, bl = (t.detach().requires_grad_() for t in (g, b))
-                yl = F.batch_norm(xl, None, None, gl, bl, training=True,
-                                  eps=1e-5)
-                dyl = dy.movedim(-1, 1)
-                row.update(
-                    fwd_ms=cuda_ms(torch, lambda: knorm.bn_train_fwd(
-                        x, g, b, sh, 1e-5, axis)),
-                    bwd_ms=cuda_ms(torch, lambda: knorm.bn_train_bwd(
-                        *bwd_args)),
-                    plain_fwd_ms=cuda_ms(
-                        torch, lambda: knorm.bn_train_fwd_reference(
-                            x, g, b, sh, 1e-5, axis), iters=5),
-                    plain_bwd_ms=cuda_ms(
-                        torch, lambda: knorm.bn_train_bwd_reference(
-                            *bwd_args), iters=5),
-                    library_fwd_ms=cuda_ms(torch, lambda: F.batch_norm(
-                        xl, None, None, gl, bl, training=True, eps=1e-5)),
-                    library_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
-                        yl, (xl, gl, bl), dyl, retain_graph=True)),
-                    fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound,
-                    bound_by="bytes",
-                    design_bytes_ms=1e3 * design_bytes / HBM_BYTES_PER_S)
-                del xl, gl, bl, yl, dyl
+                row.update(bn_site_times(torch, F, knorm, dispatch, x, dy, g,
+                                         b, sh, want_f, bwd_args, axis))
             say("kernel_case_bn " + json.dumps(row))
             rows.append(row)
-            del x, dy, got_f, want_f, got_b, want_b, bwd_args
+            del x, dy, got_f, want_f, got_b, want_b, bwd_args, again
+            torch.cuda.empty_cache()
         finally:
             os.environ.pop("MXTPU_BN_COMPUTE", None)
-    torch.cuda.empty_cache()
     timed = [r for r in rows if r["sites"]]
     check(sum(r["sites"] for r in timed) == 53, "ResNet-50 has 53 BN sites")
     total = {key: sum(r[key] * r["sites"] for r in timed) for key in (
-        "fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms", "library_fwd_ms",
-        "library_bwd_ms", "fwd_bound_ms", "bwd_bound_ms",
-        "design_bytes_ms")}
+        "fwd_ms", "bwd_ms", "fwd_ms_l2_warm", "bwd_ms_l2_warm",
+        "fwd_ms_host_issued", "bwd_ms_host_issued", "copy_ms",
+        "plain_fwd_ms", "plain_bwd_ms", "library_fwd_ms", "library_bwd_ms",
+        "library_fwd_ms_host_issued", "library_bwd_ms_host_issued",
+        "fwd_bound_ms", "bwd_bound_ms", "fwd_design_ms", "bwd_design_ms")}
     largest = sorted(timed, key=lambda r: -math.prod(r["shape"]))[:3]
     summary = dict(
         resnet50_batch256_53_sites=total,
-        largest_sites=[{k: r[k] for k in ("case", "sites", "fwd_ms", "bwd_ms",
-                                          "fwd_bound_ms", "bwd_bound_ms",
-                                          "plain_fwd_ms", "plain_bwd_ms",
-                                          "library_fwd_ms",
-                                          "library_bwd_ms")}
-                       for r in largest],
+        largest_sites=[{k: r[k] for k in (
+            "case", "sites", "fwd_ms", "bwd_ms", "fwd_ms_host_issued",
+            "bwd_ms_host_issued", "copy_ms", "fwd_bound_ms", "bwd_bound_ms",
+            "plain_fwd_ms", "plain_bwd_ms", "library_fwd_ms",
+            "library_bwd_ms")} for r in largest],
         fwd_max_abs_err=max(r["out_max_abs_err"] for r in timed),
         bwd_max_abs_err=max(r["dx_max_abs_err"] for r in timed),
+        ptxas={k.split("bn_train_cu")[-1]: v for k, v in ptx.items()},
         card=card_line())
     say("bn_kernels " + json.dumps(summary))
     return summary
+
+
+def bn_site_times(torch, F, knorm, dispatch, x, dy, g, b, sh, want_f,
+                  bwd_args, axis):
+    """The times of one ResNet-50 site (ms; the docstring of
+    :func:`phase_kernels_bn`)."""
+    shape, esize = tuple(x.shape), x.element_size()
+    fwd_bound, bwd_bound = bn_bounds(shape, esize)
+    n = math.prod(shape)
+    cold_f = cold_copies(torch, [x])
+    cold_b = cold_copies(torch, [x, dy])
+    fwd = partial(knorm.bn_train_fwd, gamma=g, beta=b, shift=sh, eps=1e-5,
+                  axis=axis)
+    _, _, mean, inv = want_f
+
+    def bwd(xc, dyc):
+        return knorm.bn_train_bwd(xc, g, sh, mean, inv, dyc, *bwd_args[6:])
+
+    y = torch.empty_like(x)
+    xl = x.detach().movedim(-1, 1).requires_grad_()
+    gl, bl = (t.detach().requires_grad_() for t in (g, b))
+    yl = F.batch_norm(xl, None, None, gl, bl, training=True, eps=1e-5)
+    dyl = dy.movedim(-1, 1)
+    lib_cold = [(c[0].movedim(-1, 1).requires_grad_(),) for c in cold_f]
+    lib_graphs = [(F.batch_norm(c[0], None, None, gl, bl, training=True,
+                                eps=1e-5), c[0]) for c in lib_cold]
+    times = dict(
+        fwd_ms=device_ms(torch, [partial(fwd, c[0]) for c in cold_f]),
+        bwd_ms=device_ms(torch, [partial(bwd, *c) for c in cold_b]),
+        fwd_ms_l2_warm=device_ms(torch, [partial(fwd, x)]),
+        bwd_ms_l2_warm=device_ms(torch, [partial(bwd, x, dy)]),
+        fwd_ms_host_issued=cuda_ms(torch, partial(fwd, x)),
+        bwd_ms_host_issued=cuda_ms(torch, partial(bwd, x, dy)),
+        copy_ms=device_ms(torch, [partial(y.copy_, c[0]) for c in cold_f]),
+        plain_fwd_ms=cuda_ms(torch, lambda: knorm.bn_train_fwd_reference(
+            x, g, b, sh, 1e-5, axis), iters=5),
+        plain_bwd_ms=cuda_ms(torch, lambda: knorm.bn_train_bwd_reference(
+            *bwd_args), iters=5),
+        library_fwd_ms=device_ms(torch, [partial(
+            F.batch_norm, c[0], None, None, gl, bl, training=True, eps=1e-5)
+            for c in lib_cold]),
+        library_bwd_ms=device_ms(torch, [partial(
+            torch.autograd.grad, yc, (xc, gl, bl), dyl, retain_graph=True)
+            for yc, xc in lib_graphs]),
+        library_fwd_ms_host_issued=cuda_ms(torch, lambda: F.batch_norm(
+            xl, None, None, gl, bl, training=True, eps=1e-5)),
+        library_bwd_ms_host_issued=cuda_ms(torch, lambda: torch.autograd.grad(
+            yl, (xl, gl, bl), dyl, retain_graph=True)),
+        fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound, bound_by="bytes",
+        # the design's own bytes: x twice and out once; x, dy twice, dx once
+        fwd_design_ms=1e3 * 3 * n * esize / HBM_BYTES_PER_S,
+        bwd_design_ms=1e3 * 5 * n * esize / HBM_BYTES_PER_S)
+    check(abs(times["fwd_design_ms"] + times["bwd_design_ms"]
+              - 1e3 * dispatch.norm_region_bytes(shape, esize, 4)[1]
+              / HBM_BYTES_PER_S) < 1e-9, "bn design bytes")
+    return times
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -1811,7 +1913,7 @@ def main():
     bwd_cases = phase_kernels_bwd(torch, fa)
     probes = phase_attention_probes(torch, fa)
     phase_kernels_opt(torch, kopt, topt, dispatch)
-    bn = phase_kernels_bn(torch, knorm, dispatch)
+    bn = phase_kernels_bn(torch, knorm, dispatch, build)
     build.reset_counters()  # the FP32 attention kernels' launches in 4
     phase_model_parity(torch, mt, bert, fa)
     phase_train_parity(torch, mt, finetune, fa)
@@ -1929,12 +2031,19 @@ def main():
                             ("bn_train_bwd", "bwd", bn["bwd_max_abs_err"])):
         measured[name] = dict(
             launches=resnet["launches"][name], max_abs_err=err,
-            ms=total[f"{side}_ms"], plain_ms=total[f"plain_{side}_ms"],
+            ms=total[f"{side}_ms"],
+            ms_l2_warm=total[f"{side}_ms_l2_warm"],
+            ms_host_issued=total[f"{side}_ms_host_issued"],
+            copy_ms=total["copy_ms"],
+            plain_ms=total[f"plain_{side}_ms"],
             bound_ms=total[f"{side}_bound_ms"], bound_by="bytes",
             library_ms=total[f"library_{side}_ms"],
+            library_ms_host_issued=total[f"library_{side}_ms_host_issued"],
             times_cover="the 53 BatchNorm sites of ResNet-50 at batch 256, "
-                        "bf16 NHWC; library: F.batch_norm (cuDNN), another "
-                        "function")
+                        "bf16 NHWC; ms and library_ms alone with inputs "
+                        "rotated over copies exceeding the L2; copy_ms: "
+                        "y.copy_(x) of each site's x the same way; library: "
+                        "F.batch_norm (cuDNN), another function")
     kernels = []
     for k in KERNELS:
         m = measured[k["name"]]
@@ -1949,5 +2058,43 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def bn_sites(root):
+    """``--bn-sites ROOT`` (the module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    root = Path(root).resolve()
+    check((root / "mxnet_tpu_torch" / "csrc" / "bn_train.cu").is_file(),
+          f"no mxnet_tpu_torch package under {root}")
+    sys.path.insert(0, str(root))
+    from mxnet_tpu_torch.kernels import build, dispatch, norm as knorm
+
+    check(Path(knorm.__file__).resolve().is_relative_to(root),
+          f"imported {knorm.__file__}, not the package under {root}")
+    build.build(["bn_train"])
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(77)
+    total = {}
+    for shape, sites in resnet50_bn_sites(256):
+        x, dy, g, b, sh, dm, dv = bn_operands(torch, gen, dev, shape, 3,
+                                              torch.bfloat16, False, 0)
+        want_f = knorm.bn_train_fwd_reference(x, g, b, sh, 1e-5, 3)
+        bwd_args = (x, g, sh, want_f[1], want_f[3], dy, dm, dv, 3)
+        times = bn_site_times(torch, F, knorm, dispatch, x, dy, g, b, sh,
+                              want_f, bwd_args, 3)
+        for key, v in times.items():
+            if isinstance(v, float):
+                total[key] = total.get(key, 0.0) + v * sites
+        del x, dy, want_f, bwd_args
+        torch.cuda.empty_cache()
+    say("bn_sites " + json.dumps(dict(root=str(root), card=card_line(),
+                                      resnet50_batch256_53_sites=total)))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--bn-sites"] and len(sys.argv) == 3:
+        bn_sites(sys.argv[2])
+    else:
+        main()

@@ -6,7 +6,11 @@ The TPU kernels ``_fwd_kernel`` (launched by ``_fwd_pallas``) and
 ``_bwd_kernel`` (``_bwd_pallas``) become the hand-written CUDA kernels of
 ``csrc/bn_train.cu``: per-CTA f32 partial sums over a fixed row chunk, a
 combine pass that adds them in a fixed order (no atomics: the bits repeat
-from run to run), and a normalize (forward) or dx (backward) pass. Their
+from run to run), and a normalize (forward) or dx (backward) pass, which
+visits the chunks in reverse so that it starts where the L2 is warm.
+Channels-last tensors whose rows start on 16 bytes take 16-byte vector
+loads: :func:`launch_geometry` decides, and the C launchers refuse the
+16-byte kernels where they cannot run. Their
 plain versions are ops/nn.py:``_bn_train_impl`` and ``_bn_train_bwd``,
 here with the wrappers' signatures as ``bn_train_fwd_reference`` and
 ``bn_train_bwd_reference``.
@@ -26,6 +30,7 @@ under ``bn_fwd`` and ``bn_bwd``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -37,8 +42,8 @@ from . import dispatch as _dispatch
 
 __all__ = ["bn_train", "bn_train_fwd", "bn_train_bwd",
            "bn_train_fwd_reference", "bn_train_bwd_reference",
-           "launch_geometry", "KERNEL_FWD", "KERNEL_BWD", "LAUNCHES_FWD",
-           "LAUNCHES_BWD"]
+           "launch_geometry", "Geometry", "sm_count",
+           "KERNEL_FWD", "KERNEL_BWD", "LAUNCHES_FWD", "LAUNCHES_BWD"]
 
 SOURCE = "bn_train"
 KERNEL_FWD = "bn_train_fwd"
@@ -48,30 +53,71 @@ LAUNCHES_FWD = _build.counter(KERNEL_FWD)
 LAUNCHES_BWD = _build.counter(KERNEL_BWD)
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# the kernels' geometry (csrc/bn_train.cu): 32 channels per CTA when the
-# channel axis is innermost, else one; about 8 CTAs of 256 threads per SM
+# the kernels' geometry (csrc/bn_train.cu): 256 threads a CTA, about 8 CTAs
+# an SM. Vector path: 16-byte lanes, slabs of at most 32 lanes a CTA, K1's
+# 8 loads in flight a thread; a chunk of at least 128 rows, so that its
+# partials are at most 1/32 of its bytes. Scalar path: 32 channels a CTA
+# when the channel axis is innermost, else one.
+_THREADS = 256
+_CTAS_PER_SM = 8
+_SLAB_LANES = 32
+_VEC_UNROLL = 8
+_MIN_ROWS_VEC = 128
 _TILE_C = 32
-_TARGET_CTAS = 132 * 8
 _MIN_ROWS_LAST = 64
 _MIN_ROWS_FIRST = 2048
+_MAX_CHUNKS = 65535
+
+Geometry = collections.namedtuple("Geometry",
+                                  "outer c inner chunks vector")
 
 
-def launch_geometry(shape, axis):
-    """``(outer, C, inner, chunks)`` of a launch: the tensor read as
-    (outer, C, inner) around the channel axis, and the number of row chunks
-    (rows = outer * inner) each channel's sums are split into, one CTA
-    each. Depends on the shape alone, so one shape always sums in one
-    order."""
+def launch_geometry(shape, axis, itemsize, sm_count, aligned=True):
+    """:class:`Geometry` of a launch: the tensor read as (outer, C, inner)
+    around the channel axis, the number of row chunks (rows = outer *
+    inner) each channel's sums are split into, one CTA per chunk and
+    channel tile, and whether the kernels take the 16-byte vector path
+    (channels last, ``C * itemsize`` a multiple of 16 and, ``aligned``,
+    every tensor's base on 16 bytes; the wrappers pass the answer to the C
+    launchers). A function of its arguments alone, so one shape sums in
+    one order on one card."""
     outer = math.prod(shape[:axis])
     c = shape[axis]
     inner = math.prod(shape[axis + 1:])
     rows = outer * inner
-    if inner == 1:
+    vector = inner == 1 and (c * itemsize) % 16 == 0 and bool(aligned)
+    least = 1
+    if vector:
+        lanes = c * itemsize // 16
+        slab = min(lanes, _SLAB_LANES)
+        tiles = -(-lanes // slab)
+        min_rows = max(_MIN_ROWS_VEC, _THREADS // slab * _VEC_UNROLL)
+        least = -(-(rows * lanes) // (1 << 30))  # int offsets in a chunk
+    elif inner == 1:
         tiles, min_rows = -(-c // _TILE_C), _MIN_ROWS_LAST
     else:
         tiles, min_rows = c, _MIN_ROWS_FIRST
-    chunks = max(1, min(-(-_TARGET_CTAS // tiles), -(-rows // min_rows)))
-    return outer, c, inner, chunks
+    target = sm_count * _CTAS_PER_SM
+    chunks = max(least, min(-(-target // tiles), -(-rows // min_rows)), 1)
+    return Geometry(outer, c, inner, min(chunks, _MAX_CHUNKS), vector)
+
+
+_SM_COUNT = {}
+
+
+def sm_count(device):
+    """The card's number of SMs (cached per device)."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _lib():
@@ -80,11 +126,11 @@ def _lib():
         lib.mxtpu_bn_train_fwd.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_longlong]
-            + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.mxtpu_bn_train_bwd.argtypes = (
             [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_longlong]
-            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
         for fn in (lib.mxtpu_bn_train_fwd, lib.mxtpu_bn_train_bwd):
             fn.restype = ctypes.c_int
         lib.mxtpu_cuda_error_string.argtypes = [ctypes.c_int]
@@ -123,14 +169,16 @@ def bn_train_fwd(x, gamma, beta, shift, eps, axis):
     contiguous)."""
     _check(x, axis, "forward", gamma, beta, shift)
     x = x.contiguous()
-    outer, c, inner, chunks = launch_geometry(x.shape, axis)
     ew_low = _nn._bn_ew_dtype(x) != torch.float32
     out = torch.empty_like(x)
+    outer, c, inner, chunks, vector = launch_geometry(
+        x.shape, axis, x.element_size(), sm_count(x.device),
+        _aligned(x, out))
     # separate tensors, not views of one: mean and var are outputs of the
     # autograd Function
     mean, var, inv = (torch.empty(c, dtype=torch.float32, device=x.device)
                       for _ in range(3))
-    work = torch.empty((2 * chunks + 3) * c, dtype=torch.float32,
+    work = torch.empty((2 * chunks + 4) * c, dtype=torch.float32,
                        device=x.device)
     g, b, s = _f32(gamma), _f32(beta), _f32(shift)
     lib = _lib()
@@ -139,7 +187,7 @@ def bn_train_fwd(x, gamma, beta, shift, eps, axis):
         err = lib.mxtpu_bn_train_fwd(
             x.data_ptr(), g.data_ptr(), b.data_ptr(), s.data_ptr(),
             out.data_ptr(), mean.data_ptr(), var.data_ptr(), inv.data_ptr(),
-            work.data_ptr(), outer, c, inner, chunks,
+            work.data_ptr(), outer, c, inner, chunks, int(vector),
             int(x.dtype == torch.bfloat16), int(ew_low),
             float(x.numel() // c), float(eps), stream)
     _raise_on(lib, err, "forward")
@@ -156,12 +204,14 @@ def bn_train_bwd(x, gamma, shift, mean, inv, dy, dmean, dvar, axis):
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
                          f"{tuple(x.shape)} {x.dtype}")
     x, dy = x.contiguous(), dy.contiguous()
-    outer, c, inner, chunks = launch_geometry(x.shape, axis)
     ew = _nn._bn_ew_dtype(x)
     dx = torch.empty_like(x)
+    outer, c, inner, chunks, vector = launch_geometry(
+        x.shape, axis, x.element_size(), sm_count(x.device),
+        _aligned(x, dy, dx))
     dgamma, dbeta = (torch.empty(c, dtype=torch.float32, device=x.device)
                      for _ in range(2))
-    work = torch.empty((2 * chunks + 3) * c, dtype=torch.float32,
+    work = torch.empty((2 * chunks + 4) * c, dtype=torch.float32,
                        device=x.device)
     vecs = [_f32(v) for v in (gamma, mean, inv, shift)]
     dm, dv = (None if v is None else _f32(v) for v in (dmean, dvar))
@@ -173,7 +223,7 @@ def bn_train_bwd(x, gamma, shift, mean, inv, dy, dmean, dvar, axis):
             dm.data_ptr() if dm is not None else None,
             dv.data_ptr() if dv is not None else None,
             dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-            work.data_ptr(), outer, c, inner, chunks,
+            work.data_ptr(), outer, c, inner, chunks, int(vector),
             int(x.dtype == torch.bfloat16), int(ew != torch.float32),
             _nn._n_in(x.numel() // c, ew), stream)
     _raise_on(lib, err, "backward")

@@ -30,9 +30,20 @@ import torch
 from .. import autograd as _ag
 from ..base import normalize_dtype, numpy_dtype
 from ..device import current_device
+from ..ops import promote as _promote
 from ..ops import tensor as _ops
 
 __all__ = ["NDArray", "apply_op", "array", "waitall"]
+
+# the arithmetic operators: jnp.add ... jnp.power as the JAX package's
+# NDArray calls them (ndarray.py:_binary), dtypes from ops/promote.py
+_ADD = _promote.binary(torch.add)
+_SUB = _promote.binary(torch.sub)
+_MUL = _promote.binary(torch.mul)
+_DIV = _promote.binary(torch.true_divide, "inexact")
+_FLOORDIV = _promote.binary(torch.floor_divide, "numeric")
+_MOD = _promote.binary(torch.remainder, "numeric")
+_POW = _promote.binary(torch.pow, "power")
 
 
 class NDArray:
@@ -396,63 +407,57 @@ class NDArray:
 
     # -- operators ---------------------------------------------------------------
     def _binary(self, other, fn, reverse=False):
+        """``fn(self, other)`` (``fn(other, self)`` when ``reverse``).
+        The arithmetic operators pass :mod:`..ops.promote` functions, which
+        keep a Python scalar weak and give the JAX package's dtype."""
         if isinstance(other, NDArray):
             return apply_op(fn, other, self) if reverse \
                 else apply_op(fn, self, other)
         if isinstance(other, _np.ndarray):
             other = _host_to_tensor(other, None, self.device)
-        if isinstance(other, float) and not (
-                self._data.dtype.is_floating_point
-                or self._data.dtype.is_complex):
-            # an integer or bool array with a Python float computes in
-            # float64, as the JAX package does with 64-bit types on (its
-            # weak-typed float takes the default float dtype)
-            if reverse:
-                return apply_op(lambda x: fn(other, x.double()), self)
-            return apply_op(lambda x: fn(x.double(), other), self)
         if reverse:
             return apply_op(lambda x: fn(other, x), self)
         return apply_op(lambda x: fn(x, other), self)
 
     def __add__(self, o):
-        return self._binary(o, lambda a, b: a + b)
+        return self._binary(o, _ADD)
 
     __radd__ = __add__
 
     def __sub__(self, o):
-        return self._binary(o, lambda a, b: a - b)
+        return self._binary(o, _SUB)
 
     def __rsub__(self, o):
-        return self._binary(o, lambda a, b: a - b, reverse=True)
+        return self._binary(o, _SUB, reverse=True)
 
     def __mul__(self, o):
-        return self._binary(o, lambda a, b: a * b)
+        return self._binary(o, _MUL)
 
     __rmul__ = __mul__
 
     def __truediv__(self, o):
-        return self._binary(o, lambda a, b: a / b)
+        return self._binary(o, _DIV)
 
     def __rtruediv__(self, o):
-        return self._binary(o, lambda a, b: a / b, reverse=True)
+        return self._binary(o, _DIV, reverse=True)
 
     def __floordiv__(self, o):
-        return self._binary(o, lambda a, b: a // b)
+        return self._binary(o, _FLOORDIV)
 
     def __rfloordiv__(self, o):
-        return self._binary(o, lambda a, b: a // b, reverse=True)
+        return self._binary(o, _FLOORDIV, reverse=True)
 
     def __mod__(self, o):
-        return self._binary(o, lambda a, b: a % b)
+        return self._binary(o, _MOD)
 
     def __rmod__(self, o):
-        return self._binary(o, lambda a, b: a % b, reverse=True)
+        return self._binary(o, _MOD, reverse=True)
 
     def __pow__(self, o):
-        return self._binary(o, lambda a, b: a ** b)
+        return self._binary(o, _POW)
 
     def __rpow__(self, o):
-        return self._binary(o, lambda a, b: a ** b, reverse=True)
+        return self._binary(o, _POW, reverse=True)
 
     def __matmul__(self, o):
         return self._binary(o, lambda a, b: a @ b)

@@ -24,6 +24,7 @@ import torch
 from ..base import normalize_dtype
 from ..ndarray.ndarray import NDArray, apply_op, creation_device
 from ..ndarray.ndarray import array as _nd_array
+from ..ops import promote as _promote
 from ..ops import tensor as _ops
 
 ndarray = NDArray
@@ -91,81 +92,100 @@ unique_values
 """.split()
 
 
-def _f(x):
-    """Integers and bools become the default float, as numpy's float
-    functions take them."""
-    return x if x.is_floating_point() else x.to(torch.float32)
-
-
-def _cbrt(x):
-    x = _f(x)
-    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
-
-
-_UNARY_FNS = {
-    "abs": torch.abs, "absolute": torch.abs, "fabs": torch.abs,
+#: numpy's float functions: an int or bool input computes in
+#: promote.inexact_dtype (float64 from int64, else float32)
+_FLOAT_FNS = {
     "arccos": torch.acos, "acos": torch.acos,
     "arccosh": torch.acosh, "acosh": torch.acosh,
     "arcsin": torch.asin, "asin": torch.asin,
     "arcsinh": torch.asinh, "asinh": torch.asinh,
     "arctan": torch.atan, "atan": torch.atan,
     "arctanh": torch.atanh, "atanh": torch.atanh,
-    "bitwise_invert": torch.bitwise_not, "bitwise_not": torch.bitwise_not,
-    "invert": torch.bitwise_not, "cbrt": _cbrt, "ceil": torch.ceil,
-    "conj": torch.conj_physical, "conjugate": torch.conj_physical,
-    "cos": torch.cos, "cosh": torch.cosh,
+    "cbrt": _ops.cbrt, "cos": torch.cos, "cosh": torch.cosh,
     "degrees": torch.rad2deg, "rad2deg": torch.rad2deg,
     "radians": torch.deg2rad, "deg2rad": torch.deg2rad,
     "exp": torch.exp, "exp2": torch.exp2, "expm1": torch.expm1,
-    "floor": torch.floor, "isfinite": torch.isfinite, "isinf": torch.isinf,
-    "isnan": torch.isnan, "isneginf": torch.isneginf,
-    "isposinf": torch.isposinf, "log": torch.log, "log10": torch.log10,
+    "fabs": torch.abs, "log": torch.log, "log10": torch.log10,
     "log1p": torch.log1p, "log2": torch.log2,
-    "logical_not": torch.logical_not, "negative": torch.neg,
-    "positive": torch.clone, "reciprocal": lambda x: torch.reciprocal(_f(x)),
-    "rint": torch.round, "sign": torch.sign, "signbit": torch.signbit,
-    "sin": torch.sin, "sinh": torch.sinh, "sqrt": torch.sqrt,
-    "square": torch.square, "tan": torch.tan, "tanh": torch.tanh,
-    "trunc": torch.trunc, "angle": lambda x: torch.angle(_f(x)),
-    "real": torch.clone, "imag": torch.zeros_like, "i0": torch.i0,
-    "sinc": torch.sinc, "nan_to_num": torch.nan_to_num,
+    "reciprocal": torch.reciprocal, "sin": torch.sin, "sinh": torch.sinh,
+    "sqrt": torch.sqrt, "tan": torch.tan, "tanh": torch.tanh,
+    "i0": torch.i0, "sinc": torch.sinc,
 }
 
-
-def _heaviside(x1, x2):
-    return torch.heaviside(x1, x2.to(x1.dtype))
+_UNARY_FNS = {name: _promote.float_fn(fn) for name, fn in _FLOAT_FNS.items()}
+_UNARY_FNS.update({
+    "abs": _promote.bool_same(torch.abs), "absolute": _promote.bool_same(torch.abs),
+    "ceil": _promote.bool_same(torch.ceil), "floor": _promote.bool_same(torch.floor),
+    "trunc": _promote.bool_same(torch.trunc),
+    "bitwise_invert": torch.bitwise_not, "bitwise_not": torch.bitwise_not,
+    "invert": torch.bitwise_not,
+    "conj": torch.conj_physical, "conjugate": torch.conj_physical,
+    "isfinite": torch.isfinite, "isinf": torch.isinf,
+    "isnan": torch.isnan, "isneginf": torch.isneginf,
+    "isposinf": torch.isposinf,
+    "logical_not": torch.logical_not, "negative": torch.neg,
+    "positive": torch.clone, "rint": _promote.default_float(torch.round),
+    "sign": torch.sign, "signbit": torch.signbit,
+    "square": lambda x: torch.square(
+        x.to(_promote.numeric_dtype(x.dtype))),
+    "angle": _promote.default_float(torch.angle),
+    "real": torch.clone, "imag": torch.zeros_like,
+    "nan_to_num": torch.nan_to_num,
+})
 
 
 def _ldexp(x1, x2):
-    # the JAX package's own (multiarray.py:_ldexp_ref): float exponents too
-    return x1 * torch.exp2(_f(x2))
+    # the JAX package's own (multiarray.py:_ldexp_ref): x1 * exp2(x2), with
+    # float exponents too; exp2 of a Python number stays a weak float
+    e = 2.0 ** x2 if _promote.is_weak(x2) else _UNARY_FNS["exp2"](x2)
+    return _BINARY_FNS["multiply"](x1, e)
 
 
-_BINARY_FNS = {
-    "add": torch.add, "subtract": torch.sub, "multiply": torch.mul,
-    "divide": torch.true_divide, "true_divide": torch.true_divide,
-    "arctan2": torch.atan2, "atan2": torch.atan2,
+def _vecdot(a, b, axis=-1):
+    if a.is_floating_point() or a.is_complex():
+        return torch.linalg.vecdot(a, b, dim=axis)
+    return (a * b).sum(axis).to(a.dtype)
+
+
+#: name -> (function over tensors of one dtype, promote kind)
+_PROMOTED = {
+    "add": (torch.add, "same"), "subtract": (torch.sub, "same"),
+    "multiply": (torch.mul, "same"), "maximum": (torch.maximum, "same"),
+    "minimum": (torch.minimum, "same"), "fmax": (torch.fmax, "same"),
+    "fmin": (torch.fmin, "same"), "vecdot": (_vecdot, "same"),
+    "floor_divide": (torch.floor_divide, "numeric"),
+    "mod": (torch.remainder, "numeric"),
+    "remainder": (torch.remainder, "numeric"),
+    "fmod": (torch.fmod, "numeric"),
+    "divmod": (_promote.divmod_pair, "numeric"),
+    "left_shift": (torch.bitwise_left_shift, "numeric"),
+    "bitwise_left_shift": (torch.bitwise_left_shift, "numeric"),
+    "right_shift": (torch.bitwise_right_shift, "numeric"),
+    "bitwise_right_shift": (torch.bitwise_right_shift, "numeric"),
+    "power": (torch.pow, "power"), "pow": (torch.pow, "power"),
+    "divide": (torch.true_divide, "inexact"),
+    "true_divide": (torch.true_divide, "inexact"),
+    "arctan2": (torch.atan2, "inexact"), "atan2": (torch.atan2, "inexact"),
+    "copysign": (torch.copysign, "inexact"),
+    "float_power": (torch.pow, "inexact"),
+    "heaviside": (torch.heaviside, "inexact"),
+    "hypot": (torch.hypot, "inexact"),
+    "logaddexp": (torch.logaddexp, "inexact"),
+    "logaddexp2": (torch.logaddexp2, "inexact"),
+    "nextafter": (torch.nextafter, "inexact"),
+}
+
+_BINARY_FNS = {name: _promote.binary(fn, kind)
+               for name, (fn, kind) in _PROMOTED.items()}
+_BINARY_FNS.update({
     "bitwise_and": torch.bitwise_and, "bitwise_or": torch.bitwise_or,
-    "bitwise_xor": torch.bitwise_xor, "copysign": torch.copysign,
+    "bitwise_xor": torch.bitwise_xor,
     "equal": torch.eq, "not_equal": torch.ne, "greater": torch.gt,
     "greater_equal": torch.ge, "less": torch.lt, "less_equal": torch.le,
-    "float_power": lambda a, b: torch.pow(_f(a), _f(b)),
-    "floor_divide": torch.floor_divide, "fmax": torch.fmax,
-    "fmin": torch.fmin, "fmod": torch.fmod, "gcd": torch.gcd,
-    "lcm": torch.lcm, "heaviside": _heaviside, "hypot": torch.hypot,
-    "ldexp": _ldexp, "left_shift": torch.bitwise_left_shift,
-    "bitwise_left_shift": torch.bitwise_left_shift,
-    "right_shift": torch.bitwise_right_shift,
-    "bitwise_right_shift": torch.bitwise_right_shift,
-    "logaddexp": torch.logaddexp, "logaddexp2": torch.logaddexp2,
+    "gcd": torch.gcd, "lcm": torch.lcm, "ldexp": _ldexp,
     "logical_and": torch.logical_and, "logical_or": torch.logical_or,
-    "logical_xor": torch.logical_xor, "maximum": torch.maximum,
-    "minimum": torch.minimum, "mod": torch.remainder,
-    "remainder": torch.remainder, "power": torch.pow, "pow": torch.pow,
-    "divmod": lambda a, b: (torch.floor_divide(a, b), torch.remainder(a, b)),
-    "nextafter": torch.nextafter,
-    "vecdot": lambda a, b, axis=-1: torch.linalg.vecdot(a, b, dim=axis),
-}
+    "logical_xor": torch.logical_xor,
+})
 
 _REDUCE_FNS = dict(_ops.NP_REDUCE)
 for _name in ("cumsum", "cumprod", "nancumsum", "nancumprod"):
@@ -547,15 +567,17 @@ def _fix_kwargs(kwargs):
     return kwargs
 
 
-def _operand(a, device):
-    """A tensor from an operand of an elementwise function: a Python
-    scalar becomes a 0-dim tensor, which promotes as numpy's weak scalar
-    does; host arrays take the creation defaults."""
-    if isinstance(a, torch.Tensor):
+def _operand(a, device, weak=False):
+    """A tensor from an operand of an elementwise function; host arrays
+    take the creation defaults. A Python scalar stays one where ``weak``
+    (:mod:`..ops.promote` decides what it promotes to), else it becomes a
+    0-dim tensor of the JAX package's default dtype for it."""
+    if isinstance(a, torch.Tensor) or (weak and _promote.is_weak(a)):
         return a
     if isinstance(a, (list, tuple, _np.ndarray)):
         return _nd_array(a, device=device)._data
-    return torch.as_tensor(a, device=creation_device(device))
+    return torch.full((), a, dtype=_promote.result_dtype(a),
+                      device=creation_device(device))
 
 
 def _generated(fn, name, binary=False):
@@ -564,6 +586,7 @@ def _generated(fn, name, binary=False):
     tensors go to the device of the one that is (or the current device);
     its ``dtype`` keyword casts the result."""
     n_operands = 2 if binary else 1 if name in _UNARY_FNS else 0
+    weak = binary and (name in _PROMOTED or name == "ldexp")
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
@@ -574,7 +597,7 @@ def _generated(fn, name, binary=False):
         if n_operands:
             dev = next((a.device for a in args[:n_operands]
                         if isinstance(a, torch.Tensor)), None)
-            args[:n_operands] = [_operand(a, dev)
+            args[:n_operands] = [_operand(a, dev, weak and dev is not None)
                                  for a in args[:n_operands]]
 
         def call():

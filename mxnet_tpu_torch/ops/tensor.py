@@ -7,7 +7,8 @@ Two families:
   shared by ``mx.np`` and the NDArray methods: ``axis`` None, an int or a
   tuple, ``keepdims``, ``ddof``. Result dtypes are the JAX package's,
   which runs with 64-bit types on: integer sums, products and indices are
-  int64, integer scans keep their dtype, means of integers are float32;
+  int64 (uint64 for unsigned ints), integer scans keep their dtype, means
+  of integers are float32 (float64 of int64: ``promote.inexact``);
   ``median`` and ``quantile`` interpolate as numpy does (torch's
   ``median`` takes the lower middle value);
 * the legacy ``mx.nd`` operators, registered by name
@@ -28,10 +29,11 @@ import torch
 import torch.nn.functional as F
 
 from ..base import normalize_dtype
+from . import promote as _promote
 from .registry import register_op
 
 __all__ = ["NP_REDUCE", "cumulate", "legacy_reshape_shape", "int_default",
-           "np_axes", "np_dot"]
+           "np_axes", "np_dot", "cbrt"]
 
 
 # ---------------------------------------------------------------------------
@@ -70,22 +72,31 @@ def _over_last(x, axis, keepdims, fn):
     return out
 
 
-def _floating(x):
-    return x if x.is_floating_point() else x.to(torch.float32)
+_floating = _promote.inexact
 
 
-def _reducer(fn, *, to_float=False):
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+
+def _reducer(fn, *, to_float=False, accumulates=False):
     def reduce(a, axis=None, dtype=None, keepdims=False, **kwargs):
         if dtype is not None:
             a = a.to(normalize_dtype(dtype))
         elif to_float:
             a = _floating(a)
-        return _over_last(a, axis, keepdims, lambda t: fn(t, **kwargs))
+        out = _over_last(a, axis, keepdims, lambda t: fn(t, **kwargs))
+        if accumulates and a.dtype in _UNSIGNED:
+            # the JAX package sums unsigned ints in uint64; torch has no
+            # uint64 sum, so the int64 one is cast
+            out = out.to(torch.uint64)
+        return out
     return reduce
 
 
 def _index_reducer(fn):
     def reduce(a, axis=None, keepdims=False):
+        if a.dtype == torch.bool:   # torch's argmax takes no bool
+            a = a.to(torch.uint8)
         return _over_last(a, axis, keepdims, fn)
     return reduce
 
@@ -97,6 +108,8 @@ def _nan_fill(t, value):
 
 
 def _nanext(t, largest):
+    if not t.is_floating_point():   # no nan to skip
+        return t.amax(-1) if largest else t.amin(-1)
     m = _nan_fill(t, -math.inf if largest else math.inf)
     m = m.amax(-1) if largest else m.amin(-1)
     return torch.where(torch.isnan(t).all(-1), torch.full_like(m, math.nan),
@@ -167,8 +180,8 @@ def _count_nonzero(a, axis=None, keepdims=False):
 
 #: mx.np's reductions by name, numpy semantics over tensors
 NP_REDUCE = {
-    "sum": _reducer(lambda t: t.sum(-1)),
-    "prod": _reducer(lambda t: t.prod(-1)),
+    "sum": _reducer(lambda t: t.sum(-1), accumulates=True),
+    "prod": _reducer(lambda t: t.prod(-1), accumulates=True),
     "mean": _reducer(lambda t: t.mean(-1), to_float=True),
     "max": _reducer(lambda t: t.amax(-1)),
     "min": _reducer(lambda t: t.amin(-1)),
@@ -180,8 +193,8 @@ NP_REDUCE = {
     "std": _reducer(lambda t, ddof=0: _var(t, ddof).sqrt(), to_float=True),
     "var": _reducer(_var, to_float=True),
     "median": _reducer(_median, to_float=True),
-    "nansum": _reducer(lambda t: torch.nansum(t, -1)),
-    "nanprod": _reducer(lambda t: _nan_fill(t, 1.0).prod(-1)),
+    "nansum": _reducer(lambda t: torch.nansum(t, -1), accumulates=True),
+    "nanprod": _reducer(lambda t: _nan_fill(t, 1.0).prod(-1), accumulates=True),
     "nanmean": _reducer(lambda t: torch.nanmean(t, -1), to_float=True),
     "nanmax": _reducer(lambda t: _nanext(t, True)),
     "nanmin": _reducer(lambda t: _nanext(t, False)),
@@ -237,17 +250,22 @@ def cumulate(name):
 # legacy mx.nd operators (registered)
 # ---------------------------------------------------------------------------
 
-_UNARY = {
-    "abs": torch.abs, "sign": torch.sign, "rint": torch.round,
-    "round": torch.round, "ceil": torch.ceil, "floor": torch.floor,
-    "trunc": torch.trunc, "fix": torch.trunc, "square": torch.square,
-    "sqrt": torch.sqrt, "rsqrt": torch.rsqrt,
-    "cbrt": lambda x: torch.sign(x) * torch.abs(x).pow(1.0 / 3.0),
-    "rcbrt": lambda x: 1.0 / (torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)),
+def cbrt(x):
+    """The real cube root, negative inputs too."""
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+
+
+_add = _promote.binary(torch.add)
+_multiply = _promote.binary(torch.mul)
+_divide = _promote.binary(torch.true_divide, "inexact")
+_abs = _promote.bool_same(torch.abs)
+
+#: float functions: an int or bool input computes in promote.inexact_dtype
+_FLOAT = {
+    "sqrt": torch.sqrt, "rsqrt": torch.rsqrt, "cbrt": cbrt,
+    "rcbrt": lambda x: 1.0 / cbrt(x),
     "exp": torch.exp, "log": torch.log, "log10": torch.log10,
     "log2": torch.log2, "log1p": torch.log1p, "expm1": torch.expm1,
-    "reciprocal": lambda x: 1.0 / x, "negative": torch.neg,
-    "logical_not": lambda x: (x == 0).to(x.dtype),
     "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
     "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
     "degrees": torch.rad2deg, "radians": torch.deg2rad,
@@ -256,9 +274,23 @@ _UNARY = {
     "gamma": lambda x: torch.exp(torch.lgamma(x)), "gammaln": torch.lgamma,
     "digamma": torch.digamma, "erf": torch.erf, "erfinv": torch.erfinv,
     "sigmoid": torch.sigmoid, "log_sigmoid": F.logsigmoid,
-    "softsign": F.softsign, "relu": torch.relu,
-    "identity": lambda x: x.clone(),
 }
+
+_UNARY = {name: _promote.float_fn(fn) for name, fn in _FLOAT.items()}
+_UNARY.update({
+    "abs": _abs, "sign": torch.sign,
+    "rint": _promote.default_float(torch.round), "round": torch.round,
+    "ceil": _promote.bool_same(torch.ceil),
+    "floor": _promote.bool_same(torch.floor),
+    "trunc": _promote.bool_same(torch.trunc),
+    "fix": _promote.bool_same(torch.trunc),
+    "square": lambda x: torch.square(x.to(_promote.numeric_dtype(x.dtype))),
+    "reciprocal": lambda x: _divide(1.0, x), "negative": torch.neg,
+    "logical_not": lambda x: (x == 0).to(x.dtype), "relu": torch.relu,
+    # the JAX package's x / (1 + |x|): a bool input meets the weak 1
+    "softsign": lambda x: _divide(x, _add(1, _abs(x))),
+    "identity": lambda x: x.clone(),
+})
 
 for _name, _fn in _UNARY.items():
     register_op(_name, _fn)
@@ -267,11 +299,11 @@ for _name, _fn in _UNARY.items():
 @register_op("hard_sigmoid")
 def hard_sigmoid(x, alpha=0.2, beta=0.5):
     """``alpha * x + beta`` clipped to [0, 1] (tensor.py:hard_sigmoid)."""
-    return torch.clamp(alpha * x + beta, 0.0, 1.0)
+    return torch.clamp(_add(_multiply(alpha, x), beta), 0.0, 1.0)
 
 
 def _both(fn):
-    # torch's binary functions want a tensor on each side; a Python scalar
+    # torch's comparisons want a tensor on each side; a Python scalar
     # becomes a 0-dim tensor, which promotes like numpy's weak scalar
     def binary(lhs, rhs):
         if not isinstance(lhs, torch.Tensor):
@@ -283,15 +315,23 @@ def _both(fn):
     return binary
 
 
+#: name -> (function over tensors of one dtype, promote kind)
 _BINARY = {
-    "elemwise_add": torch.add, "elemwise_sub": torch.sub,
-    "elemwise_mul": torch.mul, "elemwise_div": torch.div,
-    "broadcast_add": torch.add, "broadcast_plus": torch.add,
-    "broadcast_sub": torch.sub, "broadcast_minus": torch.sub,
-    "broadcast_mul": torch.mul, "broadcast_div": torch.div,
-    "broadcast_mod": torch.remainder, "broadcast_power": torch.pow,
-    "broadcast_maximum": torch.maximum, "broadcast_minimum": torch.minimum,
-    "broadcast_hypot": torch.hypot, "hypot": torch.hypot,
+    "elemwise_add": (torch.add, "same"), "elemwise_sub": (torch.sub, "same"),
+    "elemwise_mul": (torch.mul, "same"),
+    "elemwise_div": (torch.true_divide, "inexact"),
+    "broadcast_add": (torch.add, "same"),
+    "broadcast_plus": (torch.add, "same"),
+    "broadcast_sub": (torch.sub, "same"),
+    "broadcast_minus": (torch.sub, "same"),
+    "broadcast_mul": (torch.mul, "same"),
+    "broadcast_div": (torch.true_divide, "inexact"),
+    "broadcast_mod": (torch.remainder, "numeric"),
+    "broadcast_power": (torch.pow, "power"),
+    "broadcast_maximum": (torch.maximum, "same"),
+    "broadcast_minimum": (torch.minimum, "same"),
+    "broadcast_hypot": (torch.hypot, "inexact"),
+    "hypot": (torch.hypot, "inexact"),
 }
 
 _BINARY_CMP = {
@@ -313,8 +353,8 @@ def _cmp(fn):
     return compare
 
 
-for _name, _fn in _BINARY.items():
-    register_op(_name, _both(_fn))
+for _name, (_fn, _kind) in _BINARY.items():
+    register_op(_name, _promote.binary(_fn, _kind))
 for _name, _fn in _BINARY_CMP.items():
     register_op(_name, _cmp(_fn))
 
@@ -360,7 +400,8 @@ def norm(data, ord=2, axis=None, keepdims=False):  # noqa: A002
     dims = None if axis is None else np_axes(data.dim(), axis)
     if ord == 1:
         return data.abs().sum(dim=dims, keepdim=keepdims)
-    return data.square().sum(dim=dims, keepdim=keepdims).sqrt()
+    return _promote.inexact(
+        data.square().sum(dim=dims, keepdim=keepdims)).sqrt()
 
 
 @register_op("argmax")

@@ -16,13 +16,16 @@ from mxnet_tpu_torch.gluon.model_zoo import vision
 from mxnet_tpu_torch.kernels import build, dispatch, norm as knorm
 from mxnet_tpu_torch.tools.train_resnet import build_resnet_train
 
-# (shape, axis, dtype, MXTPU_BN_COMPUTE, non-zero dmean/dvar)
+# (shape, axis, dtype, MXTPU_BN_COMPUTE, non-zero dmean/dvar, elements the
+# tensors' views start into their storage)
 BN_CASES = [
-    ((8, 14, 14, 256), -1, torch.bfloat16, "f32", False),   # NHWC, the path
-    ((16, 7, 7, 2048), -1, torch.bfloat16, "bf16", True),
-    ((4, 40, 9, 11), 1, torch.float32, "f32", True),        # NCHW
-    ((3, 5, 7, 3), -1, torch.float32, "f32", False),        # C = 3, ragged M
-    ((5, 100, 3), 1, torch.bfloat16, "f32", True),          # C = 100, NCW
+    ((8, 14, 14, 256), -1, torch.bfloat16, "f32", False, 0),  # NHWC, the path
+    ((16, 7, 7, 2048), -1, torch.bfloat16, "bf16", True, 0),
+    ((4, 40, 9, 11), 1, torch.float32, "f32", True, 0),       # NCHW
+    ((3, 5, 7, 3), -1, torch.float32, "f32", False, 0),       # C = 3, ragged M
+    ((5, 100, 3), 1, torch.bfloat16, "f32", True, 0),         # C = 100, NCW
+    ((3, 7, 11, 8), -1, torch.bfloat16, "f32", True, 0),      # C = 8, ragged
+    ((4, 9, 9, 64), -1, torch.bfloat16, "f32", True, 1),      # base off 16 B
 ]
 
 
@@ -33,30 +36,48 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _operands(shape, axis, dtype, dev, seed=0):
+def _offset_view(t, offset):
+    """``t`` as a view ``offset`` elements into a storage of its own."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _operands(shape, axis, dtype, dev, seed=0, offset=0):
     r = onp.random.RandomState(seed)
     c = shape[axis]
-    x = torch.from_numpy((r.standard_normal(shape) * 2.0 + 1.5)
-                         .astype("f")).to(dev).to(dtype)
+    x = _offset_view(torch.from_numpy((r.standard_normal(shape) * 2.0 + 1.5)
+                                      .astype("f")).to(dev).to(dtype), offset)
     gamma, beta = (torch.from_numpy(r.uniform(0.5, 1.5, c).astype("f"))
                    .to(dev) for _ in range(2))
     shift = torch.from_numpy((r.standard_normal(c) * 0.1 + 1.5)
                              .astype("f")).to(dev)
-    dy = torch.from_numpy(r.standard_normal(shape).astype("f")).to(dev).to(
-        dtype)
+    dy = _offset_view(torch.from_numpy(r.standard_normal(shape).astype("f"))
+                      .to(dev).to(dtype), offset)
     dmean, dvar = (torch.from_numpy(r.standard_normal(c).astype("f"))
                    .to(dev) for _ in range(2))
     return x, gamma, beta, shift, dy, dmean, dvar
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,axis,dtype,compute,cts", BN_CASES)
+@pytest.mark.parametrize("shape,axis,dtype,compute,cts,offset", BN_CASES)
 def test_cuda_bn_kernels_match_plain(cuda_device, monkeypatch, shape, axis,
-                                     dtype, compute, cts):
+                                     dtype, compute, cts, offset):
     monkeypatch.setenv("MXTPU_BN_COMPUTE", compute)
     axis = axis % len(shape)
-    x, gamma, beta, shift, dy, dmean, dvar = _operands(shape, axis, dtype,
-                                                       cuda_device)
+    x, gamma, beta, shift, dy, dmean, dvar = _operands(
+        shape, axis, dtype, cuda_device, offset=offset)
+    # the wrappers ask for the 16-byte kernels exactly where they can run
+    # (channels last, whole 16-byte rows, bases on 16 bytes)
+    vector = knorm.launch_geometry(shape, axis, x.element_size(), 132,
+                                   x.data_ptr() % 16 == 0
+                                   and dy.data_ptr() % 16 == 0).vector
+    assert vector == (axis == len(shape) - 1
+                      and shape[axis] * x.element_size() % 16 == 0
+                      and offset == 0)
     if not cts:
         dmean, dvar = torch.zeros_like(dmean), torch.zeros_like(dvar)
     before = (knorm.LAUNCHES_FWD.value, knorm.LAUNCHES_BWD.value)
@@ -66,11 +87,13 @@ def test_cuda_bn_kernels_match_plain(cuda_device, monkeypatch, shape, axis,
     got_b = knorm.bn_train_bwd(*bwd_args)
     want_b = knorm.bn_train_bwd_reference(*bwd_args)
     again = knorm.bn_train_fwd(x, gamma, beta, shift, 1e-5, axis)
+    again_b = knorm.bn_train_bwd(*bwd_args)
     torch.cuda.synchronize()
     assert (knorm.LAUNCHES_FWD.value, knorm.LAUNCHES_BWD.value) == (
-        before[0] + 2, before[1] + 1)
+        before[0] + 2, before[1] + 2)
     # no atomics: the same inputs give the same bits
     assert all(torch.equal(a, b) for a, b in zip(got_f, again))
+    assert all(torch.equal(a, b) for a, b in zip(got_b, again_b))
     # statistics: f32 sums in another order (1e-5 relative). out and dx:
     # one rounding of the result to x's dtype, and in bf16 elementwise
     # mode coefficients that may round to a neighbouring bf16 value
