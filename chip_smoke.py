@@ -21,7 +21,10 @@ failure exits non-zero, nothing is caught and carried on:
      kernels for f32), each timed alone and SDPA the same way (summed kernel
      events of the profiler, inputs rotated over copies that exceed the L2)
      and back to back from the host (CUDA events around 20 calls), the
-     optimizer ladder, and the BatchNorm-training forward and backward at
+     optimizer ladder (one launch per bucket: buckets of one at BERT-base's
+     shapes, a mixed bucket, a bucket split over several launches) and its
+     global-norm pre-pass (against the plain sum, and bit for bit over two
+     runs), and the BatchNorm-training forward and backward at
      every BatchNorm shape of ResNet-50 at batch 256 (bf16, NHWC; timed
      alone L2-cold and L2-warm, host-issued, and beside a copy of the same
      bytes) and at edge cases (C = 3 and 8, NCHW, a misaligned view), each
@@ -44,9 +47,14 @@ failure exits non-zero, nothing is caught and carried on:
      ``autograd.record()`` -> ``autograd.backward`` -> ``Trainer.step``,
      with no setting beyond the defaults; after 2 warm-up steps the launch
      counts are zeroed just before the 5 counted steps and read just after
-     (K4, K5a, K5b: 12 tensor-core launches a step each, no FP32 one).
-     Then, without dropout, 3 steps through the kernels against 3 steps
-     through their plain versions from the same weights.
+     (K4, K5a, K5b: 12 tensor-core launches a step each, no FP32 one; K3
+     and its norm once per bucket a step, every trainable tensor through
+     K3). The optimizer over BERT-base's whole parameter list as
+     update_fused issues it: one launch per bucket, the first port's one
+     launch per parameter and the plain ladder, alone and host-issued,
+     beside torch.optim.AdamW(fused=True). Then, without dropout, 3 steps
+     through the kernels against 3 steps through their plain versions from
+     the same weights.
   7. ResNet parity: a narrow ResNet (NHWC, space-to-depth stem) in float32,
      one training step on CUDA (BatchNorm through its kernels) and on the
      CPU: logits, loss, every gradient and the running stats.
@@ -55,8 +63,10 @@ failure exits non-zero, nothing is caught and carried on:
      0.9, lr 0.1, wd 1e-4) through ``autograd.record()`` ->
      ``autograd.backward`` -> ``Trainer.step``; 2 warm-up steps, then the
      launch counts are zeroed just before 5 counted steps and read just
-     after. Then 3 float32 steps at batch 32 through the kernels against 3
-     through their plain versions, each from the same state.
+     after; the optimizer over ResNet-50's parameter list as in 6, beside
+     torch.optim.SGD(fused=True). Then 3 float32 steps at batch 32 through
+     the kernels against 3 through their plain versions, each from the
+     same state.
   9. runtime-compiled kernels (mx.rtc, K7), a main path: three CUDA C++
      sources kept in this file (RTC_*: axpy in f32, a bf16 row sum into f32
      with dynamic shared memory and a fixed shuffle tree, a strided __half
@@ -74,7 +84,8 @@ failure exits non-zero, nothing is caught and carried on:
      from ``mx.np.random``, ``SoftmaxCrossEntropyLoss``, ``Trainer("sgd",
      lr 0.05)``, ``autograd.record()`` -> ``L.backward()`` ->
      ``trainer.step(256)``; 2 warm-up steps, then the counts are zeroed just
-     before 5 counted steps and read just after.
+     before 5 counted steps and read just after; the optimizer over LeNet's
+     parameters as in 6.
  12. a ``{"kernels": [...]}`` line, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -86,6 +97,7 @@ trees compare on one card in one call. It prints one ``bn_sites`` line,
 sums over the 53 sites, and no ``ok`` line.
 """
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -137,9 +149,15 @@ KERNELS = [
     dict(name="opt_ladder", route="cuda",
          source="mxnet_tpu_torch/csrc/opt_ladder.cu",
          replaces="mxnet_tpu/kernels/opt.py:95",
-         wrapper="mxnet_tpu_torch.kernels.opt:param_step",
-         plain="mxnet_tpu_torch.optimizer.optimizer:"
-               "Optimizer._fused_param_step"),
+         wrapper="mxnet_tpu_torch.kernels.opt:bucket_step",
+         plain="mxnet_tpu_torch.kernels.opt:bucket_step_reference"),
+    # the global-norm pre-pass of the ladder: XLA in the JAX package (one
+    # jit per bucket), no pallas_call; written by hand here over K3's table
+    dict(name="opt_sqnorm", route="cuda",
+         source="mxnet_tpu_torch/csrc/opt_ladder.cu",
+         replaces="mxnet_tpu/optimizer/optimizer.py:341",
+         wrapper="mxnet_tpu_torch.kernels.opt:bucket_sqnorm",
+         plain="mxnet_tpu_torch.kernels.opt:bucket_sqnorm_reference"),
     dict(name="bn_train_fwd", route="cuda",
          source="mxnet_tpu_torch/csrc/bn_train.cu",
          replaces="mxnet_tpu/kernels/norm.py:112",
@@ -663,16 +681,25 @@ def phase_attention_probes(torch, fa):
     return dict(mask=probes, deterministic=all(same))
 
 
-def _ladder_operands(torch, dev, gen, shape, mp, n_state):
-    """(w, state, g) of one parameter as the Trainer holds them."""
-    master = torch.randn(shape, device=dev, generator=gen) * 0.05
+def _ladder_operands(torch, dev, gen, shape, mp, n_state, misalign=False):
+    """(w, state, g) of one parameter as the Trainer holds them; with
+    ``misalign`` every tensor starts 4 bytes past a 16-byte boundary."""
     dt = torch.bfloat16 if mp else torch.float32
-    g = (torch.randn(shape, device=dev, generator=gen) * 0.01).to(dt)
-    inner = [torch.rand(shape, device=dev, generator=gen) * 1e-4
-             for _ in range(n_state)]
+
+    def buf(scale, dtype=torch.float32):
+        off = 4 // torch.empty((), dtype=dtype).element_size() \
+            if misalign else 0
+        n = math.prod(shape)
+        x = torch.randn(n + off, device=dev, generator=gen) * scale
+        return x.to(dtype)[off:].view(shape)
+
+    master = buf(0.05)
+    g = buf(0.01, dt)
+    inner = [buf(1.0).abs() * 1e-4 for _ in range(n_state)]
     inner = None if not inner else (inner[0] if n_state == 1
                                     else tuple(inner))
-    w = master.to(dt)
+    w = buf(1.0, dt)
+    w.copy_(master.to(dt))
     return w, ((master, inner) if mp else inner), g
 
 
@@ -724,10 +751,27 @@ def check_ladder(label, kopt, kernel_side, plain_side, before):
     return worst, worst_ratio
 
 
+def _kernel_deltas(kopt, fn):
+    """``fn()``'s ladder launches, tensors updated and norm launches."""
+    counters = (kopt.LAUNCHES, kopt.TENSORS, kopt.SQNORM_LAUNCHES)
+    before = [c.value for c in counters]
+    fn()
+    return tuple(c.value - b for c, b in zip(counters, before))
+
+
+def _bucket_bytes(dispatch, kopt, items, mp):
+    return sum(dispatch.optimizer_region_bytes(
+        w.numel(), w.element_size(), len(kopt._leaves(st[1] if mp else st)),
+        mp)[1] for w, st, *_ in items)
+
+
 def phase_kernels_opt(torch, kopt, topt, dispatch):
-    """The optimizer ladder kernel against ``_fused_param_step`` over two
-    updates, at BERT-base's parameter shapes, and its time beside the
-    bytes it must move."""
+    """The optimizer ladder kernel against its plain version over two
+    updates: buckets of one (``param_step``) at BERT-base's parameter
+    shapes, a mixed bucket, and a bucket of more tensors than one launch's
+    table holds; then the global-norm kernels against ``_fused_sqnorm`` and
+    against a second run of their own. Times beside the bytes each must
+    move."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(99)
     adam = dict(beta1=0.9, beta2=0.999, eps=1e-8, rescale_grad=1.0 / 8)
@@ -753,10 +797,11 @@ def phase_kernels_opt(torch, kopt, topt, dispatch):
         gn, scale = gscale is not None, gscale or 1.0
         for t in (1, 2):
             args = (1e-3, 0.01, t, scale, hyper)
-            before = kopt.LAUNCHES.value
-            kopt.param_step(cls, clip, gn, mp, w, st, g, *args)
-            check(kopt.LAUNCHES.value == before + 1,
-                  f"opt {label}: the wrapper did not launch the kernel")
+            delta = _kernel_deltas(kopt, lambda: kopt.param_step(
+                cls, clip, gn, mp, w, st, g, *args))
+            check(delta == (1, 1, 0),
+                  f"opt {label}: the wrapper did not launch the kernel once "
+                  f"for one tensor ({delta})")
             topt.Optimizer._fused_param_step(cls, clip, gn, mp, pw, pst, g,
                                              *args)
         torch.cuda.synchronize()
@@ -788,52 +833,253 @@ def phase_kernels_opt(torch, kopt, topt, dispatch):
                    library_ms=library_ms, library=library)
         say("kernel_case_opt " + json.dumps(row))
         rows.append(row)
+
+    # a mixed bucket: BERT's sizes, 3 elements, an odd size and a view 4
+    # bytes off alignment, with per-tensor lr, wd and t that differ, under
+    # a global-norm scale and a clip; then a bucket of tiny tensors that
+    # outgrows one table. Two updates each, every tensor checked
+    buckets = [
+        ("bucket_mixed_adamw_mp", "AdamW", adam, True, 2, 0.02, 0.5,
+         [(768,), (3,), (30522,), (3072, 768), (4099,), (1000,)]),
+        ("bucket_split_sgd_f32", "SGD", sgd, False, 1, None, None,
+         [(1 + k % 7,) for k in range(1100)]),
+    ]
+    norm_grads = []
+    for label, rule, hyper, mp, n_state, clip, gscale, shapes in buckets:
+        cls = getattr(topt, rule)
+        gn, scale = gscale is not None, gscale or 1.0
+        items = [_ladder_operands(torch, dev, gen, shape, mp, n_state,
+                                  misalign=shape == (1000,))
+                 + (1e-3 * (1 + k % 5), 0.01 * (k % 3), 1 + 2 * (k % 4))
+                 for k, shape in enumerate(shapes)]
+        plain = [(w.clone(), _clone_state(st), g, lr, wd, t)
+                 for w, st, g, lr, wd, t in items]
+        start = [(w.clone(), _clone_state(st)) for w, st, *_ in items]
+        want = (-(-len(items) // kopt.TABLE_CAPACITY), len(items), 0)
+        for step in (0, 1):
+            now = [it[:5] + (it[5] + step,) for it in items]
+            delta = _kernel_deltas(kopt, lambda: kopt.bucket_step(
+                cls, clip, gn, mp, now, scale, hyper))
+            check(delta == want, f"opt {label}: launches, tensors, norms "
+                                 f"{delta}, want {want}")
+            kopt.bucket_step_reference(
+                cls, clip, gn, mp, [it[:5] + (it[5] + step,)
+                                    for it in plain], scale, hyper)
+        torch.cuda.synchronize()
+        errs = [check_ladder(f"{label} member {k}", kopt, a[:2], b[:2], c)
+                for k, (a, b, c) in enumerate(zip(items, plain, start))]
+        nbytes = _bucket_bytes(dispatch, kopt, items, mp)
+        ms = cuda_ms(torch, lambda: kopt.bucket_step(
+            cls, clip, gn, mp, items, scale, hyper))
+        plain_ms = cuda_ms(torch, lambda: kopt.bucket_step_reference(
+            cls, clip, gn, mp, plain, scale, hyper), iters=3)
+        row = dict(case=label, rule=rule, tensors=len(items),
+                   launches_per_update=want[0],
+                   misaligned=[list(s) for s in shapes if s == (1000,)],
+                   max_abs_err=max(e[0] for e in errs),
+                   max_err_over_tol=max(e[1] for e in errs), ms=ms,
+                   plain_ms=plain_ms,
+                   bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
+        say("kernel_case_opt " + json.dumps(row))
+        rows.append(row)
+        norm_grads.append((label, [it[2] for it in items]))
+
+    # the global-norm kernels: against the plain sum (rtol 1e-5: another
+    # summation order) and bit for bit against a second run
+    for label, gs in norm_grads:
+        out = torch.zeros(3, device=dev)
+        delta = _kernel_deltas(kopt, lambda: kopt.bucket_sqnorm(
+            gs, 0.125, out=out[1]))
+        check(delta == (0, 0, 1), f"norm {label}: launches {delta}")
+        again = kopt.bucket_sqnorm(gs, 0.125)
+        want = topt.Optimizer._fused_sqnorm(gs, 0.125)
+        rel = ((out[1] - want).abs() / want).item()
+        same = bool(torch.equal(out[1], again))
+        row = dict(case=f"sqnorm_{label}", tensors=len(gs),
+                   dtype=str(gs[0].dtype).removeprefix("torch."),
+                   value=out[1].item(), plain=want.item(), rel_err=rel,
+                   tol=1e-5, bitwise_repeat=same)
+        say("kernel_case_opt " + json.dumps(row))
+        check(rel <= 1e-5 and out[0].item() == 0 and out[2].item() == 0,
+              f"norm {label}: {out.tolist()} against {want.item()}")
+        check(same, f"norm {label}: two runs differ")
+        rows.append(row)
     return rows
 
 
-def phase_opt_sweep(torch, kopt, topt, dispatch, trainer):
-    """The ladder over every trainable parameter of the trained BERT-base,
-    one launch each, back to back as ``update_fused`` launches them: the
-    optimizer's share of one training step. Works on copies of the
-    Trainer's weights and states."""
+def opt_plan(kopt, trainer):
+    """What ``update_fused`` makes of the trainer's trainable parameters:
+    its buckets (by dtype and multi-precision), the ladder launches of an
+    update, and the tensors."""
+    opt, sizes = trainer.optimizer, {}
+    for i, p in enumerate(trainer._params):
+        if p.grad_req == "null":
+            continue
+        w, st = p._tensor(), trainer._states[i]
+        key = (str(w.dtype), opt._is_mp_state(w, st))
+        sizes[key] = sizes.get(key, 0) + 1
+    return dict(buckets=len(sizes),
+                launches=sum(-(-n // kopt.TABLE_CAPACITY)
+                             for n in sizes.values()),
+                tensors=sum(sizes.values()))
+
+
+def phase_opt_sweep(torch, kopt, topt, dispatch, trainer, path):
+    """The optimizer over every trainable parameter of a trained model, as
+    ``update_fused`` issues it: bucketed by (dtype, multi-precision), each
+    parameter with the optimizer's own lr, wd and next update count. On
+    copies of the Trainer's weights and states, three designs: one launch
+    per bucket (``bucket_step``), the first port's one launch per
+    parameter (``param_step`` for each) and the plain ladder; held against
+    each other after one update, then timed alone (summed kernel events
+    of the profiler) and host-issued (CUDA events around back-to-back host
+    calls). Alone, each design runs in turn on copies of its tensors that
+    together exceed twice the L2, so that it reads them from HBM as the
+    bound assumes (:func:`cold_copies`); host-issued, on one set. Under
+    ``clip_global_norm`` the norm kernels over the same buckets, the same
+    ways. As an indication only (another function: no bf16 copy, torch's
+    own bias correction and epsilon placement), torch's fused AdamW or SGD
+    over f32 copies of the same masters."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(5)
-    hyper = dict(trainer.optimizer._hyper(), rescale_grad=1.0 / 8)
-    cls = type(trainer.optimizer)
-    sets = {"kernel": [], "plain": [], "before": []}
-    nbytes = 0
+    opt = trainer.optimizer
+    cls, clip = type(opt), opt.clip_gradient
+    hyper = dict(opt._hyper(), rescale_grad=1.0 / 8)
+    gn = opt.clip_global_norm is not None
+    scale = 0.5 if gn else 1.0
+    sides = {"bucket": {}, "per_parameter": {}, "plain": {}, "before": {}}
     for i, p in enumerate(trainer._params):
         if p.grad_req == "null":
             continue
         w, st = p._tensor().detach(), trainer._states[i]
-        mp = trainer.optimizer._is_mp_state(w, st)
+        mp = opt._is_mp_state(w, st)
         g = (torch.randn(w.shape, device=dev, generator=gen) * 0.01
              ).to(w.dtype)
-        for side in sets.values():
-            side.append((mp, w.clone(), _clone_state(st), g))
-        nbytes += dispatch.optimizer_region_bytes(
-            w.numel(), w.element_size(), 2, mp)[1]
+        scal = (opt._get_lr(i), opt._get_wd(i),
+                opt._index_update_count.get(i, 0) + 1)
+        for side in sides.values():
+            side.setdefault((str(w.dtype), mp), []).append(
+                (w.clone(), _clone_state(st), g) + scal)
+    before = sides.pop("before")
+    nbytes = sum(_bucket_bytes(dispatch, kopt, items, mp)
+                 for (_, mp), items in before.items())
+    gbytes = sum(it[2].numel() * it[2].element_size()
+                 for items in before.values() for it in items)
 
-    def sweep(step_one, side, t):
-        for mp, w, st, g in side:
-            step_one(cls, None, True, mp, w, st, g, 1e-4, 0.01, t, 0.5,
-                     hyper)
+    def bucket(side):
+        for (_, mp), items in side.items():
+            kopt.bucket_step(cls, clip, gn, mp, items, scale, hyper)
 
-    sweep(kopt.param_step, sets["kernel"], 6)
-    sweep(topt.Optimizer._fused_param_step, sets["plain"], 6)
+    def per_parameter(side):
+        for (_, mp), items in side.items():
+            for it in items:
+                kopt.param_step(cls, clip, gn, mp, *it, scale, hyper)
+
+    def plain(side):
+        for (_, mp), items in side.items():
+            kopt.bucket_step_reference(cls, clip, gn, mp, items, scale,
+                                       hyper)
+
+    designs = {"bucket": bucket, "per_parameter": per_parameter,
+               "plain": plain}
+    n = sum(len(items) for items in before.values())
+    deltas = {k: _kernel_deltas(kopt, lambda k=k: fn(sides[k]))
+              for k, fn in designs.items()}
     torch.cuda.synchronize()
-    errs = [check_ladder(f"sweep parameter {j}", kopt, a[1:3], b[1:3], c[1:3])
-            for j, (a, b, c) in enumerate(zip(
-                sets["kernel"], sets["plain"], sets["before"]))]
-    del sets["before"]
-    err, err_over_tol = (max(e[i] for e in errs) for i in (0, 1))
-    ms = cuda_ms(torch, lambda: sweep(kopt.param_step, sets["kernel"], 7),
-                 iters=5)
-    plain_ms = cuda_ms(torch, lambda: sweep(
-        topt.Optimizer._fused_param_step, sets["plain"], 7), iters=5)
-    row = dict(parameters=len(sets["kernel"]), bytes=nbytes,
-               max_abs_err=err, max_err_over_tol=err_over_tol, ms=ms, plain_ms=plain_ms,
-               bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
+    check(deltas == {"bucket": (len(before), n, 0),
+                     "per_parameter": (n, n, 0), "plain": (0, 0, 0)},
+          f"{path} sweep: launches, tensors, norms {deltas} for {n} "
+          f"tensors in {len(before)} buckets")
+    errs = []
+    for key, items in before.items():
+        for j, b in enumerate(items):
+            for design in ("bucket", "per_parameter"):
+                errs.append(check_ladder(
+                    f"{path} sweep {design} {key} parameter {j}", kopt,
+                    sides[design][key][j][:2], sides["plain"][key][j][:2],
+                    b[:2]))
+    del before
+    row = dict(path=path, rule=cls.__name__, parameters=n,
+               buckets=len(sides["bucket"]), bytes=nbytes,
+               bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+               max_abs_err=max(e[0] for e in errs),
+               max_err_over_tol=max(e[1] for e in errs))
+    n_sets = min(64, max(2, -(-2 * L2_BYTES // nbytes) + 1))
+    for k, fn in designs.items():
+        sets = [sides[k]] + [
+            {key: [(w.clone(), _clone_state(st), g.clone()) + tuple(rest)
+                   for w, st, g, *rest in items]
+             for key, items in sides[k].items()} for _ in range(n_sets - 1)]
+        row[f"{k}_ms"] = device_ms(torch, [partial(fn, x) for x in sets],
+                                   iters=max(5, n_sets))
+        row[f"{k}_ms_host_issued"] = cuda_ms(torch, partial(fn, sides[k]),
+                                             iters=5)
+        del sets
+    row["copies_alone"] = n_sets
+    # the card's copy rate by the same method: y.copy_(x) moving as many
+    # bytes as the update (half read, half written), over as many copies
+    half = max(1, nbytes // 8)
+    pairs = [(torch.empty(half, device=dev), torch.empty(half, device=dev))
+             for _ in range(n_sets)]
+    row["copy_ms"] = device_ms(
+        torch, [partial(y.copy_, x) for x, y in pairs], iters=max(5, n_sets))
+    del pairs
+    # an indication only: torch's fused rule over f32 copies of the masters
+    lparams = []
+    for (_, mp), items in sides["plain"].items():
+        for w, st, g, *_ in items:
+            lp = torch.nn.Parameter((st[0] if mp else w).float().clone())
+            lp.grad = g.float()
+            lparams.append(lp)
+    if cls.__name__ == "AdamW":
+        lopt = torch.optim.AdamW(lparams, lr=1e-4, weight_decay=0.01,
+                                 fused=True)
+    else:
+        lopt = torch.optim.SGD(lparams, lr=0.1, momentum=0.9,
+                               weight_decay=1e-4, fused=True)
+    row["library"] = f"torch.optim.{type(lopt).__name__}(fused=True).step"
+    row["library_ms"] = device_ms(torch, [lopt.step], iters=5)
+    row["library_ms_host_issued"] = cuda_ms(torch, lopt.step, iters=5)
+    del lparams, lopt
+    row["norm"] = None
+    if gn:
+        gss = [[it[2] for it in items] for items in sides["bucket"].values()]
+        sums = torch.zeros(len(gss), device=dev)
+        psums = torch.zeros(len(gss), device=dev)
+        rescale = hyper["rescale_grad"]
+
+        def norm(out=sums):
+            for k, gs in enumerate(gss):
+                kopt.bucket_sqnorm(gs, rescale, out=out[k])
+
+        def norm_plain():
+            for k, gs in enumerate(gss):
+                kopt.bucket_sqnorm_reference(gs, rescale, out=psums[k])
+
+        check(_kernel_deltas(kopt, norm) == (0, 0, len(gss)),
+              f"{path} norm: not one launch per bucket")
+        norm_plain()
+        again = torch.zeros_like(sums)
+        norm(again)
+        rel = ((sums - psums).abs() / psums).max().item()
+        check(rel <= 1e-5 and torch.equal(sums, again),
+              f"{path} norm: {sums.tolist()} {again.tolist()} against "
+              f"{psums.tolist()}")
+        total_norm = getattr(torch.nn.utils, "get_total_norm", None)
+        grads = [g for gs in gss for g in gs]
+        row["norm"] = dict(
+            buckets=len(gss), rel_err=rel, tol=1e-5, bitwise_repeat=True,
+            max_abs_err=(sums - psums).abs().max().item(),
+            ms=device_ms(torch, [norm], iters=5),
+            ms_host_issued=cuda_ms(torch, norm, iters=5),
+            plain_ms=device_ms(torch, [norm_plain], iters=5),
+            plain_ms_host_issued=cuda_ms(torch, norm_plain, iters=5),
+            bound_ms=1e3 * gbytes / HBM_BYTES_PER_S, bound_by="bytes",
+            bytes=gbytes,
+            indication="torch.nn.utils.get_total_norm (another function: "
+                       "the norm of the unscaled gradients)",
+            indication_ms=None if total_norm is None else device_ms(
+                torch, [lambda: total_norm(grads)], iters=5))
     say("opt_sweep " + json.dumps(row))
     return row
 
@@ -1260,6 +1506,31 @@ def phase_train_parity(torch, mt, finetune, fa):
 
 # -- training, a main path ----------------------------------------------------
 
+#: the optimizer wrappers and the plain versions a plain run puts in their
+#: places (the port has no switch that sends CUDA tensors to them)
+LADDER_SWAP = (("bucket_step", "bucket_step_reference"),
+               ("bucket_sqnorm", "bucket_sqnorm_reference"),
+               ("param_step", None))
+
+
+@contextlib.contextmanager
+def ladder_swap(kopt, on):
+    """With ``on``, the optimizer's bucket entry points (and param_step)
+    are their plain versions until the block ends."""
+    from mxnet_tpu_torch.optimizer.optimizer import Optimizer
+
+    saved = {name: getattr(kopt, name) for name, _ in LADDER_SWAP}
+    if on:
+        for name, plain in LADDER_SWAP:
+            setattr(kopt, name, getattr(kopt, plain) if plain
+                    else Optimizer._fused_param_step)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(kopt, name, fn)
+
+
 TRAIN_LR = 1e-4
 TRAIN_WARMUP = 2   # steps before the counted ones: allocator, cuBLAS plans
 TRAIN_STEPS = 5
@@ -1286,10 +1557,13 @@ def phase_training(torch, mt, finetune, build, fa, kopt, topt, dispatch):
 
     warm_losses, _ = _run_steps(torch, step, TRAIN_WARMUP)
     build.reset_counters()                       # main path: counts from 0
+    kopt.TENSORS.reset()
     dispatch.reset_counts()
     losses, secs = _run_steps(torch, step, TRAIN_STEPS)
     launches = {c.name: c.value for c in build.COUNTERS.values()}  # after
+    tensors = kopt.TENSORS.value
     outcomes = {f"{k}:{o}": n for (k, o), n in dispatch.COUNTS.items()}
+    plan = opt_plan(kopt, trainer)
 
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
@@ -1298,9 +1572,13 @@ def phase_training(torch, mt, finetune, build, fa, kopt, topt, dispatch):
               f"{name}: {launches[name]} launches, {launches[name + '_mma']}"
               f" tensor-core, {launches[name + '_fp32']} FP32; want 12 x "
               f"{TRAIN_STEPS} tensor-core")
-    check(launches["opt_ladder"] == TRAIN_STEPS * n_train,
-          f"opt_ladder: {launches['opt_ladder']} launches != {TRAIN_STEPS} x "
-          f"{n_train} trainable parameters")
+    check(launches["opt_ladder"] == TRAIN_STEPS * plan["launches"]
+          and launches["opt_sqnorm"] == TRAIN_STEPS * plan["buckets"]
+          and tensors == TRAIN_STEPS * n_train == TRAIN_STEPS
+          * plan["tensors"],
+          f"opt_ladder: {launches['opt_ladder']} launches, opt_sqnorm "
+          f"{launches['opt_sqnorm']}, {tensors} tensors updated; want "
+          f"{TRAIN_STEPS} x {plan} ({n_train} trainable parameters)")
     check(outcomes == {"opt_adamw:kernel": TRAIN_STEPS * n_train},
           f"dispatch outcomes {outcomes}")
     check(all(l == l and abs(l) != float("inf")
@@ -1323,37 +1601,36 @@ def phase_training(torch, mt, finetune, build, fa, kopt, topt, dispatch):
                    trainable_parameters=n_train, losses=losses,
                    step_ms=[1e3 * x for x in secs], step_ms_p50=1e3 * steady,
                    samples_per_s=batch / steady, launches=launches,
+                   opt_tensors_updated=tensors, opt_plan=plan,
                    dispatch=outcomes,
                    peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                    card=card_line())
     say(f"training: {json.dumps(summary)}")
-    sweep = phase_opt_sweep(torch, kopt, topt, dispatch, trainer)
+    sweep = phase_opt_sweep(torch, kopt, topt, dispatch, trainer, "bert")
     del net, trainer, step, qkv
     torch.cuda.empty_cache()
 
     # kernels against their plain versions, from the same weights, without
     # dropout. The port has no switch that sends CUDA tensors to the plain
-    # ladder, so for the plain run this script puts ``_fused_param_step`` in
-    # ``param_step``'s place; MXTPU_FLASH_ATTENTION=0 takes the masked-softmax
-    # attention and torch's own backward.
+    # ladder, so for the plain run this script puts the plain versions in
+    # the optimizer wrappers' places (LADDER_SWAP); MXTPU_FLASH_ATTENTION=0
+    # takes the masked-softmax attention and torch's own backward.
     runs = {}
-    kernel_step = kopt.param_step
     for label in ("kernels", "plain"):
         if label == "plain":
-            kopt.param_step = topt.Optimizer._fused_param_step
             os.environ["MXTPU_FLASH_ATTENTION"] = "0"
         build.reset_counters()
         try:
-            net, trainer, step = finetune.build_bert_finetune(
-                batch=batch, seq=seq, dropout=0.0, dtype="bfloat16",
-                learning_rate=TRAIN_LR, device=mt.gpu(0), seed=0)
-            runs[label], _ = _run_steps(torch, step, 3)
+            with ladder_swap(kopt, label == "plain"):
+                net, trainer, step = finetune.build_bert_finetune(
+                    batch=batch, seq=seq, dropout=0.0, dtype="bfloat16",
+                    learning_rate=TRAIN_LR, device=mt.gpu(0), seed=0)
+                runs[label], _ = _run_steps(torch, step, 3)
         finally:
-            kopt.param_step = kernel_step
             os.environ.pop("MXTPU_FLASH_ATTENTION", None)
         used = {k: build.COUNTERS[k].value for k in (
             "flash_attention_fwd", "flash_attention_bwd_dq",
-            "flash_attention_bwd_dkv", "opt_ladder")}
+            "flash_attention_bwd_dkv", "opt_ladder", "opt_sqnorm")}
         check(all(n > 0 for n in used.values()) if label == "kernels"
               else not any(used.values()),
               f"{label} run: kernel launches {used}")
@@ -1449,17 +1726,24 @@ def phase_resnet_training(torch, mt, train_resnet, build, knorm, kopt, topt,
     torch.cuda.reset_peak_memory_stats()
     warm_losses, warm_secs = _run_steps(torch, step, TRAIN_WARMUP)
     build.reset_counters()                       # main path: counts from 0
+    kopt.TENSORS.reset()
     dispatch.reset_counts()
     losses, secs = _run_steps(torch, step, TRAIN_STEPS)
     launches = {c.name: c.value for c in build.COUNTERS.values()}  # after
+    tensors = kopt.TENSORS.value
     outcomes = {f"{k}:{o}": n for (k, o), n in dispatch.COUNTS.items()}
+    plan = opt_plan(kopt, trainer)
 
     for name in ("bn_train_fwd", "bn_train_bwd"):
         check(launches[name] == n_bn * TRAIN_STEPS,
               f"{name}: {launches[name]} launches != {n_bn} x {TRAIN_STEPS}")
-    check(launches["opt_ladder"] == n_train * TRAIN_STEPS,
-          f"opt_ladder: {launches['opt_ladder']} launches != {n_train} x "
-          f"{TRAIN_STEPS}")
+    check(launches["opt_ladder"] == plan["launches"] * TRAIN_STEPS
+          and launches["opt_sqnorm"] == 0
+          and tensors == n_train * TRAIN_STEPS == plan["tensors"]
+          * TRAIN_STEPS,
+          f"opt_ladder: {launches['opt_ladder']} launches, opt_sqnorm "
+          f"{launches['opt_sqnorm']}, {tensors} tensors updated; want "
+          f"{TRAIN_STEPS} x {plan}, no norm")
     check(outcomes == {"bn_fwd:kernel": n_bn * TRAIN_STEPS,
                        "bn_bwd:kernel": n_bn * TRAIN_STEPS,
                        "opt_sgd:kernel": n_train * TRAIN_STEPS},
@@ -1492,10 +1776,13 @@ def phase_resnet_training(torch, mt, train_resnet, build, knorm, kopt, topt,
                    bn_sites=n_bn, losses=losses,
                    step_ms=[1e3 * x for x in secs], step_ms_p50=1e3 * steady,
                    images_per_s=RESNET_BATCH / steady, launches=launches,
+                   opt_tensors_updated=tensors, opt_plan=plan,
                    dispatch=outcomes,
                    peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                    card=card_line())
     say(f"resnet_training: {json.dumps(summary)}")
+    summary["opt_sweep"] = phase_opt_sweep(torch, kopt, topt, dispatch,
+                                           trainer, "resnet50")
     del net, trainer, step, ps, stem, rm
     torch.cuda.empty_cache()
 
@@ -1508,9 +1795,8 @@ def phase_resnet_training(torch, mt, train_resnet, build, knorm, kopt, topt,
     # already differs by 0.022 of 9.1. The port has no switch that sends
     # CUDA tensors to the plain versions, so this script puts them in the
     # wrappers' places for the plain steps.
-    saved = (knorm.bn_train_fwd, knorm.bn_train_bwd, kopt.param_step)
-    plain = (knorm.bn_train_fwd_reference, knorm.bn_train_bwd_reference,
-             topt.Optimizer._fused_param_step)
+    saved = (knorm.bn_train_fwd, knorm.bn_train_bwd)
+    plain = (knorm.bn_train_fwd_reference, knorm.bn_train_bwd_reference)
     # a second kernel net measures how far two runs of the same code drift
     # in one step (cuDNN's algorithms need not repeat their bits)
     sides = {label: train_resnet.build_resnet_train(
@@ -1524,13 +1810,12 @@ def phase_resnet_training(torch, mt, train_resnet, build, knorm, kopt, topt,
         for label, (net, trainer, step) in sides.items():
             build.reset_counters()
             if label == "plain":
-                knorm.bn_train_fwd, knorm.bn_train_bwd, kopt.param_step = \
-                    plain
+                knorm.bn_train_fwd, knorm.bn_train_bwd = plain
             try:
-                losses[label] = step().mean().item()
+                with ladder_swap(kopt, label == "plain"):
+                    losses[label] = step().mean().item()
             finally:
-                knorm.bn_train_fwd, knorm.bn_train_bwd, kopt.param_step = \
-                    saved
+                knorm.bn_train_fwd, knorm.bn_train_bwd = saved
             mine = {k: build.COUNTERS[k].value for k in (
                 "bn_train_fwd", "bn_train_bwd", "opt_ladder")}
             check(not any(mine.values()) if label == "plain"
@@ -1768,7 +2053,7 @@ def phase_lenet_parity(torch, mt, vision, kopt):
                                    {"learning_rate": 0.05, "momentum": 0.9})
         lossfn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
         x, y = mt.np.array(xv, device=where), mt.np.array(yv, device=where)
-        before = kopt.LAUNCHES.value
+        before = (kopt.LAUNCHES.value, kopt.TENSORS.value)
         with mt.autograd.record():
             out = net(x)
             loss = lossfn(out, y)
@@ -1776,8 +2061,12 @@ def phase_lenet_parity(torch, mt, vision, kopt):
         trainer.step(64)
         if where.type == "cuda":
             torch.cuda.synchronize()
-            check(kopt.LAUNCHES.value - before == 10,
-                  "the CUDA step did not launch the ladder once per parameter")
+            plan = opt_plan(kopt, trainer)
+            got = (kopt.LAUNCHES.value - before[0],
+                   kopt.TENSORS.value - before[1])
+            check(got == (plan["launches"], 10),
+                  f"the CUDA step launched the ladder {got[0]} times for "
+                  f"{got[1]} tensors; want once per bucket for 10: {plan}")
         ps = net.collect_params()
         res.append((out.asnumpy(), loss.asnumpy(),
                     {k: p.grad().float().cpu() for k, p in ps.items()},
@@ -1805,7 +2094,8 @@ def phase_lenet_parity(torch, mt, vision, kopt):
     return errs
 
 
-def phase_lenet_training(torch, mt, train_lenet, build, dispatch):
+def phase_lenet_training(torch, mt, train_lenet, build, dispatch, kopt,
+                         topt):
     net, trainer, step, (x, y) = train_lenet.build_lenet_train(
         batch=LENET_BATCH, device=mt.gpu(0), seed=0)
 
@@ -1823,16 +2113,21 @@ def phase_lenet_training(torch, mt, train_lenet, build, dispatch):
 
     warm, warm_secs, _ = run(TRAIN_WARMUP)
     build.reset_counters()                       # main path: counts from 0
+    kopt.TENSORS.reset()
     dispatch.reset_counts()
     losses, secs, loss = run(TRAIN_STEPS)
     launches = {c.name: c.value for c in build.COUNTERS.values()}  # after
+    tensors = kopt.TENSORS.value
     outcomes = {f"{k}:{o}": n for (k, o), n in dispatch.COUNTS.items()}
     ps = net.collect_params()
     n_train = len(net.trainable_param_names())
+    plan = opt_plan(kopt, trainer)
     check(n_train == 10, f"LeNet has {n_train} trainable tensors, not 10")
-    check(launches["opt_ladder"] == n_train * TRAIN_STEPS
-          and sum(launches.values()) == launches["opt_ladder"],
-          f"launches {launches} != opt_ladder {n_train} x {TRAIN_STEPS}")
+    check(launches["opt_ladder"] == plan["launches"] * TRAIN_STEPS
+          and sum(launches.values()) == launches["opt_ladder"]
+          and tensors == n_train * TRAIN_STEPS,
+          f"launches {launches}, {tensors} tensors updated; want only "
+          f"opt_ladder, {TRAIN_STEPS} x {plan}")
     check(outcomes == {"opt_sgd:kernel": n_train * TRAIN_STEPS},
           f"dispatch outcomes {outcomes}")
     check(all(math.isfinite(v) for v in warm + losses),
@@ -1856,8 +2151,11 @@ def phase_lenet_training(torch, mt, train_lenet, build, dispatch):
                    images_per_s=LENET_BATCH / steady, launches=launches,
                    launches_per_step={k: v / TRAIN_STEPS
                                       for k, v in launches.items()},
+                   opt_tensors_updated=tensors, opt_plan=plan,
                    dispatch=outcomes, card=card_line())
     say(f"lenet_training: {json.dumps(summary)}")
+    summary["opt_sweep"] = phase_opt_sweep(torch, kopt, topt, dispatch,
+                                           trainer, "lenet")
     return summary
 
 
@@ -1926,13 +2224,15 @@ def main():
                                    kopt, topt, dispatch)
     rtc_run = phase_rtc(torch, mt, rtc, build, rtc_modules)
     phase_lenet_parity(torch, mt, vision, kopt)
-    lenet_run = phase_lenet_training(torch, mt, train_lenet, build, dispatch)
+    lenet_run = phase_lenet_training(torch, mt, train_lenet, build, dispatch,
+                                     kopt, topt)
 
     # 12. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
-    # 4: no main path runs them), the ladder as the sweep over
-    # BERT-base's parameters, BatchNorm summed over ResNet-50's 53 sites at
+    # 4: no main path runs them), the ladder and its norm as the sweep over
+    # BERT-base's parameters (one launch per bucket; per_path: each training
+    # path's sweep and launches), BatchNorm summed over ResNet-50's 53 sites at
     # batch 256 (bf16, NHWC). Attention's ms and library_ms are the kernel
     # alone and SDPA by the same method (summed kernel events of the
     # profiler); ms_host_issued are back-to-back CUDA-event times, the
@@ -1945,14 +2245,13 @@ def main():
     # timed with dropout 0.1, as training runs it; the library (SDPA's
     # backward through autograd, whose dropout mask is another function) at
     # the same shape without dropout.
-    # Launches: from the path that runs the kernel most (the ladder: the
-    # ResNet-50 path's 161 x 5 launches). rtc (K7): the three user kernels
+    # Launches: from the path that runs the kernel most (the ladder and its
+    # norm: BERT's, with each path's beside). rtc (K7): the three user kernels
     # of phase 9 at their main-path shapes, each timed alone; the row
     # carries their sums and max_abs_err the largest of the three (each
     # against its own tolerance), and "cases" each kernel's own numbers.
     by_label = {r["case"]: r for r in cases}
     bwd_by_label = {r["case"]: r for r in bwd_cases}
-    sweep = train["opt_sweep"]
     measured = {}
     for variant, fwd_case, bwd_case, bwd_lib_case in (
             ("mma", "serve_bf16", "train_bf16_dropout", "serve_bf16"),
@@ -2002,14 +2301,61 @@ def main():
                 own_bound_ms=bwd[f"{key}_bound_ms"],
                 own_bound_by=bwd[f"{key}_bound_by"], **pair)
     measured["flash_attention_fwd_mma"]["probes"] = probes
+    paths = {"bert": train, "resnet50": resnet, "lenet": lenet_run}
+    per_path = {}
+    for path, run in paths.items():
+        sw = run["opt_sweep"]
+        per_path[path] = dict(
+            launches=run["launches"]["opt_ladder"],
+            tensors_updated=run["opt_tensors_updated"],
+            norm_launches=run["launches"]["opt_sqnorm"],
+            buckets=sw["buckets"], parameters=sw["parameters"],
+            max_abs_err=sw["max_abs_err"], ms=sw["bucket_ms"],
+            ms_host_issued=sw["bucket_ms_host_issued"],
+            per_parameter_ms=sw["per_parameter_ms"],
+            per_parameter_ms_host_issued=sw[
+                "per_parameter_ms_host_issued"],
+            plain_ms=sw["plain_ms"],
+            plain_ms_host_issued=sw["plain_ms_host_issued"],
+            bound_ms=sw["bound_ms"], copy_ms=sw["copy_ms"],
+            library=sw["library"], library_ms=sw["library_ms"],
+            library_ms_host_issued=sw["library_ms_host_issued"])
+    sweep, norm = train["opt_sweep"], train["opt_sweep"]["norm"]
     measured.update({
         "opt_ladder": dict(
-            launches=max(train["launches"]["opt_ladder"],
-                         resnet["launches"]["opt_ladder"]),
-            max_abs_err=sweep["max_abs_err"], ms=sweep["ms"],
+            launches=train["launches"]["opt_ladder"],
+            launches_from="BERT training, phase 6 (per_path: each path's)",
+            max_abs_err=max(p["max_abs_err"] for p in per_path.values()),
+            ms=sweep["bucket_ms"], ms_host_issued=sweep[
+                "bucket_ms_host_issued"],
+            per_parameter_ms=sweep["per_parameter_ms"],
+            per_parameter_ms_host_issued=sweep[
+                "per_parameter_ms_host_issued"],
             plain_ms=sweep["plain_ms"], bound_ms=sweep["bound_ms"],
-            bound_by=sweep["bound_by"], library_ms=None,
-            lenet_launches=lenet_run["launches"]["opt_ladder"]),
+            bound_by=sweep["bound_by"], copy_ms=sweep["copy_ms"],
+            library_ms=None,
+            times_cover="one update of BERT-base's parameters as "
+                        "update_fused issues it (per_path: each path's); "
+                        "ms alone (profiler kernel sums), host-issued "
+                        "beside; copy_ms: y.copy_(x) of the same bytes "
+                        "the same way; per_parameter: one launch a "
+                        "parameter; "
+                        "library_ms in per_path: torch's fused rule, "
+                        "another function, an indication only",
+            per_path=per_path),
+        "opt_sqnorm": dict(
+            launches=train["launches"]["opt_sqnorm"],
+            launches_from="BERT training, phase 6 (ResNet-50 and LeNet "
+                          "clip no global norm)",
+            max_abs_err=norm["max_abs_err"], ms=norm["ms"],
+            ms_host_issued=norm["ms_host_issued"], plain_ms=norm["plain_ms"],
+            plain_ms_host_issued=norm["plain_ms_host_issued"],
+            bound_ms=norm["bound_ms"], bound_by=norm["bound_by"],
+            library_ms=None, indication=norm["indication"],
+            indication_ms=norm["indication_ms"],
+            times_cover="the bucket sums of BERT-base's gradients, one "
+                        "norm launch a bucket; ms alone (profiler kernel "
+                        "sums), host-issued beside"),
     })
     rc = rtc_run["cases"]
     measured["rtc"] = dict(

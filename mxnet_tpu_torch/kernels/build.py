@@ -121,9 +121,9 @@ class LaunchCounter:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self):
+    def add(self, n=1):
         with self._lock:
-            self._n += 1
+            self._n += n
 
     @property
     def value(self):

@@ -125,7 +125,7 @@ _UNARY_FNS.update({
     "isposinf": torch.isposinf,
     "logical_not": torch.logical_not, "negative": torch.neg,
     "positive": torch.clone, "rint": _promote.default_float(torch.round),
-    "sign": torch.sign, "signbit": torch.signbit,
+    "sign": _promote.no_bool(torch.sign, "sign"), "signbit": torch.signbit,
     "square": lambda x: torch.square(
         x.to(_promote.numeric_dtype(x.dtype))),
     "angle": _promote.default_float(torch.angle),

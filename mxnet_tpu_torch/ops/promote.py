@@ -23,6 +23,17 @@ instead of raising (torch's CPU kernels) or returning what the card's
 integer unit gives: ``x // 0`` is -1 where x is 0 and -2 elsewhere for
 signed types, the type's largest value for unsigned ones, and
 ``x % 0`` is 0. A float ``x // 0`` is nan, as in the JAX package.
+
+``fmod`` of two bools is the exception: ``jnp.fmod`` puts 1 in place of a
+zero divisor only when the operands' promoted type is an integer type, and
+bool is not one, so two bools reach ``lax.rem`` as int32 with the zero left
+in place, and ``lax.rem``'s ``x % 0`` is ``x``: ``fmod(True, False)`` is 1,
+``fmod(x, True)`` is 0. ``mod``, ``remainder`` and ``floor_divide``
+promote to int32 before they test the divisor, so two bools take the
+integer forms above. Where a bool or int input meets a function the JAX
+package refuses for it (``rsqrt`` and ``sigmoid`` take floats only;
+``sign`` and ``log_sigmoid`` no bool), :func:`float_only` and
+:func:`no_bool` raise ``TypeError`` naming the dtype, as it does.
 """
 from __future__ import annotations
 
@@ -30,8 +41,8 @@ import numpy as _np
 import torch
 
 __all__ = ["is_weak", "result_dtype", "inexact_dtype", "inexact",
-           "numeric_dtype", "bool_same", "default_float", "float_fn", "binary",
-           "divmod_pair", "KINDS"]
+           "numeric_dtype", "bool_same", "default_float", "float_fn",
+           "float_only", "no_bool", "relu", "binary", "divmod_pair", "KINDS"]
 
 
 def is_weak(x):
@@ -115,6 +126,44 @@ def float_fn(fn):
     return wrapped
 
 
+def _refuse(name, dt, accepted):
+    return TypeError(f"{name} does not accept dtype "
+                     f"{str(dt).removeprefix('torch.')}. Accepted dtypes are "
+                     f"subtypes of {accepted}.")
+
+
+def float_only(fn, name):
+    """``fn`` of a float or complex input; an int or bool input raises
+    ``TypeError``, as ``lax.rsqrt`` and ``lax.logistic`` do."""
+    def wrapped(x, *args, **kwargs):
+        if not (x.is_floating_point() or x.is_complex()):
+            raise _refuse(name, x.dtype, "floating, complexfloating")
+        return fn(x, *args, **kwargs)
+    wrapped.__name__ = name
+    return wrapped
+
+
+def no_bool(fn, name):
+    """``fn`` of a number; a bool input raises ``TypeError``, as
+    ``jnp.sign`` and the negation inside ``jax.nn.log_sigmoid`` do."""
+    def wrapped(x, *args, **kwargs):
+        if x.dtype == torch.bool:
+            raise _refuse(name, x.dtype,
+                          "integer, floating, complexfloating")
+        return fn(x, *args, **kwargs)
+    wrapped.__name__ = name
+    return wrapped
+
+
+def relu(x):
+    """``jax.nn.relu``: ``maximum(x, 0)`` with a weak 0, so a bool input
+    gives int64; any other input keeps its dtype through ``torch.relu``,
+    whose gradient at 0 is 0 like ``jax.nn.relu``'s."""
+    if x.dtype == torch.bool:
+        return binary(torch.maximum)(x, 0)
+    return torch.relu(x)
+
+
 def _cast(x, dt):
     if isinstance(x, torch.Tensor):
         return x if x.dtype == dt else x.to(dt)
@@ -183,6 +232,12 @@ def _zero_safe(fn):
     return rem
 
 
+def _bool_fmod(a, b):
+    """``fmod`` of two bools cast to int32: ``x % 0`` is ``x`` (module
+    note), ``x % 1`` is 0."""
+    return a * (b == 0)
+
+
 def divmod_pair(a, b):
     """``(a // b, a % b)`` over tensors of one dtype, zero-safe."""
     return _floor_divide(a, b), _zero_safe(torch.remainder)(a, b)
@@ -212,7 +267,9 @@ def binary(fn, kind="same"):
     one launch, with no fill and no copy. ``power`` with a Python int
     exponent keeps the base's dtype (bool: int32), as ``jnp.power``'s
     integer power does. Integer division and remainders by a zero element
-    give the JAX package's values (module note)."""
+    give the JAX package's values, ``fmod`` of two bools its own (module
+    note)."""
+    bool_fn = _bool_fmod if fn is torch.fmod else None
     fn = SAFE.get(fn, fn)
     to = KINDS["numeric" if kind == "power" else kind]
 
@@ -220,7 +277,10 @@ def binary(fn, kind="same"):
         if kind == "power" and isinstance(a, torch.Tensor) and isinstance(
                 b, int) and not isinstance(b, _np.generic):
             return fn(a.to(numeric_dtype(a.dtype)), int(b))
-        dt = to(result_dtype(a, b))
+        dt = result_dtype(a, b)
+        if bool_fn is not None and dt == torch.bool:
+            return bool_fn(_cast(a, torch.int32), _cast(b, torch.int32))
+        dt = to(dt)
         return fn(_cast(a, dt), _cast(b, dt), *args, **kwargs)
 
     wrapped.__name__ = getattr(fn, "__name__", "binary")

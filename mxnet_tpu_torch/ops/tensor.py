@@ -262,7 +262,7 @@ _abs = _promote.bool_same(torch.abs)
 
 #: float functions: an int or bool input computes in promote.inexact_dtype
 _FLOAT = {
-    "sqrt": torch.sqrt, "rsqrt": torch.rsqrt, "cbrt": cbrt,
+    "sqrt": torch.sqrt, "cbrt": cbrt,
     "rcbrt": lambda x: 1.0 / cbrt(x),
     "exp": torch.exp, "log": torch.log, "log10": torch.log10,
     "log2": torch.log2, "log1p": torch.log1p, "expm1": torch.expm1,
@@ -273,12 +273,17 @@ _FLOAT = {
     "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
     "gamma": lambda x: torch.exp(torch.lgamma(x)), "gammaln": torch.lgamma,
     "digamma": torch.digamma, "erf": torch.erf, "erfinv": torch.erfinv,
-    "sigmoid": torch.sigmoid, "log_sigmoid": F.logsigmoid,
 }
 
 _UNARY = {name: _promote.float_fn(fn) for name, fn in _FLOAT.items()}
 _UNARY.update({
-    "abs": _abs, "sign": torch.sign,
+    # the JAX package refuses int and bool inputs to these (promote note)
+    "rsqrt": _promote.float_only(torch.rsqrt, "rsqrt"),
+    "sigmoid": _promote.float_only(torch.sigmoid, "sigmoid"),
+    "log_sigmoid": _promote.no_bool(_promote.float_fn(F.logsigmoid),
+                                    "log_sigmoid"),
+    "sign": _promote.no_bool(torch.sign, "sign"),
+    "abs": _abs,
     "rint": _promote.default_float(torch.round), "round": torch.round,
     "ceil": _promote.bool_same(torch.ceil),
     "floor": _promote.bool_same(torch.floor),
@@ -286,7 +291,7 @@ _UNARY.update({
     "fix": _promote.bool_same(torch.trunc),
     "square": lambda x: torch.square(x.to(_promote.numeric_dtype(x.dtype))),
     "reciprocal": lambda x: _divide(1.0, x), "negative": torch.neg,
-    "logical_not": lambda x: (x == 0).to(x.dtype), "relu": torch.relu,
+    "logical_not": lambda x: (x == 0).to(x.dtype), "relu": _promote.relu,
     # the JAX package's x / (1 + |x|): a bool input meets the weak 1
     "softsign": lambda x: _divide(x, _add(1, _abs(x))),
     "identity": lambda x: x.clone(),

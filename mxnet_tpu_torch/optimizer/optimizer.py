@@ -12,10 +12,12 @@ List inputs take the fused path, ``update_fused``: parameters are bucketed
 by (weight dtype, multi-precision), their hyperparameters are resolved in
 list order (so a schedule driven by ``num_update`` sees the per-parameter
 sequence), and every member runs the ladder: rescale -> global-norm scale
--> per-element clip -> ``_rule`` -> cast of the master back. The ladder
-runs through kernels/opt.py:param_step: the CUDA ladder kernel for CUDA
-tensors, and ``_fused_param_step``, the kernel's plain version, for CPU
-tensors.
+-> per-element clip -> ``_rule`` -> cast of the master back. Each bucket
+runs through kernels/opt.py:bucket_step, and under ``clip_global_norm``
+its sum of squares first through kernels/opt.py:bucket_sqnorm: one launch
+of the CUDA ladder kernel (and one of the norm kernels) per bucket for CUDA
+tensors, and for CPU tensors the kernels' plain versions,
+``_fused_param_step`` and ``_fused_sqnorm`` over the bucket.
 
 Updates are IN PLACE under ``torch.no_grad()``: the weight, the master and
 the state tensors keep their identity and are overwritten, which is the
@@ -202,8 +204,8 @@ class Optimizer:
         place. Returns ``(w, st)``, the tensors it was given.
 
         Plain PyTorch, and the plain version of the CUDA ladder kernel
-        (kernels/opt.py:param_step), which computes the same function in
-        one pass."""
+        (kernels/opt.py:bucket_step, looped over a bucket), which computes
+        the same function in one pass."""
         h = dict(hyper)
         h["t"] = t
         with torch.no_grad():
@@ -232,7 +234,9 @@ class Optimizer:
     def _fused_sqnorm(gs, rescale):
         """Sum of squares of the rescaled gradients of one bucket, f32
         accumulation: the pre-pass of ``clip_global_norm``. Returns a
-        0-dim tensor on the gradients' device."""
+        0-dim tensor on the gradients' device. Plain PyTorch, and the
+        plain version of the CUDA norm kernels
+        (kernels/opt.py:bucket_sqnorm)."""
         total = torch.zeros((), dtype=torch.float32, device=gs[0].device)
         for g in gs:
             g32 = g.detach().float() * _s(rescale)
@@ -279,9 +283,12 @@ class Optimizer:
         """Fused multi-tensor update over the whole list: rescale ->
         global-norm clip -> per-element clip -> ``_rule``, bucketed by
         (weight dtype, multi-precision), with per-parameter lr/wd/t
-        resolved in list order. Each member runs
-        kernels/opt.py:param_step: the CUDA ladder kernel for CUDA tensors,
-        ``_fused_param_step`` for CPU tensors."""
+        resolved in list order. Under ``clip_global_norm`` each bucket's
+        sum of squares comes from one kernels/opt.py:bucket_sqnorm call
+        into a vector of bucket sums, read on the host once; then each
+        bucket takes one kernels/opt.py:bucket_step call: the CUDA kernels
+        for CUDA tensors, ``_fused_sqnorm`` and ``_fused_param_step`` for
+        CPU tensors."""
         buckets = {}
         for i, w, g, s in zip(index, weight, grad, state):
             self._update_count(i)
@@ -298,19 +305,26 @@ class Optimizer:
         gn = self.clip_global_norm is not None
         if gn:
             # one partial sum per bucket, combined on the host into the
-            # one global scale (one device-to-host read per bucket)
+            # one global scale in float64, in bucket order (one
+            # device-to-host read for all buckets)
+            first = next(iter(buckets.values()))[0][2]
+            sums = torch.empty(len(buckets), dtype=torch.float32,
+                               device=first.device)
+            for k, items in enumerate(buckets.values()):
+                _kopt.bucket_sqnorm([it[2] for it in items],
+                                    self.rescale_grad, out=sums[k])
             sq = 0.0
-            for items in buckets.values():
-                sq += float(self._fused_sqnorm([it[2] for it in items],
-                                               self.rescale_grad))
+            for v in sums.tolist():
+                sq += v
             gnorm = sq ** 0.5
             if gnorm > self.clip_global_norm:
                 scale = self.clip_global_norm / gnorm
         cls, clip = type(self), self.clip_gradient
         for (_, use_mp), items in buckets.items():
-            for _, w, g, s, lr, wd, t in items:
-                _kopt.param_step(cls, clip, gn, use_mp, w, s, g, lr, wd, t,
-                                 scale, hyper)
+            _kopt.bucket_step(cls, clip, gn, use_mp,
+                              [(w, s, g, lr, wd, t)
+                               for _, w, g, s, lr, wd, t in items],
+                              scale, hyper)
 
     def update_multi_precision(self, index, weight, grad, state):
         if isinstance(index, (list, tuple)):

@@ -19,9 +19,11 @@ per step (the union of kernel intervals), the device's idle share, launches
 per step, the share of the port's kernels, of the library GEMMs and
 convolutions and of everything else, and the kernels that take the most
 device time. ``--plain-ladder`` measures, for comparison, the same step
-with the optimizer ladder's plain version (``_fused_param_step`` put in
-``param_step``'s place: the port itself has no such switch). Needs a CUDA
-card; exits non-zero without.
+with the optimizer's plain versions (``bucket_step_reference`` and
+``bucket_sqnorm_reference`` put in ``bucket_step``'s and
+``bucket_sqnorm``'s places, ``_fused_param_step`` in ``param_step``'s:
+the port itself has no such switch). Needs a CUDA card; exits non-zero
+without.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ GROUPS = (
     ("flash_bwd_dq_kernel", "K5a flash_attention_bwd_dq (fp32)"),
     ("flash_bwd_dkv_kernel", "K5b flash_attention_bwd_dkv (fp32)"),
     ("opt_ladder_kernel", "K3 opt_ladder"),
+    ("opt_sqnorm_", "K3 opt_sqnorm (global norm)"),
     ("bn_fwd_", "K1 bn_train_fwd"), ("bn_bwd_", "K2 bn_train_bwd"),
     ("fprop", "library convolutions"), ("dgrad", "library convolutions"),
     ("wgrad", "library convolutions"), ("conv", "library convolutions"),
@@ -85,6 +88,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.plain_ladder:
+        kopt.bucket_step = kopt.bucket_step_reference
+        kopt.bucket_sqnorm = kopt.bucket_sqnorm_reference
         kopt.param_step = Optimizer._fused_param_step
     dev = torch.device("cuda", 0)
     if args.model == "bert":

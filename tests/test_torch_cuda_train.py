@@ -137,9 +137,10 @@ def _check_rule(cuda_device, rule, hyper):
 
 def _check_trainer_step(cuda_device):
     """With nothing set in the environment, ``Trainer.step`` on CUDA
-    parameters launches the ladder kernel once per parameter (a 3-element
-    bias and an f32 parameter beside a bf16 one included) and gives the
-    plain ladder's result on the CPU within the kernel's tolerance."""
+    parameters launches the ladder kernel and the global-norm kernels once
+    per bucket (a bf16 parameter with its master; a 3-element bias and an
+    f32 parameter), updates every parameter through the kernel, and gives
+    the plain ladder's result on the CPU within the kernel's tolerance."""
     def run(dev):
         rs = onp.random.RandomState(11)
         params = {}
@@ -163,10 +164,13 @@ def _check_trainer_step(cuda_device):
         return [p._tensor().detach().float().cpu() for p in params.values()]
 
     dispatch.reset_counts()
-    before = kopt.LAUNCHES.value
+    before = (kopt.LAUNCHES.value, kopt.SQNORM_LAUNCHES.value,
+              kopt.TENSORS.value)
     got = run(cuda_device)
     torch.cuda.synchronize()
-    assert kopt.LAUNCHES.value == before + 6
+    after = (kopt.LAUNCHES.value, kopt.SQNORM_LAUNCHES.value,
+             kopt.TENSORS.value)
+    assert [a - b for a, b in zip(after, before)] == [4, 4, 6]
     assert dispatch.COUNTS == {("opt_adamw", "kernel"): 6}
     for i, (a, w) in enumerate(zip(got, run(mt.cpu()))):
         # the global norm is summed on another device, so its scale differs

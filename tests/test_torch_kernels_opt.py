@@ -2,13 +2,15 @@
 (mxnet_tpu_torch/kernels/opt.py, kernels/dispatch.py) on the CPU: which
 decision each rule, dtype, size and device gets, counted by outcome under
 the names the JAX package's tests/test_kernels.py expects of its own
-dispatch; the byte model against mxnet_tpu/passes/memory.py; and the port's
-ladder against the JAX package's Pallas ladder run in interpret mode
+dispatch, through the bucket entry point; the byte model against
+mxnet_tpu/passes/memory.py; and the port's ladder against the JAX
+package's Pallas ladder run in interpret mode
 (MXTPU_KERNELS=force with MXTPU_KERNELS_INTERPRET=1 on the JAX side, as
 tests/test_kernels.py runs it; that test passes on this jax version). The
 port has no mode switch: device, rule and dtype alone decide. The CUDA
-kernel itself runs only on the card (tests/test_torch_cuda_train.py); CPU
-tensors take the plain ladder, outcome ``platform``.
+kernel itself runs only on the card (tests/test_torch_cuda_train.py,
+tests/test_torch_cuda_opt.py); CPU tensors take the plain ladder, outcome
+``platform``.
 """
 import jax
 import jax.numpy as jnp
@@ -122,12 +124,22 @@ def test_unsupported_rule_and_dtype_are_decided_before_the_platform():
         assert _count("opt_sgd", "platform") == before + 1
 
 
-def test_trainer_step_goes_through_param_step():
-    """``Trainer.step`` and the single-parameter ``update`` both reach the
-    ladder through kernels/opt.py:param_step, so on the card they launch
-    the kernel: every parameter's decision is counted."""
+def test_trainer_step_goes_through_param_step(monkeypatch):
+    """``Trainer.step`` reaches the ladder through kernels/opt.py:
+    bucket_step, one call per (dtype, multi-precision) bucket, and the
+    single-parameter ``update`` through param_step, a bucket of one; so on
+    the card they launch the kernel: every parameter's decision is
+    counted."""
     import mxnet_tpu_torch as mt
 
+    buckets = []
+    real_bucket_step = kopt.bucket_step
+
+    def spy(cls, clip, gn, mp, items, scale, hyper):
+        buckets.append((mp, len(items)))
+        return real_bucket_step(cls, clip, gn, mp, items, scale, hyper)
+
+    monkeypatch.setattr(kopt, "bucket_step", spy)
     params = {}
     for i, dt in enumerate(("bfloat16", "float32", "float32")):
         p = mt.gluon.Parameter(f"p{i}", shape=(5, 3), dtype=dt)
@@ -140,11 +152,13 @@ def test_trainer_step_goes_through_param_step():
     before = _count("opt_adamw", "platform")
     tr.step(2)
     assert _count("opt_adamw", "platform") == before + 3
+    assert buckets == [(True, 1), (False, 2)]
     opt = topt.SGD(learning_rate=0.1)
     before = _count("opt_sgd", "platform")
     w = torch.ones(7)
     opt.update(0, w, torch.ones(7), None)
     assert _count("opt_sgd", "platform") == before + 1
+    assert buckets[-1] == (False, 1)
     assert torch.allclose(w, torch.full((7,), 0.9))
 
 

@@ -502,7 +502,11 @@ def test_legacy_nd_namespace_and_npx():
             bad[name] = err
     assert bad == {}
     assert "broadcast_add" in mt.ops.registry.list_ops()
-    assert mt.ops.registry.get_op("relu") is torch.relu
+    relu = mt.ops.registry.get_op("relu")
+    x = torch.tensor([-1.5, 0.0, 2.0])
+    assert torch.equal(relu(x), torch.relu(x))
+    assert torch.equal(relu(torch.tensor([True, False])),
+                       torch.tensor([1, 0], dtype=torch.int64))
     # the fluent surface: any mx.nd op as a method
     with mt.cpu():
         onp.testing.assert_allclose(tf.broadcast_add(tg).asnumpy(),
