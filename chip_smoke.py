@@ -86,8 +86,30 @@ failure exits non-zero, nothing is caught and carried on:
      ``trainer.step(256)``; 2 warm-up steps, then the counts are zeroed just
      before 5 counted steps and read just after; the optimizer over LeNet's
      parameters as in 6.
- 12. a ``{"kernels": [...]}`` line, the card line, and as the last line
-     ``{"ok": true, "device": {...}}``.
+ 13-15. TrainStep, main paths: ResNet-50 (as 8), LeNet (as 11) and
+     BERT-base (as 6, without the global-norm clip, which TrainStep runs
+     phased) through ``gluon.TrainStep``, which captures each step as one
+     CUDA graph: two builds of each from one seed, one through the graph
+     and one phased (``MXTPU_WHOLE_STEP=0``); 2 warm-up steps (the eager
+     warm-up, then the capture and its first replay), then the counts are
+     zeroed just before 5 counted steps of each and read just after (the
+     graph's from its replays' deltas): one capture, the phased path's
+     launches (K1 = K2 = 53, K3 = its buckets, K4 = K5a = K5b = 12 a
+     step). BERT: each replay moves every layer's dropout-seed generator as
+     a phased step moves its twin's, and the 5 replays draw 5 different
+     seeds. Then 3 steps of both from one state
+     with an LR that changes every step, held to each other (phase 6's
+     and 10's loss tolerances, phase 8's parameter measure), and both
+     profiled in turns (phased, graph, graph, phased: host ms, device-busy
+     ms, idle share, host calls a step beside the kernels the device ran,
+     peak memory). Phase 3's K3 sweeps also hold the ladder's device-scalar
+     entry bit for bit against its by-value entry over each path's list
+     and time it, and 3b probes the mask with a seed drawn on the card.
+ 16. a ``timing`` line (profiler windows taken, windows that came back
+     without device events, and times taken with CUDA events instead
+     where the profiler recorded none), a ``{"kernels": [...]}`` line
+     (with each kernel's launches on the TrainStep paths), the card line,
+     and as the last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --bn-sites ROOT`` runs no phase but this: K1 and
 K2 of the ``mxnet_tpu_torch`` package under ROOT (this checkout, or another
@@ -309,6 +331,12 @@ def cold_copies(torch, tensors):
                   for t in tensors) for _ in range(n)]
 
 
+#: profiler windows taken, windows that came back without device events,
+#: and device_ms calls timed with CUDA events instead (printed before the
+#: kernels line)
+TIMING = {"profiler_windows": 0, "empty_windows": 0, "event_timed_calls": 0}
+
+
 def device_ms(torch, fns, iters=20):
     """Mean device time of one call in ms: the summed durations of every
     kernel that ``iters`` calls launch, from ``torch.profiler``'s CUDA
@@ -316,16 +344,21 @@ def device_ms(torch, fns, iters=20):
     set of :func:`cold_copies` and are called in turn, so that a call finds
     its inputs in HBM, not in the L2. Host time between launches is not in
     it, so the host cannot bound a short kernel's number; a library call's
-    autograd kernels are in it."""
+    autograd kernels are in it. Where the profiler records no device
+    activity (it returns a window without its device events now and then,
+    and on some machines every time), the calls are timed with CUDA events
+    behind a spin kernel instead (profile_training.queued_ms: the card's
+    gaps between kernels are then in the time) and TIMING counts it."""
     from torch.profiler import ProfilerActivity, profile
 
     fns = list(fns)
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    # the profiler now and then returns a window without its device
-    # events (once in four runs of ~75 windows): that window is taken again
-    for attempt in range(3):
+    # an empty window is taken again, twice at most; once the profiler has
+    # come back empty three times running, once only
+    for attempt in range(1 if TIMING["event_timed_calls"] else 3):
+        TIMING["profiler_windows"] += 1
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fns[i % len(fns)]()
@@ -334,9 +367,13 @@ def device_ms(torch, fns, iters=20):
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / 1e3 / iters
+        TIMING["empty_windows"] += 1
         say(f"device_ms: the profiler recorded no device activity "
-            f"(window {attempt + 1} of 3)")
-    fail("the profiler recorded no device activity in 3 windows")
+            f"(window {attempt + 1})")
+    from mxnet_tpu_torch.tools.profile_training import queued_ms
+
+    TIMING["event_timed_calls"] += 1
+    return sum(queued_ms(fns, iters)) / iters
 
 
 def card_line():
@@ -447,7 +484,10 @@ def phase_kernels(torch, fa):
     rows = []
     for label, b, h, s, d, dt, causal, p, layout in attention_cases(torch):
         q, k, v = attention_inputs(torch, gen, b, h, s, d, dt, layout)
-        seed = 7 if p else None
+        # the seed on the card, as training passes it (an int seed would
+        # add a copy to the card to every call)
+        seed = torch.tensor([7], dtype=torch.int32, device=dev) if p \
+            else None
         variant, aligned = fa.tensor_route(q, k, v)
         counter = fa.VARIANT_LAUNCHES[fa.KERNEL][variant]
         before = counter.value
@@ -519,7 +559,8 @@ def phase_kernels_bwd(torch, fa):
         # dO as autograd hands it: a transposed view of a (B, S, H*D) tensor
         do = torch.randn(b, s, h, d, device=dev,
                          generator=gen).to(dt).transpose(1, 2)
-        seed = 7 if p else None
+        seed = torch.tensor([7], dtype=torch.int32, device=dev) if p \
+            else None
         scale = 1.0 / math.sqrt(d)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                           dropout_p=p, dropout_seed=seed)
@@ -627,7 +668,8 @@ def mask_probe(torch, fa, b, h, s, p, seed):
     dq, _, _ = fa.flash_attention_bwd(zero, eye, onehot, o1, lse1, onehot,
                                       **kw)
     keep = fa._dropout_keep(
-        seed, torch.arange(b * h, device=dev).reshape(b, h, 1, 1),
+        fa._seed_value(seed),
+        torch.arange(b * h, device=dev).reshape(b, h, 1, 1),
         torch.arange(s, device=dev).reshape(1, 1, s, 1),
         torch.arange(s, device=dev).reshape(1, 1, 1, s), p)
     torch.cuda.synchronize()
@@ -646,20 +688,27 @@ def phase_attention_probes(torch, fa):
     cannot hide under 3e-2. Determinism: two runs of K5 (and of K4) on the
     training call give bitwise-equal results."""
     dev = torch.device("cuda", 0)
-    b, h, p, seed = 2, 3, 0.1, 7
+    b, h, p = 2, 3, 0.1
     probes = {}
-    for s in (64, 128):
+    # an int seed (copied to the card by the wrappers) and a seed tensor
+    # drawn on the card, as an attention layer draws it in training: the
+    # kernels read either from device memory
+    drawn = fa.next_dropout_seed(torch.Generator(device=dev).manual_seed(5))
+    for s, seed in ((64, 7), (128, 7), (64, drawn)):
         out_bad, dv_bad, dq_bad, kept = mask_probe(torch, fa, b, h, s, p,
                                                    seed)
-        say(f"mask probe ({b}, {h}, {s}, {s}) bf16 p {p} seed {seed}: kept "
-            f"{kept:.4f}; mismatches out {out_bad}, dv {dv_bad}, "
+        label = seed if isinstance(seed, int) else \
+            f"tensor {int(seed.item())}"
+        say(f"mask probe ({b}, {h}, {s}, {s}) bf16 p {p} seed {label}: "
+            f"kept {kept:.4f}; mismatches out {out_bad}, dv {dv_bad}, "
             f"dq {dq_bad}")
         check(out_bad == dv_bad == dq_bad == 0,
               f"the kernels' dropout mask differs from _dropout_keep at "
               f"S = D = {s}: out {out_bad}, dv {dv_bad}, dq {dq_bad} of "
               f"{b * h * s * s} pairs")
         check(0.85 < kept < 0.95, f"kept share {kept} for p = {p}")
-        probes[f"s{s}"] = dict(mask_out_mismatches=out_bad,
+        key = f"s{s}" if isinstance(seed, int) else f"s{s}_device_seed"
+        probes[key] = dict(mask_out_mismatches=out_bad,
                                mask_dv_mismatches=dv_bad,
                                mask_dq_mismatches=dq_bad, kept_share=kept)
 
@@ -670,9 +719,9 @@ def phase_attention_probes(torch, fa):
                      generator=gen).to(torch.bfloat16).transpose(1, 2)
     runs = []
     for _ in range(2):
-        o, l = fa.flash_attention_fwd(q, k, v, dropout_p=p, dropout_seed=seed)
+        o, l = fa.flash_attention_fwd(q, k, v, dropout_p=p, dropout_seed=7)
         runs.append((o, l) + fa.flash_attention_bwd(
-            q, k, v, o, l, do, dropout_p=p, dropout_seed=seed))
+            q, k, v, o, l, do, dropout_p=p, dropout_seed=7))
     torch.cuda.synchronize()
     same = [bool(torch.equal(x, y)) for x, y in zip(*runs)]
     say(f"determinism (8, 12, 384, 64) bf16 dropout: out, lse, dq, dk, dv "
@@ -947,7 +996,8 @@ def phase_opt_sweep(torch, kopt, topt, dispatch, trainer, path):
     hyper = dict(opt._hyper(), rescale_grad=1.0 / 8)
     gn = opt.clip_global_norm is not None
     scale = 0.5 if gn else 1.0
-    sides = {"bucket": {}, "per_parameter": {}, "plain": {}, "before": {}}
+    sides = {"bucket": {}, "per_parameter": {}, "plain": {},
+             "device_scalars": {}, "before": {}}
     for i, p in enumerate(trainer._params):
         if p.grad_req == "null":
             continue
@@ -980,16 +1030,50 @@ def phase_opt_sweep(torch, kopt, topt, dispatch, trainer, path):
             kopt.bucket_step_reference(cls, clip, gn, mp, items, scale,
                                        hyper)
 
+    # K3's entry for captured graphs: the same bucket, each tensor's
+    # scalars and the rescale read from rows on the card (no global-norm
+    # scale: TrainStep runs none, so it is held to the by-value entry
+    # without one below, and timed here on the same bytes)
+    rows = {key: torch.from_numpy(kopt.ladder_scalars(
+        cls, hyper, hyper["rescale_grad"], [tuple(it[3:6]) for it in items]
+    )).to(dev) for key, items in before.items()}
+
+    def device_scalars(side):
+        for (key, items) in side.items():
+            kopt.bucket_step_dev(cls, clip, key[1],
+                                 [it[:3] for it in items], rows[key], hyper)
+
     designs = {"bucket": bucket, "per_parameter": per_parameter,
-               "plain": plain}
+               "plain": plain, "device_scalars": device_scalars}
     n = sum(len(items) for items in before.values())
     deltas = {k: _kernel_deltas(kopt, lambda k=k: fn(sides[k]))
               for k, fn in designs.items()}
     torch.cuda.synchronize()
     check(deltas == {"bucket": (len(before), n, 0),
-                     "per_parameter": (n, n, 0), "plain": (0, 0, 0)},
+                     "per_parameter": (n, n, 0), "plain": (0, 0, 0),
+                     "device_scalars": (len(before), n, 0)},
           f"{path} sweep: launches, tensors, norms {deltas} for {n} "
           f"tensors in {len(before)} buckets")
+    # the device-scalar entry against the by-value entry, bit for bit
+    by_value = {key: [(w.clone(), _clone_state(st), g) + tuple(rest)
+                      for w, st, g, *rest in items]
+                for key, items in before.items()}
+    on_card = {key: [(w.clone(), _clone_state(st), g) + tuple(rest)
+                     for w, st, g, *rest in items]
+               for key, items in before.items()}
+    for (_, mp), items in by_value.items():
+        kopt.bucket_step(cls, clip, False, mp, items, 1.0, hyper)
+    device_scalars(on_card)
+    torch.cuda.synchronize()
+    dev_diff = max((a.float() - b.float()).abs().max().item()
+                   for key in before
+                   for x, y in zip(by_value[key], on_card[key])
+                   for a, b in zip(kopt._leaves(x[:2]), kopt._leaves(y[:2])))
+    say(f"{path} sweep: K3 device-scalar entry vs by-value entry over "
+        f"{n} tensors: largest difference {dev_diff}")
+    check(dev_diff == 0, f"{path} sweep: the device-scalar entry differs "
+                         f"from the by-value entry by {dev_diff}")
+    del by_value, on_card
     errs = []
     for key, items in before.items():
         for j, b in enumerate(items):
@@ -1001,6 +1085,7 @@ def phase_opt_sweep(torch, kopt, topt, dispatch, trainer, path):
     del before
     row = dict(path=path, rule=cls.__name__, parameters=n,
                buckets=len(sides["bucket"]), bytes=nbytes,
+               device_scalars_max_diff=dev_diff,
                bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
                max_abs_err=max(e[0] for e in errs),
                max_err_over_tol=max(e[1] for e in errs))
@@ -1537,12 +1622,14 @@ TRAIN_STEPS = 5
 
 
 def _run_steps(torch, step, n):
-    """Mean loss and synchronised host seconds of each of n steps."""
+    """Mean loss and synchronised host seconds of each of n steps (the
+    loss a tensor or an NDArray)."""
     losses, secs = [], []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = step()
+        loss = getattr(loss, "_data", loss)
         losses.append(loss.float().mean().item())     # synchronises
         secs.append(time.perf_counter() - t0)
     return losses, secs
@@ -2159,6 +2246,243 @@ def phase_lenet_training(torch, mt, train_lenet, build, dispatch, kopt,
     return summary
 
 
+# -- TrainStep: one CUDA graph a step (phases 13-15) --------------------------
+
+TS_COMPARE = 3     # graph and phased steps from one state, LR moving
+
+
+@contextlib.contextmanager
+def phased_steps():
+    """TrainStep runs phased inside (``MXTPU_WHOLE_STEP=0``)."""
+    os.environ["MXTPU_WHOLE_STEP"] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop("MXTPU_WHOLE_STEP", None)
+
+
+def _ts_build(mt, mods, path, dev):
+    """(net, trainer, step) of ``path`` through gluon.TrainStep, from seed
+    0: ``step()`` takes one step on the path's fixed batch, ``step.func``
+    is the TrainStep."""
+    finetune, train_resnet, train_lenet = mods
+    if path == "bert":
+        return finetune.build_bert_finetune(
+            batch=8, seq=384, dropout=0.1, dtype="bfloat16",
+            learning_rate=TRAIN_LR, device=dev, seed=0,
+            clip_global_norm=None, train_step=True)
+    if path == "resnet50":
+        return train_resnet.build_resnet_train(
+            batch=RESNET_BATCH, device=dev, seed=0, learning_rate=RESNET_LR,
+            train_step=True)
+    net, trainer, step, _ = train_lenet.build_lenet_train(
+        batch=LENET_BATCH, device=dev, seed=0, train_step=True)
+    return net, trainer, step
+
+
+def _ts_copy_state(torch, kopt, src, dst):
+    """``dst`` (net, trainer) takes ``src``'s weights, running stats,
+    optimizer states and counts and noise generators (the Dropout layers'
+    and the attention layers' dropout-seed generators), in place: the next
+    steps of both start from one state."""
+    (snet, str_), (dnet, dtr) = src, dst
+    with torch.no_grad():
+        dps = dnet.collect_params()
+        for k, p in snet.collect_params().items():
+            dps[k]._tensor().copy_(p._tensor())
+        for a, b in zip(str_._states, dtr._states):
+            for x, y in zip(kopt._leaves(a), kopt._leaves(b)):
+                y.copy_(x)
+    for ga, gb in zip(snet._noise_generators(), dnet._noise_generators()):
+        gb.set_state(ga.get_state())
+    so, do = str_.optimizer, dtr.optimizer
+    do._index_update_count = dict(so._index_update_count)
+    do.num_update = so.num_update
+
+
+def _ts_counted(torch, build, dispatch, kopt, step, n):
+    """n steps with the counts zeroed just before and read just after:
+    (mean losses, host seconds, launches, tensors, dispatch outcomes)."""
+    build.reset_counters()
+    kopt.TENSORS.reset()
+    dispatch.reset_counts()
+    losses, secs = _run_steps(torch, step, n)
+    launches = {c.name: c.value for c in build.COUNTERS.values() if c.value}
+    outcomes = {f"{k}:{o}": v for (k, o), v in dispatch.COUNTS.items()}
+    return losses, secs, launches, kopt.TENSORS.value, outcomes
+
+
+def phase_train_step(torch, mt, build, dispatch, kopt, fa, mods, path):
+    """13-15. ``path`` (resnet50, lenet, bert without the global-norm
+    clip) through ``gluon.TrainStep``: two builds from one seed, one
+    through the graph, one phased (MXTPU_WHOLE_STEP=0). 2 warm-up steps
+    (the graph's eager warm-up and its capture), then 5 counted steps of
+    each with the counts zeroed just before and read just after (the
+    graph's from the replays' deltas; equal to the phased path's), then
+    TS_COMPARE steps of both from one state with an LR that changes every
+    step, then both profiled in turns (phased, graph, graph, phased):
+    host ms, device-busy ms, idle share, host calls beside the kernels the
+    device ran, peak memory."""
+    from mxnet_tpu_torch.tools.profile_training import measure
+
+    gc_collect(torch)
+    dev = mt.gpu(0)
+    torch.cuda.reset_peak_memory_stats()
+    graph_side = _ts_build(mt, mods, path, dev)
+    phased_side = _ts_build(mt, mods, path, dev)
+    gnet, gtr, gstep = graph_side
+    pnet, ptr, pstep = phased_side
+    ts = gstep.func
+    n_train = len(gnet.trainable_param_names())
+    warm = _run_steps(torch, gstep, TRAIN_WARMUP)[0]
+    with phased_steps():
+        pwarm = _run_steps(torch, pstep, TRAIN_WARMUP)[0]
+    check(ts.last_path == "whole_step" and ts.jit_trace_count() == 1,
+          f"{path}: TrainStep ran {ts.last_path} with "
+          f"{ts.jit_trace_count()} captures: {ts.ineligible_reason()}")
+    check(pstep.func.last_path == "phased", f"{path}: phased side ran "
+                                           f"{pstep.func.last_path}")
+    # the attention layers' dropout generators, and a twin of layer 0's
+    # that draws the seeds the replays will draw
+    gens = [m.dropout_generator for m in gnet.modules()
+            if getattr(m, "dropout_generator", None) is not None]
+    twin = None
+    if gens:
+        twin = torch.Generator(device=gens[0].device)
+        twin.set_state(gens[0].get_state())
+    offsets_before = [g_.get_offset() for g_ in gens]
+    g = _ts_counted(torch, build, dispatch, kopt, gstep, TRAIN_STEPS)
+    moved = [g_.get_offset() - b for g_, b in zip(gens, offsets_before)]
+    pgens = [m.dropout_generator for m in pnet.modules()
+             if getattr(m, "dropout_generator", None) is not None]
+    poffsets = [g_.get_offset() for g_ in pgens]
+    with phased_steps():
+        p = _ts_counted(torch, build, dispatch, kopt, pstep, TRAIN_STEPS)
+    pmoved = [g_.get_offset() - b for g_, b in zip(pgens, poffsets)]
+    check(ts.last_path == "whole_step" and ts.jit_trace_count() == 1,
+          f"{path}: TrainStep captured again: {ts.jit_trace_count()}")
+    plan = opt_plan(kopt, gtr)
+    want = {"opt_ladder": plan["launches"] * TRAIN_STEPS}
+    if path == "resnet50":
+        want.update(bn_train_fwd=53 * TRAIN_STEPS,
+                    bn_train_bwd=53 * TRAIN_STEPS)
+    if path == "bert":
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            want[name] = want[f"{name}_mma"] = 12 * TRAIN_STEPS
+    check(g[2] == want and g[3] == n_train * TRAIN_STEPS,
+          f"{path} graph: launches {g[2]}, {g[3]} tensors updated; want "
+          f"{want} and {n_train} x {TRAIN_STEPS}")
+    check(g[2] == p[2] and g[3] == p[3] and g[4] == p[4],
+          f"{path}: graph launches {g[2]} {g[3]} {g[4]} != phased "
+          f"{p[2]} {p[3]} {p[4]}")
+    losses = warm + g[0]
+    check(all(math.isfinite(v) for v in losses + pwarm + p[0]),
+          f"{path}: non-finite loss, graph {losses}, phased {p[0]}")
+    check(losses[-1] < losses[0], f"{path}: the graph's loss did not fall "
+                                  f"over {len(losses)} steps: {losses}")
+    seeds = []
+    if path == "bert":
+        # the replays moved every layer's dropout generator as far as the
+        # phased steps moved its twin's; the seeds the 5 replays drew in
+        # layer 0 (drawn again from a copy of its state) all differ
+        check(len(gens) == 12 and all(moved) and moved == pmoved,
+              f"bert: dropout generators moved {moved} in the replays, "
+              f"{pmoved} in the phased steps")
+        seeds = [int(fa.next_dropout_seed(twin).item())
+                 for _ in range(TRAIN_STEPS)]
+        check(len(set(seeds)) == TRAIN_STEPS, f"bert: seeds {seeds}")
+
+    # graph and phased steps from one state, the LR moving every step
+    base_lr = gtr.learning_rate
+    compare = []
+    for k in range(TS_COMPARE):
+        lr = base_lr * (1.0 + 0.25 * (k + 1))
+        for tr in (gtr, ptr):
+            tr.set_learning_rate(lr)
+        _ts_copy_state(torch, kopt, (gnet, gtr), (pnet, ptr))
+        gl = gstep()
+        with phased_steps():
+            pl = pstep()
+        torch.cuda.synchronize()
+        gl = gl._data if hasattr(gl, "_data") else gl
+        pl = pl._data if hasattr(pl, "_data") else pl
+        loss_diff = (gl.float() - pl.float()).abs().max().item()
+        loss_rel = loss_diff / max(pl.float().abs().max().item(), 1e-12)
+        gps, pps = gnet.collect_params(), pnet.collect_params()
+        big = max(pps[n].grad().float().abs().max().item()
+                  for n in pnet.trainable_param_names())
+        # each parameter against 1e-5 of its largest value plus 0.1 of the
+        # step the largest gradient takes (phase 8's measure): the f32
+        # masters where there are any, else the weights
+        batch = 8 if path == "bert" else RESNET_BATCH if path == \
+            "resnet50" else LENET_BATCH
+        floor = 0.1 * lr * max(1.0, big / batch)
+        errs = []
+        for i, prm in enumerate(gtr._params):
+            a, b = prm._tensor(), ptr._params[i]._tensor()
+            sa, sb = gtr._states[i], ptr._states[i]
+            if sa is not None and gtr.optimizer._is_mp_state(a, sa):
+                a, b = sa[0], sb[0]
+            err = (a.float() - b.float()).abs().max().item()
+            errs.append((err / (1e-5 * b.float().abs().max().item()
+                                + floor), gtr._param_names[i]))
+        bitwise = torch.equal(gl, pl) and all(
+            torch.equal(gps[n]._tensor(), pps[n]._tensor()) for n in gps)
+        compare.append(dict(lr=lr, loss_diff=loss_diff, loss_rel=loss_rel,
+                            worst_params=sorted(errs)[-3:], bitwise=bitwise))
+    worst = max(e for c in compare for e, _ in c["worst_params"])
+    # the losses as phases 6 (bf16: 0.03) and 10 (f32: 1e-4 of the loss)
+    # hold a kernel run against another
+    loss_ok = all(c["loss_diff"] <= 0.03 if path != "lenet"
+                  else c["loss_rel"] <= 1e-4 for c in compare)
+    say(f"{path} train_step graph vs phased from one state, LR moving: "
+        f"{json.dumps(compare)}")
+    check(loss_ok and worst <= 1.0,
+          f"{path}: graph and phased steps from one state disagree")
+    check(ts.jit_trace_count() == 1, f"{path}: the LR schedule made "
+                                     f"{ts.jit_trace_count()} captures")
+
+    runs = []
+    for label, side in (("phased", pstep), ("graph", gstep),
+                        ("graph", gstep), ("phased", pstep)):
+        ctx = phased_steps() if label == "phased" else \
+            contextlib.nullcontext()
+        torch.cuda.reset_peak_memory_stats()  # both nets' memory, and this
+        with ctx:                             # run's own on top of it
+            run, _ = measure(side, TRAIN_STEPS)
+        runs.append(dict(path=label, **{k: run[k] for k in (
+            "host_ms_per_step_p50", "host_ms_per_step",
+            "issue_ms_per_step_p50", "device_time_from",
+            "device_busy_ms_per_step", "device_idle_share",
+            "kernel_launches_per_step", "host_calls_per_step",
+            "peak_memory_gib", "peak_reserved_gib")}))
+    check(ts.jit_trace_count() == 1, f"{path}: captured again while "
+                                     f"profiled")
+    summary = dict(
+        path=path, trainable_parameters=n_train, captures=ts.jit_trace_count(),
+        warmup_losses=warm, losses=g[0], phased_losses=p[0],
+        step_ms=[1e3 * v for v in g[1]], phased_step_ms=[1e3 * v for v in
+                                                         p[1]],
+        launches=g[2], phased_launches=p[2], tensors_updated=g[3],
+        dispatch=g[4], opt_plan=plan, dropout_seeds_layer0=seeds,
+        compare=compare, profile=runs,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        peak_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+        card=card_line())
+    say(f"train_step {path}: {json.dumps(summary)}")
+    del graph_side, phased_side, gnet, gtr, gstep, pnet, ptr, pstep, ts
+    gc_collect(torch)
+    return summary
+
+
+def gc_collect(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -2226,8 +2550,13 @@ def main():
     phase_lenet_parity(torch, mt, vision, kopt)
     lenet_run = phase_lenet_training(torch, mt, train_lenet, build, dispatch,
                                      kopt, topt)
+    # 13-15. the three training paths through TrainStep's CUDA graph
+    mods = (finetune, train_resnet, train_lenet)
+    ts_runs = {path: phase_train_step(torch, mt, build, dispatch, kopt, fa,
+                                      mods, path)
+               for path in ("resnet50", "lenet", "bert")}
 
-    # 12. the kernels line, card, ok. Each row's case is the main paths'
+    # 16. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over
@@ -2395,8 +2724,14 @@ def main():
         m = measured[k["name"]]
         check(m["launches"] > 0, f"{k['name']} was never launched on a "
                                  "main path")
+        # the launches of the same kernel on the three TrainStep paths
+        # (phases 13-15, 5 replays each, counted from the replays' deltas)
+        m["train_step_launches"] = {
+            path: run["launches"].get(k["name"], 0)
+            for path, run in ts_runs.items()}
         kernels.append(dict(name=k["name"], route=k["route"],
                             source=k["source"], replaces=k["replaces"], **m))
+    say(f"timing: {json.dumps(TIMING)}")
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@
 //   _bwd_dq_kernel  (pl.pallas_call at :387) -> flash_bwd_dq_kernel
 //   _bwd_dkv_kernel (pl.pallas_call at :407) -> flash_bwd_dkv_kernel
 // Same contract, over (B, H, S, D) with optional causal mask and the
-// forward's counter-hash dropout mask (flash_attention_common.cuh):
+// forward's counter-hash dropout mask (flash_attention_common.cuh), its
+// seed read from device memory at kernel start (the forward's seed tensor,
+// so a replayed CUDA graph draws each step's mask):
 //   delta = rowsum(dO * O)                       f32, per query row
 //   P     = exp(q k^T * scale - lse)             0 where masked or lse = -inf
 //   dP    = dO v^T      (kept pairs / (1 - p) under dropout, else 0)
@@ -146,7 +148,10 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ lse, float* __restrict__ dq,
                         float* __restrict__ delta, int H, int S, int D,
                         Strides st, float scale, int causal, int dropout,
-                        float keep_prob, uint32_t seed, uint32_t thresh) {
+                        float keep_prob,
+                        const uint32_t* __restrict__ seed_p, uint32_t thresh) {
+  // the dropout seed, read on the card (a graph replay takes its value)
+  const uint32_t seed = dropout ? *seed_p : 0u;
   constexpr int kLD = DQ + 4;  // padded quarter row (16-byte aligned)
   __shared__ __align__(16) float ks[kBlockT][kLanesPerRow][kLD];
   __shared__ __align__(16) float vs[kBlockT][kLanesPerRow][kLD];
@@ -232,8 +237,11 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv, int H,
                          int S, int D, Strides st, float scale, int causal,
-                         int dropout, float keep_prob, uint32_t seed,
+                         int dropout, float keep_prob,
+                         const uint32_t* __restrict__ seed_p,
                          uint32_t thresh) {
+  // the dropout seed, read on the card (a graph replay takes its value)
+  const uint32_t seed = dropout ? *seed_p : 0u;
   constexpr int kLD = DQ + 4;
   __shared__ __align__(16) float qs[kBlockT][kLanesPerRow][kLD];
   __shared__ __align__(16) float gs[kBlockT][kLanesPerRow][kLD];
@@ -335,7 +343,11 @@ __global__ void __launch_bounds__(kMmaThreads)
                             uint16_t* __restrict__ dq,
                             float* __restrict__ delta, int H, int S, int D,
                             Strides st, float scale, int causal, int dropout,
-                            float keep_prob, uint32_t seed, uint32_t thresh) {
+                            float keep_prob,
+                            const uint32_t* __restrict__ seed_p,
+                            uint32_t thresh) {
+  // the dropout seed, read on the card (a graph replay takes its value)
+  const uint32_t seed = dropout ? *seed_p : 0u;
   constexpr int KT = dq_keys(C);
   constexpr int NB = KT / 8;
   constexpr int kTile = KT * C * 8;  // elements of a K or V tile
@@ -498,8 +510,11 @@ __global__ void __launch_bounds__(kMmaThreads, C <= 8 ? 3 : 1)
                              uint16_t* __restrict__ dk,
                              uint16_t* __restrict__ dv, int H, int S, int D,
                              Strides st, float scale, int causal, int dropout,
-                             float keep_prob, uint32_t seed,
+                             float keep_prob,
+                             const uint32_t* __restrict__ seed_p,
                              uint32_t thresh) {
+  // the dropout seed, read on the card (a graph replay takes its value)
+  const uint32_t seed = dropout ? *seed_p : 0u;
   constexpr int T = kMmaQueries;
   constexpr int NB = T / 8;
   constexpr int kOwn = kMmaRows * C * 8;  // elements of the K or V tile
@@ -627,7 +642,8 @@ struct Args {
   float scale;
   int causal, dropout;
   float keep_prob;
-  uint32_t seed, thresh;
+  const uint32_t* seed;  // on the card; read only under dropout
+  uint32_t thresh;
   cudaStream_t stream;
 };
 
@@ -733,7 +749,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const void* lse, void* delta, void* dq,
                void* dk, void* dv, int B, int H, int S, int D,
                const long long* strides, float scale, int causal, int dropout,
-               float keep_prob, unsigned int seed, unsigned int thresh,
+               float keep_prob, const unsigned int* seed, unsigned int thresh,
                void* stream) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.out = out; a.dout = dout;
@@ -765,7 +781,7 @@ int mxtpu_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* delta, void* dq, int dtype,
     int B, int H, int S, int D, const long long* strides, float scale,
-    int causal, int dropout, float keep_prob, unsigned int seed,
+    int causal, int dropout, float keep_prob, const unsigned int* seed,
     unsigned int thresh, void* stream) {
   return run(make_args(q, k, v, out, dout, lse, delta, dq, nullptr, nullptr,
                        B, H, S, D, strides, scale, causal, dropout, keep_prob,
@@ -779,7 +795,7 @@ int mxtpu_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int dtype, int B,
     int H, int S, int D, const long long* strides, float scale, int causal,
-    int dropout, float keep_prob, unsigned int seed, unsigned int thresh,
+    int dropout, float keep_prob, const unsigned int* seed, unsigned int thresh,
     void* stream) {
   return run(make_args(q, k, v, nullptr, dout, lse,
                        const_cast<void*>(delta), nullptr, dk, dv, B, H, S, D,

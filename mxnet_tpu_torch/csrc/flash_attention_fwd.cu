@@ -7,7 +7,9 @@
 //   lse = m + log(l) per query row (-inf for a fully masked row),
 //   dropout masks the numerator only (inverted scaling in the output
 //   division, lse un-dropped), with the bit-exact murmur3-finalizer counter
-//   hash _dropout_keep over (seed, b*H+h, q_pos, k_pos),
+//   hash _dropout_keep over (seed, b*H+h, q_pos, k_pos), the seed read
+//   from device memory at kernel start (a replayed CUDA graph then takes
+//   each step's seed, which a captured op advances on the card),
 //   denominator max(l, 1e-30), P rounded to v's dtype before the PV product,
 //   f32 accumulation, out in q's dtype, lse in f32.
 //
@@ -69,7 +71,10 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int H, int S, int D,
                      Strides st, float scale, int causal, int dropout,
-                     float keep_prob, uint32_t seed, uint32_t thresh) {
+                     float keep_prob,
+                     const uint32_t* __restrict__ seed_p, uint32_t thresh) {
+  // the dropout seed, read on the card (a graph replay takes its value)
+  const uint32_t seed = dropout ? *seed_p : 0u;
   constexpr int kDP = kLanesPerRow * DQ;  // padded head dim
   constexpr int kLD = DQ + 4;  // padded quarter row (16-byte aligned)
   __shared__ __align__(16) float ks[kBlockK][kLanesPerRow][kLD];
@@ -201,7 +206,9 @@ __global__ void __launch_bounds__(kMmaThreads, C <= 8 ? 5 : 1)
                          uint16_t* __restrict__ out, float* __restrict__ lse,
                          int H, int S, int D, Strides st, float scale,
                          int causal, int dropout, float keep_prob,
-                         uint32_t seed, uint32_t thresh) {
+                         const uint32_t* __restrict__ seed_p, uint32_t thresh) {
+  // the dropout seed, read on the card (a graph replay takes its value)
+  const uint32_t seed = dropout ? *seed_p : 0u;
   constexpr int NB = kMmaKeys / 8;         // 8-key blocks of a tile
   constexpr int kTile = kMmaKeys * C * 8;  // elements of a K or V tile
   uint16_t* qs = dyn_smem<uint16_t>();     // Q, then the output tile
@@ -346,7 +353,7 @@ template <int C, bool ALIGNED>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int H, int S, int D, const Strides& st,
                float scale, int causal, int dropout, float keep_prob,
-               uint32_t seed, uint32_t thresh, cudaStream_t stream) {
+               const uint32_t* seed, uint32_t thresh, cudaStream_t stream) {
   // Q (the output tile after) and two stages each of K and V
   constexpr int kSmem = (kMmaRows + 4 * kMmaKeys) * C * 16;
   auto kernel = flash_fwd_mma_kernel<C, ALIGNED>;
@@ -367,7 +374,7 @@ template <bool ALIGNED>
 int launch_mma_d(const void* q, const void* k, const void* v, void* out,
                  float* lse, int B, int H, int S, int D, const Strides& st,
                  float scale, int causal, int dropout, float keep_prob,
-                 uint32_t seed, uint32_t thresh, cudaStream_t stream) {
+                 const uint32_t* seed, uint32_t thresh, cudaStream_t stream) {
   if (D <= 32)
     return launch_mma<4, ALIGNED>(q, k, v, out, lse, B, H, S, D, st, scale,
                                   causal, dropout, keep_prob, seed, thresh,
@@ -385,7 +392,7 @@ template <int DQ>
 void launch(const void* q, const void* k, const void* v, void* out,
             float* lse, int B, int H, int S, int D, const Strides& st,
             float scale, int causal, int dropout, float keep_prob,
-            uint32_t seed, uint32_t thresh, cudaStream_t stream) {
+            const uint32_t* seed, uint32_t thresh, cudaStream_t stream) {
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
   flash_fwd_kernel<DQ><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -396,7 +403,7 @@ void launch(const void* q, const void* k, const void* v, void* out,
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int H, int S, int D, const Strides& st,
                float scale, int causal, int dropout, float keep_prob,
-               uint32_t seed, uint32_t thresh, cudaStream_t stream) {
+               const uint32_t* seed, uint32_t thresh, cudaStream_t stream) {
   if (D <= 32)
     launch<8>(q, k, v, out, lse, B, H, S, D, st, scale, causal,
                      dropout, keep_prob, seed, thresh, stream);
@@ -421,7 +428,7 @@ int mxtpu_flash_attention_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int dtype, int B, int H,
                               int S, int D, const long long* strides,
                               float scale, int causal, int dropout,
-                              float keep_prob, unsigned int seed,
+                              float keep_prob, const unsigned int* seed,
                               unsigned int thresh, void* stream) {
   if (B < 1 || H < 1 || S < 1 || D < 1 || D > 128 || B * H > 65535 ||
       (dtype != 0 && dtype != 1))

@@ -49,6 +49,15 @@
 // aligned, and the last < 4 elements of a tensor, take the scalar path in
 // the same kernel (a branch uniform per CTA).
 //
+// A second entry point, for launches captured in a CUDA graph
+// (gluon.TrainStep): the table keeps only what a replay may not change
+// (pointers, sizes, first chunks, alignment flags) by value, and the
+// per-tensor scalars and rescale are read from a small f32 buffer in device
+// memory, kScalarStride floats an entry (lr, wd, 1 - beta1^t, 1 - beta2^t,
+// lr_t, c1, rescale, unused), which the host refills before each replay. The
+// values are the ones the by-value entry would carry, so the two entries
+// give the same bits.
+//
 // The global-norm pre-pass of clip_global_norm is here too, over the same
 // table: sum over the bucket of (g (-> f32) * rescale)^2 in f32, what
 // Optimizer._fused_sqnorm and the reference's _fused_norm_jitted compute.
@@ -71,6 +80,7 @@ constexpr int kChunk = 8192;        // elements of one tensor per CTA
 constexpr int kUnroll = 2;          // groups of four a thread loads at once
 constexpr int kMaxEntries = 384;    // tensors per launch
 constexpr int kNormBlocks = 1024;   // CTAs (and partials) of a norm launch
+constexpr int kScalarStride = 8;    // floats an entry in the scalar buffer
 
 struct Ladder {
   int rule;
@@ -231,14 +241,25 @@ __device__ __forceinline__ int find_entry(const Table& t, int c) {
 // GT: gradient dtype. MP: `w` is the f32 master and `w_lp` the bf16 weight
 // written from it; without MP `w` is the f32 weight itself and w_lp unused.
 // One CTA updates one chunk of one tensor.
+// scal: null takes each tensor's scalars (and the bucket's rescale) from
+// the table; else row i of the device buffer holds entry i's, rescale
+// included (a branch uniform across the launch).
 template <typename GT, bool MP>
 __global__ void __launch_bounds__(kThreads)
-    opt_ladder_kernel(const __grid_constant__ Table t) {
+    opt_ladder_kernel(const __grid_constant__ Table t,
+                      const float* __restrict__ scal) {
   const int c = blockIdx.x;
-  const Entry& e = t.e[find_entry(t, c)];
+  const int i = find_entry(t, c);
+  const Entry& e = t.e[i];
   Ladder p = t.p;
-  p.lr = e.lr; p.wd = e.wd; p.b1c = e.b1c; p.b2c = e.b2c;
-  p.lr_t = e.lr_t; p.c1 = e.c1;
+  if (scal == nullptr) {
+    p.lr = e.lr; p.wd = e.wd; p.b1c = e.b1c; p.b2c = e.b2c;
+    p.lr_t = e.lr_t; p.c1 = e.c1;
+  } else {
+    const float* r = scal + (size_t)i * kScalarStride;
+    p.lr = r[0]; p.wd = r[1]; p.b1c = r[2]; p.b2c = r[3];
+    p.lr_t = r[4]; p.c1 = r[5]; p.rescale = r[6];
+  }
   const int n_state = t.n_state;
   const long long base = (long long)(c - e.chunk0) * kChunk;
   const long long left = e.n - base;
@@ -406,21 +427,12 @@ bool fill_table(Table& t, const void* entries, int n_entries, bool ladder,
   return true;
 }
 
-}  // namespace
-
-extern "C" {
-
-// One bucket's update (up to kMaxEntries tensors), in place, in one
-// launch. entries: n_entries Entry records on the host (kernels/opt.py
-// builds them: pointers, sizes, first chunks, alignment flags, per-tensor
-// scalars). mp: multi-precision (bf16 gradient and weight, f32 master);
-// rule: 0 SGD, 1 NAG, 2 Signum, 3 Adam, 4 AdamW; n_state: leaves in use;
-// h0, h1, h2: momentum / beta1, wd_lh / beta2, epsilon. Returns the
-// cudaError_t of the launch (0 on success).
-int mxtpu_opt_ladder_bucket(const void* entries, int n_entries, int mp,
-                            int rule, int n_state, int gn, int clip_on,
-                            float rescale, float gscale, float clip,
-                            float h0, float h1, float h2, void* stream) {
+// Checks and fills the table, then launches the ladder kernel; scalars as
+// opt_ladder_kernel's scal.
+int launch_ladder(const void* entries, int n_entries, int mp, int rule,
+                  int n_state, int gn, int clip_on, float rescale,
+                  float gscale, float clip, float h0, float h1, float h2,
+                  const float* scalars, void* stream) {
   Table t;  // 31 KB on the calling thread's stack
   if (rule < 0 || rule > 4 || n_state < 0 || n_state > 2 ||
       ((rule == kAdam || rule == kAdamW) && n_state != 2))
@@ -438,10 +450,45 @@ int mxtpu_opt_ladder_bucket(const void* entries, int n_entries, int mp,
   p.lr = p.wd = p.c1 = p.b1c = p.b2c = p.lr_t = 0.f;  // per tensor
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mp)
-    opt_ladder_kernel<__nv_bfloat16, true><<<t.n_chunks, kThreads, 0, s>>>(t);
+    opt_ladder_kernel<__nv_bfloat16, true>
+        <<<t.n_chunks, kThreads, 0, s>>>(t, scalars);
   else
-    opt_ladder_kernel<float, false><<<t.n_chunks, kThreads, 0, s>>>(t);
+    opt_ladder_kernel<float, false>
+        <<<t.n_chunks, kThreads, 0, s>>>(t, scalars);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// One bucket's update (up to kMaxEntries tensors), in place, in one
+// launch. entries: n_entries Entry records on the host (kernels/opt.py
+// builds them: pointers, sizes, first chunks, alignment flags, per-tensor
+// scalars). mp: multi-precision (bf16 gradient and weight, f32 master);
+// rule: 0 SGD, 1 NAG, 2 Signum, 3 Adam, 4 AdamW; n_state: leaves in use;
+// h0, h1, h2: momentum / beta1, wd_lh / beta2, epsilon. Returns the
+// cudaError_t of the launch (0 on success).
+int mxtpu_opt_ladder_bucket(const void* entries, int n_entries, int mp,
+                            int rule, int n_state, int gn, int clip_on,
+                            float rescale, float gscale, float clip,
+                            float h0, float h1, float h2, void* stream) {
+  return launch_ladder(entries, n_entries, mp, rule, n_state, gn, clip_on,
+                       rescale, gscale, clip, h0, h1, h2, nullptr, stream);
+}
+
+// The same update with each entry's scalars and rescale read at run time
+// from `scalars` in device memory (kScalarStride f32 an entry, row i for
+// entry i; the entries' own scalar fields are ignored), so that a launch
+// captured in a CUDA graph takes the values of each replay. No global-norm
+// scale (TrainStep runs no clip_global_norm).
+int mxtpu_opt_ladder_bucket_dev(const void* entries, int n_entries, int mp,
+                                int rule, int n_state, int clip_on,
+                                float clip, float h0, float h1, float h2,
+                                const float* scalars, void* stream) {
+  if (scalars == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_ladder(entries, n_entries, mp, rule, n_state, 0, clip_on,
+                       0.f, 0.f, clip, h0, h1, h2, scalars, stream);
 }
 
 // The partial sums of sum((g * rescale)^2) over up to kMaxEntries
@@ -481,6 +528,7 @@ int mxtpu_opt_entry_size() { return (int)sizeof(Entry); }
 int mxtpu_opt_table_capacity() { return kMaxEntries; }
 int mxtpu_opt_chunk() { return kChunk; }
 int mxtpu_opt_norm_blocks() { return kNormBlocks; }
+int mxtpu_opt_scalar_stride() { return kScalarStride; }
 
 const char* mxtpu_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -95,3 +95,9 @@ register(
     "elementwise chains in the activation's dtype and only the reductions' "
     "accumulators in f32. The BatchNorm kernels (kernels/norm.py) and "
     "their plain versions read the same setting.")
+register(
+    "MXTPU_WHOLE_STEP", bool, True,
+    "gluon.TrainStep runs an eligible configuration as one step body: on "
+    "the card one captured CUDA graph per batch signature, replayed each "
+    "step; on the CPU the same body eagerly. Off runs every step phased "
+    "(record -> backward -> Trainer.step).")

@@ -17,7 +17,8 @@ block as the serving boundary. ``jit_trace_count()`` counts the input
 signatures (shapes and dtypes) a hybridized block has seen for the first
 time, which is what a jit trace counted in the JAX package, so the serving
 warmup's proof that every served shape was seen before keeps its meaning.
-CUDA-graph capture is a later change.
+Training steps are captured in CUDA graphs by ``gluon.TrainStep``; the
+served forward is not captured yet.
 """
 from __future__ import annotations
 
@@ -100,8 +101,9 @@ class Block(torch.nn.Module):
         order; a deferred one draws at the first forward.
 
         After the parameters, two seeds are drawn from ``generator`` for
-        the net's training noise: one CPU generator (the attention
-        layers' dropout seeds) and one generator on ``device`` (the
+        the net's training noise: one CPU generator (from which each
+        attention layer seeds its own dropout-seed generator on
+        ``device``, once, here) and one generator on ``device`` (the
         Dropout layers' masks), handed to every block that has none of
         its own. A training run is then reproducible from ``generator``
         alone."""
@@ -124,6 +126,17 @@ class Block(torch.nn.Module):
         for child in self.children():
             if isinstance(child, Block):
                 child._set_generators(cpu_generator, device_generator)
+
+    def _noise_generators(self):
+        """The ``torch.Generator`` objects this block and its children
+        draw noise from during a forward (a CUDA-graph capture of the
+        step registers them, so that each replay draws anew); a block
+        that draws noise overrides this."""
+        gens = []
+        for child in self.children():
+            if isinstance(child, Block):
+                gens.extend(child._noise_generators())
+        return gens
 
     @property
     def device(self):

@@ -17,7 +17,7 @@ import torch
 from ... import autograd as _ag
 from ... import env as _env
 from ...ops import nn as _nn
-from ...ops.flash_attention import flash_attention
+from ...ops.flash_attention import flash_attention, next_dropout_seed
 from ..block import HybridBlock
 from ..nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
 from ..parameter import Parameter
@@ -31,18 +31,23 @@ class MultiHeadAttention(HybridBlock):
     """Self-attention with fused QKV projection.
 
     On the flash path, attention-probability dropout runs inside the kernel
-    from a per-call integer seed. That seed is drawn from
-    ``seed_generator``, an explicit CPU ``torch.Generator``: the one given
-    here, else the one ``initialize(generator=...)`` derives for the whole
-    net from its generator. Drawing on the CPU costs no device
-    synchronisation. (The JAX package draws the seed from its global key
-    stream; the two streams differ, so a parity test sets the seeds
-    itself.)"""
+    from a seed that lives on the device, drawn each call in one op from
+    ``dropout_generator``, the layer's own ``torch.Generator`` on its device
+    (ops/flash_attention.py:next_dropout_seed; Philox on the card, whose
+    counter a CUDA graph that registered the generator advances on every
+    replay, so a captured step draws a new mask each time). That generator
+    is seeded once, at ``initialize``, from ``seed_generator``, an explicit
+    CPU ``torch.Generator``: the one given here, else the one
+    ``initialize(generator=...)`` derives for the whole net from its
+    generator; no call draws on the CPU. (The JAX package draws the seed
+    from its global key stream; the two streams differ, so a parity test
+    sets the seeds itself.)"""
 
     def __init__(self, units, num_heads, dropout=0.0, dtype="float32",
                  seed_generator=None):
         super().__init__()
         self.seed_generator = seed_generator
+        self.dropout_generator = None
         if units % num_heads:
             raise ValueError(f"units {units} not divisible by "
                              f"num_heads {num_heads}")
@@ -58,17 +63,26 @@ class MultiHeadAttention(HybridBlock):
     def _set_generators(self, cpu_generator, device_generator):
         if self.seed_generator is None:
             self.seed_generator = cpu_generator
+        seed = int(torch.randint(0, 2 ** 62, (1,),
+                                 generator=self.seed_generator))
+        self.dropout_generator = torch.Generator(
+            device=device_generator.device).manual_seed(seed)
         super()._set_generators(cpu_generator, device_generator)
 
+    def _noise_generators(self):
+        mine = [self.dropout_generator] if self.dropout._rate > 0 and \
+            self.dropout_generator is not None else []
+        return mine + super()._noise_generators()
+
     def _next_dropout_seed(self):
-        """The next call's dropout seed, an int in [0, 2**31 - 1), drawn
-        on the CPU from ``seed_generator``."""
-        if self.seed_generator is None:
+        """The next call's dropout seed, a one-element int32 tensor drawn
+        on the layer's device from ``dropout_generator``."""
+        if self.dropout_generator is None:
             raise RuntimeError(
-                "attention dropout needs a seed generator: call "
-                "initialize() on the net, or pass seed_generator=")
-        return int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                 generator=self.seed_generator))
+                "attention dropout needs its dropout generator, seeded from "
+                "the net's seed generator at initialize(): call "
+                "initialize() on the net")
+        return next_dropout_seed(self.dropout_generator)
 
     def forward(self, x, mask=None):
         # x: (B, S, D); mask: (B, S) or (B, S, S), both 1=valid/0=masked

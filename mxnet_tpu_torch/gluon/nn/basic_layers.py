@@ -103,6 +103,12 @@ class Dropout(HybridBlock):
         if self.generator is None:
             self.generator = device_generator
 
+    def _noise_generators(self):
+        # a TrainStep capture registers it with the graph: every replay
+        # then advances it and draws a new mask
+        return [self.generator] if self._rate > 0 and \
+            self.generator is not None else []
+
     def forward(self, x):
         if self._rate <= 0:
             return x

@@ -1,0 +1,397 @@
+"""One training step as one CUDA graph (counterpart of
+mxnet_tpu/gluon/train_step.py).
+
+``step = TrainStep(net, loss_fn, trainer)`` then per batch ``loss =
+step(x, y)`` replaces::
+
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(batch_size)
+
+The JAX package compiles that iteration into one donated ``jax.jit``
+program. Here the same body (forward, loss, backward with ones as the head
+gradient, the optimizer's device part) is captured, on the card, into one
+``torch.cuda.CUDAGraph`` per batch signature (shapes, dtypes): the first
+call of a signature runs the body eagerly on a side stream, as warm-up (the
+kernels build, cuDNN and cuBLAS choose their algorithms); the second
+captures it and replays it; every later call copies the batch into the
+graph's static input buffers and replays. One launch of the host a step,
+where the phased step issues one per kernel. All signatures share one
+memory pool. On the CPU the same body runs eagerly, in one call.
+
+What a replay cannot see, the host does around it, in the reference's
+order (its ``_whole``): the update counts, lr, wd and t of every trainable
+parameter are resolved in trainer order before the body
+(``Optimizer._resolve``, so schedules and Adam's t match the phased step),
+turned into the ladder kernel's scalar rows (kernels/opt.py:ladder_scalars)
+and copied to the card with one non-blocking copy from one of two pinned
+buffers (an event keeps the host from refilling a buffer whose copy has
+not run). The captured update reads them there
+(kernels/opt.py:bucket_step_dev), so a changing LR or Adam's moving t never
+needs a new capture. After the step the gradients are marked consumed and
+``Trainer._record_step_complete`` closes it. The launch counters, which a
+replay cannot bump (it runs no Python), take the capture's counts once per
+replay (kernels/build.py:take_deltas). The attention layers advance their
+dropout seeds on the card, and the Dropout layers' generators are
+registered with the graph, so every replay draws new masks.
+
+The graph keeps the addresses it captured. Weights, f32 masters and
+optimizer states are updated in place and keep their storage; the
+gradients the capture allocated stay the parameters' gradient buffers
+(``Parameter.grad()`` shows each replay's). Replacing a weight's or a
+state's storage afterwards (``cast``, a state load) raises at the next
+replay: call :meth:`TrainStep.rebuild`. The returned loss is a copy of the
+graph's output.
+
+An ineligible configuration runs phased and says why in
+:meth:`TrainStep.ineligible_reason`, with the reference's reasons;
+``MXTPU_WHOLE_STEP=0`` runs phased. On an eligible configuration on the
+card a failed capture or replay raises; it never falls back. ``mesh=``
+raises ``NotImplementedError``, as ``Trainer(mesh=...)`` does.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import autograd as _ag
+from .. import env as _env
+from ..kernels import build as _build
+from ..kernels import dispatch as _dispatch
+from ..kernels import opt as _kopt
+from ..ndarray.ndarray import NDArray
+from .block import HybridBlock
+from .trainer import _later
+
+__all__ = ["TrainStep"]
+
+
+def _unwrap(a):
+    return a._data if isinstance(a, NDArray) else a
+
+
+class _Graph:
+    """One captured step: the graph, its static buffers, what the capture
+    added to the counters, and the storage it captured."""
+
+    def __init__(self, step, inputs, n_rows, device):
+        self.inputs = [t.detach().to(device).clone() for t in inputs]
+        self.scalars = torch.zeros((n_rows, _kopt.SCALAR_STRIDE),
+                                   dtype=torch.float32, device=device)
+        self.pinned = [torch.zeros((n_rows, _kopt.SCALAR_STRIDE),
+                                   dtype=torch.float32, pin_memory=True)
+                       for _ in range(2)]
+        self.copied = [torch.cuda.Event(), torch.cuda.Event()]
+        self.turn = 0
+        self.graph = torch.cuda.CUDAGraph()
+        for gen in step._generators(device):
+            self.graph.register_generator_state(gen)
+        self.loss = None
+        self.grads = None
+        self.launches = self.decisions = None
+        self.storage = step._storage()
+        self.hyper = step._static_hyper()
+
+    def capture(self, step, stream):
+        versions = [p._grad_version for _, p in step._items]
+        before, decided = _build.snapshot(), dict(_dispatch.COUNTS)
+        with torch.cuda.graph(self.graph, pool=step._pool, stream=stream):
+            self.loss = step._body(self.inputs, self.scalars)
+        # the capture ran nothing: its counts belong to the replays, and
+        # the gradient hooks it ran land nothing until then
+        self.launches = _build.take_deltas(before)
+        self.decisions = _dispatch.take_deltas(decided)
+        for (_, p), v in zip(step._items, versions):
+            p._grad_version = v
+        self.grads = [p._grad for _, p in step._items]
+
+    def replay(self, step, inputs, rows):
+        if step._storage() != self.storage:
+            raise RuntimeError(
+                "TrainStep: a weight or optimizer state changed storage "
+                "since the step was captured (cast, set of a state); call "
+                "rebuild() to capture again")
+        if step._static_hyper() != self.hyper:
+            raise RuntimeError(
+                "TrainStep: the optimizer's momentum, betas, epsilon or "
+                "clip_gradient changed since the step was captured; call "
+                "rebuild() to capture again")
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src, non_blocking=True)
+        k = self.turn
+        self.turn = 1 - k
+        self.copied[k].synchronize()   # this buffer's previous copy ran
+        self.pinned[k].numpy()[...] = rows
+        self.scalars.copy_(self.pinned[k], non_blocking=True)
+        self.copied[k].record()
+        self.graph.replay()
+        _build.add_deltas(self.launches)
+        _dispatch.add_deltas(self.decisions)
+        for (_, p), g in zip(step._items, self.grads):
+            p._grad = g
+            p._grad_version += 1
+        return self.loss.clone()
+
+
+class TrainStep:
+    """One training iteration: forward, loss, backward and the fused
+    optimizer update, as one CUDA graph replay a step on the card.
+
+    ``net`` is a HybridBlock; ``loss_fn(out, *labels)`` maps the network
+    output and the remaining batch elements to a loss (None: the net's
+    output is the loss). The first ``n_data`` positional batch elements
+    feed the net, the rest the loss. ``batch_size`` defaults to the first
+    input's ``batch_axis`` extent and sets ``rescale_grad = scale /
+    batch_size``, as ``Trainer.step`` does. Batch elements may be tensors
+    or NDArrays; the loss comes back as the same kind, detached."""
+
+    def __init__(self, net, loss_fn, trainer, *, n_data=1, batch_axis=0,
+                 mesh=None, axis="dp"):  # noqa: ARG002
+        if mesh is not None:
+            raise _later("mesh=...")
+        self._net = net
+        self._loss = loss_fn
+        self._trainer = trainer
+        self._n_data = int(n_data)
+        self._batch_axis = int(batch_axis)
+        self._traces = 0
+        self._last_path = None
+        self._pool = None
+        self._stream = None
+        self.rebuild()
+
+    # -- introspection -----------------------------------------------------
+    @property
+    def last_path(self):
+        """'whole_step' or 'phased': how the most recent call ran."""
+        return self._last_path
+
+    def jit_trace_count(self):
+        """Step bodies built so far: CUDA-graph captures on the card, first
+        runs of a batch signature on the CPU (the JAX package's whole-step
+        compiles). A changing LR or Adam's t adds none."""
+        return self._traces
+
+    def ineligible_reason(self):
+        """Why this step runs phased (None when eligible)."""
+        return self._ineligible
+
+    def rebuild(self):
+        """Drop the captured graphs and the cached eligibility verdict; the
+        next call of a signature warms up and captures again
+        (:meth:`jit_trace_count` keeps counting)."""
+        self._graphs = {}
+        self._warm = set()
+        self._seen = set()
+        self._built = False
+        self._eligibility_checked = False
+        self._ineligible = None
+        return self
+
+    # -- eligibility -------------------------------------------------------
+    def _check_eligibility(self):
+        tr = self._trainer
+        opt = tr._optimizer
+        if not isinstance(self._net, HybridBlock):
+            return "net is not a HybridBlock"
+        if not opt._supports_fused():
+            return (f"{type(opt).__name__} overrides update/"
+                    "update_multi_precision or lacks _rule")
+        if opt.clip_global_norm is not None:
+            return "clip_global_norm needs the host-combined norm pre-pass"
+        block_params = {id(p) for p in self._net.collect_params().values()}
+        seen = set()
+        for p in tr._params:
+            if p.grad_req == "null":
+                continue
+            if p.grad_req != "write":
+                return (f"param {p.name}: grad_req={p.grad_req!r} "
+                        "(grad accumulation is eager-only)")
+            if getattr(p, "grad_stype", "default") != "default":
+                return f"param {p.name}: sparse gradient"
+            if id(p) not in block_params:
+                return f"param {p.name} is not owned by the net"
+            if id(p) in seen:
+                return f"param {p.name} appears twice in the trainer"
+            seen.add(id(p))
+        # on the card the captured update launches the ladder kernel for
+        # every parameter: a member only its plain version takes would
+        # read its scalars on the host, which a capture cannot
+        cls = type(opt)
+        for i, p in enumerate(tr._params):
+            if p.grad_req == "null" or not p._tensor().is_cuda:
+                continue
+            w = p._tensor()
+            tr._ensure_states(i, w)
+            st = tr._states[i]
+            mp = opt._is_mp_state(w, st)
+            outcome = _kopt._decide(cls, mp, w, st, p.grad())
+            if outcome != "kernel":
+                return (f"param {p.name}: the optimizer ladder kernel does "
+                        f"not take it ({outcome})")
+        return None
+
+    def _eligible(self):
+        if not self._eligibility_checked:
+            self._ineligible = self._check_eligibility()
+            self._eligibility_checked = True
+        return self._ineligible is None
+
+    # -- build -------------------------------------------------------------
+    def _ensure_initialized(self, inputs):
+        """Complete deferred initialization with one predict-mode forward
+        (no recording, no noise, no running-stat update)."""
+        if any(p._is_deferred for p in self._net.collect_params().values()):
+            with _ag.pause(), torch.no_grad():
+                self._net(*inputs[:self._n_data])
+
+    def _build(self):
+        tr = self._trainer
+        opt = tr._optimizer
+        items = []
+        for i, p in enumerate(tr._params):
+            if p.grad_req == "null":
+                continue
+            tr._ensure_states(i, p._tensor())
+            items.append((i, p))
+        self._items = items
+        self._indices = [i for i, _ in items]
+        keys = opt._bucket_keys([p._tensor() for _, p in items],
+                                [tr._states[i] for i, _ in items], True)
+        buckets = {}
+        for k, key in enumerate(keys):
+            buckets.setdefault(key, []).append(k)
+        # rows of the scalar buffer: bucket after bucket, trainer order
+        # within one; each bucket a contiguous slice
+        self._order, self._buckets = [], []
+        for (_, mp), ks in buckets.items():
+            start = len(self._order)
+            self._order.extend(ks)
+            self._buckets.append((mp, ks, start, len(self._order)))
+        self._device = items[0][1]._tensor().device if items else None
+        self._built = True
+
+    def _storage(self):
+        """What a captured graph depends on: each trainable weight's
+        tensor and address, and each state's identity."""
+        tr = self._trainer
+        return [(id(p._var), p._var.data_ptr(), id(tr._states[i]))
+                for i, p in self._items]
+
+    def _static_hyper(self):
+        opt = self._trainer._optimizer
+        return (dict(opt._hyper()), opt.clip_gradient)
+
+    def _generators(self, device):
+        """The net's noise generators on ``device``, each once."""
+        gens = {}
+        for gen in self._net._noise_generators():
+            if gen.device == device:
+                gens[id(gen)] = gen
+        return list(gens.values())
+
+    # -- the step body -----------------------------------------------------
+    def _body(self, inputs, scalars):
+        """Forward, loss, backward and the optimizer's device part over
+        ``inputs`` (the batch tensors) with the scalar rows ``scalars``;
+        returns the loss tensor, detached. What a graph captures."""
+        args = [NDArray(t) for t in inputs] if self._nd else list(inputs)
+        with _ag.record():
+            out = self._net(*args[:self._n_data])
+            loss = self._loss(out, *args[self._n_data:]) \
+                if self._loss is not None else out
+        _ag.backward(loss)
+        tr = self._trainer
+        items = self._items
+        tr._optimizer._fused_device_rows(
+            [(mp, [(items[k][1]._tensor(), tr._states[items[k][0]],
+                    items[k][1].grad()) for k in ks], start, stop)
+             for mp, ks, start, stop in self._buckets], scalars)
+        return _unwrap(loss).detach()
+
+    def _rows(self, batch_size):
+        """The host part of the update: ``rescale_grad``, then counts, lr,
+        wd and t in trainer order, as the ladder's scalar rows."""
+        tr = self._trainer
+        opt = tr._optimizer
+        opt.rescale_grad = tr._scale / batch_size
+        steps = opt._resolve(self._indices)
+        return _kopt.ladder_scalars(type(opt), opt._hyper(),
+                                    opt.rescale_grad,
+                                    [steps[k] for k in self._order])
+
+    # -- execution ---------------------------------------------------------
+    def __call__(self, *batch, batch_size=None):
+        self._nd = any(isinstance(a, NDArray) for a in batch)
+        tensors = [_unwrap(a) for a in batch]
+        for t in tensors:
+            if not isinstance(t, torch.Tensor):
+                raise TypeError(f"TrainStep expects tensor or NDArray batch "
+                                f"elements, got {type(t).__name__}")
+        if batch_size is None:
+            batch_size = tensors[0].shape[self._batch_axis]
+        if not _env.get("MXTPU_WHOLE_STEP"):
+            return self._phased(batch, batch_size)
+        if not self._built:
+            self._ensure_initialized(batch)
+        if not self._eligible():
+            return self._phased(batch, batch_size)
+        if not self._built:
+            self._build()
+        return self._whole(tensors, batch_size)
+
+    def _phased(self, batch, batch_size):
+        """The three-phase sequence (record/forward+loss, backward,
+        Trainer.step): the fallback contract and the reference semantics
+        the whole step is held against."""
+        self._last_path = "phased"
+        with _ag.record():
+            out = self._net(*batch[:self._n_data])
+            loss = self._loss(out, *batch[self._n_data:]) \
+                if self._loss is not None else out
+        _ag.backward(loss)
+        self._trainer.step(batch_size)
+        loss = _unwrap(loss).detach()
+        return NDArray(loss) if self._nd else loss
+
+    def _whole(self, tensors, batch_size):
+        self._last_path = "whole_step"
+        tr = self._trainer
+        rows = self._rows(batch_size)
+        sig = (self._nd,) + tuple((tuple(t.shape), t.dtype) for t in tensors)
+        if self._device is None or self._device.type != "cuda":
+            if sig not in self._seen:
+                self._seen.add(sig)
+                self._traces += 1
+            loss = self._body(tensors, torch.from_numpy(rows))
+        else:
+            loss = self._cuda_step(sig, tensors, rows)
+        tr._mark_grads_consumed(self._indices)
+        tr._record_step_complete(batch_size)
+        return NDArray(loss) if self._nd else loss
+
+    def _cuda_step(self, sig, tensors, rows):
+        dev = self._device
+        graph = self._graphs.get(sig)
+        if graph is not None:
+            return graph.replay(self, tensors, rows)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        current = torch.cuda.current_stream(dev)
+        self._stream.wait_stream(current)
+        if sig not in self._warm:
+            # warm-up: the body eagerly, on the side stream the capture
+            # will use (builds, cuBLAS workspaces, cuDNN's choices)
+            with torch.cuda.stream(self._stream):
+                scalars = torch.from_numpy(rows).to(dev)
+                loss = self._body([t.to(dev) for t in tensors], scalars)
+            current.wait_stream(self._stream)
+            self._warm.add(sig)
+            return loss
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = _Graph(self, tensors, len(self._order), dev)
+        graph.capture(self, self._stream)
+        self._traces += 1
+        self._graphs[sig] = graph
+        return graph.replay(self, tensors, rows)

@@ -11,9 +11,12 @@ package.
 ``step(batch_size)`` sets ``rescale_grad = scale / batch_size`` and hands
 every dense parameter with a fresh gradient to the Optimizer in one
 list-form call (``update_fused`` for every rule that has a ``_rule``), which
-updates weights and states in place.
+updates weights and states in place. Each step ends in
+``_record_step_complete``, which ``gluon.TrainStep`` calls too.
 """
 from __future__ import annotations
+
+import time
 
 from .. import optimizer as opt_mod
 from .parameter import Parameter
@@ -66,6 +69,11 @@ class Trainer:
         # matching version means the gradient is STALE (nothing was
         # backpropagated into it since)
         self._grad_versions = {}
+        # host bookkeeping of completed steps (_record_step_complete)
+        self._steps_completed = 0
+        self._examples_completed = 0
+        self._last_step_end = None
+        self._last_step_seconds = None
 
     @property
     def optimizer(self):
@@ -94,6 +102,27 @@ class Trainer:
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads(ignore_stale_grad)
         self.update(batch_size, ignore_stale_grad, _skip_rescale=True)
+        self._record_step_complete(batch_size)
+
+    def _record_step_complete(self, batch_size):
+        """Close one training step on the host, for ``step()`` and
+        ``gluon.TrainStep`` alike: count it and its examples, and time the
+        interval since the previous step's end (the whole iteration; the
+        first step is counted, not timed). Telemetry reads these when it is
+        ported."""
+        now = time.perf_counter()
+        if self._last_step_end is not None:
+            self._last_step_seconds = now - self._last_step_end
+        self._last_step_end = now
+        self._steps_completed += 1
+        self._examples_completed += int(batch_size)
+
+    def _mark_grads_consumed(self, indices):
+        """Mark the gradients of the parameters ``indices`` stale, as an
+        update does: what ``gluon.TrainStep`` records after a step whose
+        update ran on the card without this trainer's Python."""
+        for i in indices:
+            self._grad_versions[i] = self._params[i]._grad_version
 
     def update(self, batch_size, ignore_stale_grad=False,
                _skip_rescale=False):

@@ -11,7 +11,11 @@ machine without ``nvcc``.
 
 Each kernel wrapper also keeps a :class:`LaunchCounter`, which adds one
 where the wrapper launches its kernel and nowhere else, so a run can show
-that its main path went through the kernel.
+that its main path went through the kernel. A launch captured in a CUDA
+graph runs only when the graph replays, and a replay runs no Python: the
+capturer takes what the capture added to every counter with
+:func:`take_deltas` (which puts the counters back) and adds it once per
+replay with :func:`add_deltas`, so the counters stay the only count.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "library_path",
            "build", "load", "LaunchCounter", "COUNTERS", "counter",
-           "reset_counters"]
+           "reset_counters", "snapshot", "take_deltas", "add_deltas"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -113,6 +117,10 @@ def load(name):
         return lib
 
 
+#: every LaunchCounter made, launch counters or not (snapshot's scope)
+_ALL = []
+
+
 class LaunchCounter:
     """Number of times a wrapper launched its kernel (thread-safe)."""
 
@@ -120,6 +128,7 @@ class LaunchCounter:
         self.name = name
         self._n = 0
         self._lock = threading.Lock()
+        _ALL.append(self)
 
     def add(self, n=1):
         with self._lock:
@@ -147,3 +156,29 @@ def counter(name):
 def reset_counters():
     for c in COUNTERS.values():
         c.reset()
+
+
+def snapshot():
+    """Every counter's value (the launch counters and the others, such as
+    kernels/opt.py:TENSORS), keyed by the counter."""
+    return {c: c.value for c in _ALL}
+
+
+def take_deltas(before):
+    """What each counter gained since :func:`snapshot` gave ``before``,
+    as ``{counter: n}`` of the non-zero gains; every counter is put back
+    to its value in ``before``. For a CUDA-graph capture: the captured
+    launches did not run."""
+    deltas = {}
+    for c in _ALL:
+        n = c.value - before.get(c, 0)
+        if n:
+            deltas[c] = n
+            c.add(-n)
+    return deltas
+
+
+def add_deltas(deltas):
+    """Add a :func:`take_deltas` result to its counters: one replay."""
+    for c, n in deltas.items():
+        c.add(n)

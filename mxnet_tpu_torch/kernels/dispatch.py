@@ -25,6 +25,7 @@ import threading
 import torch
 
 __all__ = ["platform_ok", "record", "COUNTS", "reset_counts",
+           "take_deltas", "add_deltas",
            "optimizer_region_bytes", "norm_region_bytes"]
 
 #: {(kernel, outcome): number of decisions}
@@ -47,6 +48,24 @@ def record(kernel, outcome):
 def reset_counts():
     with _LOCK:
         COUNTS.clear()
+
+
+def take_deltas(before):
+    """The decisions counted since ``before`` (a copy of :data:`COUNTS`),
+    with :data:`COUNTS` put back to ``before``: for a CUDA-graph capture,
+    whose decisions count once per replay (:func:`add_deltas`)."""
+    with _LOCK:
+        deltas = {k: n - before.get(k, 0) for k, n in COUNTS.items()
+                  if n != before.get(k, 0)}
+        COUNTS.clear()
+        COUNTS.update(before)
+    return deltas
+
+
+def add_deltas(deltas):
+    with _LOCK:
+        for k, n in deltas.items():
+            COUNTS[k] = COUNTS.get(k, 0) + n
 
 
 def optimizer_region_bytes(w_size, w_itemsize, n_state, mp):

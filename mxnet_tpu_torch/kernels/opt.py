@@ -36,6 +36,15 @@ on the tensor's own lr, wd or update count, computed in f32 as the
 per-parameter entry point of the first port computed them (libm's
 ``powf``, then f32 products), so each element's result is that kernel's.
 
+For a launch captured in a CUDA graph (``gluon.TrainStep``),
+:func:`bucket_step_dev` takes the same members without their lr, wd and t:
+the table keeps only pointers, sizes, first chunks and alignment flags, and
+each entry's scalars and the rescale are read at run time from a small f32
+buffer on the device, :data:`SCALAR_STRIDE` floats a member
+(:func:`ladder_scalars` computes the rows on the host, by :func:`_scalars`,
+so both entries give the same bits). :func:`bucket_step_dev_reference`, its
+plain version, reads the same rows.
+
 Counters: :data:`LAUNCHES` (``opt_ladder``) and :data:`SQNORM_LAUNCHES`
 (``opt_sqnorm``: one per bucket norm, its partial launches and the finish
 together) count launches; :data:`TENSORS` counts the tensors the ladder
@@ -56,9 +65,10 @@ from . import dispatch as _dispatch
 
 __all__ = ["bucket_step", "bucket_step_reference", "bucket_sqnorm",
            "bucket_sqnorm_reference", "param_step", "ladder_tables",
-           "norm_tables", "KERNEL", "LAUNCHES",
+           "norm_tables", "bucket_step_dev", "bucket_step_dev_reference",
+           "ladder_scalars", "KERNEL", "LAUNCHES",
            "SQNORM_LAUNCHES", "TENSORS", "CHUNK", "TABLE_CAPACITY",
-           "NORM_BLOCKS", "ENTRY"]
+           "NORM_BLOCKS", "ENTRY", "SCALAR_STRIDE"]
 
 KERNEL = "opt_ladder"
 #: launches of the ladder kernel (plain-version calls are not counted)
@@ -74,6 +84,9 @@ TENSORS = _build.LaunchCounter("opt_ladder_tensors")
 CHUNK = 8192
 TABLE_CAPACITY = 384
 NORM_BLOCKS = 1024
+#: f32 values a member of :func:`bucket_step_dev` reads from its scalar
+#: buffer: lr, wd, b1c, b2c, lr_t, c1, rescale, unused (kScalarStride)
+SCALAR_STRIDE = 8
 
 #: one table entry, the layout of ``struct Entry`` in csrc/opt_ladder.cu
 ENTRY = _np.dtype([
@@ -188,6 +201,23 @@ def _scalars(name, h0, h1, lr, wd, t):
     return lr, wd, b1c, b2c, lr_t, c1
 
 
+def ladder_scalars(cls, hyper, rescale, steps):
+    """The scalar rows of :func:`bucket_step_dev` for members whose
+    ``(lr, wd, t)`` are ``steps``: an f32 numpy array of shape
+    ``(len(steps), SCALAR_STRIDE)``, each row :func:`_scalars` of its
+    member, then ``rescale`` in f32, then 0. Host work only."""
+    name = cls.__name__
+    h0, h1, _ = _hyper_f32(name, hyper)
+    tail = (_F32(rescale), _F32(0.0))
+    memo, rows = {}, []
+    for key in steps:
+        row = memo.get(key)
+        if row is None:
+            row = memo[key] = _scalars(name, h0, h1, *key) + tail
+        rows.append(row)
+    return _np.array(rows, dtype=_F32).reshape(len(steps), SCALAR_STRIDE)
+
+
 def _tables(sizes, capacity):
     """Cut members into launches of at most ``capacity`` and number their
     chunks: ``[(start, stop, chunk0)]``, ``chunk0`` each member's first
@@ -272,7 +302,8 @@ def _lib():
         consts = {"mxtpu_opt_entry_size": ENTRY.itemsize,
                   "mxtpu_opt_table_capacity": TABLE_CAPACITY,
                   "mxtpu_opt_chunk": CHUNK,
-                  "mxtpu_opt_norm_blocks": NORM_BLOCKS}
+                  "mxtpu_opt_norm_blocks": NORM_BLOCKS,
+                  "mxtpu_opt_scalar_stride": SCALAR_STRIDE}
         for cname, want in consts.items():
             getattr(lib, cname).restype = ctypes.c_int
             got = getattr(lib, cname)()
@@ -291,6 +322,10 @@ def _lib():
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        dev = lib.mxtpu_opt_ladder_bucket_dev
+        dev.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
+                        + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2)
+        dev.restype = ctypes.c_int
     return lib
 
 
@@ -310,9 +345,9 @@ def _check_contiguous(names, tensors):
 _LADDER_NAMES = ("weight", "gradient", "master", "state", "state")
 
 
-def _launch_bucket(name, clip, gn, mp, members, scale, hyper):
-    """One ladder launch per table over ``members``, ``(w, g, master,
-    leaves, lr, wd, t)`` that the kernel takes."""
+def _by_state(members):
+    """``{state leaves: members}`` of the non-empty ``members`` (``(w, g,
+    master, leaves, ...)``), each checked for what the kernel takes."""
     by_state = {}
     for m in members:
         w, g, master, leaves = m[:4]
@@ -323,6 +358,13 @@ def _launch_bucket(name, clip, gn, mp, members, scale, hyper):
                              f"shape {tuple(w.shape)}")
         if w.numel():
             by_state.setdefault(len(leaves), []).append(m)
+    return by_state
+
+
+def _launch_bucket(name, clip, gn, mp, members, scale, hyper):
+    """One ladder launch per table over ``members``, ``(w, g, master,
+    leaves, lr, wd, t)`` that the kernel takes."""
+    by_state = _by_state(members)
     if not by_state:
         return
     h0, h1, h2 = (float(h) for h in _hyper_f32(name, hyper))
@@ -342,6 +384,94 @@ def _launch_bucket(name, clip, gn, mp, members, scale, hyper):
                 _raise_on(lib, err, "optimizer ladder kernel")
                 LAUNCHES.add()
                 TENSORS.add(len(table))
+
+
+def _check_scalars(scalars, n, device):
+    if (scalars.dtype != torch.float32 or not scalars.is_contiguous()
+            or tuple(scalars.shape) != (n, SCALAR_STRIDE)
+            or scalars.device != device):
+        raise ValueError(
+            f"the scalar rows must be a contiguous f32 ({n}, "
+            f"{SCALAR_STRIDE}) tensor on {device}, got "
+            f"{tuple(scalars.shape)} {scalars.dtype} on {scalars.device}")
+
+
+def _launch_bucket_dev(name, clip, mp, members, scalars, hyper):
+    """One ladder launch per table over ``members``, ``(w, g, master,
+    leaves, row)`` that the kernel takes, each reading row ``row`` of
+    ``scalars``."""
+    by_state = _by_state(members)
+    h0, h1, h2 = (float(h) for h in _hyper_f32(name, hyper))
+    dev = scalars.device
+    lib = _lib()
+    row_bytes = SCALAR_STRIDE * 4
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for n_state, group in by_state.items():
+            # the rows of one launch must be consecutive: a group gathers
+            # its members' rows into a block of its own when they are not
+            rows = [m[4] for m in group]
+            if rows == list(range(rows[0], rows[0] + len(rows))):
+                block, base = scalars, rows[0]
+            else:
+                block, base = scalars[rows], 0
+            at = 0
+            for table in _ladder_tables(
+                    name, mp, [m[:4] + (0.0, 0.0, 1) for m in group], hyper):
+                err = lib.mxtpu_opt_ladder_bucket_dev(
+                    table.ctypes.data, len(table), int(mp), _RULE_IDS[name],
+                    n_state, int(clip is not None),
+                    float(clip) if clip is not None else 0.0, h0, h1, h2,
+                    block.data_ptr() + (base + at) * row_bytes, stream)
+                _raise_on(lib, err, "optimizer ladder kernel")
+                LAUNCHES.add()
+                TENSORS.add(len(table))
+                at += len(table)
+
+
+def bucket_step_dev_reference(cls, clip, mp, members, scalars, hyper):
+    """The plain version of :func:`bucket_step_dev`:
+    ``Optimizer._fused_param_step`` over each ``(w, st, g)`` with the lr,
+    wd, ``1 - beta^t`` and rescale of its row of ``scalars`` (read on the
+    host: on a CUDA tensor this synchronises)."""
+    from ..optimizer.optimizer import Optimizer
+    rows = scalars.tolist()
+    for (w, st, g), row in zip(members, rows):
+        lr, wd, b1c, b2c, _lr_t, _c1, rescale = row[:7]
+        h = dict(hyper, rescale_grad=rescale, b1c=b1c, b2c=b2c)
+        Optimizer._fused_param_step(cls, clip, False, mp, w, st, g, lr, wd,
+                                    None, 1.0, h)
+
+
+def bucket_step_dev(cls, clip, mp, members, scalars, hyper):
+    """The ladder of every ``(w, st, g)`` of one bucket, in place, as
+    :func:`bucket_step` without a global norm, each member taking its lr,
+    wd, update-count scalars and the rescale from its row of ``scalars``,
+    an f32 ``(len(members), SCALAR_STRIDE)`` tensor on the members' device
+    (:func:`ladder_scalars`). The launches read the rows when they run, so
+    a launch captured in a CUDA graph takes each replay's values. Decisions
+    are counted as in :func:`bucket_step`; members the kernel does not take
+    run :func:`bucket_step_dev_reference`."""
+    name = cls.__name__
+    key = "opt_" + name.lower()
+    if not members:
+        return
+    _check_scalars(scalars, len(members), members[0][0].device)
+    kernel, plain = [], []
+    for k, (w, st, g) in enumerate(members):
+        master, leaves = _parts(mp, w, st)
+        outcome = _outcome(name, mp, w, g, master, leaves)
+        _dispatch.record(key, outcome)
+        if outcome == "kernel":
+            kernel.append((w, g, master, leaves, k))
+        else:
+            plain.append(k)
+    if plain:
+        bucket_step_dev_reference(cls, clip, mp,
+                                  [members[k] for k in plain],
+                                  scalars[plain], hyper)
+    if kernel:
+        _launch_bucket_dev(name, clip, mp, kernel, scalars, hyper)
 
 
 def bucket_step_reference(cls, clip, gn, mp, items, scale, hyper):

@@ -1,8 +1,8 @@
 """``mx.nd.save`` / ``mx.nd.load`` (counterpart of
 mxnet_tpu/ndarray/utils.py): an NDArray, a list of them or a dict of
 name -> NDArray in numpy's ``.npz`` container, a single array in ``.npy``.
-The dtype sidecar that carries bfloat16 through ``.npz`` is not ported:
-saving a bfloat16 array raises."""
+bfloat16 travels through ``.npz`` by the JAX package's dtype sidecar
+(``_dtype_codec``), so files cross between the two packages both ways."""
 from __future__ import annotations
 
 import os
@@ -10,6 +10,7 @@ import os
 import numpy as _np
 import torch
 
+from .._dtype_codec import decode_npz, encode_payload
 from .ndarray import NDArray, array
 
 __all__ = ["save", "load"]
@@ -18,11 +19,12 @@ _LIST_PREFIX = "__mx_list__:"
 
 
 def _to_np(a):
+    """A tensor for an NDArray (the codec views exotic dtypes), a numpy
+    copy of anything else."""
     if isinstance(a, NDArray):
-        if a._data.dtype == torch.bfloat16:
-            raise ValueError("bfloat16 arrays need the dtype sidecar of the "
-                             "checkpoint format, which is not ported yet")
-        return a.asnumpy()
+        return a._data
+    if isinstance(a, torch.Tensor):
+        return a
     return _np.array(a)
 
 
@@ -30,7 +32,11 @@ def save(fname, data):
     """Save an NDArray, a list of NDArrays or a dict of str -> NDArray."""
     if isinstance(data, NDArray):
         if fname.endswith(".npy"):
-            _np.save(fname, _to_np(data))
+            if data._data.dtype == torch.bfloat16:
+                # .npy has nowhere to carry the dtype sidecar
+                raise ValueError("dtype bfloat16 cannot round-trip through "
+                                 ".npy; save to .npz instead")
+            _np.save(fname, data.asnumpy())
             return
         data = [data]
     if isinstance(data, (list, tuple)):
@@ -40,23 +46,28 @@ def save(fname, data):
     else:
         raise ValueError("save expects an NDArray, a list of NDArrays or a "
                          f"dict of str -> NDArray, got {type(data)}")
+    payload = encode_payload(payload)
     with open(fname, "wb") as f:
         _np.savez(f, **payload)
 
 
+def _array(v, device):
+    return array(v, dtype=v.dtype, device=device)
+
+
 def load(fname, device=None):
-    """What :func:`save` wrote, as NDArrays on ``device`` (default: the
-    current device) with the stored dtypes."""
+    """What :func:`save` (or the JAX package's) wrote, as NDArrays on
+    ``device`` (default: the current device) with the stored dtypes,
+    bfloat16 included."""
     if fname.endswith(".npy"):
         raw = _np.load(fname)
         return array(raw, dtype=raw.dtype, device=device)
     if not os.path.exists(fname) and os.path.exists(fname + ".npz"):
         fname += ".npz"
     with _np.load(fname) as z:
-        keys = list(z.keys())
-        if keys and all(k.startswith(_LIST_PREFIX) for k in keys):
-            keys.sort(key=lambda k: int(k[len(_LIST_PREFIX):]))
-            return [array(z[k], dtype=z[k].dtype, device=device)
-                    for k in keys]
-        return {k: array(z[k], dtype=z[k].dtype, device=device)
-                for k in keys}
+        decoded = decode_npz(z)
+    keys = list(decoded)
+    if keys and all(k.startswith(_LIST_PREFIX) for k in keys):
+        keys.sort(key=lambda k: int(k[len(_LIST_PREFIX):]))
+        return [_array(decoded[k], device) for k in keys]
+    return {k: _array(v, device) for k, v in decoded.items()}

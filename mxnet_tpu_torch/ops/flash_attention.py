@@ -23,6 +23,14 @@ argument. There is no fallback from a kernel to its plain version or from
 one variant to the other, and no option that selects one. The tensor-core
 kernels stage their tiles with 16-byte or 2-byte copies by a rule of the C
 launchers; :func:`tensor_route` asks the library which a call takes.
+
+The dropout seed is an int or a one-element int32 tensor holding the seed's
+32 bits. The kernels read it from device memory when they start, so a
+launch captured in a CUDA graph takes the value the seed tensor holds at
+each replay (``MultiHeadAttention`` draws it on the card with one captured
+op, :func:`next_dropout_seed`); an int seed is copied to the card first.
+The forward keeps a one-element copy of the seed tensor it used for the
+backward. The plain versions read the same tensor.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from ..kernels import build as _build
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_reference", "flash_attention_bwd_reference",
            "launch_bwd_dq", "launch_bwd_dkv", "kernel_route", "tensor_route",
+           "next_dropout_seed",
            "VARIANTS", "LAUNCHES", "LAUNCHES_BWD_DQ", "LAUNCHES_BWD_DKV",
            "VARIANT_LAUNCHES"]
 
@@ -96,6 +105,25 @@ def _threshold(dropout_p):
     return max(int((1.0 - dropout_p) * 4294967296.0) - 1, 0)
 
 
+def next_dropout_seed(generator):
+    """The next dropout seed: a one-element int32 tensor in [0, 2^31 - 1)
+    on ``generator``'s device, drawn from it in one op. On the card that
+    is Philox, a counter-based generator: its counter (the offset) moves
+    by one draw a call, and a CUDA graph that captured the draw and
+    registered the generator moves it on every replay, so each replay
+    draws a new seed and a new mask."""
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
+def _seed_value(seed):
+    """An int seed as it is; a seed tensor as a 0-dim int64 tensor of its
+    32 bits, for the plain versions' hash."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(torch.int64) & _M32
+    return int(seed)
+
+
 def _check_args(q, k, v, dropout_p, dropout_seed):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
@@ -108,6 +136,13 @@ def _check_args(q, k, v, dropout_p, dropout_seed):
         raise ValueError("q, k, v must lie on one device")
     if dropout_p > 0.0 and dropout_seed is None:
         raise ValueError("dropout_p > 0 requires dropout_seed")
+    if isinstance(dropout_seed, torch.Tensor) and (
+            dropout_seed.numel() != 1 or dropout_seed.dtype != torch.int32
+            or dropout_seed.device != q.device):
+        raise ValueError(
+            f"a dropout seed tensor holds one int32 on q's device "
+            f"({q.device}); got {tuple(dropout_seed.shape)} "
+            f"{dropout_seed.dtype} on {dropout_seed.device}")
 
 
 def flash_attention_reference(q, k, v, causal=False, scale=None,
@@ -139,7 +174,8 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
         bh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
         q_pos = torch.arange(s, device=dev).reshape(1, 1, s, 1)
         k_pos = torch.arange(s, device=dev).reshape(1, 1, 1, s)
-        keep = _dropout_keep(int(dropout_seed), bh, q_pos, k_pos, dropout_p)
+        keep = _dropout_keep(_seed_value(dropout_seed), bh, q_pos, k_pos,
+                             dropout_p)
         p = torch.where(keep, p, torch.zeros_like(p))
         o_denom = denom * (1.0 - dropout_p)
     acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
@@ -153,7 +189,7 @@ def _lib():
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                           ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p])
+                          ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.mxtpu_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mxtpu_cuda_error_string.restype = ctypes.c_char_p
@@ -241,6 +277,22 @@ def _empty_bshd(b, h, s, d, like):
                        device=like.device).transpose(1, 2)
 
 
+def _seed_on_card(dropout_p, dropout_seed, device):
+    """The seed tensor the kernels read (None without dropout): the one
+    given, or an int seed's 32 bits copied to ``device``."""
+    if dropout_p <= 0.0:
+        return None
+    if isinstance(dropout_seed, torch.Tensor):
+        return dropout_seed
+    bits = int(dropout_seed) & _M32
+    return torch.tensor([bits - (1 << 32) if bits >> 31 else bits],
+                        dtype=torch.int32, device=device)
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def _launch(q, k, v, causal, scale, dropout_p, dropout_seed):
     b, h, s, d = q.shape
     variant = _check_kernel_takes(q, k, v)
@@ -248,6 +300,7 @@ def _launch(q, k, v, causal, scale, dropout_p, dropout_seed):
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    seed = _seed_on_card(dropout_p, dropout_seed, q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -255,9 +308,7 @@ def _launch(q, k, v, causal, scale, dropout_p, dropout_seed):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _KERNEL_DTYPES[q.dtype], b, h, s, d, strides,
             scale, int(bool(causal)), int(dropout_p > 0.0),
-            1.0 - dropout_p,
-            0 if dropout_seed is None else int(dropout_seed) & _M32,
-            _threshold(dropout_p), stream)
+            1.0 - dropout_p, _ptr(seed), _threshold(dropout_p), stream)
     if err:
         raise RuntimeError(
             "flash_attention kernel launch failed: "
@@ -313,7 +364,8 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal=False,
         bh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
         q_pos = torch.arange(s, device=dev).reshape(1, 1, s, 1)
         k_pos = torch.arange(s, device=dev).reshape(1, 1, 1, s)
-        keep = _dropout_keep(int(dropout_seed), bh, q_pos, k_pos, dropout_p)
+        keep = _dropout_keep(_seed_value(dropout_seed), bh, q_pos, k_pos,
+                             dropout_p)
         zero = torch.zeros_like(p)
         p_d = torch.where(keep, p, zero) / (1.0 - dropout_p)
         dp = torch.where(keep, dp, zero) / (1.0 - dropout_p)
@@ -332,7 +384,7 @@ def _lib_bwd():
         tail = ([ctypes.c_int] * 5
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p])
+                   ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p])
         for fn in (dq_fn, lib.mxtpu_flash_attention_bwd_dkv):
             fn.argtypes = [ctypes.c_void_p] * 8 + tail
             fn.restype = ctypes.c_int
@@ -341,18 +393,18 @@ def _lib_bwd():
     return lib
 
 
-def _bwd_tail(q, tensors, causal, scale, dropout_p, dropout_seed):
+def _bwd_tail(q, tensors, causal, scale, dropout_p, seed):
     """The arguments both backward kernels share after their pointers;
     ``tensors``: q, k, v, out, dout, dq, dk, dv (or None), whose strides
-    the kernels take in that order."""
+    the kernels take in that order; ``seed``: the seed tensor on the card
+    (None without dropout)."""
     b, h, s, d = q.shape
     strides = (ctypes.c_longlong * 24)(*(
         n for t in tensors
         for n in (t.stride()[:3] if t is not None else (0, 0, 0))))
     return (_KERNEL_DTYPES[q.dtype], b, h, s, d, strides, scale,
             int(bool(causal)), int(dropout_p > 0.0), 1.0 - dropout_p,
-            0 if dropout_seed is None else int(dropout_seed) & _M32,
-            _threshold(dropout_p))
+            _ptr(seed), _threshold(dropout_p))
 
 
 def _check_bwd_takes(q, k, v, out, lse, dout):
@@ -373,8 +425,9 @@ def launch_bwd_dq(q, k, v, out, lse, dout, causal, scale, dropout_p,
     variant = _check_bwd_takes(q, k, v, out, lse, dout)
     delta = torch.empty_like(lse)
     dq = _empty_bshd(b, h, s, d, q)
+    seed = _seed_on_card(dropout_p, dropout_seed, q.device)
     tail = _bwd_tail(q, (q, k, v, out, dout, dq, None, None), causal, scale,
-                     dropout_p, dropout_seed)
+                     dropout_p, seed)
     lib = _lib_bwd()
     with torch.cuda.device(q.device):
         err = lib.mxtpu_flash_attention_bwd_dq(
@@ -397,8 +450,9 @@ def launch_bwd_dkv(q, k, v, lse, delta, dout, causal, scale, dropout_p,
     variant = _check_bwd_takes(q, k, v, None, lse, dout)
     dk = _empty_bshd(b, h, s, d, q)
     dv = _empty_bshd(b, h, s, d, q)
+    seed = _seed_on_card(dropout_p, dropout_seed, q.device)
     tail = _bwd_tail(q, (q, k, v, None, dout, None, dk, dv), causal, scale,
-                     dropout_p, dropout_seed)
+                     dropout_p, seed)
     lib = _lib_bwd()
     with torch.cuda.device(q.device):
         err = lib.mxtpu_flash_attention_bwd_dkv(
@@ -452,6 +506,10 @@ class _FlashAttention(torch.autograd.Function):
         out, lse = flash_attention_fwd(q, k, v, causal, scale, dropout_p,
                                        dropout_seed)
         ctx.save_for_backward(q, k, v, out, lse)
+        if isinstance(dropout_seed, torch.Tensor):
+            # the backward draws the same mask even if the caller's seed
+            # tensor moves on before it runs
+            dropout_seed = dropout_seed.clone()
         ctx.attn_args = (causal, scale, dropout_p, dropout_seed)
         return out
 
@@ -469,8 +527,9 @@ def flash_attention(q, k, v, causal=False, scale=None, dropout_p=0.0,
     """Fused multi-head attention ``softmax(q k^T * scale) v`` over
     (B, H, S, D), the ``flash_attention`` entry point of the JAX package.
 
-    ``dropout_p > 0`` with an int ``dropout_seed`` applies attention-prob
-    dropout with the counter-hash mask (numerator only, inverted scaling).
+    ``dropout_p > 0`` with a ``dropout_seed`` (an int, or a one-element
+    int32 tensor on q's device) applies attention-prob dropout with the
+    counter-hash mask (numerator only, inverted scaling).
     Differentiable in q, k and v: when torch autograd is recording, the
     backward runs the backward kernels on CUDA tensors and the plain
     backward on CPU tensors. A CUDA input the kernels do not take raises

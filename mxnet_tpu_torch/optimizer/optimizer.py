@@ -278,53 +278,94 @@ class Optimizer:
                 and state[0].dtype == torch.float32
                 and weight.dtype != torch.float32)
 
+    def _resolve(self, index):
+        """``[(lr, wd, t)]`` of the parameters ``index``, in list order,
+        each update count advanced first: the host part of the fused step
+        (so a schedule driven by ``num_update`` sees the per-parameter
+        sequence)."""
+        out = []
+        for i in index:
+            self._update_count(i)
+            out.append((self._get_lr(i), self._get_wd(i),
+                        self._index_update_count[i]))
+        return out
+
+    def _bucket_keys(self, weight, state, multi_precision):
+        """Each parameter's bucket, ``(weight dtype name, multi-precision)``,
+        in list order."""
+        return [(str(w.dtype),
+                 bool(multi_precision and self._is_mp_state(w, s)))
+                for w, s in zip(weight, state)]
+
+    def _fused_hyper(self):
+        hyper = dict(self._hyper())
+        hyper["rescale_grad"] = self.rescale_grad
+        return hyper
+
+    def _fused_device(self, buckets, hyper, scale=1.0):
+        """The device part of the fused step: one
+        kernels/opt.py:bucket_step call per bucket of ``{(dtype, mp):
+        [(w, st, g, lr, wd, t)]}``."""
+        cls, clip = type(self), self.clip_gradient
+        gn = self.clip_global_norm is not None
+        for (_, use_mp), items in buckets.items():
+            _kopt.bucket_step(cls, clip, gn, use_mp, items, scale, hyper)
+
+    def _fused_device_rows(self, buckets, scalars):
+        """The device part of a captured step (``gluon.TrainStep``): one
+        kernels/opt.py:bucket_step_dev call per bucket of ``[(mp, [(w, st,
+        g)], start, stop)]``, each member's lr, wd, update-count scalars
+        and the rescale read on the device from its row of ``scalars``
+        (rows ``start:stop`` the bucket's), which the host part
+        (:meth:`_resolve`, kernels/opt.py:ladder_scalars) fills. No
+        Python of this call runs again on a replay."""
+        cls, clip, hyper = type(self), self.clip_gradient, self._fused_hyper()
+        for mp, members, start, stop in buckets:
+            _kopt.bucket_step_dev(cls, clip, mp, members,
+                                  scalars[start:stop], hyper)
+
+    def _global_norm_scale(self, buckets):
+        """The ``clip_global_norm`` scale: one partial sum per bucket,
+        combined on the host into the one global scale in float64, in
+        bucket order (one device-to-host read for all buckets)."""
+        first = next(iter(buckets.values()))[0][2]
+        sums = torch.empty(len(buckets), dtype=torch.float32,
+                           device=first.device)
+        for k, items in enumerate(buckets.values()):
+            _kopt.bucket_sqnorm([it[2] for it in items],
+                                self.rescale_grad, out=sums[k])
+        sq = 0.0
+        for v in sums.tolist():
+            sq += v
+        gnorm = sq ** 0.5
+        if gnorm > self.clip_global_norm:
+            return self.clip_global_norm / gnorm
+        return 1.0
+
     def update_fused(self, index, weight, grad, state,
                      multi_precision=False):
         """Fused multi-tensor update over the whole list: rescale ->
         global-norm clip -> per-element clip -> ``_rule``, bucketed by
         (weight dtype, multi-precision), with per-parameter lr/wd/t
-        resolved in list order. Under ``clip_global_norm`` each bucket's
-        sum of squares comes from one kernels/opt.py:bucket_sqnorm call
-        into a vector of bucket sums, read on the host once; then each
-        bucket takes one kernels/opt.py:bucket_step call: the CUDA kernels
-        for CUDA tensors, ``_fused_sqnorm`` and ``_fused_param_step`` for
-        CPU tensors."""
+        resolved in list order. The host part (:meth:`_resolve`, the
+        bucketing) comes first; under ``clip_global_norm`` each bucket's
+        sum of squares then comes from one kernels/opt.py:bucket_sqnorm
+        call into a vector of bucket sums, read on the host once; then the
+        device part (:meth:`_fused_device`) gives each bucket one
+        kernels/opt.py:bucket_step call: the CUDA kernels for CUDA tensors,
+        ``_fused_sqnorm`` and ``_fused_param_step`` for CPU tensors."""
+        steps = self._resolve(index)
         buckets = {}
-        for i, w, g, s in zip(index, weight, grad, state):
-            self._update_count(i)
-            lr, wd = self._get_lr(i), self._get_wd(i)
-            t = self._index_update_count[i]
-            use_mp = multi_precision and self._is_mp_state(w, s)
-            buckets.setdefault((str(w.dtype), use_mp), []).append(
-                (i, w, g, s, lr, wd, t))
+        for key, w, g, s, step in zip(
+                self._bucket_keys(weight, state, multi_precision), weight,
+                grad, state, steps):
+            buckets.setdefault(key, []).append((w, s, g, *step))
         if not buckets:
             return
-        hyper = dict(self._hyper())
-        hyper["rescale_grad"] = self.rescale_grad
         scale = 1.0
-        gn = self.clip_global_norm is not None
-        if gn:
-            # one partial sum per bucket, combined on the host into the
-            # one global scale in float64, in bucket order (one
-            # device-to-host read for all buckets)
-            first = next(iter(buckets.values()))[0][2]
-            sums = torch.empty(len(buckets), dtype=torch.float32,
-                               device=first.device)
-            for k, items in enumerate(buckets.values()):
-                _kopt.bucket_sqnorm([it[2] for it in items],
-                                    self.rescale_grad, out=sums[k])
-            sq = 0.0
-            for v in sums.tolist():
-                sq += v
-            gnorm = sq ** 0.5
-            if gnorm > self.clip_global_norm:
-                scale = self.clip_global_norm / gnorm
-        cls, clip = type(self), self.clip_gradient
-        for (_, use_mp), items in buckets.items():
-            _kopt.bucket_step(cls, clip, gn, use_mp,
-                              [(w, s, g, lr, wd, t)
-                               for _, w, g, s, lr, wd, t in items],
-                              scale, hyper)
+        if self.clip_global_norm is not None:
+            scale = self._global_norm_scale(buckets)
+        self._fused_device(buckets, self._fused_hyper(), scale)
 
     def update_multi_precision(self, index, weight, grad, state):
         if isinstance(index, (list, tuple)):
@@ -421,12 +462,18 @@ class Signum(Optimizer):
 
 
 def _adam_moments(g, state, hyper):
-    """New (m, v) and the f32 scalars ``1 - beta1^t``, ``1 - beta2^t``."""
+    """New (m, v) and the f32 scalars ``1 - beta1^t``, ``1 - beta2^t``:
+    libm's ``powf``, as the ladder kernel's scalars take them, or the
+    values ``hyper`` carries as ``b1c`` and ``b2c`` (the scalar rows of
+    kernels/opt.py:bucket_step_dev_reference)."""
     m, v = state
-    b1, b2, t = _F32(hyper["beta1"]), _F32(hyper["beta2"]), _F32(hyper["t"])
+    b1, b2 = _F32(hyper["beta1"]), _F32(hyper["beta2"])
     m = float(b1) * m + float(_ONE - b1) * g
     v = float(b2) * v + float(_ONE - b2) * g * g
-    return m, v, _ONE - _np.power(b1, t), _ONE - _np.power(b2, t)
+    if "b1c" in hyper:
+        return m, v, _F32(hyper["b1c"]), _F32(hyper["b2c"])
+    t = _F32(hyper["t"])
+    return m, v, _ONE - _kopt._powf(b1, t), _ONE - _kopt._powf(b2, t)
 
 
 @register

@@ -7,9 +7,15 @@ point users call).
 f32 masters through ``amp.convert_hybrid_block`` and
 ``multi_precision=True``, AdamW with weight decay and a global-norm clip, a
 synthetic batch with SQuAD shapes from a seeded generator. Shared by
-chip_smoke.py and tools/profile_training.py.
+chip_smoke.py and tools/profile_training.py. ``train_step=True`` runs the
+same step through ``gluon.TrainStep``, which captures it as one CUDA graph
+only without the global-norm clip (``clip_global_norm=None``): with it, it
+runs phased, as the JAX package's does, for the reason
+``ineligible_reason()`` gives.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -17,6 +23,7 @@ from .. import amp, autograd
 from .. import device as _device
 from ..gluon.loss import SoftmaxCrossEntropyLoss
 from ..gluon.model_zoo import bert
+from ..gluon.train_step import TrainStep
 from ..gluon.trainer import Trainer
 
 __all__ = ["build_bert_finetune"]
@@ -26,18 +33,23 @@ VOCAB = 30522
 
 def build_bert_finetune(batch=8, seq=384, dropout=0.1, dtype="bfloat16",
                         learning_rate=1e-4, device=None, seed=0,
+                        clip_global_norm=1.0, train_step=False,
                         **model_kwargs):
     """``(net, trainer, step)``: ``step()`` runs one recorded forward on
     the one fixed batch, backward on the per-sample loss vector and
     ``trainer.step(batch)``, and returns that loss vector (on the device,
     f32). ``model_kwargs`` override the BERT-base config (``num_layers=2``
-    cuts the depth). Weights and batch are drawn from ``seed``."""
+    cuts the depth). Weights and batch are drawn from ``seed``. With
+    ``train_step=True``, ``step`` is ``functools.partial`` of a
+    ``gluon.TrainStep`` over the same net, loss and trainer and the fixed
+    batch (``step.func`` is the TrainStep)."""
     device = _device.resolve(device)
     net = bert.BERTForQA(bert.bert_12_768_12(
         vocab_size=VOCAB, max_length=512, dropout=dropout, **model_kwargs))
     net.initialize(device=device,
                    generator=torch.Generator().manual_seed(seed))
-    opt = dict(learning_rate=learning_rate, wd=0.01, clip_global_norm=1.0)
+    opt = dict(learning_rate=learning_rate, wd=0.01,
+               clip_global_norm=clip_global_norm)
     if dtype == "bfloat16":
         amp.convert_hybrid_block(net, "bfloat16")
         opt["multi_precision"] = True
@@ -51,6 +63,15 @@ def build_bert_finetune(batch=8, seq=384, dropout=0.1, dtype="bfloat16",
     starts = torch.randint(0, seq, (batch,), generator=gen).to(device)
     ends = torch.randint(0, seq, (batch,), generator=gen).to(device)
     loss_fn = SoftmaxCrossEntropyLoss()
+
+    def span_loss(out, s, e):
+        # the loss in f32, as mixed-precision training takes it
+        return loss_fn(out[0].float(), s) + loss_fn(out[1].float(), e)
+
+    if train_step:
+        return net, trainer, functools.partial(
+            TrainStep(net, span_loss, trainer, n_data=2), tokens, segments,
+            starts, ends)
 
     def step():
         with autograd.record():

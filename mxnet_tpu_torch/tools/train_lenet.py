@@ -17,6 +17,7 @@ step (each ends in a synchronising read of the loss).
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import torch
@@ -25,6 +26,7 @@ from .. import _random, autograd
 from .. import device as _device
 from ..gluon.loss import SoftmaxCrossEntropyLoss
 from ..gluon.model_zoo.vision import lenet
+from ..gluon.train_step import TrainStep
 from ..gluon.trainer import Trainer
 from ..numpy import random as np_random
 
@@ -32,11 +34,14 @@ __all__ = ["build_lenet_train"]
 
 
 def build_lenet_train(batch=256, device=None, seed=0, learning_rate=0.05,
-                      optimizer_params=None):
+                      optimizer_params=None, train_step=False):
     """``(net, trainer, step, (x, y))``: ``step()`` runs one recorded
     forward of the one fixed batch, ``L.backward()`` on the per-sample loss
     and ``trainer.step(batch)``, and returns the loss NDArray. Weights come
-    from ``seed``, the batch from ``mx.random.seed(seed)``."""
+    from ``seed``, the batch from ``mx.random.seed(seed)``. With
+    ``train_step=True``, ``step`` is ``functools.partial`` of a
+    ``gluon.TrainStep`` over the same net, loss and trainer and the batch
+    (``step.func`` is the TrainStep; one CUDA graph replay a step)."""
     device = _device.resolve(device)
     net = lenet(classes=10)
     net.initialize(device=device,
@@ -48,6 +53,10 @@ def build_lenet_train(batch=256, device=None, seed=0, learning_rate=0.05,
     trainer = Trainer(net.collect_params(), "sgd",
                       dict(optimizer_params or {},
                            learning_rate=learning_rate))
+    if train_step:
+        return (net, trainer,
+                functools.partial(TrainStep(net, lossfn, trainer), x, y),
+                (x, y))
 
     def step():
         with autograd.record():

@@ -9,8 +9,12 @@ running stats stay f32) and ``multi_precision=True``, SGD with momentum 0.9,
 lr 0.1 and wd 1e-4 through the ``Trainer``, softmax cross-entropy on f32
 logits, and one synthetic batch (224x224x3 images, 1000 classes) from a
 seeded generator. Shared by chip_smoke.py and tools/profile_training.py.
+``train_step=True`` runs the same step through ``gluon.TrainStep`` (one
+CUDA graph replay a step on the card).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -18,6 +22,7 @@ from .. import amp, autograd
 from .. import device as _device
 from ..gluon.loss import SoftmaxCrossEntropyLoss
 from ..gluon.model_zoo import vision
+from ..gluon.train_step import TrainStep
 from ..gluon.trainer import Trainer
 
 __all__ = ["build_resnet_train", "OPTIMIZER_PARAMS"]
@@ -28,13 +33,16 @@ OPTIMIZER_PARAMS = dict(momentum=0.9, wd=1e-4)
 
 def build_resnet_train(batch=256, layout="NHWC", stem_s2d=True,
                        dtype="bfloat16", device=None, seed=0, image=224,
-                       classes=1000, model=None, learning_rate=0.1):
+                       classes=1000, model=None, learning_rate=0.1,
+                       train_step=False):
     """``(net, trainer, step)``: ``step()`` runs one recorded forward on the
     one fixed batch, backward on the per-sample loss vector and
     ``trainer.step(batch)``, and returns that loss vector (on the device,
     f32). Weights and batch are drawn from ``seed``. ``model`` replaces
     ResNet-50 by another vision net built with the same ``layout`` (a narrow
-    one for tests)."""
+    one for tests). With ``train_step=True``, ``step`` is
+    ``functools.partial`` of a ``gluon.TrainStep`` over the same net, loss
+    and trainer and the fixed batch (``step.func`` is the TrainStep)."""
     device = _device.resolve(device)
     net = model if model is not None else vision.resnet50_v1(
         classes=classes, layout=layout, stem_s2d=stem_s2d)
@@ -53,6 +61,11 @@ def build_resnet_train(batch=256, layout="NHWC", stem_s2d=True,
     y = torch.randint(0, classes, (batch,), generator=data_gen).to(device)
     trainer = Trainer(net.collect_params(), "sgd", opt)
     loss_fn = SoftmaxCrossEntropyLoss()
+    if train_step:
+        # the loss in f32, as mixed-precision training takes it
+        return net, trainer, functools.partial(TrainStep(
+            net, lambda out, label: loss_fn(out.float(), label), trainer),
+            x, y)
 
     def step():
         with autograd.record():

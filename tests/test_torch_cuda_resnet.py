@@ -13,7 +13,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.gluon.model_zoo import vision
-from mxnet_tpu_torch.kernels import build, dispatch, norm as knorm
+from mxnet_tpu_torch.kernels import build, dispatch, norm as knorm, opt as kopt
 from mxnet_tpu_torch.tools.train_resnet import build_resnet_train
 
 # (shape, axis, dtype, MXTPU_BN_COMPUTE, non-zero dmean/dvar, elements the
@@ -130,7 +130,8 @@ def _narrow(layout):
 @pytest.mark.cuda
 def test_cuda_resnet_step_launches_and_matches_cpu(cuda_device):
     """One f32 step of a narrow ResNet, NHWC with the s2d stem: 17 BN sites
-    each launch K1 and K2 once, the 53 trainable tensors K3 once; loss,
+    each launch K1 and K2 once, the 53 trainable tensors (one f32 bucket)
+    K3 once, all 53 in that launch; loss,
     every gradient and every running stat equal the CPU run's (f32 on both
     sides, TF32 off; cuDNN and the kernels sum in another order)."""
     torch.backends.cudnn.allow_tf32 = False
@@ -140,9 +141,11 @@ def test_cuda_resnet_step_launches_and_matches_cpu(cuda_device):
             batch=4, dtype="float32", device=where, seed=3, image=64,
             classes=10, model=_narrow("NHWC"))
         build.reset_counters()
+        kopt.TENSORS.reset()
         dispatch.reset_counts()
         loss = step().cpu()
         launches = {c.name: c.value for c in build.COUNTERS.values()}
+        launches["opt_ladder_tensors"] = kopt.TENSORS.value
         params = {k: p._tensor().detach().float().cpu()
                   for k, p in net.collect_params().items()}
         grads = {k: p.grad().float().cpu()
@@ -153,7 +156,8 @@ def test_cuda_resnet_step_launches_and_matches_cpu(cuda_device):
     closs, cparams, cgrads, launches, outcomes = res["cuda"]
     ploss, pparams, pgrads, _, _ = res["cpu"]
     assert launches["bn_train_fwd"] == launches["bn_train_bwd"] == 17
-    assert launches["opt_ladder"] == len(cgrads) == 53
+    assert launches["opt_ladder"] == 1
+    assert launches["opt_ladder_tensors"] == len(cgrads) == 53
     assert outcomes == {("bn_fwd", "kernel"): 17, ("bn_bwd", "kernel"): 17,
                         ("opt_sgd", "kernel"): 53}
     torch.testing.assert_close(closs, ploss, atol=1e-4, rtol=1e-4)

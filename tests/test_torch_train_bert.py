@@ -219,9 +219,10 @@ def test_attention_dropout_gradients_match_jax():
 
 
 def test_dropout_seeds_come_from_the_initialize_generator():
-    """Repair of the seed draw: the per-call seed comes from an explicit
-    CPU generator derived from ``initialize(generator=...)``, so two nets
-    initialized from the same generator draw the same seeds and masks."""
+    """Repair of the seed draw: the per-call seed comes from each attention
+    layer's own generator, seeded at ``initialize(generator=...)`` from an
+    explicit CPU generator derived from it, so two nets initialized from
+    the same generator draw the same seeds and masks."""
     def make(seed):
         net = tbert.BERTForQA(tbert.get_bert_model(
             "bert_12_768_12", **dict(CFG, dropout=0.1)))
