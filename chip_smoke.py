@@ -39,9 +39,26 @@ failure exits non-zero, nothing is caught and carried on:
      (their plain versions): the logits, then the loss and every gradient
      of one training step.
   5. serving, a main path: BERT-base (bf16, seq 384) with its SQuAD head
-     served through InferenceEngine from two client threads; launch counts
-     are zeroed just before and read just after: every attention launch is
-     the tensor-core kernel's, 12 a batch.
+     served through InferenceEngine (rungs 1/2/4/8), whose warmup captures
+     one CUDA graph per rung (``call_cached_graph``): a replay against the
+     eager forward of the same batch at each rung, then 32 requests from
+     two client threads through the captured rungs in each engine mode
+     (pipelined, max_inflight 2; sync), launch counts zeroed just before
+     and read just after each: every attention launch the tensor-core
+     kernel's, 12 a batch (counted from the replays), no capture and no
+     new signature after warmup, every result (read after all requests
+     finished) within 1e-2 of an eager forward of its rows. The same
+     traffic through the eager forward (an adapter in this file), and one
+     batch of 8 measured graph against eager in turns
+     (tools/profile_serving: host ms, device-busy, idle share, host calls).
+ 5b. serving behind the front door, a main path: two BERT-base replicas
+     (seeds 0 and 1) on the card behind ``serving.FrontDoor``; the first
+     serves two client threads while the second warms up and captures its
+     rungs, then both serve; the routing split and each replica's stats;
+     counts from 0 just before: 12 tensor-core attention launches a batch
+     plus the second replica's warm-up forwards, none lost or added by the
+     capture beside the replays; every result within 1e-2 of an eager
+     forward on the replica that served it.
   6. training, a main path: BERT-base (bf16 weights, f32 masters, seq 384,
      batch 8, dropout 0.1) takes 5 fine-tune steps through
      ``autograd.record()`` -> ``autograd.backward`` -> ``Trainer.step``,
@@ -1459,81 +1476,316 @@ def phase_model_parity(torch, mt, bert, fa):
 
 # -- phase 5 ---------------------------------------------------------------
 
-def phase_serving(torch, mt, bert, serving, build, fa):
-    net = bert.BERTForQA(bert.bert_12_768_12(
-        vocab_size=30522, max_length=512, dtype="bfloat16"))
-    net.initialize(device=mt.gpu(0),
-                   generator=torch.Generator().manual_seed(0))
-    net.hybridize()
-    seq = 384
-    eng = serving.InferenceEngine(net, name="bert_qa", max_batch_size=8,
-                                  timeout_ms=0)
-    example = torch.zeros((1, seq), dtype=torch.int32)
-    info = eng.warmup(example, example)
-    check(eng.recompiles_since_warmup() == 0, "warmup did not seal")
-    say(f"serving warmup: {json.dumps(info)}")
+SERVE_SEQ = 384
+SERVE_RUNGS = [1, 2, 4, 8]
 
-    rs = torch.Generator().manual_seed(7)
-    plans = [[int(torch.randint(1, 5, (1,), generator=rs))
-              for _ in range(16)] for _ in range(2)]
-    requests = [[torch.randint(0, 30522, (n, seq), generator=rs,
-                               dtype=torch.int32) for n in plan]
-                for plan in plans]
-    results = [[None] * len(r) for r in requests]
+
+class EagerServed:
+    """The served net without its CUDA graphs: ``call_cached_graph`` runs
+    the block's own forward eagerly (what the engine dispatched before the
+    rungs were captured), so the same traffic can be served both ways."""
+
+    def __init__(self, net):
+        self.net = net
+        self.device = net.device
+
+    def call_cached_graph(self, *args):
+        import torch
+
+        from mxnet_tpu_torch import autograd
+
+        with autograd.pause(), torch.inference_mode():
+            return self.net(*args)
+
+    def jit_trace_count(self, training=False):
+        return self.net.jit_trace_count(training)
+
+    def capture_count(self):
+        return 0
+
+
+def serve_plans(torch, seed, clients=2, per_client=16, rows=(1, 5)):
+    """Request plans of two client threads: token ids of 1-4 rows each."""
+    rs = torch.Generator().manual_seed(seed)
+    return [[torch.randint(0, 30522, (int(torch.randint(*rows, (1,),
+                                                         generator=rs)),
+                                      SERVE_SEQ), generator=rs,
+                           dtype=torch.int32)
+             for _ in range(per_client)] for _ in range(clients)]
+
+
+def drive_clients(torch, submit, plans):
+    """Each plan from a thread of its own (submit all, then wait for all);
+    returns the results, each request's latency from its submit to its
+    result in ms, and the wall seconds."""
+    results = [[None] * len(p) for p in plans]
+    lat = [[None] * len(p) for p in plans]
 
     def client(k):
-        handles = [eng.submit(ids, torch.zeros_like(ids))
-                   for ids in requests[k]]
-        for i, hd in enumerate(handles):
+        handles = [(time.perf_counter(), submit(ids, torch.zeros_like(ids)))
+                   for ids in plans[k]]
+        for i, (t0, hd) in enumerate(handles):
             results[k][i] = hd.result(timeout=300)
+            lat[k][i] = 1e3 * (time.perf_counter() - t0)
 
-    build.reset_counters()                       # main path: counts from 0
-    eng.start()
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(k,)) for k in (0, 1)]
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(len(plans))]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
     check(not any(t.is_alive() for t in threads), "clients did not finish")
-    eng.stop()
-    launches = fa.LAUNCHES.value                 # read just after
-    variants = {v: c.value for v, c in fa.VARIANT_LAUNCHES[fa.KERNEL].items()}
-    st = eng.stats()
-    n_req = sum(len(r) for r in requests)
-    check(st["requests"] == {"ok": n_req}, f"request outcomes {st}")
-    check(st["recompiles_since_warmup"] == 0, "a served shape was new")
-    check(launches == 12 * st["dispatches"] and launches > 0,
-          f"kernel launches {launches} != 12 x {st['dispatches']} batches")
-    check(variants == {"mma": launches, "fp32": 0},
-          f"serving's attention variants {variants}: all {launches} must be "
-          "the tensor-core kernel's")
+    return results, [x for row in lat for x in row], wall
 
-    # every result: finite, and the same as a direct forward of its rows
-    # (bf16 GEMMs of another batch size may sum in another order: a pad or
-    # neighbour row leaking in would differ by O(|logit|), not 1e-2 of it)
+
+def quantile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def check_held_results(torch, mt, nets_of, plans, results):
+    """Every result, read after every request of the run has finished (a
+    result that aliased a replay's output would have changed by now):
+    finite, of its rows, and within 1e-2 of its largest logit of an eager
+    forward of its own rows (bf16 GEMMs of another batch size may sum in
+    another order: a pad or neighbour row leaking in would differ by
+    O(|logit|)). ``nets_of(k, i)`` is the net that served request i of
+    plan k. Returns the largest difference."""
     worst = 0.0
-    for k in (0, 1):
-        for ids, (start, end) in zip(requests[k], results[k]):
-            check(start.shape == (ids.shape[0], seq), "result shape")
+    for k, plan in enumerate(plans):
+        for i, (ids, res) in enumerate(zip(plan, results[k])):
+            start, end = res
+            check(start.shape == (ids.shape[0], SERVE_SEQ), "result shape")
             got = torch.stack([start, end]).float()
             check(bool(torch.isfinite(got).all()), "non-finite result")
-            ref = torch.stack(net.call_cached_graph(
-                ids.to(mt.gpu(0)), torch.zeros_like(ids).to(mt.gpu(0)))
-            ).float()
+            net = nets_of(k, i)
+            dev = net.device
+            with mt.autograd.pause(), torch.inference_mode():
+                ref = torch.stack(net(ids.to(dev), torch.zeros_like(
+                    ids).to(dev))).float()
             err = (got - ref).abs().max().item()
             check(err <= 1e-2 * max(1.0, ref.abs().max().item()),
                   f"a served result differs from its direct forward: {err}")
             worst = max(worst, err)
-    summary = dict(requests=n_req, rows=sum(sum(p) for p in plans),
-                   batches=st["dispatches"],
-                   avg_batch_rows=st["avg_batch_rows"],
-                   p50_ms=st["p50_ms"], p99_ms=st["p99_ms"],
-                   req_per_s=n_req / wall, wall_s=wall,
-                   kernel_launches=launches, variant_launches=variants,
-                   max_abs_err_vs_direct=worst, card=card_line())
+    return worst
+
+
+def serve_run(torch, mt, eng, net, build, fa, plans, label):
+    """One phase-5 run: the counts zeroed just before the clients and read
+    just after; gated on the outcomes, no new signature or capture, and
+    12 tensor-core attention launches a batch."""
+    captures = net.capture_count()
+    build.reset_counters()                       # main path: counts from 0
+    eng.start()
+    results, lat, wall = drive_clients(torch, eng.submit, plans)
+    eng.stop()
+    launches = fa.LAUNCHES.value                 # read just after
+    variants = {v: c.value for v, c in fa.VARIANT_LAUNCHES[fa.KERNEL].items()}
+    st = eng.stats()
+    n_req = sum(len(p) for p in plans)
+    check(st["requests"] == {"ok": n_req}, f"{label}: outcomes {st}")
+    check(st["recompiles_since_warmup"] == 0,
+          f"{label}: a served shape was new or a rung was captured again")
+    check(net.capture_count() == captures, f"{label}: captured online")
+    check(launches == 12 * st["dispatches"] and launches > 0,
+          f"{label}: kernel launches {launches} != 12 x {st['dispatches']} "
+          "batches")
+    check(variants == {"mma": launches, "fp32": 0},
+          f"{label}: attention variants {variants}: all {launches} must be "
+          "the tensor-core kernel's")
+    return results, dict(
+        requests=n_req, rows=sum(p.shape[0] for pl in plans for p in pl),
+        batches=st["dispatches"], avg_batch_rows=st["avg_batch_rows"],
+        max_inflight_seen=st["max_inflight_seen"],
+        req_per_s=n_req / wall, wall_s=wall,
+        p50_ms=quantile(lat, 0.5), p99_ms=quantile(lat, 0.99),
+        stats_p50_ms_bucket_bound=st["p50_ms"],
+        stats_p99_ms_bucket_bound=st["p99_ms"],
+        kernel_launches=launches, variant_launches=variants)
+
+
+def phase_serving(torch, mt, serving, build, fa):
+    """BERT-base QA served through the engine's captured rungs (the main
+    path), both modes, then the same traffic through the eager forward, a
+    replay against an eager forward at each rung, and one batch of 8
+    measured both ways in turns."""
+    from mxnet_tpu_torch.tools import profile_serving
+
+    dev = mt.gpu(0)
+    reserved = torch.cuda.memory_reserved(dev)
+    net, eng, info = profile_serving.serving_net(dev, 8)
+    check(info["graphs"] == dict.fromkeys(SERVE_RUNGS, 1),
+          f"warmup did not capture one graph per rung: {info}")
+    check(net.capture_count() == len(SERVE_RUNGS) and
+          eng.recompiles_since_warmup() == 0, "warmup did not seal")
+    pools = {g["shapes"][0][0]: g["pool_bytes"] / 2 ** 30
+             for g in net.captured_graphs()}
+    say(f"serving warmup: {json.dumps(info)}; graph pools GiB "
+        f"{json.dumps(pools)}; reserved after warmup "
+        f"{(torch.cuda.memory_reserved(dev) - reserved) / 2 ** 30:.3f} GiB")
+
+    # a replay against the eager forward of the same batch, each rung
+    rung_check = {}
+    gen = torch.Generator().manual_seed(11)
+    for b in SERVE_RUNGS:
+        ids = torch.randint(0, 30522, (b, SERVE_SEQ), generator=gen,
+                            dtype=torch.int32).to(dev)
+        seg = torch.zeros_like(ids)
+        got = net.call_cached_graph(ids, seg)
+        with mt.autograd.pause(), torch.inference_mode():
+            want = net(ids, seg)
+        diff = max((g.float() - w.float()).abs().max().item()
+                   for g, w in zip(got, want))
+        scale = max(w.float().abs().max().item() for w in want)
+        rung_check[b] = dict(bitwise=all(torch.equal(g, w) for g, w in
+                                         zip(got, want)),
+                             max_abs_diff=diff, max_abs_logit=scale)
+        check(diff <= 1e-2 * max(1.0, scale),
+              f"rung {b}: replay and eager forward differ by {diff}")
+    check(net.capture_count() == len(SERVE_RUNGS), "captured after warmup")
+    say(f"serving replay vs eager per rung: {json.dumps(rung_check)}")
+
+    runs = {}
+    for mode, seed in (("pipelined", 7), ("sync", 8)):
+        plans = serve_plans(torch, seed)
+        if mode == "sync":
+            eng = serving.InferenceEngine(net, name="bert_qa_sync",
+                                          max_batch_size=8, timeout_ms=0,
+                                          mode="sync")
+            again = eng.warmup(torch.zeros((1, SERVE_SEQ),
+                                           dtype=torch.int32),
+                               torch.zeros((1, SERVE_SEQ),
+                                           dtype=torch.int32))
+            check(again["graphs"] == dict.fromkeys(SERVE_RUNGS, 0),
+                  f"a second engine captured again: {again}")
+        results, runs[f"graph_{mode}"] = serve_run(
+            torch, mt, eng, net, build, fa, plans, f"serving {mode}")
+        runs[f"graph_{mode}"]["max_abs_err_vs_direct"] = check_held_results(
+            torch, mt, lambda k, i: net, plans, results)
+    # the same pipelined traffic, the forward eager
+    plans = serve_plans(torch, 7)
+    eager = EagerServed(net)
+    eng = serving.InferenceEngine(eager, name="bert_qa_eager",
+                                  max_batch_size=8, timeout_ms=0)
+    eng.warmup(torch.zeros((1, SERVE_SEQ), dtype=torch.int32),
+               torch.zeros((1, SERVE_SEQ), dtype=torch.int32))
+    results, runs["eager_pipelined"] = serve_run(
+        torch, mt, eng, net, build, fa, plans, "serving eager")
+    runs["eager_pipelined"]["max_abs_err_vs_direct"] = check_held_results(
+        torch, mt, lambda k, i: net, plans, results)
+
+    # one batch of 8, graph against eager in turns
+    ids = torch.randint(0, 30522, (8, SERVE_SEQ), generator=gen,
+                        dtype=torch.int32).to(dev)
+    profile, same = profile_serving.graph_against_eager(
+        net, ids, torch.zeros_like(ids), 10)
+    check(net.capture_count() == len(SERVE_RUNGS), "captured while "
+                                                   "profiled")
+    summary = dict(warmup=info, graph_pools_gib=pools, rungs=rung_check,
+                   runs=runs, profile_batch8=profile,
+                   profile_replay_equals_eager_bitwise=same,
+                   variant_launches=runs["graph_pipelined"][
+                       "variant_launches"], card=card_line())
     say(f"serving: {json.dumps(summary)}")
+    del net, eng, eager
+    gc_collect(torch)
+    return summary
+
+
+# -- phase 5b --------------------------------------------------------------
+
+def phase_frontdoor(torch, mt, serving, build, fa):
+    """Two BERT-base replicas (seeds 0 and 1) behind one FrontDoor on the
+    card: the first serves two client threads while the second warms up
+    (captures its rungs), then both serve. Counts from 0 just before the
+    clients: every attention launch is the tensor-core kernel's, 12 a
+    served batch plus the second replica's warm-up forwards (three a rung:
+    the eager first call, the eager run on the capture stream before the
+    capture, and the replay that answers the capturing call), none lost
+    to or added by the capture running beside the first replica's
+    replays."""
+    from mxnet_tpu_torch.tools import profile_serving
+
+    dev = mt.gpu(0)
+    net0, eng0, _ = profile_serving.serving_net(dev, 8, name="bert_qa/0")
+    net1 = profile_serving.bert_qa(dev, seed=1)
+    eng1 = serving.InferenceEngine(net1, name="bert_qa/1", max_batch_size=8,
+                                   timeout_ms=0)
+    fd = serving.FrontDoor(
+        [eng0, eng1], name="bert_qa",
+        health_check=lambda e: e.started and e.admission_state() == "ok")
+    nets = {"bert_qa/0": net0, "bert_qa/1": net1}
+    build.reset_counters()                       # main path: counts from 0
+    eng0.start()
+    stop = threading.Event()
+    done = [[], []]
+
+    def client(k):                   # closed loop until stopped, 8 at least
+        gen = torch.Generator().manual_seed(40 + k)
+        while not stop.is_set() or len(done[k]) < 8:
+            ids = torch.randint(0, 30522, (int(torch.randint(
+                1, 5, (1,), generator=gen)), SERVE_SEQ), generator=gen,
+                dtype=torch.int32)
+            req = fd.submit(ids, torch.zeros_like(ids))
+            req.result(timeout=300)
+            done[k].append((ids, req))
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in (0, 1)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    before = fd.stats()["replicas"]["bert_qa/0"]["routed"]
+    info1 = eng1.warmup(torch.zeros((1, SERVE_SEQ), dtype=torch.int32),
+                        torch.zeros((1, SERVE_SEQ), dtype=torch.int32))
+    served_during = fd.stats()["replicas"]["bert_qa/0"]["routed"] - before
+    eng1.start()
+    while fd.stats()["replicas"]["bert_qa/1"]["routed"] < 8 and \
+            time.perf_counter() - t0 < 300:
+        time.sleep(0.01)
+    stop.set()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "clients did not finish")
+    fd.stop()
+    launches = fa.LAUNCHES.value                 # read just after
+    variants = {v: c.value for v, c in fa.VARIANT_LAUNCHES[fa.KERNEL].items()}
+    st = {e.name: e.stats() for e in (eng0, eng1)}
+    routing = fd.stats()
+    check(info1["graphs"] == dict.fromkeys(SERVE_RUNGS, 1),
+          f"the second replica's warmup: {info1}")
+    check(served_during > 0, "the first replica served nothing while the "
+                             "second warmed up")
+    n_req = sum(len(d) for d in done)
+    check(sum(s["requests"].get("ok", 0) for s in st.values()) == n_req
+          and all(set(s["requests"]) == {"ok"} for s in st.values()),
+          f"front door outcomes {st}")
+    check(all(s["recompiles_since_warmup"] == 0 for s in st.values()),
+          "a replica met a new shape or captured online")
+    batches = sum(s["dispatches"] for s in st.values())
+    warm_runs = 3 * len(SERVE_RUNGS)
+    check(launches == 12 * (batches + warm_runs),
+          f"attention launches {launches} != 12 x ({batches} batches + "
+          f"{warm_runs} warm-up forwards)")
+    check(variants == {"mma": launches, "fp32": 0},
+          f"front door attention variants {variants}")
+    plans = [[ids for ids, _ in d] for d in done]
+    results = [[req.result() for _, req in d] for d in done]
+    worst = check_held_results(torch, mt,
+                               lambda k, i: nets[done[k][i][1].model],
+                               plans, results)
+    summary = dict(
+        requests=n_req, wall_s=wall, req_per_s=n_req / wall,
+        routed_while_second_warmed=served_during,
+        routing={n: r["routed"] for n, r in routing["replicas"].items()},
+        batches=batches, kernel_launches=launches,
+        variant_launches=variants, max_abs_err_vs_direct=worst,
+        second_warmup=info1, stats=st, card=card_line())
+    say(f"frontdoor: {json.dumps(summary)}")
+    del net0, net1, eng0, eng1, fd
+    gc_collect(torch)
     return summary
 
 
@@ -2541,7 +2793,8 @@ def main():
     phase_train_parity(torch, mt, finetune, fa)
     f32_launches = {c.name: c.value for c in build.COUNTERS.values()}
     phase_resnet_parity(torch, mt, train_resnet, vision, knorm)
-    serve = phase_serving(torch, mt, bert, serving, build, fa)
+    serve = phase_serving(torch, mt, serving, build, fa)
+    frontdoor = phase_frontdoor(torch, mt, serving, build, fa)
     train = phase_training(torch, mt, finetune, build, fa, kopt, topt,
                            dispatch)
     resnet = phase_resnet_training(torch, mt, train_resnet, build, knorm,

@@ -101,3 +101,55 @@ register(
     "the card one captured CUDA graph per batch signature, replayed each "
     "step; on the CPU the same body eagerly. Off runs every step phased "
     "(record -> backward -> Trainer.step).")
+register(
+    "MXTPU_TELEMETRY", bool, True,
+    "Telemetry registry master switch (telemetry/registry.py): 0 turns "
+    "every counter/gauge/histogram record into a single-branch no-op.")
+register(
+    "MXTPU_DIAGNOSTICS", bool, True,
+    "Diagnostics span recording (diagnostics/spans.py): per-phase "
+    "timing records feeding the step table. 0 makes every span a no-op "
+    "context manager.")
+register(
+    "MXTPU_DIAG_RING_CAPACITY", int, 4096,
+    "Diagnostics span-ring capacity: the per-process ring keeps the "
+    "newest N span records for the step table.")
+register(
+    "MXTPU_TRACE_SAMPLE", float, 0.0,
+    "Head-based request-trace sampling fraction for the serving tier "
+    "(observability/reqtrace.py): 0 = off (the serving path does no extra "
+    "work), 1 = every request, 0.1 = exactly every 10th (deterministic "
+    "counter, no RNG). Sampled requests record telescoping phase spans "
+    "(admit/queue/assemble/dispatch/device/slice/settle) into the trace "
+    "ring.")
+register(
+    "MXTPU_TRACE_RING", int, 1024,
+    "Bounded per-process ring of finished request traces "
+    "(observability/reqtrace.py): the newest N are kept.")
+register(
+    "MXTPU_SLO_INTERACTIVE_MS", float, 0.0,
+    "Latency objective (ms) for the 'interactive' serving class; 0 "
+    "disables SLO tracking for the class. Any class gets an objective "
+    "via MXTPU_SLO_<CLASS>_MS.")
+register(
+    "MXTPU_SLO_BATCH_MS", float, 0.0,
+    "Latency objective (ms) for the 'batch' serving class; 0 disables "
+    "SLO tracking for the class.")
+register(
+    "MXTPU_SLO_TARGET", float, 0.99,
+    "SLO success-fraction target: the error budget is 1 - target, and "
+    "the serve_slo_burn_rate gauge is the windowed violation fraction "
+    "over that budget.")
+register(
+    "MXTPU_SLO_WINDOW_S", float, 60.0,
+    "Rolling window (seconds) SLO burn rates are evaluated over; "
+    "violations roll off after this long.")
+register(
+    "MXTPU_SLO_BURN_MAX", float, 1.0,
+    "Burn-rate threshold: a class burning hotter than this is reported "
+    "as burning (reqtrace.slo_burning; 1.0 = spending the error budget "
+    "exactly as fast as the target allows).")
+register(
+    "MXTPU_SLO_MIN_EVENTS", int, 10,
+    "Minimum windowed requests before a class's burn rate can count as "
+    "burning — keeps one unlucky request from flagging an idle replica.")

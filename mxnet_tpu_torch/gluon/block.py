@@ -17,8 +17,27 @@ block as the serving boundary. ``jit_trace_count()`` counts the input
 signatures (shapes and dtypes) a hybridized block has seen for the first
 time, which is what a jit trace counted in the JAX package, so the serving
 warmup's proof that every served shape was seen before keeps its meaning.
-Training steps are captured in CUDA graphs by ``gluon.TrainStep``; the
-served forward is not captured yet.
+
+``call_cached_graph``, the serving entry, is on the card what the JAX
+package's per-signature jit cache is on the TPU: one ``torch.cuda.CUDAGraph``
+per predict-mode input signature, by TrainStep's rule. The first call of a
+signature runs eagerly (and counts in ``jit_trace_count``); the second
+captures the forward (``capture_count`` counts it) on a side stream, into a
+private memory pool of that graph's own, after one eager run there; every
+later call copies its arguments into the graph's static inputs, replays it
+on the caller's current stream and returns COPIES of the static outputs,
+made on that stream right after the replay, which the caller owns: the next
+replay overwrites the static outputs, never a result already handed out.
+One lock per block covers the copy-in, the replay and the copies, so many
+threads may call at once; a call from another stream than the previous
+replay's first waits for that replay. A weight whose tensor was replaced
+since a capture (``initialize``, ``cast``) moves
+gluon/parameter.py:storage_epoch; the next call then compares the weights'
+addresses and, where they moved, drops the block's graphs and captures
+again (counted), so no replay reads a replaced tensor and no call raises
+for it. Values written in place (``set_data``, ``convert.load_jax_params``,
+the optimizer) are what the graph reads and need nothing. On the CPU the
+forward stays eager. Training steps are captured by ``gluon.TrainStep``.
 """
 from __future__ import annotations
 
@@ -30,7 +49,8 @@ import torch
 from .. import autograd as _ag
 from .. import device as _device
 from ..ndarray.ndarray import NDArray
-from .parameter import Parameter
+from . import _graph
+from .parameter import Parameter, storage_epoch
 
 __all__ = ["Block", "HybridBlock"]
 
@@ -170,6 +190,71 @@ class Block(torch.nn.Module):
                 if p.grad_req != "null"]
 
 
+class _ServedGraphs:
+    """The predict-mode CUDA graphs of one HybridBlock, one per input
+    signature (``call_cached_graph``)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.graphs = {}       # signature -> (StaticGraph, single output)
+        self.captures = 0
+        self.stream = None     # the capture stream
+        self.epoch = None      # storage_epoch() at the last storage check
+        self.fingerprint = None
+        self.last = None       # (stream, event) of the newest replay
+
+    def _params(self, block):
+        return [p._tensor() for p in block.collect_params().values()]
+
+    def _storage_moved(self, block):
+        """True when a weight the graphs read lives elsewhere now."""
+        epoch = storage_epoch()
+        if epoch == self.epoch:
+            return False
+        fp = _graph.storage_fingerprint(self._params(block))
+        moved = fp != self.fingerprint
+        self.epoch, self.fingerprint = epoch, fp
+        return moved
+
+    def call(self, block, sig, args):
+        dev = args[0].device
+        with self.lock:
+            if self.graphs and self._storage_moved(block):
+                self.graphs.clear()
+            entry = self.graphs.get(sig)
+            if entry is None:
+                if sig not in block._signatures:
+                    return block(*args)    # first call: eager, noted
+                entry = self._capture(block, sig, args, dev)
+            g, single = entry
+            cur = torch.cuda.current_stream(dev)
+            if self.last is not None and self.last[0] != cur:
+                cur.wait_event(self.last[1])
+            g.replay(args)
+            outs = [o.clone() for o in g.outputs]
+            ev = torch.cuda.Event()
+            ev.record(cur)
+            self.last = (cur, ev)
+        return outs[0] if single else tuple(outs)
+
+    def _capture(self, block, sig, args, dev):
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        g = _graph.StaticGraph(args, dev)
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            out = block(*g.inputs)   # warm-up on the capture stream
+        single = isinstance(out, torch.Tensor)
+        del out
+        g.capture(lambda inputs: [block(*inputs)] if single
+                  else list(block(*inputs)), self.stream)
+        self.captures += 1
+        self.graphs[sig] = (g, single)
+        self.epoch = storage_epoch()
+        self.fingerprint = _graph.storage_fingerprint(self._params(block))
+        return g, single
+
+
 class HybridBlock(Block):
     """Block that can be the serving boundary (``call_cached_graph``)."""
 
@@ -179,6 +264,7 @@ class HybridBlock(Block):
         object.__setattr__(self, "_signatures", set())
         object.__setattr__(self, "_trace_counts", {})
         object.__setattr__(self, "_sig_lock", threading.Lock())
+        object.__setattr__(self, "_served", _ServedGraphs())
 
     def hybridize(self, active=True):
         """Make this block the boundary; nested blocks stay plain, as in
@@ -194,30 +280,63 @@ class HybridBlock(Block):
             self._note_signature(args)
         return super()._call(*args, **kwargs)
 
-    def _note_signature(self, args):
-        training = bool(_ag.is_training())
-        sig = (training,) + tuple(
+    @staticmethod
+    def _signature(args):
+        return (bool(_ag.is_training()),) + tuple(
             (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
             else (type(a),) for a in args)
+
+    def _note_signature(self, args):
+        sig = self._signature(args)
         with self._sig_lock:
             if sig not in self._signatures:
                 self._signatures.add(sig)
-                self._trace_counts[training] = \
-                    self._trace_counts.get(training, 0) + 1
+                self._trace_counts[sig[0]] = \
+                    self._trace_counts.get(sig[0], 0) + 1
 
     def jit_trace_count(self, training=False):
         """How many input signatures the train/predict variant has seen
         for the first time (the JAX package's per-variant trace count)."""
         return self._trace_counts.get(bool(training), 0)
 
+    def capture_count(self):
+        """CUDA graphs ``call_cached_graph`` has captured so far, the
+        captures again after a weight's storage moved included (0 on the
+        CPU)."""
+        return self._served.captures
+
+    def captured_graphs(self):
+        """``[{"shapes", "dtypes", "pool_bytes"}]``, one per live graph:
+        the input signature and what the card's reserved memory grew by
+        while it was captured (its private pool)."""
+        with self._served.lock:
+            graphs = list(self._served.graphs.items())
+        return [{"shapes": [list(s[0]) for s in sig[1:]],
+                 "dtypes": [str(s[1]) for s in sig[1:]],
+                 "pool_bytes": g.pool_bytes} for sig, (g, _) in graphs]
+
     def call_cached_graph(self, *args):
         """Thread-safe predict-mode entry, the serving hot path: forces
-        predict mode, no recording and ``torch.inference_mode()``. Raises
-        unless ``hybridize()`` was called, as the JAX package does."""
+        predict mode, no recording and ``torch.inference_mode()``; on the
+        card through the block's CUDA graphs (module docstring). Raises
+        unless ``hybridize()`` was called, as the JAX package does; a
+        failed capture or replay raises."""
         if not self._active:
             raise RuntimeError(
                 f"{type(self).__name__}.call_cached_graph requires "
                 "hybridize() — the serving engine only runs the hybridized "
                 "boundary")
         with _ag.pause(), torch.inference_mode():
-            return self(*args)
+            if not any(isinstance(a, torch.Tensor) and a.is_cuda
+                       or isinstance(a, NDArray) and a._data.is_cuda
+                       for a in args):
+                return self(*args)
+            nd = any(isinstance(a, NDArray) for a in args)
+            tensors = [a._data if isinstance(a, NDArray) else a
+                       for a in args]
+            if not all(isinstance(t, torch.Tensor) for t in tensors):
+                raise TypeError(
+                    "call_cached_graph on the card takes tensor or NDArray "
+                    "arguments only")
+            out = self._served.call(self, self._signature(tensors), tensors)
+            return _to_ndarrays(out) if nd else out

@@ -17,8 +17,17 @@ summed every use of the tensor, moves ``.grad`` into the Parameter's own
 buffer ('write' replaces the buffer, 'add' adds to it, 'null' has none) and
 bumps a version counter. ``grad()`` returns that buffer, and the Trainer
 reads the counter to tell a fresh gradient from a stale one.
+
+Whenever a Parameter's tensor is replaced (initialization, ``cast``), the
+process-wide :func:`storage_epoch` moves. A CUDA graph captured over the
+weights keeps their addresses, so whoever replays one compares the epoch,
+one integer, on every call, and walks the weights' addresses only when it
+moved (gluon/_graph.py). ``set_data`` and the optimizer write in place and
+move nothing: a graph sees those values.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -26,7 +35,19 @@ from .. import initializer as init_mod
 from ..base import DeferredInitializationError, normalize_dtype
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["Parameter"]
+__all__ = ["Parameter", "storage_epoch"]
+
+_EPOCHS = itertools.count(1)
+_EPOCH = [0]
+
+
+def storage_epoch():
+    """A number that changes whenever any Parameter's tensor is replaced."""
+    return _EPOCH[0]
+
+
+def _storage_replaced():
+    _EPOCH[0] = next(_EPOCHS)
 
 
 class _ParameterArray(NDArray):
@@ -138,6 +159,7 @@ class Parameter:
         # gradient; a 'null' parameter (BatchNorm's running stats) turns it
         # off right after, and a later grad_req change turns it on again
         self._var = torch.nn.Parameter(data, requires_grad=True)
+        _storage_replaced()
         self._var.register_post_accumulate_grad_hook(self._land_grad)
         self._var.requires_grad_(self.grad_req != "null")
         self._grad = None
@@ -270,5 +292,6 @@ class Parameter:
         if self._var is not None:
             with torch.inference_mode(False), torch.no_grad():
                 self._var.data = self._var.data.to(self.dtype)
+                _storage_replaced()
                 if self._grad is not None:
                     self._grad = self._grad.to(self.dtype)

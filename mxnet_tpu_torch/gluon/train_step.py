@@ -32,7 +32,7 @@ not run). The captured update reads them there
 needs a new capture. After the step the gradients are marked consumed and
 ``Trainer._record_step_complete`` closes it. The launch counters, which a
 replay cannot bump (it runs no Python), take the capture's counts once per
-replay (kernels/build.py:take_deltas). The attention layers advance their
+replay (gluon/_graph.py). The attention layers advance their
 dropout seeds on the card, and the Dropout layers' generators are
 registered with the graph, so every replay draws new masks.
 
@@ -56,10 +56,9 @@ import torch
 
 from .. import autograd as _ag
 from .. import env as _env
-from ..kernels import build as _build
-from ..kernels import dispatch as _dispatch
 from ..kernels import opt as _kopt
 from ..ndarray.ndarray import NDArray
+from . import _graph
 from .block import HybridBlock
 from .trainer import _later
 
@@ -71,11 +70,14 @@ def _unwrap(a):
 
 
 class _Graph:
-    """One captured step: the graph, its static buffers, what the capture
-    added to the counters, and the storage it captured."""
+    """One captured step: the shared static graph (gluon/_graph.py), the
+    scalar rows it reads and their pinned staging buffers, the gradient
+    buffers the capture allocated, and the storage and hyperparameters it
+    captured."""
 
     def __init__(self, step, inputs, n_rows, device):
-        self.inputs = [t.detach().to(device).clone() for t in inputs]
+        self.static = _graph.StaticGraph(inputs, device,
+                                         step._generators(device))
         self.scalars = torch.zeros((n_rows, _kopt.SCALAR_STRIDE),
                                    dtype=torch.float32, device=device)
         self.pinned = [torch.zeros((n_rows, _kopt.SCALAR_STRIDE),
@@ -83,24 +85,17 @@ class _Graph:
                        for _ in range(2)]
         self.copied = [torch.cuda.Event(), torch.cuda.Event()]
         self.turn = 0
-        self.graph = torch.cuda.CUDAGraph()
-        for gen in step._generators(device):
-            self.graph.register_generator_state(gen)
         self.loss = None
         self.grads = None
-        self.launches = self.decisions = None
         self.storage = step._storage()
         self.hyper = step._static_hyper()
 
     def capture(self, step, stream):
         versions = [p._grad_version for _, p in step._items]
-        before, decided = _build.snapshot(), dict(_dispatch.COUNTS)
-        with torch.cuda.graph(self.graph, pool=step._pool, stream=stream):
-            self.loss = step._body(self.inputs, self.scalars)
-        # the capture ran nothing: its counts belong to the replays, and
-        # the gradient hooks it ran land nothing until then
-        self.launches = _build.take_deltas(before)
-        self.decisions = _dispatch.take_deltas(decided)
+        self.loss = self.static.capture(
+            lambda inputs: step._body(inputs, self.scalars), stream,
+            pool=step._pool)
+        # the gradient hooks the capture ran land nothing until a replay
         for (_, p), v in zip(step._items, versions):
             p._grad_version = v
         self.grads = [p._grad for _, p in step._items]
@@ -116,17 +111,13 @@ class _Graph:
                 "TrainStep: the optimizer's momentum, betas, epsilon or "
                 "clip_gradient changed since the step was captured; call "
                 "rebuild() to capture again")
-        for dst, src in zip(self.inputs, inputs):
-            dst.copy_(src, non_blocking=True)
         k = self.turn
         self.turn = 1 - k
         self.copied[k].synchronize()   # this buffer's previous copy ran
         self.pinned[k].numpy()[...] = rows
         self.scalars.copy_(self.pinned[k], non_blocking=True)
         self.copied[k].record()
-        self.graph.replay()
-        _build.add_deltas(self.launches)
-        _dispatch.add_deltas(self.decisions)
+        self.static.replay(inputs)
         for (_, p), g in zip(step._items, self.grads):
             p._grad = g
             p._grad_version += 1
@@ -275,8 +266,8 @@ class TrainStep:
         """What a captured graph depends on: each trainable weight's
         tensor and address, and each state's identity."""
         tr = self._trainer
-        return [(id(p._var), p._var.data_ptr(), id(tr._states[i]))
-                for i, p in self._items]
+        return (_graph.storage_fingerprint(p._var for _, p in self._items),
+                [id(tr._states[i]) for i, _ in self._items])
 
     def _static_hyper(self):
         opt = self._trainer._optimizer

@@ -13,12 +13,18 @@ Each kernel wrapper also keeps a :class:`LaunchCounter`, which adds one
 where the wrapper launches its kernel and nowhere else, so a run can show
 that its main path went through the kernel. A launch captured in a CUDA
 graph runs only when the graph replays, and a replay runs no Python: the
-capturer takes what the capture added to every counter with
-:func:`take_deltas` (which puts the counters back) and adds it once per
-replay with :func:`add_deltas`, so the counters stay the only count.
+capture runs inside :func:`captured_counts`, which sends every count that
+belongs to the capture (to any counter, and to the dispatch counts,
+kernels/dispatch.py) into a tally, and the capturer adds the tally once
+per replay with :func:`add_deltas`. A count belongs to the capture when
+the stream it is launched on is capturing, whichever thread launches it
+(autograd runs a captured backward on its own device thread); counts of
+other streams go to the counters meanwhile (an engine serving on the same
+card while another captures), so the counters stay the only count.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,7 +36,8 @@ from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "library_path",
            "build", "load", "LaunchCounter", "COUNTERS", "counter",
-           "reset_counters", "snapshot", "take_deltas", "add_deltas"]
+           "reset_counters", "captured_counts", "capture_tally",
+           "add_deltas"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -39,6 +46,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS = {}
 _LOCK = threading.Lock()
+#: the tally of the capture underway and the test that a count belongs
+#: to it (captured_counts; one capture at a time: gluon/_graph.py)
+_CAPTURE = [None, None]
 
 
 def nvcc_path():
@@ -117,10 +127,6 @@ def load(name):
         return lib
 
 
-#: every LaunchCounter made, launch counters or not (snapshot's scope)
-_ALL = []
-
-
 class LaunchCounter:
     """Number of times a wrapper launched its kernel (thread-safe)."""
 
@@ -128,9 +134,12 @@ class LaunchCounter:
         self.name = name
         self._n = 0
         self._lock = threading.Lock()
-        _ALL.append(self)
 
     def add(self, n=1):
+        tally = capture_tally()
+        if tally is not None:          # launched into a graph being captured
+            tally.count(tally, self, n)
+            return
         with self._lock:
             self._n += n
 
@@ -158,27 +167,60 @@ def reset_counters():
         c.reset()
 
 
-def snapshot():
-    """Every counter's value (the launch counters and the others, such as
-    kernels/opt.py:TENSORS), keyed by the counter."""
-    return {c: c.value for c in _ALL}
+class _Tally(dict):
+    """What one capture added: ``{LaunchCounter: n}`` as a dict, and the
+    dispatch decisions ``{(kernel, outcome): n}`` in ``decisions``."""
+
+    def __init__(self):
+        super().__init__()
+        self.decisions = {}
+        self._lock = threading.Lock()
+
+    def count(self, table, key, n):
+        """Add ``n`` to ``table[key]`` (this tally or its decisions): the
+        capturing thread and autograd's may both count."""
+        with self._lock:
+            table[key] = table.get(key, 0) + n
 
 
-def take_deltas(before):
-    """What each counter gained since :func:`snapshot` gave ``before``,
-    as ``{counter: n}`` of the non-zero gains; every counter is put back
-    to its value in ``before``. For a CUDA-graph capture: the captured
-    launches did not run."""
-    deltas = {}
-    for c in _ALL:
-        n = c.value - before.get(c, 0)
-        if n:
-            deltas[c] = n
-            c.add(-n)
-    return deltas
+def capture_tally():
+    """The open :func:`captured_counts` tally when a count made here and
+    now belongs to it, else None."""
+    tally, belongs = _CAPTURE
+    if tally is not None and belongs():
+        return tally
+    return None
 
 
-def add_deltas(deltas):
-    """Add a :func:`take_deltas` result to its counters: one replay."""
-    for c, n in deltas.items():
+def _stream_capturing():
+    import torch
+
+    return torch.cuda.is_current_stream_capturing()
+
+
+@contextlib.contextmanager
+def captured_counts(belongs=_stream_capturing):
+    """Inside, every count for which ``belongs()`` holds (by default: the
+    calling thread's current CUDA stream is capturing) goes into the
+    yielded tally instead of the counters and kernels/dispatch.py's
+    counts: for a CUDA-graph capture, whose launches run only when it
+    replays. One at a time."""
+    if _CAPTURE[0] is not None:
+        raise RuntimeError("captured_counts is already open")
+    tally = _Tally()
+    _CAPTURE[:] = [tally, belongs]
+    try:
+        yield tally
+    finally:
+        _CAPTURE[:] = [None, None]
+
+
+def add_deltas(tally):
+    """Add a :func:`captured_counts` tally to the counters and the dispatch
+    counts: one replay."""
+    for c, n in tally.items():
         c.add(n)
+    if tally.decisions:
+        from . import dispatch
+
+        dispatch.add_counts(tally.decisions)

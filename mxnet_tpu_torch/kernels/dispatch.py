@@ -13,7 +13,7 @@ thresholds were tuned for another device, and on the card the kernel is the
 faster path at every size and dtype measured (PERF.md).
 
 Every decision is counted by ``(kernel, outcome)`` in :data:`COUNTS`, a
-plain dict until telemetry is ported. :func:`optimizer_region_bytes` and
+plain dict (the port's telemetry holds the serving instruments only). :func:`optimizer_region_bytes` and
 :func:`norm_region_bytes` are the JAX package's byte models of one
 parameter's update and of one BatchNorm site; here they gate nothing and
 give the bytes a kernel moves, for a time bound.
@@ -24,8 +24,9 @@ import threading
 
 import torch
 
-__all__ = ["platform_ok", "record", "COUNTS", "reset_counts",
-           "take_deltas", "add_deltas",
+from . import build as _build
+
+__all__ = ["platform_ok", "record", "COUNTS", "reset_counts", "add_counts",
            "optimizer_region_bytes", "norm_region_bytes"]
 
 #: {(kernel, outcome): number of decisions}
@@ -40,7 +41,12 @@ def platform_ok(*tensors):
 
 
 def record(kernel, outcome):
-    """Count one decision."""
+    """Count one decision (into the calling thread's capture tally while it
+    captures a CUDA graph: kernels/build.py:captured_counts)."""
+    tally = _build.capture_tally()
+    if tally is not None:
+        tally.count(tally.decisions, (kernel, outcome), 1)
+        return
     with _LOCK:
         COUNTS[(kernel, outcome)] = COUNTS.get((kernel, outcome), 0) + 1
 
@@ -50,21 +56,11 @@ def reset_counts():
         COUNTS.clear()
 
 
-def take_deltas(before):
-    """The decisions counted since ``before`` (a copy of :data:`COUNTS`),
-    with :data:`COUNTS` put back to ``before``: for a CUDA-graph capture,
-    whose decisions count once per replay (:func:`add_deltas`)."""
+def add_counts(counts):
+    """Add ``{(kernel, outcome): n}`` (a capture's decisions, once per
+    replay)."""
     with _LOCK:
-        deltas = {k: n - before.get(k, 0) for k, n in COUNTS.items()
-                  if n != before.get(k, 0)}
-        COUNTS.clear()
-        COUNTS.update(before)
-    return deltas
-
-
-def add_deltas(deltas):
-    with _LOCK:
-        for k, n in deltas.items():
+        for k, n in counts.items():
             COUNTS[k] = COUNTS.get(k, 0) + n
 
 

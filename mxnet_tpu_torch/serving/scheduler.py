@@ -1,14 +1,21 @@
 """Priority-class request scheduler: strict-priority dequeue + per-class
 token-bucket admission for the serving engine (a copy of
-mxnet_tpu/serving/scheduler.py, with its own counters in place of the
-telemetry registry).
+mxnet_tpu/serving/scheduler.py).
+
+The continuous-batching pipeline (engine.py) separates *what to serve
+next* from *how to execute it*; this module owns the first half. It is
+the TF-Serving batch-queue generalized to priority classes (PAPERS.md
+"TensorFlow", §serving):
 
   * every request belongs to a :class:`ServeClass` — by default
     ``interactive`` (priority 0, served first) and ``batch`` (priority
     10, rides along in spare capacity);
   * dequeue is STRICT priority: the next micro-batch's head is always
     the oldest request of the highest-priority non-empty class, so an
-    overload of batch-class work can never starve interactive traffic;
+    overload of batch-class work can never starve interactive traffic
+    (the inverse — batch starvation under interactive overload — is the
+    documented, intended behavior; cap it with a rate on the
+    interactive class);
   * admission is layered: a per-class token bucket (``rate``/``burst``)
     sheds with :class:`~mxnet_tpu_torch.serving.errors.RateLimited`
     BEFORE the shared queue bound sheds with
@@ -18,9 +25,11 @@ telemetry registry).
     same-signature requests coalesce, scanned in priority order, so a
     lower class can fill spare rows of a higher-class batch but never
     reorder its own FIFO;
-  * sheds are counted per class and reason (``class_stats()``).
+  * everything is observable per class: ``serve_class_queue_depth``
+    gauges and ``serve_class_shed_total{reason=queue|rate}`` counters.
 
-Stdlib-only (threading + time).
+Stdlib-only (threading + time); telemetry is the only framework import,
+mirroring buckets.py's layering.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import collections
 import threading
 import time
 
+from ..telemetry import instruments as _instr
 from .errors import Overloaded, RateLimited, RequestTimeout
 
 __all__ = ["ServeClass", "TokenBucket", "RequestScheduler",
@@ -87,13 +97,14 @@ DEFAULT_CLASSES = (ServeClass("interactive", priority=0),
 
 
 class _ClassQueue:
-    __slots__ = ("cls", "queue", "bucket", "shed")
+    __slots__ = ("cls", "queue", "bucket", "g_depth")
 
-    def __init__(self, cls):
+    def __init__(self, cls, model):
         self.cls = cls
         self.queue = collections.deque()
         self.bucket = TokenBucket(cls.rate, cls.burst)
-        self.shed = {"queue": 0, "rate": 0}
+        self.g_depth = _instr.serve_class_queue_depth.labels(model,
+                                                            cls.name)
 
 
 class RequestScheduler:
@@ -102,22 +113,19 @@ class RequestScheduler:
     Owns the per-class FIFO queues, the shared admission bound, deadline
     expiry sweeps, and the condition variable the engine's assembler
     blocks on. The engine calls :meth:`offer` from client threads and
-    :meth:`collect` from exactly one assembler thread. ``on_timeout`` is
-    called (under the scheduler lock) with each request that expires
-    while queued.
+    :meth:`collect` from exactly one assembler thread.
     """
 
-    def __init__(self, model, classes=None, max_queue=256, on_timeout=None):
+    def __init__(self, model, classes=None, max_queue=256):
         self.model = str(model)
         self.max_queue = int(max_queue)
-        self._on_timeout = on_timeout
         classes = tuple(classes) if classes else DEFAULT_CLASSES
         names = [c.name for c in classes]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate class names in {names}")
         # stable sort: priority rank first, declaration order breaks ties
         self._classes = {
-            c.name: _ClassQueue(c)
+            c.name: _ClassQueue(c, self.model)
             for c in sorted(classes, key=lambda c: c.priority)}
         self.default_class = next(iter(self._classes))
         self.cond = threading.Condition()
@@ -125,12 +133,16 @@ class RequestScheduler:
         self._forced = False
 
     # -- admission (client threads) ---------------------------------------
+    def class_names(self):
+        return list(self._classes)
+
     def offer(self, req):
         """Admit one request into its class queue, or shed.
 
         Sheds with :class:`RateLimited` when the class token bucket is
         empty, :class:`Overloaded` when the shared queue bound is hit —
-        both counted per class. Never blocks."""
+        both recorded per class in ``serve_class_shed_total``. Never
+        blocks."""
         cq = self._classes.get(req.cls)
         if cq is None:
             raise ValueError(
@@ -138,45 +150,66 @@ class RequestScheduler:
                 f"{list(self._classes)}")
         with self.cond:
             if not cq.bucket.try_take():
-                cq.shed["rate"] += 1
+                self._record_shed(cq, "rate")
                 raise RateLimited(
                     f"engine {self.model!r} class {req.cls!r} over its "
                     f"{cq.bucket.rate:g}/s admission rate; request shed")
             if self.depth_locked() >= self.max_queue:
-                cq.shed["queue"] += 1
+                self._record_shed(cq, "queue")
                 raise Overloaded(
                     f"engine {self.model!r} queue at bound "
                     f"{self.max_queue}; request shed")
             cq.queue.append(req)
+            tr = getattr(req, "trace", None)
+            if tr is not None:  # reqtrace: admission won — admit phase
+                tr.stamp("admitted")  # closes, queue phase opens
+            cq.g_depth.set(len(cq.queue))
+            self._set_total_gauge()
             self.cond.notify_all()
+
+    def _record_shed(self, cq, reason):
+        _instr.record_serve_request(self.model, "shed")
+        _instr.serve_class_shed_total.labels(
+            self.model, cq.cls.name, reason).inc()
 
     # -- bookkeeping (call with self.cond held) ----------------------------
     def depth_locked(self):
         return sum(len(cq.queue) for cq in self._classes.values())
 
+    def _set_total_gauge(self):
+        _instr.serve_queue_depth.labels(self.model).set(self.depth_locked())
+
     def _expire_locked(self):
         """Drop finished (client-claimed) and past-deadline requests."""
         now = time.monotonic()
+        changed = False
         for cq in self._classes.values():
             keep = collections.deque()
             for r in cq.queue:
                 if r.done:
+                    changed = True
                     continue  # client already claimed (timeout) — drop
                 if r.deadline is not None and now >= r.deadline:
                     if r._finish("timeout", error=RequestTimeout(
-                            "deadline elapsed while queued")) \
-                            and self._on_timeout is not None:
-                        self._on_timeout(r)
+                            "deadline elapsed while queued")):
+                        _instr.record_serve_request(
+                            self.model, "timeout", now - r.t_submit)
+                    changed = True
                     continue
                 keep.append(r)
             if len(keep) != len(cq.queue):
                 cq.queue = keep
+                cq.g_depth.set(len(keep))
+        if changed:
+            self._set_total_gauge()
 
     def _pop_head_locked(self):
         """Oldest request of the highest-priority non-empty class."""
         for cq in self._classes.values():
             if cq.queue:
-                return cq.queue.popleft()
+                r = cq.queue.popleft()
+                cq.g_depth.set(len(cq.queue))
+                return r
         return None
 
     def _fill_locked(self, signature, room):
@@ -194,6 +227,7 @@ class RequestScheduler:
                 if nxt.signature != signature or nxt.rows > room:
                     break
                 cq.queue.popleft()
+                cq.g_depth.set(len(cq.queue))
                 taken.append(nxt)
                 room -= nxt.rows
         return taken
@@ -231,6 +265,7 @@ class RequestScheduler:
                 if remaining <= 0 or self._stopping or self._forced:
                     break
                 self.cond.wait(min(remaining, 0.05))
+            self._set_total_gauge()
         return batch
 
     def _next_head_locked(self):
@@ -257,6 +292,8 @@ class RequestScheduler:
             for cq in self._classes.values():
                 out.extend(cq.queue)
                 cq.queue.clear()
+                cq.g_depth.set(0)
+            self._set_total_gauge()
         return out
 
     def latest_deadline(self):
@@ -289,13 +326,17 @@ class RequestScheduler:
 
     def class_stats(self):
         """{class: {priority, depth, rate, shed_queue, shed_rate}}."""
+        sheds = {
+            (lv[1], lv[2]): c.value
+            for lv, c in _instr.serve_class_shed_total.series()
+            if lv[0] == self.model}
         with self.cond:
             return {
                 name: {
                     "priority": cq.cls.priority,
                     "depth": len(cq.queue),
                     "rate": cq.bucket.rate,
-                    "shed_queue": cq.shed["queue"],
-                    "shed_rate": cq.shed["rate"],
+                    "shed_queue": sheds.get((name, "queue"), 0),
+                    "shed_rate": sheds.get((name, "rate"), 0),
                 }
                 for name, cq in self._classes.items()}

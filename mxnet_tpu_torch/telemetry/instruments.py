@@ -1,0 +1,164 @@
+"""The serving subset of the metric catalog and the record_* helpers its
+hot paths call (a copy of mxnet_tpu/telemetry/instruments.py: the
+``serve_*`` instruments and their helpers; the others wait for the modules
+that record them).
+
+Every serving touchpoint goes through ONE helper here, so the catalog below
+is the single source of metric names, labels, and buckets, call sites stay
+one line, and the disabled path is a single ``REGISTRY.enabled`` check
+before any lock, float math, or label resolution. The JAX package's helpers
+also mirror failures into its flight recorder, which the port does not
+have yet.
+
+Metric names follow Prometheus conventions (`_total` counters, `_seconds`
+base units), unprefixed — one process, one framework.
+"""
+from __future__ import annotations
+
+from .registry import REGISTRY, counter, gauge, histogram
+
+__all__ = [
+    "serve_request_total", "serve_request_latency_seconds",
+    "serve_queue_depth", "serve_in_flight",
+    "serve_batch_total", "serve_batch_size", "serve_padded_rows_total",
+    "serve_shed_total", "serve_timeout_total",
+    "serve_dispatch_total", "serve_inflight_batches",
+    "serve_class_queue_depth", "serve_class_shed_total",
+    "serve_drain_dropped_total",
+    "serve_trace_total", "serve_slo_burn_rate",
+    "serve_slo_violation_total",
+    "record_serve_request", "record_serve_batch", "record_serve_trace",
+    "set_slo_burn", "record_slo_violation",
+]
+
+_SERVE_LATENCY_BUCKETS = (.0005, .001, .0025, .005, .01, .025, .05, .1,
+                          .25, .5, 1.0, 2.5, 5.0, 10.0)
+_SERVE_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+
+# -- serving (serving/engine.py) ---------------------------------------------
+serve_request_total = counter(
+    "serve_request_total",
+    "Serving requests by final outcome (ok / shed / timeout / error)",
+    ["model", "outcome"])
+serve_request_latency_seconds = histogram(
+    "serve_request_latency_seconds",
+    "End-to-end request latency: submit -> result ready (queue wait + "
+    "batch assembly + compiled forward); p50/p99 derive from the buckets",
+    ["model"], buckets=_SERVE_LATENCY_BUCKETS)
+serve_queue_depth = gauge(
+    "serve_queue_depth",
+    "Requests waiting in the admission queue right now", ["model"])
+serve_in_flight = gauge(
+    "serve_in_flight",
+    "Requests inside the batch currently executing", ["model"])
+serve_batch_total = counter(
+    "serve_batch_total", "Micro-batches executed", ["model"])
+serve_batch_size = histogram(
+    "serve_batch_size",
+    "Real rows per executed micro-batch, BEFORE padding to the bucket "
+    "(bucket fill)", ["model"], buckets=_SERVE_BATCH_BUCKETS)
+serve_padded_rows_total = counter(
+    "serve_padded_rows_total",
+    "Padding rows added to round batches up to their compile bucket",
+    ["model"])
+serve_shed_total = counter(
+    "serve_shed_total",
+    "Requests rejected at admission — queue bound exceeded -> Overloaded",
+    ["model"])
+serve_timeout_total = counter(
+    "serve_timeout_total",
+    "Requests that hit their deadline before a result was ready",
+    ["model"])
+serve_dispatch_total = counter(
+    "serve_dispatch_total",
+    "Micro-batches dispatched to the device (the pipelined engine "
+    "dispatches ahead of completion, so this leads serve_batch_total "
+    "by the in-flight window)", ["model"])
+serve_inflight_batches = gauge(
+    "serve_inflight_batches",
+    "Dispatched-but-unsettled micro-batches right now (pipeline window "
+    "fill; >1 means host assembly is overlapping device compute)",
+    ["model"])
+serve_class_queue_depth = gauge(
+    "serve_class_queue_depth",
+    "Requests queued per priority class (serving/scheduler.py "
+    "strict-priority dequeue)", ["model", "cls"])
+serve_class_shed_total = counter(
+    "serve_class_shed_total",
+    "Requests shed at admission per priority class, by reason: 'queue' "
+    "(shared bound hit -> Overloaded) or 'rate' (class token bucket "
+    "empty -> RateLimited)", ["model", "cls", "reason"])
+serve_drain_dropped_total = counter(
+    "serve_drain_dropped_total",
+    "Requests force-dropped unserved because stop(drain=True) hit its "
+    "bounded drain deadline (or the engine was never started)",
+    ["model"])
+serve_trace_total = counter(
+    "serve_trace_total",
+    "Sampled request traces frozen into the reqtrace ring, by terminal "
+    "outcome (ok / shed / timeout / error); at MXTPU_TRACE_SAMPLE=0 "
+    "this never moves (observability/reqtrace.py)",
+    ["model", "outcome"])
+serve_slo_burn_rate = gauge(
+    "serve_slo_burn_rate",
+    "Per-class SLO burn rate over the rolling MXTPU_SLO_WINDOW_S "
+    "window: windowed bad fraction / error budget (1 - "
+    "MXTPU_SLO_TARGET). 1.0 = burning budget exactly as fast as "
+    "allowed; above MXTPU_SLO_BURN_MAX the replica drops from /readyz "
+    "rotation", ["model", "cls"])
+serve_slo_violation_total = counter(
+    "serve_slo_violation_total",
+    "Requests that violated their class SLO, by kind: 'latency' "
+    "(served but over the objective), 'shed', 'timeout', or 'error'",
+    ["model", "cls", "kind"])
+
+
+# -- helpers ----------------------------------------------------------------
+
+def record_serve_request(model, outcome, seconds=None):
+    """One finished serving request. `outcome` is ok / shed / timeout /
+    error; `seconds` (when the request made it far enough to have a
+    latency) lands in the latency histogram. Shed and timeout also bump
+    their dedicated counters so overload is visible at a glance."""
+    if not REGISTRY.enabled:
+        return
+    serve_request_total.labels(model, outcome).inc()
+    if outcome == "shed":
+        serve_shed_total.labels(model).inc()
+    elif outcome == "timeout":
+        serve_timeout_total.labels(model).inc()
+    if seconds is not None:
+        serve_request_latency_seconds.labels(model).observe(seconds)
+
+
+def record_serve_trace(model, outcome):
+    """One sampled request trace frozen into the reqtrace ring."""
+    if not REGISTRY.enabled:
+        return
+    serve_trace_total.labels(model, outcome).inc()
+
+
+def set_slo_burn(model, cls, burn):
+    """Publish a class's fresh SLO burn rate (reqtrace.slo_observe and
+    every slo_status read keep this live)."""
+    if not REGISTRY.enabled:
+        return
+    serve_slo_burn_rate.labels(model, cls).set(float(burn))
+
+
+def record_slo_violation(model, cls, kind):
+    """One request that blew its class objective, by violation kind."""
+    if not REGISTRY.enabled:
+        return
+    serve_slo_violation_total.labels(model, cls, kind).inc()
+
+
+def record_serve_batch(model, rows, bucket):
+    """One executed micro-batch: `rows` real rows padded up to `bucket`."""
+    if not REGISTRY.enabled:
+        return
+    serve_batch_total.labels(model).inc()
+    serve_batch_size.labels(model).observe(rows)
+    if bucket > rows:
+        serve_padded_rows_total.labels(model).inc(bucket - rows)

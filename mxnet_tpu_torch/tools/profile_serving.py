@@ -1,115 +1,121 @@
-"""Where a served BERT-base batch spends its time on the card.
+"""Where a served BERT-base batch spends its time on the card: the captured
+bucket rung against the eager forward of the same batch.
 
     python -m mxnet_tpu_torch.tools.profile_serving [--batch 8] [--iters 10]
 
 Builds BERTForQA(bert_12_768_12, bf16, seq 384) on cuda:0 with seeded
-weights, hybridizes it, runs the forward that InferenceEngine dispatches for
-one full batch (``call_cached_graph``) a few times to warm up, then times
-``--iters`` of them with the host clock (each ends in a synchronize) and
-profiles the same window with ``torch.profiler``. Prints one JSON object:
-host ms per forward, device-busy ms per forward (the union of kernel
-intervals), the device's idle share, launches per forward, and the kernels
-that take the most device time. Needs a CUDA card; exits non-zero without.
+weights, hybridizes it, and lets ``InferenceEngine.warmup`` (rungs up to
+``--batch``) capture one CUDA graph per bucket rung. Then it measures one
+full batch two ways on the same net, in turns, eager, graph, graph, eager:
+the graph side is ``call_cached_graph``, the call the engine dispatches (the
+rung's replay, its copies in and out); the eager side is the block's own
+forward, called by this tool under ``torch.inference_mode()``. Each run is
+``profile_training.measure`` over ``--iters`` batches: host ms per batch
+(and the ms the host takes to issue it), device-busy ms (the union of
+kernel intervals), the device's idle share, kernels the device ran and the
+CUDA calls the host issued per batch (graph launches, copies, kernel
+launches), and the kernels that take the most device time. Prints one JSON
+object with the runs, whether a replay equals the eager forward bit for
+bit, the captures, and each rung's graph pool. Needs a CUDA card; exits
+non-zero without.
 """
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import subprocess
 import sys
-import time
 
 import torch
 
+from .. import autograd
 from ..gluon.model_zoo import bert
-from ..ops import flash_attention as fa
+from ..serving import InferenceEngine
+from .profile_training import measure
+
+SEQ = 384
+#: what each run reports (profile_training.measure's keys; a step there is
+#: one served batch here)
+RUN_KEYS = ("host_ms_per_step", "host_ms_per_step_p50",
+            "issue_ms_per_step_p50", "device_time_from",
+            "device_busy_ms_per_step", "device_idle_share",
+            "kernel_launches_per_step", "host_calls_per_step",
+            "port_kernel_launches_per_step", "top_kernels_ms_per_step")
 
 
-def _busy_us(intervals):
-    """Length of the union of (start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+def bert_qa(dev, seed=0):
+    """BERT-base QA in bf16 on ``dev``, its weights drawn from ``seed``,
+    hybridized."""
+    net = bert.BERTForQA(bert.bert_12_768_12(
+        vocab_size=30522, max_length=512, dtype="bfloat16"))
+    net.initialize(device=dev,
+                   generator=torch.Generator().manual_seed(seed))
+    net.hybridize()
+    return net
+
+
+def serving_net(dev, batch, name="bert_qa"):
+    """:func:`bert_qa` from seed 0 with its rungs up to ``batch`` captured
+    by the warmup of an engine named ``name``; returns the net, the warmed
+    engine (not started) and warmup's summary."""
+    net = bert_qa(dev)
+    eng = InferenceEngine(net, name=name, max_batch_size=batch,
+                          timeout_ms=0)
+    example = torch.zeros((1, SEQ), dtype=torch.int32)
+    return net, eng, eng.warmup(example, example)
+
+
+def graph_against_eager(net, ids, seg, iters):
+    """Runs of one batch through the captured rung and through the eager
+    forward, in turns (eager, graph, graph, eager), as
+    ``profile_training.measure`` gives them, and whether the replay's
+    output equals the eager one bit for bit."""
+    def graph():
+        return net.call_cached_graph(ids, seg)
+
+    def eager():
+        with autograd.pause(), torch.inference_mode():
+            return net(ids, seg)
+
+    same = all(torch.equal(a, b) for a, b in zip(graph(), eager()))
+    runs = []
+    for label, fn in (("eager", eager), ("graph", graph), ("graph", graph),
+                      ("eager", eager)):
+        for _ in range(3):
+            fn()
+        run, _ = measure(fn, iters)
+        runs.append(dict(path=label, **{k: run.get(k) for k in RUN_KEYS}))
+    return runs, same
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=384)
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_serving needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    net = bert.BERTForQA(bert.bert_12_768_12(
-        vocab_size=30522, max_length=512, dtype="bfloat16"))
-    net.initialize(device=dev, generator=torch.Generator().manual_seed(0))
-    net.hybridize()
-    ids = torch.randint(0, 30522, (args.batch, args.seq),
+    net, _, info = serving_net(dev, args.batch)
+    ids = torch.randint(0, 30522, (args.batch, SEQ),
                         generator=torch.Generator().manual_seed(1),
                         dtype=torch.int32).to(dev)
     seg = torch.zeros_like(ids)
-
-    def forward():
-        return net.call_cached_graph(ids, seg)
-
-    for _ in range(3):
-        forward()
-    torch.cuda.synchronize()
-    host = []
-    for _ in range(args.iters):
-        t0 = time.perf_counter()
-        forward()
-        torch.cuda.synchronize()
-        host.append(time.perf_counter() - t0)
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    fa.LAUNCHES.reset()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            forward()
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        sys.exit("the profiler recorded no device activity")
-    by_name = collections.defaultdict(float)
-    for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us()
-    busy = _busy_us([(e.time_range.start, e.time_range.end)
-                     for e in kernels])
-    total = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    captures = net.capture_count()
+    runs, same = graph_against_eager(net, ids, seg, args.iters)
+    if net.capture_count() != captures:
+        sys.exit("the measured batch captured a graph again")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({
-        "card": card, "batch": args.batch, "seq": args.seq,
-        "iters": args.iters,
-        "host_ms_per_forward_p50": 1e3 * sorted(host)[len(host) // 2],
-        "profiled_window_ms_per_forward": window_us / 1e3 / args.iters,
-        "device_busy_ms_per_forward": busy / 1e3 / args.iters,
-        "device_idle_share": 1.0 - busy / window_us,
-        "kernel_launches_per_forward": len(kernels) / args.iters,
-        "flash_attention_launches_per_forward":
-            fa.LAUNCHES.value / args.iters,
-        "top_kernels_ms_per_forward": [
-            {"name": n[:90], "ms": t / 1e3 / args.iters,
-             "share": t / total} for n, t in top],
+        "card": card, "batch": args.batch, "seq": SEQ, "iters": args.iters,
+        "warmup": info, "captures": captures,
+        "graph_pools_gib": {g["shapes"][0][0]: g["pool_bytes"] / 2 ** 30
+                            for g in net.captured_graphs()},
+        "replay_equals_eager_bitwise": same, "runs": runs,
     }, indent=1))
 
 

@@ -50,7 +50,6 @@ from ..kernels import build
 from ..kernels import opt as kopt
 from ..optimizer.optimizer import Optimizer
 from .finetune import build_bert_finetune
-from .profile_serving import _busy_us
 from .train_lenet import build_lenet_train
 from .train_resnet import build_resnet_train
 
@@ -71,6 +70,21 @@ GROUPS = (
     ("cutlass", "library GEMMs"), ("xmma", "library GEMMs"),
     ("cublas", "library GEMMs"),
 )
+
+
+def _busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
 
 
 def _group(name):

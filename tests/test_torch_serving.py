@@ -7,6 +7,8 @@ and rate limiting with a burst-1 bucket whose refill is negligible.
 Results of batched requests must equal a direct ``call_cached_graph`` of
 the request's own rows within atol 1e-5 (the CPU matmul may block a
 larger batch differently), and the JAX model's rows within atol 1e-4.
+``stats()`` reads the port's telemetry registry, as the JAX engine reads
+its own; every test starts from a zeroed registry and trace state.
 """
 import threading
 
@@ -15,13 +17,14 @@ import pytest
 import torch
 
 import mxnet_tpu as mx
+from mxnet_tpu import serving as jserving
 from mxnet_tpu.gluon.model_zoo import bert as jbert
-from mxnet_tpu_torch import cpu
+from mxnet_tpu_torch import cpu, observability, telemetry
 from mxnet_tpu_torch.convert import load_jax_params
 from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
 from mxnet_tpu_torch.serving import (EngineStopped, InferenceEngine,
                                      ModelRegistry, Overloaded, RateLimited,
-                                     ServeClass)
+                                     ServeClass, SimulatedBlock)
 
 CFG = dict(vocab_size=100, max_length=64, num_layers=2, units=64,
            hidden_size=128, num_heads=4)
@@ -43,6 +46,19 @@ def models():
                            for k, p in jnet.collect_params().items()})
     tnet.hybridize()
     return tnet, tok, seg, js.asnumpy(), je.asnumpy()
+
+
+@pytest.fixture(autouse=True)
+def fresh_telemetry():
+    was = telemetry.enabled()
+    telemetry.enable()
+    telemetry.reset()
+    observability.reset()
+    yield
+    telemetry.reset()
+    observability.reset()
+    if not was:
+        telemetry.disable()
 
 
 def _engine(net, **kw):
@@ -154,3 +170,38 @@ def test_registry_round_trip(models):
     assert reg.stats()["qa"]["max_queue"] == eng.max_queue
     reg.stop_all()
     assert reg.names() == [] and not eng.started
+
+
+def test_held_result_survives_later_batches_of_its_rung(models):
+    """A client's result is its own: serving other rows through the same
+    rung afterwards leaves it as it was (on the card the rung is one CUDA
+    graph whose static outputs every replay overwrites)."""
+    net, tok, seg, _, _ = models
+    eng = _engine(net)
+    eng.warmup(tok[:1], seg[:1])
+    eng.start()
+    held = eng.predict(tok[:4], seg[:4])
+    kept = [t.clone() for t in held]
+    for k in (1, 2):
+        other = eng.predict(tok[4 * k:4 * k + 4], seg[4 * k:4 * k + 4])
+        assert not torch.equal(other[0], kept[0])
+    eng.stop()
+    assert eng.stats()["batches"] == 3
+    for t, k in zip(held, kept):
+        assert torch.equal(t, k)
+
+
+def test_stats_keys_match_the_jax_engine():
+    """The same snapshot surface as mxnet_tpu's engine: the same keys, per
+    class too, over each package's simulated device."""
+    jeng = jserving.InferenceEngine(jserving.SimulatedBlock(device_ms=1.0),
+                                    name="keys", max_batch_size=4)
+    teng = InferenceEngine(SimulatedBlock(device_ms=1.0), name="keys",
+                           max_batch_size=4)
+    js, ts = jeng.stats(), teng.stats()
+    assert sorted(ts) == sorted(js)
+    assert {c: sorted(v) for c, v in ts["classes"].items()} == \
+        {c: sorted(v) for c, v in js["classes"].items()}
+    assert ts["requests"] == js["requests"] == {}
+    jeng.stop()
+    teng.stop()

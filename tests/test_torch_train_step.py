@@ -328,26 +328,36 @@ def test_fallback_reasons_equal_the_reference(monkeypatch):
 
 
 def test_counter_deltas_follow_replays():
-    """What a capture adds to the launch counters and dispatch counts is
-    taken back (the capture ran nothing) and added once per replay."""
+    """What a capture adds to the launch counters and dispatch counts goes
+    to its tally (the capture ran nothing) while counts that do not belong
+    to it (another stream's: here another thread's) keep counting, and the
+    tally is added once per replay."""
+    import threading
+
     a, b = kbuild.counter("test_delta_a"), kbuild.LaunchCounter("test_d_b")
     a.reset()
     b.reset()
     a.add(5)
-    before, decided = kbuild.snapshot(), dict(kdispatch.COUNTS)
-    a.add(3)                                # as a capture would
-    b.add(2)
-    kdispatch.record("test_delta", "kernel")
-    launches = kbuild.take_deltas(before)
-    decisions = kdispatch.take_deltas(decided)
-    assert (a.value, b.value) == (5, 0)
-    assert launches == {a: 3, b: 2}
-    assert decisions == {("test_delta", "kernel"): 1}
+    capturing = threading.current_thread()
+    with kbuild.captured_counts(
+            lambda: threading.current_thread() is capturing) as tally:
+        a.add(3)                            # as a capture would
+        b.add(2)
+        kdispatch.record("test_delta", "kernel")
+        other = threading.Thread(target=a.add, args=(10,))
+        other.start()
+        other.join()
+        with pytest.raises(RuntimeError, match="already open"):
+            with kbuild.captured_counts():
+                pass
+    assert kbuild.capture_tally() is None
+    assert (a.value, b.value) == (15, 0)
+    assert dict(tally) == {a: 3, b: 2}
+    assert tally.decisions == {("test_delta", "kernel"): 1}
     assert ("test_delta", "kernel") not in kdispatch.COUNTS
     for _ in range(4):                      # four replays
-        kbuild.add_deltas(launches)
-        kdispatch.add_deltas(decisions)
-    assert (a.value, b.value) == (17, 8)
+        kbuild.add_deltas(tally)
+    assert (a.value, b.value) == (27, 8)
     assert kdispatch.COUNTS[("test_delta", "kernel")] == 4
     del kdispatch.COUNTS[("test_delta", "kernel")]
     kbuild.COUNTERS.pop("test_delta_a")
