@@ -122,11 +122,27 @@ failure exits non-zero, nothing is caught and carried on:
      peak memory). Phase 3's K3 sweeps also hold the ladder's device-scalar
      entry bit for bit against its by-value entry over each path's list
      and time it, and 3b probes the mask with a seed drawn on the card.
- 16. a ``timing`` line (profiler windows taken, windows that came back
+ 16. checkpoint and resume, a main path: BERT-base fine-tuning as 6
+     (dropout 0: the Dropout generators' state is not part of
+     ``save_states``) takes 4 phased steps with the global-norm clip (A);
+     a build from A's seed takes 2 and saves (``save_parameters``,
+     ``save_states``); a build from another seed loads both and takes 2
+     on A's batch, the counts zeroed just before and read just after:
+     after the load every weight, f32 master and AdamW moment equals A's
+     after step 2, after the steps A's after step 4, losses too, bit for
+     bit; K3 and its norm once per bucket a step, K4, K5a, K5b 12 times a
+     step. Then a captured ``gluon.TrainStep`` (no clip) loads both in
+     place and replays with no rebuild and no capture, held to a phased
+     build loaded from the same files; then an engine's captured rungs
+     answer from ``load_parameters`` with no capture, and a retyping load
+     (``cast_dtype=True, dtype_source='saved'``) captures each rung again.
+     File sizes and save and load seconds beside the card.
+ 17. a ``timing`` line (profiler windows taken, windows that came back
      without device events, and times taken with CUDA events instead
      where the profiler recorded none), a ``{"kernels": [...]}`` line
-     (with each kernel's launches on the TrainStep paths), the card line,
-     and as the last line ``{"ok": true, "device": {...}}``.
+     (with each kernel's launches on the TrainStep paths and on the
+     resumed steps), the card line, and as the last line
+     ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --bn-sites ROOT`` runs no phase but this: K1 and
 K2 of the ``mxnet_tpu_torch`` package under ROOT (this checkout, or another
@@ -2728,6 +2744,313 @@ def phase_train_step(torch, mt, build, dispatch, kopt, fa, mods, path):
     return summary
 
 
+# -- checkpoint and resume (phase 16) ----------------------------------------
+
+RESUME_STEPS = 2   # steps before the save, and again after the load
+
+
+def _resume_build(finetune, dev, seed, clip, **model_kwargs):
+    """Phase 6's fine-tune (bf16 weights, f32 masters, AdamW, batch 8, seq
+    384) from ``seed`` through TrainStep's partial, dropout 0: the Dropout
+    generators' state is not part of ``save_states`` (nor of the JAX
+    package's); it belongs to the checkpoint manager. With the global-norm
+    clip TrainStep runs phased, the fine-tune default; without it, one CUDA
+    graph a step on the card."""
+    return finetune.build_bert_finetune(
+        batch=8, seq=384, dropout=0.0, dtype="bfloat16",
+        learning_rate=TRAIN_LR, device=dev, seed=seed,
+        clip_global_norm=clip, train_step=True, **model_kwargs)
+
+
+def _snapshot(kopt, net, trainer):
+    """Copies of every weight and every optimizer-state leaf (the f32
+    masters and AdamW's m and v), in place on the device."""
+    return ([p._tensor().detach().clone()
+             for p in net.collect_params().values()],
+            [x.detach().clone() for s in trainer._states
+             for x in kopt._leaves(s)])
+
+
+def _snap_diff(torch, a, b):
+    """``(bitwise, largest abs difference)`` of two snapshots."""
+    pairs = list(zip(a[0] + a[1], b[0] + b[1]))
+    check(len(a[0]) == len(b[0]) and len(a[1]) == len(b[1]) and all(
+        x.shape == y.shape and x.dtype == y.dtype for x, y in pairs),
+        "snapshots of another structure")
+    return (all(torch.equal(x, y) for x, y in pairs),
+            max((x.float() - y.float()).abs().max().item() for x, y in pairs))
+
+
+def _resume_steps(torch, step, args, n):
+    """n steps of a TrainStep on the batch ``args``; their mean losses."""
+    return _run_steps(torch, lambda: step(*args), n)[0]
+
+
+def _counted(torch, build, step, args, n):
+    """n steps with the counts zeroed just before and read just after:
+    (losses, launches)."""
+    build.reset_counters()
+    losses = _resume_steps(torch, step, args, n)
+    return losses, {c.name: c.value for c in build.COUNTERS.values()
+                    if c.value}
+
+
+def _want_launches(kopt, trainer, n, clipped, layers):
+    """The launches of n BERT steps: K3 once per bucket (its norm too where
+    the step clips), K4, K5a and K5b once per layer a step, all
+    tensor-core."""
+    plan = opt_plan(kopt, trainer)
+    want = {"opt_ladder": plan["launches"] * n}
+    if clipped:
+        want["opt_sqnorm"] = plan["buckets"] * n
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        want[name] = want[f"{name}_mma"] = layers * n
+    return want
+
+
+def _served_net(torch, mt, dev, dtype, model_kwargs):
+    """BERT-base QA from seed 9, hybridized: the fine-tune's net (bf16
+    through amp, LayerNorms f32) where ``dtype`` is None, else the model
+    built in ``dtype`` (phase 5's, LayerNorms bf16 too)."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    net = bert.BERTForQA(bert.bert_12_768_12(
+        vocab_size=30522, max_length=512, dropout=0.0,
+        dtype=dtype or "float32", **model_kwargs))
+    net.initialize(device=dev, generator=torch.Generator().manual_seed(9))
+    if dtype is None:
+        mt.amp.convert_hybrid_block(net, "bfloat16")
+    net.hybridize()
+    return net
+
+
+def _served_against_eager(torch, mt, net, dev, rungs, seed):
+    """A batch through each rung's ``call_cached_graph`` against the eager
+    forward of the same weights (phase 5's bound); the largest difference."""
+    gen = torch.Generator().manual_seed(seed)
+    worst = 0.0
+    for b in rungs:
+        ids = torch.randint(0, 30522, (b, SERVE_SEQ), generator=gen,
+                            dtype=torch.int32).to(dev)
+        seg = torch.zeros_like(ids)
+        got = net.call_cached_graph(ids, seg)
+        with mt.autograd.pause(), torch.inference_mode():
+            want = net(ids, seg)
+        diff = max((g.float() - w.float()).abs().max().item()
+                   for g, w in zip(got, want))
+        scale = max(w.float().abs().max().item() for w in want)
+        check(all(bool(torch.isfinite(g.float()).all()) for g in got)
+              and diff <= 1e-2 * max(1.0, scale),
+              f"resume serving: rung {b} and the eager forward of the "
+              f"loaded weights differ by {diff}")
+        worst = max(worst, diff)
+    return worst
+
+
+def phase_resume(torch, mt, finetune, serving, build, kopt, dev,
+                 **model_kwargs):
+    """16. Checkpoint and resume on BERT-base (``model_kwargs`` cut it:
+    tests/test_torch_cuda_resume.py; the counts are gated on the card
+    only).
+
+    A: 4 phased steps with the fine-tune's global-norm clip. B: a build
+    from A's seed takes 2 steps and saves (``save_parameters``,
+    ``save_states``); a build from another seed loads both and takes 2
+    steps on A's batch: after the load every weight, master and moment
+    equals A's after step 2, after its steps A's after step 4 and A's
+    losses, bit for bit (K3, K4 and K5 repeat bitwise); the counts over
+    the resumed steps. Then through TrainStep without the clip: a captured
+    step, ``load_states`` and ``load_parameters`` in place, 2 replays with
+    no rebuild and no capture, held to a phased build loaded from the same
+    files. Then served: the rungs of an engine's captured net answer from
+    ``load_parameters`` with no capture; a retype by
+    ``cast_dtype=True, dtype_source='saved'`` captures each rung again."""
+    import tempfile
+
+    gc_collect(torch)
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    layers = model_kwargs.get("num_layers", 12)
+    out = dict(card=card_line() if on_card else None)
+
+    # A: the uninterrupted run
+    net_a, tr_a, step_a = _resume_build(finetune, dev, 0, 1.0,
+                                        **model_kwargs)
+    batch = step_a.args
+    ts_a = step_a.func
+    losses_a = _resume_steps(torch, ts_a, batch, RESUME_STEPS)
+    check(ts_a.last_path == "phased" and "clip_global_norm" in str(
+        ts_a.ineligible_reason()), f"A ran {ts_a.last_path}")
+    after2 = _snapshot(kopt, net_a, tr_a)
+    losses_a += _resume_steps(torch, ts_a, batch, RESUME_STEPS)
+    after4 = _snapshot(kopt, net_a, tr_a)
+    del net_a, tr_a, step_a, ts_a
+
+    root = Path(__file__).resolve().parent / "build" / "scratch"
+    root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="resume_", dir=root) as tmp:
+        params = os.path.join(tmp, "bert.params")
+        states = os.path.join(tmp, "bert.states")
+        # B: two steps, then the checkpoint
+        net_b, tr_b, step_b = _resume_build(finetune, dev, 0, 1.0,
+                                            **model_kwargs)
+        losses_b = _resume_steps(torch, step_b.func, batch, RESUME_STEPS)
+        check(losses_b == losses_a[:RESUME_STEPS]
+              and _snap_diff(torch, _snapshot(kopt, net_b, tr_b),
+                             after2)[0],
+              f"two builds from one seed differ after {RESUME_STEPS} "
+              f"steps: losses {losses_b} and {losses_a}")
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net_b.save_parameters(params)
+        t1 = time.perf_counter()
+        tr_b.save_states(states)
+        t2 = time.perf_counter()
+        out.update(params_bytes=os.path.getsize(params),
+                   states_bytes=os.path.getsize(states),
+                   save_parameters_s=t1 - t0, save_states_s=t2 - t1)
+        del net_b, tr_b, step_b
+
+        # B resumed: another seed, so the load overwrites everything
+        net_r, tr_r, step_r = _resume_build(finetune, dev, 7, 1.0,
+                                            **model_kwargs)
+        _resume_steps(torch, step_r.func, step_r.args, 1)
+        check(not _snap_diff(torch, _snapshot(kopt, net_r, tr_r),
+                             after2)[0], "the other seed's build equals A")
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net_r.load_parameters(params)
+        t1 = time.perf_counter()
+        tr_r.load_states(states)
+        if on_card:
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out.update(load_parameters_s=t1 - t0, load_states_s=t2 - t1)
+        same, diff = _snap_diff(torch, _snapshot(kopt, net_r, tr_r), after2)
+        check(same, f"after the load the weights, masters and moments "
+                    f"differ from A's after step {RESUME_STEPS}: {diff}")
+        check(tr_r.optimizer.num_update == RESUME_STEPS,
+              f"num_update {tr_r.optimizer.num_update} after the load")
+        losses_r, launches = _counted(torch, build, step_r.func, batch,
+                                      RESUME_STEPS)
+        same, diff = _snap_diff(torch, _snapshot(kopt, net_r, tr_r), after4)
+        out.update(losses_a=losses_a, losses_resumed=losses_r,
+                   resumed_equals_uninterrupted=same,
+                   resumed_max_abs_diff=diff, launches=launches)
+        check(same and losses_r == losses_a[RESUME_STEPS:],
+              f"the resumed run differs from the uninterrupted one: losses "
+              f"{losses_r} and {losses_a}, largest difference {diff}")
+        if on_card:
+            want = _want_launches(kopt, tr_r, RESUME_STEPS, True, layers)
+            check(launches == want, f"resumed steps launched {launches}; "
+                                    f"want {want}")
+        del net_r, tr_r, step_r
+
+        # through TrainStep's graph, no clip: loads in place, no rebuild
+        net_g, tr_g, step_g = _resume_build(finetune, dev, 3, None,
+                                            **model_kwargs)
+        ts_g = step_g.func
+        _resume_steps(torch, ts_g, batch, 2)   # warm-up, capture + replay
+        captures = ts_g.jit_trace_count()
+        tr_g.load_states(states)
+        net_g.load_parameters(params)
+        same, diff = _snap_diff(torch, _snapshot(kopt, net_g, tr_g), after2)
+        check(same, f"TrainStep's net after the loads: {diff}")
+        losses_g, launches_g = _counted(torch, build, ts_g, batch,
+                                        RESUME_STEPS)
+        check(ts_g.last_path == "whole_step" or not on_card,
+              f"TrainStep ran {ts_g.last_path}: {ts_g.ineligible_reason()}")
+        check(ts_g.jit_trace_count() == captures == 1,
+              f"TrainStep captured again after the loads: "
+              f"{ts_g.jit_trace_count()} (was {captures})")
+        if on_card:
+            want = _want_launches(kopt, tr_g, RESUME_STEPS, False, layers)
+            check(launches_g == want, f"TrainStep replays launched "
+                                      f"{launches_g}; want {want}")
+        net_p, tr_p, step_p = _resume_build(finetune, dev, 4, None,
+                                            **model_kwargs)
+        net_p.load_parameters(params)
+        tr_p.load_states(states)
+        with phased_steps():
+            losses_p = _resume_steps(torch, step_p.func, batch, RESUME_STEPS)
+        check(step_p.func.last_path == "phased", "the twin did not run "
+                                                 "phased")
+        same_g, diff_g = _snap_diff(torch, _snapshot(kopt, net_g, tr_g),
+                                    _snapshot(kopt, net_p, tr_p))
+        # graph against phased: phase 15's loss bound (bf16, 0.03); the
+        # weights, masters and moments within 1e-3 of the largest
+        scale = max(t.float().abs().max().item()
+                    for t in _snapshot(kopt, net_p, tr_p)[1])
+        loss_diff = max(abs(a - b) for a, b in zip(losses_g, losses_p))
+        out.update(train_step=dict(
+            captures=ts_g.jit_trace_count(), losses_graph=losses_g,
+            losses_phased=losses_p, bitwise=same_g, max_abs_diff=diff_g,
+            launches=launches_g))
+        check(loss_diff <= 0.03 and diff_g <= 1e-3 * max(1.0, scale),
+              f"TrainStep after the loads and the phased twin differ: "
+              f"losses {losses_g} {losses_p}, states {diff_g}")
+        del net_g, tr_g, step_g, ts_g, net_p, tr_p, step_p
+        if on_card:
+            gc_collect(torch)
+
+        # served from the checkpoint: the fine-tune's net, captured rungs
+        rungs = SERVE_RUNGS
+        net_s = _served_net(torch, mt, dev, None, model_kwargs)
+        eng = serving.InferenceEngine(net_s, name="bert_qa_resumed",
+                                      max_batch_size=rungs[-1], timeout_ms=0)
+        example = torch.zeros((1, SERVE_SEQ), dtype=torch.int32)
+        info = eng.warmup(example, example)
+        captured = net_s.capture_count()
+        net_s.load_parameters(params)
+        check(_snap_diff(torch, ([p._tensor() for p in net_s.collect_params()
+                                  .values()], []), (after2[0], []))[0],
+              "the served net's weights differ from the checkpoint's")
+        err_in_place = _served_against_eager(torch, mt, net_s, dev, rungs,
+                                             21)
+        in_place = dict(captures_after_load=net_s.capture_count() - captured,
+                        recompiles_since_warmup=eng.recompiles_since_warmup(),
+                        max_abs_diff=err_in_place, warmup=info)
+        check(in_place["captures_after_load"] == 0
+              and in_place["recompiles_since_warmup"] == 0,
+              f"an in-place load made the rungs capture again: {in_place}")
+        del net_s, eng
+
+        # a net whose LayerNorms are bf16 takes the file's f32 ones by
+        # retyping: their storage moves and each rung captures again
+        net_c = _served_net(torch, mt, dev, "bfloat16", model_kwargs)
+        eng = serving.InferenceEngine(net_c, name="bert_qa_retyped",
+                                      max_batch_size=2, timeout_ms=0)
+        eng.warmup(example, example)
+        captured = net_c.capture_count()
+        try:
+            net_c.load_parameters(params)
+            check(False, "a load across dtypes without cast_dtype passed")
+        except AssertionError:
+            pass
+        net_c.load_parameters(params, cast_dtype=True, dtype_source="saved")
+        err_saved = _served_against_eager(torch, mt, net_c, dev, [1, 2], 22)
+        saved = dict(captures_after_load=net_c.capture_count() - captured,
+                     recompiles_since_warmup=eng.recompiles_since_warmup(),
+                     max_abs_diff=err_saved)
+        check(saved["captures_after_load"] == (2 if on_card else 0),
+              f"a retyping load did not capture each rung again: {saved}")
+        out.update(serving_in_place=in_place, serving_retyped=saved)
+        del net_c, eng
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"resume: {json.dumps(out)}")
+    say(f"resume checkpoint: parameters {out['params_bytes']} bytes, states "
+        f"{out['states_bytes']} bytes; save {out['save_parameters_s']:.3f} + "
+        f"{out['save_states_s']:.3f} s, load {out['load_parameters_s']:.3f} "
+        f"+ {out['load_states_s']:.3f} s; phase {out['phase_s']:.1f} s; "
+        f"card {out['card']}")
+    if on_card:
+        gc_collect(torch)
+    return out
+
+
 def gc_collect(torch):
     import gc
 
@@ -2808,8 +3131,11 @@ def main():
     ts_runs = {path: phase_train_step(torch, mt, build, dispatch, kopt, fa,
                                       mods, path)
                for path in ("resnet50", "lenet", "bert")}
+    # 16. checkpoint and resume
+    resume = phase_resume(torch, mt, finetune, serving, build, kopt,
+                          mt.gpu(0))
 
-    # 16. the kernels line, card, ok. Each row's case is the main paths'
+    # 17. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over
@@ -2982,6 +3308,12 @@ def main():
         m["train_step_launches"] = {
             path: run["launches"].get(k["name"], 0)
             for path, run in ts_runs.items()}
+        # and over the 2 resumed BERT steps of phase 16, phased with the
+        # clip and through TrainStep's replays without it
+        m["resume_launches"] = {
+            "phased": resume["launches"].get(k["name"], 0),
+            "train_step": resume["train_step"]["launches"].get(k["name"],
+                                                                0)}
         kernels.append(dict(name=k["name"], route=k["route"],
                             source=k["source"], replaces=k["replaces"], **m))
     say(f"timing: {json.dumps(TIMING)}")

@@ -50,12 +50,12 @@ def load_jax_params(block, params):
     return block
 
 
-def _state_to_tensors(state, device):
+def _state_to_tensors(state):
     if state is None:
         return None
     if isinstance(state, (list, tuple)):
-        return tuple(_state_to_tensors(s, device) for s in state)
-    return to_tensor(state).to(device)
+        return tuple(_state_to_tensors(s) for s in state)
+    return to_tensor(state)
 
 
 def load_jax_trainer_states(trainer, states):
@@ -67,7 +67,9 @@ def load_jax_trainer_states(trainer, states):
     leaves; ``"index_update_count"``: ``{parameter name: t}``; and
     ``"num_update"``. Names are the dotted names both Trainers were built
     from (``collect_params()``). Every trainable parameter of the port's
-    trainer must be named; leaves land on the parameter's device."""
+    trainer must be named. Each state goes in as ``Trainer.load_states``
+    puts it: copied into an existing state of the same nesting, shapes and
+    dtypes, else onto the parameter's device."""
     names = trainer._param_names
     given = states["states"]
     trainable = [n for n, p in zip(names, trainer._params)
@@ -80,10 +82,9 @@ def load_jax_trainer_states(trainer, states):
     counts = states.get("index_update_count") or {}
     opt = trainer._optimizer
     opt._index_update_count = {}
-    for i, (name, p) in enumerate(zip(names, trainer._params)):
+    for i, name in enumerate(names):
         if name in given:
-            trainer._states[i] = _state_to_tensors(given[name], p.device)
-            trainer._states_created[i] = True
+            trainer._put_state(i, _state_to_tensors(given[name]))
         if name in counts:
             opt._index_update_count[i] = int(counts[name])
     opt.num_update = int(states.get("num_update", 0))

@@ -3,7 +3,9 @@ mxnet_tpu/gluon/block.py).
 
 ``collect_params()`` returns the JAX package's dotted keys (own parameters
 first, then children in registration order), so weights carry across by
-name (``convert.load_jax_params``).
+name (``convert.load_jax_params``), and ``save_parameters`` /
+``load_parameters`` read and write the JAX package's checkpoint: an npz
+keyed by those names, bf16 in its dtype sidecar (``_dtype_codec``).
 
 ``Block.__call__`` is the NDArray boundary: NDArray arguments are
 unwrapped, the children see tensors, and the outputs come back as NDArrays
@@ -41,13 +43,17 @@ forward stays eager. Training steps are captured by ``gluon.TrainStep``.
 """
 from __future__ import annotations
 
+import os
 import re
 import threading
 
+import numpy as _np
 import torch
 
 from .. import autograd as _ag
 from .. import device as _device
+from .._dtype_codec import (DTYPE_KEY, decode_entry, dtype_name,
+                            encode_payload, read_sidecar)
 from ..ndarray.ndarray import NDArray
 from . import _graph
 from .parameter import Parameter, storage_epoch
@@ -183,6 +189,91 @@ class Block(torch.nn.Module):
         for p in self.collect_params().values():
             if p.grad_req != "null" and p._var is not None:
                 p.zero_grad()
+
+    # -- checkpoint --------------------------------------------------------
+    def save_parameters(self, filename, deduplicate=False):  # noqa: ARG002
+        """Save the initialized parameters as an npz keyed by their
+        ``collect_params()`` names, bf16 through the dtype sidecar: the JAX
+        package's file (mxnet_tpu/gluon/block.py:save_parameters), which it
+        loads, bit for bit. The file is written through an open file, so
+        ``filename`` keeps its name (``numpy.savez`` of a path would add
+        ``.npz``). The JAX package writes on an IO thread and returns at
+        once; this port writes synchronously: the file is complete when
+        the call returns. BatchNorm's running statistics are saved like
+        any other parameter."""
+        arrays = {name: p._tensor()
+                  for name, p in self._collect_params_with_prefix().items()
+                  if p._var is not None}
+        arrays = encode_payload(arrays)
+        with open(filename, "wb") as f:
+            _np.savez(f, **arrays)
+
+    def load_parameters(self, filename, device=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current", ctx=None):
+        """Load a file of :meth:`save_parameters` or of the JAX package's,
+        with its exceptions: a parameter the file lacks raises
+        ``KeyError`` unless ``allow_missing``; a name the block lacks
+        raises ``KeyError`` unless ``ignore_extra``; a saved dtype that
+        differs raises ``AssertionError`` unless ``cast_dtype``, which
+        casts the saved value to the parameter's dtype
+        (``dtype_source='current'``) or retypes the parameter and its
+        gradient buffer to the saved one (``'saved'``); another
+        ``dtype_source`` raises ``ValueError``. Names are checked before
+        anything is written. ``filename + '.npz'`` is read where
+        ``filename`` does not exist.
+
+        An initialized parameter takes the value in place
+        (``Parameter.set_data``), so a CUDA graph captured over the weights
+        (served rungs, ``gluon.TrainStep``) replays on the loaded values;
+        a retype (``'saved'``) replaces the storage, and the graphs capture
+        again. A deferred parameter takes its shape from the file on the
+        device it was given, an uninitialized one on ``device`` (``ctx``;
+        default the current device)."""
+        path = str(filename)
+        if not os.path.exists(path) and os.path.exists(path + ".npz"):
+            path = path + ".npz"
+        if cast_dtype and dtype_source not in ("current", "saved"):
+            raise ValueError(f"dtype_source must be 'current' or 'saved', "
+                             f"got {dtype_source!r}")
+        params = self._collect_params_with_prefix()
+        with _np.load(path, allow_pickle=False) as npz:
+            sidecar = read_sidecar(npz)
+            loaded = set(npz.files) - {DTYPE_KEY}
+            missing = [n for n in params if n not in loaded]
+            if missing and not allow_missing:
+                raise KeyError(f"Parameter {missing[0]} missing in file "
+                               f"{filename}; set allow_missing=True to skip")
+            extra = sorted(loaded - set(params))
+            if extra and not ignore_extra:
+                raise KeyError(f"file {filename} contains extra parameters "
+                               f"{extra}; set ignore_extra=True to skip")
+            values = {}
+            for name, p in params.items():
+                if name not in loaded:
+                    continue
+                arr = decode_entry(name, npz[name], sidecar)
+                value = arr if isinstance(arr, torch.Tensor) \
+                    else torch.from_numpy(_np.ascontiguousarray(arr))
+                if value.dtype != p.dtype and not cast_dtype:
+                    raise AssertionError(
+                        f"Failed loading Parameter '{name}' from saved "
+                        f"params: dtype incompatible expected "
+                        f"{dtype_name(p.dtype)} vs saved "
+                        f"{dtype_name(value.dtype)}. Set cast_dtype=True to "
+                        f"cast the dtype of saved params.")
+                values[name] = value
+        for name, value in values.items():
+            p = params[name]
+            if value.dtype != p.dtype and dtype_source == "saved":
+                p.cast(value.dtype)
+            if p._var is not None:
+                p.set_data(value)
+            elif p._deferred is not None:
+                p._load_init(value, None)
+            else:
+                p._load_init(value, _device.resolve(
+                    device if device is not None else ctx))
 
     def trainable_param_names(self):
         """Names of the parameters with ``grad_req != 'null'``, sorted."""

@@ -221,12 +221,7 @@ class Parameter:
                 raise RuntimeError(
                     f"Parameter {self.name} has not been initialized; call "
                     ".initialize() before set_data")
-            self.shape = tuple(data.shape)
-            device = self._deferred[1]
-            with torch.inference_mode(False):
-                self._set_var(data.to(device=device, dtype=self.dtype,
-                                      copy=True))
-            self._deferred = None
+            self._load_init(data, None)
             return
         if tuple(data.shape) != tuple(self._var.shape):
             raise ValueError(
@@ -234,6 +229,20 @@ class Parameter:
                 f"!= {tuple(self._var.shape)}")
         with torch.inference_mode(False), torch.no_grad():
             self._var.copy_(data)
+
+    def _load_init(self, data, device):
+        """Take ``data``, its shape and its value, into a parameter that
+        holds no value yet (``set_data`` of a deferred parameter,
+        ``Block.load_parameters``): a deferred parameter on the device it
+        was given, another on ``device``. A known dim that differs raises
+        ``ValueError``."""
+        self.shape = tuple(data.shape)
+        if self._deferred is not None:
+            device = self._deferred[1]
+        with torch.inference_mode(False):
+            self._set_var(data.to(device=device, dtype=self.dtype,
+                                  copy=True))
+        self._deferred = None
 
     # -- gradients ---------------------------------------------------------
     @property

@@ -39,10 +39,15 @@ registered with the graph, so every replay draws new masks.
 The graph keeps the addresses it captured. Weights, f32 masters and
 optimizer states are updated in place and keep their storage; the
 gradients the capture allocated stay the parameters' gradient buffers
-(``Parameter.grad()`` shows each replay's). Replacing a weight's or a
-state's storage afterwards (``cast``, a state load) raises at the next
-replay: call :meth:`TrainStep.rebuild`. The returned loss is a copy of the
-graph's output.
+(``Parameter.grad()`` shows each replay's). ``Block.load_parameters`` and
+``Trainer.load_states`` copy into the existing weights and states, so the
+graph keeps replaying, on the loaded values and with the loaded update
+counts, as the JAX package's step reads the trainer's states on every
+call. Replacing a weight's or a state's storage (``cast``, a load that
+creates the states or changes their nesting, dtype or shape, assigning
+``trainer._states[i]``) raises at the next replay: call
+:meth:`TrainStep.rebuild`. The returned loss is a copy of the graph's
+output.
 
 An ineligible configuration runs phased and says why in
 :meth:`TrainStep.ineligible_reason`, with the reference's reasons;
@@ -104,8 +109,8 @@ class _Graph:
         if step._storage() != self.storage:
             raise RuntimeError(
                 "TrainStep: a weight or optimizer state changed storage "
-                "since the step was captured (cast, set of a state); call "
-                "rebuild() to capture again")
+                "since the step was captured (cast, a state replaced); "
+                "call rebuild() to capture again")
         if step._static_hyper() != self.hyper:
             raise RuntimeError(
                 "TrainStep: the optimizer's momentum, betas, epsilon or "

@@ -4,9 +4,17 @@ Applies an Optimizer to a set of Parameters on one device. There is no
 kvstore yet: ``allreduce_grads`` has nothing to reduce, and the arguments
 that ask for one (a distributed ``kvstore``, ``mesh=``, ``sharding_plan=``,
 ``compression_params=``, ``update_on_kvstore=``) raise
-``NotImplementedError``. ``save_states`` / ``load_states`` wait too;
-``convert.load_jax_trainer_states`` carries states across from the JAX
-package.
+``NotImplementedError``.
+
+``save_states`` / ``load_states`` read and write the JAX package's format-2
+pickle (mxnet_tpu/gluon/trainer.py:save_states): the states as numpy
+leaves, nested in lists, bf16 leaves through ``_dtype_codec`` (read without
+``ml_dtypes``), the optimizer's bookkeeping (``num_update`` and each
+parameter's ``t``), each parameter's name and dtype name, the stale
+gradients and the loss scale. A load copies into the state tensors that
+exist with the same nesting, shapes and dtypes, so the state objects and
+their storage stay (a captured ``gluon.TrainStep`` replays on the loaded
+values), and creates the others on the parameter's device.
 
 ``step(batch_size)`` sets ``rescale_grad = scale / batch_size`` and hands
 every dense parameter with a fresh gradient to the Optimizer in one
@@ -16,9 +24,14 @@ updates weights and states in place. Each step ends in
 """
 from __future__ import annotations
 
+import pickle
 import time
 
+import numpy as _np
+import torch
+
 from .. import optimizer as opt_mod
+from .._dtype_codec import dtype_name, pickle_leaf, pickle_load
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
@@ -153,12 +166,128 @@ class Trainer:
             if p.grad_req != "null" and p._var is not None:
                 p.zero_grad()
 
-    def save_states(self, fname):  # noqa: ARG002
-        raise NotImplementedError(
-            "Trainer.save_states is not ported yet: it comes with "
-            "save_parameters / load_parameters in the next training slice")
+    # -- checkpoint --------------------------------------------------------
+    def _stale_indices(self):
+        """Indices of the parameters whose gradient is stale (untouched
+        since its last update): the portable form of ``_grad_versions``."""
+        return [i for i, p in enumerate(self._params)
+                if p.grad_req != "null" and p._var is not None
+                and self._grad_versions.get(i) == p._grad_version]
 
-    def load_states(self, fname):  # noqa: ARG002
-        raise NotImplementedError(
-            "Trainer.load_states is not ported yet: it comes with "
-            "save_parameters / load_parameters in the next training slice")
+    def save_states(self, fname):
+        """Write the optimizer side of a checkpoint (module note), as the
+        JAX package's ``Trainer.save_states`` does and readable by it."""
+        def to_np(s):
+            if s is None:
+                return None
+            if isinstance(s, torch.Tensor):
+                return pickle_leaf(s)
+            return [to_np(x) for x in s]
+
+        payload = {
+            "format": 2,
+            "states": [to_np(s) for s in self._states],
+            "created": list(self._states_created),
+            "num_update": self._optimizer.num_update,  # format-1 readers
+            "optimizer": self._optimizer.bookkeeping_state(),
+            "param_meta": [(p.name, dtype_name(p.dtype))
+                           for p in self._params],
+            "stale": self._stale_indices(),
+            "scale": self._scale,
+        }
+        with open(fname, "wb") as f:
+            pickle.dump(payload, f)
+
+    def load_states(self, fname):
+        """Inverse of :meth:`save_states`, for the port's files and the JAX
+        package's. A payload whose parameter count or dtypes differ from
+        this trainer's raises ``ValueError`` before anything is touched; a
+        format-1 payload (no bookkeeping) still loads. States load in place
+        where they exist alike (module note)."""
+        with open(fname, "rb") as f:
+            payload = pickle_load(f)
+        states = payload["states"]
+        if len(states) != len(self._params):
+            raise ValueError(
+                f"optimizer-state payload {fname!r} holds {len(states)} "
+                f"parameter states but this trainer has "
+                f"{len(self._params)} parameters: wrong model or stale "
+                f"checkpoint")
+        for i, (name, dt) in enumerate(payload.get("param_meta") or []):
+            p = self._params[i]
+            if dt is not None and dt != dtype_name(p.dtype):
+                raise ValueError(
+                    f"optimizer-state payload {fname!r}: param {i} "
+                    f"({name!r}) was saved with dtype {dt}, trainer param "
+                    f"{p.name!r} declares {dtype_name(p.dtype)}")
+        states = [_state_tensors(s) for s in states]
+        for i, s in enumerate(states):
+            self._put_state(i, s)
+        self._states_created = [bool(c) for c in payload["created"]]
+        opt_state = payload.get("optimizer")
+        if opt_state is not None:
+            self._optimizer.load_bookkeeping_state(opt_state)
+        else:
+            self._optimizer.num_update = payload["num_update"]
+        if "scale" in payload:
+            self._scale = float(payload["scale"])
+        if "stale" in payload:
+            # stale again against this process's gradient versions
+            self._grad_versions = {
+                i: self._params[i]._grad_version for i in payload["stale"]
+                if self._params[i].grad_req != "null"
+                and self._params[i]._var is not None}
+
+    def _put_state(self, i, state):
+        """Parameter ``i``'s optimizer state becomes ``state`` (CPU
+        tensors): copied into the existing state where it was created with
+        the same nesting, shapes and dtypes, so the state objects keep their
+        identity and storage; else put on the parameter's device."""
+        cur = self._states[i]
+        if self._states_created[i] and _fits(cur, state):
+            with torch.no_grad():
+                _copy_into(cur, state)
+            return
+        p = self._params[i]
+        device = p.device if p._var is not None or p._deferred is not None \
+            else None
+        self._states[i] = _to_device(state, device)
+        self._states_created[i] = True
+
+
+def _state_tensors(s):
+    """A state of a payload as the port nests it: lists become tuples,
+    numpy leaves CPU tensors."""
+    if s is None:
+        return None
+    if isinstance(s, (list, tuple)):
+        return tuple(_state_tensors(x) for x in s)
+    if isinstance(s, torch.Tensor):
+        return s
+    return torch.from_numpy(_np.array(s))
+
+
+def _fits(cur, new):
+    if cur is None or new is None:
+        return cur is None and new is None
+    if isinstance(cur, torch.Tensor) or isinstance(new, torch.Tensor):
+        return (isinstance(cur, torch.Tensor) and isinstance(new, torch.Tensor)
+                and cur.shape == new.shape and cur.dtype == new.dtype)
+    return len(cur) == len(new) and all(_fits(a, b)
+                                        for a, b in zip(cur, new))
+
+
+def _copy_into(cur, new):
+    if isinstance(cur, torch.Tensor):
+        cur.copy_(new)
+    elif cur is not None:
+        for a, b in zip(cur, new):
+            _copy_into(a, b)
+
+
+def _to_device(s, device):
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return tuple(_to_device(x, device) for x in s)
+    return s.to(device) if device is not None else s

@@ -112,6 +112,14 @@ _FLOAT_FNS = {
     "i0": torch.i0, "sinc": torch.sinc,
 }
 
+
+def _angle(z):
+    # numpy's arctan2(imag, real): -0.0 is pi, where torch.angle gives 0
+    if z.is_complex():
+        return torch.angle(z)
+    return torch.atan2(torch.zeros_like(z), z)
+
+
 _UNARY_FNS = {name: _promote.float_fn(fn) for name, fn in _FLOAT_FNS.items()}
 _UNARY_FNS.update({
     "abs": _promote.bool_same(torch.abs), "absolute": _promote.bool_same(torch.abs),
@@ -128,7 +136,7 @@ _UNARY_FNS.update({
     "sign": _promote.no_bool(torch.sign, "sign"), "signbit": torch.signbit,
     "square": lambda x: torch.square(
         x.to(_promote.numeric_dtype(x.dtype))),
-    "angle": _promote.default_float(torch.angle),
+    "angle": _promote.default_float(_angle),
     "real": torch.clone, "imag": torch.zeros_like,
     "nan_to_num": torch.nan_to_num,
 })
@@ -257,12 +265,46 @@ def _pad(array, pad_width, mode="constant", constant_values=0):
     return torch.nn.functional.pad(array, flat, value=constant_values)
 
 
-def _take(a, indices, axis=None, mode=None):  # noqa: ARG001
+def _take_fill(dtype):
+    """What ``jnp.take`` puts where a 'fill' index is out of range."""
+    if dtype == torch.bool:
+        return True
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    info = torch.iinfo(dtype)
+    return info.min if dtype.is_signed else info.max
+
+
+def _take(a, indices, axis=None, mode=None):
+    """``jnp.take``: 'fill' (the default) puts :func:`_take_fill` where an
+    index is out of ``[-n, n)``, 'clip' clamps, 'wrap' wraps; 'raise'
+    raises, as it does in the JAX package."""
+    mode = "fill" if mode is None else mode
+    if mode == "raise":
+        raise NotImplementedError(
+            "The 'raise' mode to take is not supported.")
+    if mode not in ("fill", "clip", "wrap"):
+        raise ValueError(f"Invalid mode {mode!r} for take")
     idx = torch.as_tensor(indices, device=a.device).long()
     if axis is None:
-        return a.reshape(-1)[idx]
+        a, axis = a.reshape(-1), 0
     axis %= a.dim()
+    n = a.shape[axis]
+    out_of_range = None
+    if mode == "clip":
+        idx = idx.clamp(0, n - 1)
+    elif mode == "wrap":
+        idx = idx.remainder(n)
+    else:
+        out_of_range = (idx < -n) | (idx >= n)
+        idx = torch.where(out_of_range, 0, idx.remainder(builtins.max(n, 1)))
     out = a.movedim(axis, 0)[idx]
+    if out_of_range is not None:
+        mask = out_of_range.reshape(out_of_range.shape
+                                    + (1,) * (out.dim() - idx.dim()))
+        out = torch.where(mask, torch.tensor(_take_fill(a.dtype),
+                                             dtype=a.dtype,
+                                             device=a.device), out)
     return out.movedim(tuple(range(idx.dim())),
                        tuple(range(axis, axis + idx.dim())))
 
@@ -348,7 +390,19 @@ def _cross(a, b, axis=-1):
 
 
 def _round(a, decimals=0):
+    # an integer array rounds to itself; jnp refuses decimals < 0 for one
+    if not (a.is_floating_point() or a.is_complex() or a.dtype == torch.bool):
+        if decimals < 0:
+            raise NotImplementedError(
+                "integer np.round not implemented for decimals < 0")
+        return a.clone()
     return torch.round(a, decimals=decimals)
+
+
+def _clip(a, a_min=None, a_max=None):
+    if a_min is None and a_max is None:
+        return a.clone()
+    return torch.clamp(a, a_min, a_max)
 
 
 def _unique(ar):
@@ -518,25 +572,29 @@ _OTHER_FNS = {
     "trace": _trace, "tril": lambda m, k=0: torch.tril(m, k),
     "triu": lambda m, k=0: torch.triu(m, k), "tri": _tri, "eye": _eye,
     "identity": _identity, "vander": _vander,
-    "dot": _ops.np_dot, "vdot": _vdot, "inner": torch.inner,
-    "outer": _outer, "matmul": torch.matmul, "tensordot": _tensordot,
-    "kron": torch.kron, "cross": _cross,
-    "clip": lambda a, a_min=None, a_max=None: torch.clamp(a, a_min, a_max),
+    "dot": _promote.product(_ops.np_dot), "vdot": _promote.product(_vdot),
+    "inner": _promote.product(torch.inner), "outer": _outer,
+    "matmul": _promote.product(torch.matmul),
+    "tensordot": _promote.product(_tensordot),
+    "kron": torch.kron, "cross": _cross, "clip": _clip,
     "round": _round, "around": _round,
     "unique": _unique, "unique_values": _unique,
     "unique_counts": _unique_counts, "unique_inverse": _unique_inverse,
-    "union1d": _union1d, "intersect1d": _intersect1d,
-    "setdiff1d": _setdiff1d, "setxor1d": _setxor1d, "in1d": _in1d,
-    "isin": _isin,
+    "union1d": _union1d, "intersect1d": _promote.set_fn(_intersect1d),
+    "setdiff1d": _promote.set_fn(_setdiff1d),
+    "setxor1d": _promote.set_fn(_setxor1d), "in1d": _promote.set_fn(_in1d),
+    "isin": _promote.set_fn(_isin),
     "atleast_1d": torch.atleast_1d, "atleast_2d": torch.atleast_2d,
     "atleast_3d": torch.atleast_3d,
     "meshgrid": lambda *xi, indexing="xy": tuple(
         torch.meshgrid(*xi, indexing=indexing)),
     "unravel_index": _unravel_index, "diag_indices": _diag_indices,
     "tril_indices": _tril_indices, "triu_indices": _triu_indices,
-    "bincount": _bincount, "digitize": _digitize, "corrcoef": _corrcoef,
-    "cov": _cov, "diff": _diff, "ediff1d": _ediff1d,
-    "trapezoid": _trapezoid, "isclose": _isclose, "allclose": _allclose,
+    "bincount": _bincount, "digitize": _digitize,
+    "corrcoef": _promote.inexact_args(_corrcoef),
+    "cov": _promote.inexact_args(_cov), "diff": _diff, "ediff1d": _ediff1d,
+    "trapezoid": _promote.inexact_args(_trapezoid), "isclose": _isclose,
+    "allclose": _allclose,
     "array_equal": _array_equal, "append": _append,
     "matrix_transpose": _matrix_transpose,
 }
@@ -617,7 +675,7 @@ __all__ = ["ndarray", "array", "zeros", "ones", "full", "arange",
            "zeros_like", "ones_like", "full_like", "dtype", "pi", "e", "inf", "nan", "newaxis", "euler_gamma",
            "float16", "float32", "float64", "bfloat16", "int8", "int16",
            "int32", "int64", "uint8", "bool_", "put_along_axis", "einsum",
-           "MISSING"]
+           "concat", "fix", "round_", "MISSING"]
 
 _g = globals()
 #: names of the JAX package's lists that have a counterpart here

@@ -15,7 +15,11 @@ through the helpers here:
   float64 from a 64-bit int, float32 from anything narrower;
 * :func:`binary`: a binary function of a given kind (``same``,
   ``numeric``, ``power``, ``inexact``) over tensors and Python scalars,
-  with the tensors cast to the result dtype before torch sees them.
+  with the tensors cast to the result dtype before torch sees them;
+* :func:`product`, :func:`set_fn`, :func:`inexact_args`: products, set
+  functions and statistics over operands of two dtypes or of bool, which
+  torch refuses (two bools give a bool product and bool set values; cov,
+  corrcoef and trapezoid compute in the inexact dtype).
 
 Integer ``floor_divide``, ``mod``, ``remainder`` and ``fmod`` by a zero
 element return the JAX package's values on the CPU and on the card alike,
@@ -42,7 +46,8 @@ import torch
 
 __all__ = ["is_weak", "result_dtype", "inexact_dtype", "inexact",
            "numeric_dtype", "bool_same", "default_float", "float_fn",
-           "float_only", "no_bool", "relu", "binary", "divmod_pair", "KINDS"]
+           "float_only", "no_bool", "relu", "binary", "divmod_pair", "KINDS",
+           "product", "set_fn", "inexact_args"]
 
 
 def is_weak(x):
@@ -168,6 +173,51 @@ def _cast(x, dt):
     if isinstance(x, torch.Tensor):
         return x if x.dtype == dt else x.to(dt)
     return torch.tensor(x, dtype=dt)
+
+
+def product(fn):
+    """``fn(a, b)``, a product (dot, vdot, inner, matmul, tensordot), with
+    the operands in their :func:`result_dtype`. Two bools give a bool, True
+    where any pair of Trues meets, as ``jnp.dot`` gives: the sum of the 0/1
+    products in float32, tested ``> 0`` (exact: no term is negative)."""
+    def wrapped(a, b, *args, **kwargs):
+        dt = result_dtype(a, b)
+        if dt == torch.bool:
+            return fn(_cast(a, torch.float32), _cast(b, torch.float32),
+                      *args, **kwargs) > 0
+        return fn(_cast(a, dt), _cast(b, dt), *args, **kwargs)
+    wrapped.__name__ = getattr(fn, "__name__", "product")
+    return wrapped
+
+
+def set_fn(fn):
+    """``fn(a, b)``, a set function (isin, in1d, intersect1d, setdiff1d,
+    setxor1d), with the operands in their :func:`result_dtype`; torch's
+    refuse bool, so two bools compute as uint8 and values come back bool."""
+    def wrapped(a, b, *args, **kwargs):
+        dt = result_dtype(a, b)
+        work = torch.uint8 if dt == torch.bool else dt
+        out = fn(_cast(a, work), _cast(b, work), *args, **kwargs)
+        return out.to(torch.bool) if out.dtype == torch.uint8 \
+            and dt == torch.bool else out
+    wrapped.__name__ = getattr(fn, "__name__", "set_fn")
+    return wrapped
+
+
+def inexact_args(fn):
+    """``fn`` with its tensor arguments in :func:`inexact_dtype` of their
+    :func:`result_dtype` (cov, corrcoef and trapezoid of ints and bools)."""
+    def wrapped(*args, **kwargs):
+        tensors = [a for a in (*args, *kwargs.values())
+                   if isinstance(a, torch.Tensor)]
+        dt = inexact_dtype(result_dtype(*tensors))
+        args = [_cast(a, dt) if isinstance(a, torch.Tensor) else a
+                for a in args]
+        kwargs = {k: _cast(v, dt) if isinstance(v, torch.Tensor) else v
+                  for k, v in kwargs.items()}
+        return fn(*args, **kwargs)
+    wrapped.__name__ = getattr(fn, "__name__", "inexact_args")
+    return wrapped
 
 
 def _host_value(b):

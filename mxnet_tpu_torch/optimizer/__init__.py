@@ -7,6 +7,8 @@ from .optimizer import (  # noqa: F401
     Optimizer,
     SGD,
     Signum,
+    Updater,
     create,
+    get_updater,
     register,
 )

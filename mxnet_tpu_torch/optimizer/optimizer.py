@@ -25,13 +25,19 @@ port's form of the JAX package's buffer donation.
 
 Scalars follow the JAX package's weak-typed f32 scalars: a hyperparameter
 is rounded to f32 before it meets a tensor, and expressions of scalars only
-(``1 - beta1``, ``beta2 ** t``, Adam's ``lr_t``) are evaluated in f32.
+(``1 - beta1``, ``beta2 ** t``, Adam's ``lr_t``) are evaluated in f32. A
+weak type takes the array's dtype, so where a scalar meets a bf16 or f16
+tensor (a low-precision weight without an f32 master) it is rounded on to
+that dtype, and each op rounds its result to it, as in the JAX package.
 
-Ported now: SGD, NAG, Signum, Adam, AdamW. The other rules of the JAX
-package and row-sparse gradients wait for a later slice; ``create`` raises
-``NotImplementedError`` for them.
+Ported now: SGD, NAG, Signum, Adam, AdamW, the bookkeeping a checkpoint
+carries (``bookkeeping_state``) and the kvstore-side ``Updater``. The other
+rules of the JAX package and row-sparse gradients wait for a later slice;
+``create`` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
+
+import pickle
 
 import numpy as _np
 import torch
@@ -39,7 +45,7 @@ import torch
 from ..kernels import opt as _kopt
 
 __all__ = ["Optimizer", "register", "create", "SGD", "NAG", "Signum",
-           "Adam", "AdamW"]
+           "Adam", "AdamW", "Updater", "get_updater"]
 
 _REG = {}
 
@@ -75,10 +81,17 @@ _F32 = _np.float32
 _ONE = _F32(1.0)
 
 
-def _s(x):
+_LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+def _s(x, like=None):
     """A Python float holding ``x`` rounded to f32: what a weak-typed f32
-    scalar of the JAX package is when it meets an f32 tensor."""
-    return float(_F32(x))
+    scalar of the JAX package is when it meets an f32 tensor; where it
+    meets ``like``, a bf16 or f16 tensor, rounded on to that dtype."""
+    v = float(_F32(x))
+    if like is not None and like.dtype in _LOW_PRECISION:
+        return torch.tensor(v, dtype=like.dtype).item()
+    return v
 
 
 def _write_state(state, new_state):
@@ -143,6 +156,25 @@ class Optimizer:
         self._index_update_count[index] += 1
         self.num_update = max(self.num_update,
                               self._index_update_count[index])
+
+    # -- checkpoint bookkeeping ------------------------------------------
+    def bookkeeping_state(self):
+        """The schedule's state, JSON-able: ``num_update`` drives the
+        lr_scheduler and each parameter's count is its ``t`` (Adam's bias
+        correction). A checkpoint without them restarts both on resume."""
+        return {
+            "num_update": int(self.num_update),
+            "index_update_count": {
+                int(k): int(v) for k, v in self._index_update_count.items()},
+        }
+
+    def load_bookkeeping_state(self, state):
+        """Inverse of :meth:`bookkeeping_state` (keys may arrive as str
+        after a JSON round trip)."""
+        self.num_update = int(state.get("num_update", 0))
+        self._index_update_count = {
+            int(k): int(v)
+            for k, v in (state.get("index_update_count") or {}).items()}
 
     def _get_lr(self, index):
         lr = self.learning_rate
@@ -214,11 +246,11 @@ class Optimizer:
                 # rescale and clip on the f32 master's side
                 master, inner = st
                 g = g.float()
-            g = g * _s(h["rescale_grad"])
+            g = g * _s(h["rescale_grad"], g)
             if gn:
-                g = g * _s(scale)
+                g = g * _s(scale, g)
             if clip is not None:
-                g = g.clamp(-clip, clip)
+                g = g.clamp(-_s(clip, g), _s(clip, g))
             if mp:
                 nm, ni = cls._rule(master, g, inner, lr, wd, h)
                 master.copy_(nm)
@@ -409,11 +441,11 @@ class SGD(Optimizer):
 
     @staticmethod
     def _rule(w, g, state, lr, wd, hyper):
-        lr, wd = _s(lr), _s(wd)
+        lr, wd = _s(lr, w), _s(wd, w)
         g = g + wd * w
         if state is None:
             return w - lr * g, None
-        mom = _s(hyper["momentum"]) * state - lr * g
+        mom = _s(hyper["momentum"], w) * state - lr * g
         return w + mom, mom
 
 
@@ -423,11 +455,11 @@ class NAG(SGD):
 
     @staticmethod
     def _rule(w, g, state, lr, wd, hyper):
-        lr, wd = _s(lr), _s(wd)
+        lr, wd = _s(lr, w), _s(wd, w)
         g = g + wd * w
         if state is None:
             return w - lr * g, None
-        momentum = _s(hyper["momentum"])
+        momentum = _s(hyper["momentum"], w)
         mom = momentum * state - lr * g
         return w + momentum * mom - lr * g, mom
 
@@ -451,13 +483,13 @@ class Signum(Optimizer):
 
     @staticmethod
     def _rule(w, g, state, lr, wd, hyper):
-        g = g + _s(wd) * w
+        g = g + _s(wd, w) * w
         if state is None:
-            return w - _s(lr) * torch.sign(g), None
+            return w - _s(lr, w) * torch.sign(g), None
         momentum = _F32(hyper["momentum"])
-        mom = float(momentum) * state - float(_ONE - momentum) * g
-        lr_wd_lh = float(_F32(lr) * _F32(hyper["wd_lh"]))
-        new_w = w + _s(lr) * torch.sign(mom) - lr_wd_lh * w
+        mom = _s(momentum, w) * state - _s(_ONE - momentum, w) * g
+        lr_wd_lh = _s(_F32(lr) * _F32(hyper["wd_lh"]), w)
+        new_w = w + _s(lr, w) * torch.sign(mom) - lr_wd_lh * w
         return new_w, mom
 
 
@@ -468,8 +500,8 @@ def _adam_moments(g, state, hyper):
     kernels/opt.py:bucket_step_dev_reference)."""
     m, v = state
     b1, b2 = _F32(hyper["beta1"]), _F32(hyper["beta2"])
-    m = float(b1) * m + float(_ONE - b1) * g
-    v = float(b2) * v + float(_ONE - b2) * g * g
+    m = _s(b1, m) * m + _s(_ONE - b1, m) * g
+    v = _s(b2, v) * v + _s(_ONE - b2, v) * g * g
     if "b1c" in hyper:
         return m, v, _F32(hyper["b1c"]), _F32(hyper["b2c"])
     t = _F32(hyper["t"])
@@ -494,10 +526,10 @@ class Adam(Optimizer):
 
     @staticmethod
     def _rule(w, g, state, lr, wd, hyper):
-        g = g + _s(wd) * w
+        g = g + _s(wd, w) * w
         m, v, c1, c2 = _adam_moments(g, state, hyper)
-        lr_t = float(_F32(lr) * _np.sqrt(c2) / c1)
-        return w - lr_t * m / (torch.sqrt(v) + _s(hyper["eps"])), (m, v)
+        lr_t = _s(_F32(lr) * _np.sqrt(c2) / c1, w)
+        return w - lr_t * m / (torch.sqrt(v) + _s(hyper["eps"], w)), (m, v)
 
 
 @register
@@ -507,7 +539,89 @@ class AdamW(Adam):
     @staticmethod
     def _rule(w, g, state, lr, wd, hyper):
         m, v, c1, c2 = _adam_moments(g, state, hyper)
-        mhat = m / float(c1)
-        vhat = v / float(c2)
-        upd = mhat / (torch.sqrt(vhat) + _s(hyper["eps"])) + _s(wd) * w
-        return w - _s(lr) * upd, (m, v)
+        mhat = m / _s(c1, m)
+        vhat = v / _s(c2, v)
+        upd = mhat / (torch.sqrt(vhat) + _s(hyper["eps"], w)) + _s(wd, w) * w
+        return w - _s(lr, w) * upd, (m, v)
+
+
+class Updater:
+    """The kvstore-side updater (optimizer.py:Updater): the callable a
+    server registers, which keeps one optimizer state per key and applies
+    ``update_multi_precision(key, weight, grad, state)``."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+        # key -> flat leaf list of a loaded checkpoint, grafted into the
+        # state created at the key's first update (its nesting is known
+        # only once create_state has seen a weight)
+        self.pending_loaded = {}
+
+    def __call__(self, index, grad, weight):
+        if not isinstance(index, (list, tuple)):
+            index, grad, weight = [index], [grad], [weight]
+        for i, g, w in zip(index, grad, weight):
+            if isinstance(i, bytes):
+                i = i.decode()
+            if i not in self.states:
+                st = self.optimizer.create_state_multi_precision(i, w)
+                flat = self.pending_loaded.pop(i, None)
+                if flat is None:
+                    flat = self.pending_loaded.pop(str(i), None)
+                if flat is not None:
+                    st = _graft_state(st, list(flat))
+                self.states[i] = st
+            self.optimizer.update_multi_precision(i, w, g, self.states[i])
+
+    def set_states(self, states):
+        """Load what :meth:`get_states` gave (with the optimizer, where it
+        was dumped)."""
+        payload = pickle.loads(states)
+        if isinstance(payload, dict) and "optimizer" in payload:
+            self.optimizer = payload["optimizer"]
+            payload = payload["states"]
+        self.states = payload
+
+    def get_states(self, dump_optimizer=False):
+        """The states pickled (tensors keep their device), with the
+        optimizer under ``dump_optimizer``."""
+        if dump_optimizer:
+            return pickle.dumps({"states": self.states,
+                                 "optimizer": self.optimizer})
+        return pickle.dumps(self.states)
+
+
+def _graft_state(state, flat):
+    """``state``, freshly created, with the loaded leaf values ``flat`` (in
+    flatten order) in place of its own, keeping its nesting, dtypes and
+    device. A leaf count that differs (a checkpoint of another optimizer)
+    raises ``ValueError``."""
+    def count(s):
+        if isinstance(s, torch.Tensor):
+            return 1
+        if isinstance(s, (list, tuple)):
+            return sum(count(x) for x in s)
+        return 0
+
+    expected = count(state)
+    if expected != len(flat):
+        raise ValueError(
+            f"optimizer state checkpoint has {len(flat)} leaves but the "
+            f"current optimizer's state wants {expected}: was it saved "
+            f"under a different optimizer? (load_optimizer_states)")
+
+    def walk(s):
+        if isinstance(s, torch.Tensor):
+            leaf = torch.as_tensor(flat.pop(0))
+            return leaf.to(device=s.device, dtype=s.dtype, copy=True)
+        if isinstance(s, (list, tuple)):
+            return type(s)(walk(x) for x in s)
+        return s
+
+    return walk(state)
+
+
+def get_updater(optimizer):
+    """An :class:`Updater` over ``optimizer`` (optimizer.py:get_updater)."""
+    return Updater(optimizer)

@@ -228,8 +228,7 @@ def test_arguments_that_wait_raise():
     for kv in (None, "device", "local"):
         mt.gluon.Trainer(params, "sgd", kvstore=kv)
     tr = mt.gluon.Trainer(params, "sgd")
-    for call in (lambda: tr.save_states("x"), lambda: tr.load_states("x"),
-                 lambda: mt.amp.LossScaler(),
+    for call in (lambda: mt.amp.LossScaler(),
                  lambda: mt.amp.convert_hybrid_block(tnet, graph_pass=True),
                  lambda: mt.amp.convert_hybrid_block(tnet, fp32_ops=["x"])):
         with pytest.raises(NotImplementedError, match="not ported yet"):
