@@ -137,11 +137,34 @@ failure exits non-zero, nothing is caught and carried on:
      answer from ``load_parameters`` with no capture, and a retyping load
      (``cast_dtype=True, dtype_source='saved'``) captures each rung again.
      File sizes and save and load seconds beside the card.
- 17. a ``timing`` line (profiler windows taken, windows that came back
+ 17. LAMB under AMP, a main path: BERT-base as 6 but initialized with
+     ``mx.initializer.Xavier()`` and trained by LAMB (lr 1e-3, wd 0.01,
+     the global-norm clip at 1.0, f32 masters) through MXNet's AMP loop
+     (``amp.init``, ``convert_hybrid_block``, ``init_trainer``, the
+     backward inside ``scale_loss``, ``unscale``, ``has_overflow``,
+     ``trainer.step`` without an overflow, ``update_scale``); 2 warm-up
+     steps, then the counts are zeroed just before 5 counted steps and
+     read just after: K4, K5a, K5b 12 tensor-core launches a step, the
+     global-norm kernel once per bucket a step, no ladder launch (every
+     member decided ``unsupported_rule``, as the JAX package's ladder
+     decides), scale 1 and no overflow, losses finite, and the batch's
+     loss in predict mode lower after the steps than before them. Step
+     ms, host ms and samples/s beside phase 6's AdamW step; the
+     optimizer's share of the step's stream time (CUDA events around
+     ``trainer.step``) and its update alone beside its byte bound. Then,
+     without dropout, 3 steps through the kernels against 3 through their
+     plain versions from the same weights, as in 6.
+ 18. the 14 optimizer rules: one fused update of each (SGLD's per
+     parameter, its normal draws given) over a 2-layer BERT at full width,
+     in f32, bf16 and bf16 with f32 masters, with wd, a rescale and a
+     per-element clip, on the card and on the CPU from one state; every
+     leaf within 4 f32 ulps (one bf16 ulp for a bf16 leaf) of its largest
+     value plus 1e-3 of its largest change.
+ 19. a ``timing`` line (profiler windows taken, windows that came back
      without device events, and times taken with CUDA events instead
      where the profiler recorded none), a ``{"kernels": [...]}`` line
-     (with each kernel's launches on the TrainStep paths and on the
-     resumed steps), the card line, and as the last line
+     (with each kernel's launches on the TrainStep paths, on the resumed
+     steps and on the LAMB steps), the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --bn-sites ROOT`` runs no phase but this: K1 and
@@ -3058,6 +3081,330 @@ def gc_collect(torch):
     torch.cuda.empty_cache()
 
 
+# -- LAMB under AMP, a main path (phase 17) ----------------------------------
+
+LAMB_LR = 1e-3
+
+
+def _lamb_build(finetune, mt, dev, dropout, **model_kwargs):
+    """BERT-base (or ``model_kwargs``' cut) for LAMB under MXNet's AMP loop:
+    Xavier-initialized, bf16 with f32 masters, lr 1e-3, wd 0.01, the
+    global-norm clip at 1.0 (finetune's defaults beside those)."""
+    return finetune.build_bert_finetune(
+        batch=8, seq=384, dropout=dropout, dtype="bfloat16",
+        learning_rate=LAMB_LR, device=dev, seed=0, optimizer="lamb",
+        init=mt.initializer.Xavier(), amp_loop=True, **model_kwargs)
+
+
+def _timed_optimizer(torch, trainer):
+    """Wrap ``trainer.step`` so that each call records a pair of CUDA
+    events on the current stream; returns the list of pairs."""
+    pairs, inner = [], trainer.step
+
+    def step(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    trainer.step = step
+    return pairs
+
+
+def _lamb_alone_ms(torch, topt, trainer):
+    """The LAMB update of every trainable parameter alone, as update_fused
+    issues it, on copies of the trainer's weights, states and gradients
+    (two sets, each past the L2): summed kernel time of the profiler
+    (:func:`device_ms`), host-issued (CUDA events), and the bytes of its
+    byte bound (each master, m and v read and written, each gradient read
+    and each low-precision weight written once)."""
+    opt = trainer.optimizer
+    kw = dict(learning_rate=opt.lr, wd=opt.wd, rescale_grad=1.0 / 8,
+              clip_global_norm=opt.clip_global_norm, multi_precision=True,
+              beta1=opt.beta1, beta2=opt.beta2, epsilon=opt.epsilon)
+    members = [(i, p) for i, p in enumerate(trainer._params)
+               if p.grad_req != "null"]
+    nbytes = 0
+    for i, p in members:
+        w = p._tensor()
+        st = trainer._states[i]
+        mp = opt._is_mp_state(w, st)
+        master = st[0] if mp else w
+        # master, m, v read and written; the gradient read; the bf16 weight
+        # written
+        nbytes += 3 * 2 * master.numel() * 4 + w.numel() * w.element_size()
+        nbytes += w.numel() * w.element_size() if mp else 0
+    sets = []
+    for _ in range(2):
+        sets.append(([i for i, _ in members],
+                     [p._tensor().detach().clone() for _, p in members],
+                     [p.grad().clone() for _, p in members],
+                     [_clone_state(trainer._states[i]) for i, _ in members]))
+    opts = [topt.LAMB(**kw) for _ in sets]
+
+    def update(k):
+        idx, ws, gs, sts = sets[k]
+        opts[k].update_multi_precision(idx, ws, gs, sts)
+
+    ms = device_ms(torch, [partial(update, 0), partial(update, 1)], iters=4)
+    host = cuda_ms(torch, partial(update, 0), iters=3)
+    del sets
+    return dict(ms=ms, ms_host_issued=host, bytes=nbytes,
+                bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
+
+
+def _batch_loss(mt, net, batch):
+    """The mean loss of the fixed batch in predict mode (no dropout, not
+    recorded): what the training steps move, without their dropout
+    noise."""
+    tokens, segments, starts, ends = batch
+    lf = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    s, e = net(tokens, segments)
+    return (lf(s.float(), starts) + lf(e.float(), ends)).mean().item()
+
+
+def phase_lamb_amp(torch, mt, finetune, build, kopt, topt, dispatch, dev,
+                   adamw=None, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS,
+                   **model_kwargs):
+    """Phase 17 (module docstring). ``adamw``: phase 6's summary, printed
+    beside. ``model_kwargs`` cut the model (the card tests)."""
+    net, trainer, step = _lamb_build(finetune, mt, dev, 0.1, **model_kwargs)
+    layers = len(net.bert.encoder.layers)
+    n_train = len(net.trainable_param_names())
+    eval_before = _batch_loss(mt, net, step.batch)
+    warm, _ = _run_steps(torch, step, warmup)
+    build.reset_counters()                       # main path: counts from 0
+    kopt.TENSORS.reset()
+    dispatch.reset_counts()
+    pairs = _timed_optimizer(torch, trainer)
+    losses, secs, host, step_ev = [], [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss = step()
+        end.record()
+        host.append(time.perf_counter() - t0)
+        losses.append(loss.float().mean().item())     # synchronises
+        secs.append(time.perf_counter() - t0)
+        step_ev.append((start, end))
+    launches = {c.name: c.value for c in build.COUNTERS.values()}  # after
+    outcomes = {f"{k}:{o}": n for (k, o), n in dispatch.COUNTS.items()}
+    plan = opt_plan(kopt, trainer)
+    eval_after = _batch_loss(mt, net, step.batch)
+    torch.cuda.synchronize()
+    opt_ms = [a.elapsed_time(b) for a, b in pairs]
+    step_stream_ms = [a.elapsed_time(b) for a, b in step_ev]
+    scaler = trainer._amp_loss_scaler
+
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        check(launches[name] == launches[f"{name}_mma"] == layers * steps
+              and launches[f"{name}_fp32"] == 0,
+              f"LAMB: {name} {launches[name]} launches, "
+              f"{launches[name + '_mma']} tensor-core; want {layers} x "
+              f"{steps}")
+    check(launches["opt_sqnorm"] == plan["buckets"] * steps
+          and launches["opt_ladder"] == 0 and kopt.TENSORS.value == 0,
+          f"LAMB: opt_sqnorm {launches['opt_sqnorm']}, opt_ladder "
+          f"{launches['opt_ladder']}; want {plan['buckets']} x {steps} norm "
+          f"launches and no ladder launch")
+    check(outcomes == {"opt_lamb:unsupported_rule": steps * n_train},
+          f"LAMB dispatch outcomes {outcomes}")
+    check(scaler.loss_scale == 1.0 and not any(step.overflows),
+          f"LAMB: loss scale {scaler.loss_scale}, overflows "
+          f"{step.overflows}")
+    check(all(math.isfinite(x) for x in warm + losses
+                  + [eval_before, eval_after]),
+          f"LAMB: non-finite loss {warm + losses}, batch loss "
+          f"{eval_before} -> {eval_after}")
+    # the training losses carry each step's dropout noise (about 0.5 at
+    # this loss near 2 ln 384): the fall is read on the batch's loss
+    # without dropout, before the warm-up steps and after the counted ones
+    check(eval_after < eval_before,
+          f"LAMB: the loss did not fall: the batch's loss in predict mode "
+          f"{eval_before} before the steps, {eval_after} after (training "
+          f"losses: warm-up {warm}, counted {losses})")
+    for name, p in net.collect_params().items():
+        check(bool(torch.isfinite(p._tensor().float()).all()),
+              f"LAMB: non-finite parameter {name}")
+    p50 = sorted(secs)[len(secs) // 2]
+    summary = dict(
+        model=f"BERTForQA(bert_12_768_12{', ' if model_kwargs else ''}"
+              f"{', '.join(f'{k}={v}' for k, v in model_kwargs.items())})",
+        init="Xavier()", dtype="bfloat16+f32 masters", batch=8, seq=384,
+        dropout=0.1, optimizer="lamb", lr=LAMB_LR, wd=0.01,
+        clip_global_norm=1.0, amp="init, convert_hybrid_block, "
+        "init_trainer, scale_loss, unscale, has_overflow, update_scale",
+        warmup_steps=warmup, warmup_losses=warm, steps=steps, losses=losses,
+        batch_loss_predict_mode=[eval_before, eval_after],
+        loss_scale=scaler.loss_scale, overflows=step.overflows,
+        trainable_parameters=n_train, step_ms=[1e3 * s for s in secs],
+        step_ms_p50=1e3 * p50,
+        host_ms=[1e3 * h for h in host],
+        host_ms_p50=1e3 * sorted(host)[len(host) // 2],
+        samples_per_s=8 / p50, step_stream_ms=step_stream_ms,
+        optimizer_stream_ms=opt_ms,
+        optimizer_share_of_step=sum(opt_ms) / sum(step_stream_ms),
+        launches={k: v for k, v in launches.items() if v},
+        dispatch=outcomes, opt_plan=plan,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        card=card_line())
+    if adamw is not None:
+        summary["adamw_phase6_step_ms_p50"] = adamw["step_ms_p50"]
+        summary["adamw_phase6_samples_per_s"] = adamw["samples_per_s"]
+    summary["optimizer_alone"] = _lamb_alone_ms(torch, topt, trainer)
+    say(f"lamb_amp: {json.dumps(summary)}")
+    del net, trainer, step, pairs
+    gc_collect(torch)
+
+    # kernels against their plain versions from one state, without dropout,
+    # as phase 6 holds them
+    runs = {}
+    for label in ("kernels", "plain"):
+        if label == "plain":
+            os.environ["MXTPU_FLASH_ATTENTION"] = "0"
+        build.reset_counters()
+        try:
+            with ladder_swap(kopt, label == "plain"):
+                net, trainer, step = _lamb_build(finetune, mt, dev, 0.0,
+                                                 **model_kwargs)
+                runs[label], _ = _run_steps(torch, step, 3)
+        finally:
+            os.environ.pop("MXTPU_FLASH_ATTENTION", None)
+        used = {k: build.COUNTERS[k].value for k in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv", "opt_sqnorm")}
+        check(all(n > 0 for n in used.values()) if label == "kernels"
+              else not any(used.values()),
+              f"LAMB {label} run: kernel launches {used}")
+        del net, trainer, step
+        gc_collect(torch)
+    diffs = [abs(a - b) for a, b in zip(runs["kernels"], runs["plain"])]
+    say(f"LAMB kernels vs plain (dropout 0, 3 steps): kernels "
+        f"{runs['kernels']} plain {runs['plain']} max diff {max(diffs):.3g} "
+        f"(tol 0.03)")
+    check(max(diffs) <= 0.03, f"LAMB kernel and plain training disagree: "
+                              f"{diffs}")
+    summary["kernels_vs_plain_max_loss_diff"] = max(diffs)
+    return summary
+
+
+# -- the 14 rules on the card against the CPU (phase 18) ---------------------
+
+SWEEP_RULES = ("sgld", "dcasgd", "nadam", "adabelief", "adamax", "ftml",
+               "rmsprop", "adagrad", "adadelta", "ftrl", "lamb", "lans",
+               "lars", "groupadagrad")
+
+
+def _rule_sides(torch, topt, rule, case, dev, weights, grads, noise):
+    """One fused update of ``rule`` over ``weights`` on ``dev`` in
+    ``case`` (f32, bf16, bf16 + f32 masters), with wd, a rescale and a
+    per-element clip: ``(before, after)``, each a list of ``(w, state)``
+    on the CPU. SGLD's normal draws are ``noise``, given."""
+    dt = torch.float32 if case == "f32" else torch.bfloat16
+    kw = dict(wd=0.0 if rule == "groupadagrad" else 1e-3,
+              rescale_grad=1.0 / 8, clip_gradient=0.5,
+              multi_precision=case == "bf16_mp")
+    opt = topt.create(rule, **kw)
+    ws = [w.to(device=dev, dtype=dt, copy=True) for w in weights]
+    gs = [g.to(device=dev, dtype=dt, copy=True) for g in grads]
+    sts = [opt.create_state_multi_precision(i, w) for i, w in enumerate(ws)]
+    before = [(_cpu_state(torch, w), _cpu_state(torch, s))
+              for w, s in zip(ws, sts)]
+    given = {id(w): n for w, n in zip(ws, noise)}
+    saved = topt._sgld_normal
+    topt._sgld_normal = lambda w: given[id(w)].to(w.device)
+    if case == "bf16_mp":   # SGLD's update runs on the masters
+        given.update({id(s[0]): n for s, n in zip(sts, noise)})
+    try:
+        opt.update_multi_precision(list(range(len(ws))), ws, gs, sts)
+    finally:
+        topt._sgld_normal = saved
+    return before, [(_cpu_state(torch, w), _cpu_state(torch, s))
+                    for w, s in zip(ws, sts)]
+
+
+def _cpu_state(torch, s):
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return tuple(_cpu_state(torch, x) for x in s)
+    return s.detach().to("cpu", copy=True)
+
+
+def phase_rule_sweep(torch, mt, kopt, topt, dev, **model_kwargs):
+    """Phase 18 (module docstring): every leaf of the card's update within
+    4 f32 ulps of its largest value (one bf16 ulp for a bf16 leaf) plus
+    1e-3 of its largest change of the CPU's."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    cfg = dict(dict(num_layers=2), **model_kwargs)
+    net = bert.BERTForQA(bert.bert_12_768_12(vocab_size=30522,
+                                             max_length=512, **cfg))
+    net.initialize(device=mt.cpu(),
+                   generator=torch.Generator().manual_seed(3))
+    weights = [p._tensor().detach() for _, p in sorted(
+        net.collect_params().items()) if p.grad_req != "null"]
+    gen = torch.Generator().manual_seed(4)
+    grads = [torch.randn(w.shape, generator=gen) for w in weights]
+    noise = [torch.randn(w.shape, generator=gen) for w in weights]
+    n_elems = sum(w.numel() for w in weights)
+    rows, worst = [], 0.0
+    for rule in SWEEP_RULES:
+        keep = [k for k, w in enumerate(weights)
+                if rule != "groupadagrad" or w.dim() >= 2]
+        ws, gs, ns = ([x[k] for k in keep] for x in (weights, grads, noise))
+        for case in ("f32", "bf16", "bf16_mp"):
+            t0 = time.perf_counter()
+            before, cpu = _rule_sides(torch, topt, rule, case, "cpu", ws, gs,
+                                      ns)
+            t1 = time.perf_counter()
+            _, card = _rule_sides(torch, topt, rule, case, dev, ws, gs, ns)
+            t2 = time.perf_counter()
+            label = f"rule sweep {rule} {case}"
+            ratio = 0.0
+            # a bf16 weight without a master may not move by an update
+            # smaller than half its ulp; the update as a whole must
+            check(any(bool((w[0] != b[0]).any())
+                       for w, b in zip(cpu, before)),
+                  f"{label}: no weight changed")
+            for k, (a, w, b) in enumerate(zip(card, cpu, before)):
+                al, wl, bl = (kopt._leaves(x) for x in (a, w, b))
+                check(len(al) == len(wl) == len(bl), f"{label}: leaf count")
+                for x, y, y0 in zip(al, wl, bl):
+                    err = (x.float() - y.float()).abs().max().item()
+                    big = y.float().abs().max().item()
+                    moved = (y.float() - y0.float()).abs().max().item()
+                    ulp = F32_EPS if y.dtype == torch.float32 else 2.0 ** -7
+                    n_ulp = 4 if y.dtype == torch.float32 else 1
+                    tol = n_ulp * ulp * big + 1e-3 * moved
+                    check(err <= tol, f"{label}: weight {k}, a "
+                          f"{y.dtype} leaf: card vs CPU {err:.3g} (tol "
+                          f"{tol:.3g})")
+                    if tol > 0:
+                        ratio = max(ratio, err / tol)
+            worst = max(worst, ratio)
+            rows.append(dict(rule=rule, case=case, tensors=len(ws),
+                             max_err_over_tol=ratio,
+                             cpu_s=t1 - t0, card_s=t2 - t1))
+    out = dict(model=f"BERTForQA(bert_12_768_12, {cfg})",
+               parameters=n_elems, tensors=len(weights), cases=rows,
+               max_err_over_tol=worst,
+               tolerance="per leaf: 4 f32 ulps (1 bf16 ulp for a bf16 leaf)"
+                         " of its largest value + 1e-3 of its largest "
+                         "change on the CPU; SGLD with the noise given")
+    say(f"rule_sweep: {json.dumps(out)}")
+    del net, weights, grads, noise
+    gc_collect(torch)
+    return out
+
+
 def main():
     import torch
 
@@ -3134,8 +3481,12 @@ def main():
     # 16. checkpoint and resume
     resume = phase_resume(torch, mt, finetune, serving, build, kopt,
                           mt.gpu(0))
+    # 17. LAMB under AMP; 18. the 14 rules, the card against the CPU
+    lamb = phase_lamb_amp(torch, mt, finetune, build, kopt, topt, dispatch,
+                          mt.gpu(0), adamw=train)
+    rule_sweep = phase_rule_sweep(torch, mt, kopt, topt, mt.gpu(0))
 
-    # 17. the kernels line, card, ok. Each row's case is the main paths'
+    # 19. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over
@@ -3314,8 +3665,18 @@ def main():
             "phased": resume["launches"].get(k["name"], 0),
             "train_step": resume["train_step"]["launches"].get(k["name"],
                                                                 0)}
+        # and over the 5 counted LAMB steps under AMP of phase 17
+        m["lamb_amp_launches"] = lamb["launches"].get(k["name"], 0)
         kernels.append(dict(name=k["name"], route=k["route"],
                             source=k["source"], replaces=k["replaces"], **m))
+    say(f"lamb_amp summary: step {lamb['step_ms_p50']:.2f} ms (AdamW, "
+        f"phase 6: {train['step_ms_p50']:.2f}), host "
+        f"{lamb['host_ms_p50']:.2f} ms, {lamb['samples_per_s']:.1f} "
+        f"samples/s, optimizer {lamb['optimizer_share_of_step']:.3f} of the "
+        f"step's stream time, alone {lamb['optimizer_alone']['ms']:.3f} ms "
+        f"against a bound of {lamb['optimizer_alone']['bound_ms']:.3f}; rule "
+        f"sweep worst {rule_sweep['max_err_over_tol']:.3g} of its "
+        f"tolerance")
     say(f"timing: {json.dumps(TIMING)}")
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

@@ -7,7 +7,7 @@ passes a CPU device or opens a device scope (``with mx.cpu():``).
 """
 from __future__ import annotations
 
-from . import amp, autograd, env, gluon, lr_scheduler, optimizer
+from . import amp, autograd, env, gluon, initializer, lr_scheduler, optimizer
 from . import ndarray as nd
 from . import numpy as np
 from . import numpy_extension as npx
@@ -18,7 +18,7 @@ from .device import cpu, current_device, default_device, gpu, tpu
 from .ndarray import NDArray, waitall
 from .numpy import random
 
-__all__ = ["amp", "autograd", "env", "gluon", "lr_scheduler", "optimizer",
-           "nd", "np", "npx", "random", "rtc", "seed", "waitall", "NDArray",
-           "MXNetError", "cpu", "gpu", "tpu", "current_device",
-           "default_device"]
+__all__ = ["amp", "autograd", "env", "gluon", "initializer", "lr_scheduler",
+           "optimizer", "nd", "np", "npx", "random", "rtc", "seed",
+           "waitall", "NDArray", "MXNetError", "cpu", "gpu", "tpu",
+           "current_device", "default_device"]

@@ -9,8 +9,9 @@ mode, not recording. The tape is torch autograd's: :func:`backward` and
 ones, whatever its shape; several heads are summed in one pass), and
 gradients land in the buffers that ``gluon.Parameter`` or
 :func:`mark_variables` attached, by their ``grad_req``. Heads, head
-gradients and variables may be tensors or NDArrays. ``Function``
-(custom differentiable functions) is not ported yet.
+gradients and variables may be tensors or NDArrays. :class:`Function`
+(a custom differentiable function written as ``forward`` and
+``backward``) rides on ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ from contextlib import contextmanager
 
 import torch
 
-__all__ = ["is_recording", "is_training", "record", "pause", "train_mode",
-           "predict_mode", "backward", "grad", "mark_variables"]
+__all__ = ["is_recording", "is_training", "set_recording", "set_training",
+           "record", "pause", "train_mode", "predict_mode", "backward",
+           "grad", "mark_variables", "Function"]
 
 
 class _State(threading.local):
@@ -40,6 +42,20 @@ def is_recording():
 def is_training():
     """True iff in train mode."""
     return _state.training
+
+
+def set_recording(is_rec):
+    """Turn recording on or off; returns the previous state."""
+    prev = _state.recording
+    _state.recording = bool(is_rec)
+    return prev
+
+
+def set_training(train):
+    """Turn train mode on or off; returns the previous state."""
+    prev = _state.training
+    _state.training = bool(train)
+    return prev
 
 
 @contextmanager
@@ -164,6 +180,8 @@ def mark_variables(variables, gradients, grad_reqs="write"):
             continue
 
         def land(v, buf=buf, req=req):
+            if v.grad is None:    # a Function's None gradient: untouched
+                return
             with torch.no_grad():
                 if req == "add":
                     buf.add_(v.grad)
@@ -172,3 +190,86 @@ def mark_variables(variables, gradients, grad_reqs="write"):
             v.grad = None
 
         var._mxtpu_grad_hook = var.register_post_accumulate_grad_hook(land)
+
+
+class _Bridge(torch.autograd.Function):
+    """Runs a :class:`Function`'s ``forward`` and ``backward`` as a node of
+    torch's tape; the arguments after ``func`` are the call's inputs as
+    given (tensors, NDArrays' tensors, other values)."""
+
+    @staticmethod
+    def forward(ctx, func, kinds, *args):
+        from .ndarray.ndarray import NDArray
+
+        ctx.func, ctx.kinds = func, kinds
+        inputs = [NDArray(a) if k == "nd" else a for a, k in zip(args, kinds)]
+        with pause():
+            out = func.forward(*inputs)
+        multi = isinstance(out, (tuple, list))
+        outs = list(out) if multi else [out]
+        ctx.out_nd = [isinstance(o, NDArray) for o in outs]
+        func._out_form = (multi, ctx.out_nd)   # for Function.__call__
+        return tuple(_tensors(outs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray.ndarray import NDArray
+
+        cts = [NDArray(g) if nd else g for g, nd in zip(grads, ctx.out_nd)]
+        with pause():
+            got = ctx.func.backward(*cts)
+        if not isinstance(got, (tuple, list)):
+            got = (got,)
+        got = [None if g is None else getattr(g, "_data", g) for g in got]
+        if len(got) != len(ctx.kinds):
+            raise ValueError(
+                f"{type(ctx.func).__name__}.backward returned {len(got)} "
+                f"gradients for {len(ctx.kinds)} inputs")
+        return (None, None, *[g if k != "other" else None
+                              for g, k in zip(got, ctx.kinds)])
+
+
+class Function:
+    """A custom differentiable function (autograd.py:Function): subclass it
+    with ``forward(self, *inputs)`` and ``backward(self, *output_grads)``,
+    which returns one gradient (or None) per input. Inputs and outputs are
+    NDArrays or tensors; ``backward`` gets its output gradients as what
+    ``forward`` returned (NDArrays for NDArrays). ``forward`` runs
+    unrecorded and ``backward`` under :func:`pause`, as in the JAX package;
+    ``save_for_backward`` keeps what ``backward`` needs in
+    ``saved_tensors``. Inside :func:`record`, with an input that needs a
+    gradient, the call is one node of torch's tape."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *arrays):
+        self._saved = arrays
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+
+        kinds = tuple("nd" if isinstance(a, NDArray) else "tensor"
+                      if isinstance(a, torch.Tensor) else "other"
+                      for a in inputs)
+        args = [a._data if k == "nd" else a for a, k in zip(inputs, kinds)]
+        if not (is_recording() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in args)):
+            with pause():
+                return self.forward(*inputs)
+        with torch.enable_grad():
+            outs = _Bridge.apply(self, kinds, *args)
+        multi, out_nd = self._out_form
+        wrapped = [NDArray(o) if nd else o for o, nd in zip(outs, out_nd)]
+        return tuple(wrapped) if multi else wrapped[0]

@@ -136,7 +136,8 @@ class Block(torch.nn.Module):
         device = _device.resolve(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        for p in self.collect_params().values():
+        for name, p in self.collect_params().items():
+            p._structured_name = name
             p.initialize(default_init=init, device=device,
                          generator=generator, force_reinit=force_reinit)
         seeds = torch.randint(0, 2 ** 62, (2,), generator=generator,

@@ -89,6 +89,9 @@ class Parameter:
         self._var = None       # torch.nn.Parameter once initialized
         self._deferred = None  # (init, device, generator) until shape known
         self._owners = []      # (module, attribute) exposing _var
+        # the collect_params() key of the Block that initialized it, which
+        # Load and Mixed route by
+        self._structured_name = None
 
     # -- shape -------------------------------------------------------------
     @property
@@ -123,32 +126,39 @@ class Parameter:
     # -- initialization ----------------------------------------------------
     def initialize(self, init=None, device=None, default_init=None,
                    generator=None, force_reinit=False):
-        """Draw the value on ``device`` from ``generator``. The declared
-        ``init`` (or ``self.init``) wins over ``default_init`` (Uniform by
-        default), as in the JAX package. With an unknown shape the draw
+        """Draw the value on ``device`` from ``generator``, by the JAX
+        package's protocol (gluon/parameter.py:_finish_init): the global
+        initializer ``default_init`` (Uniform by default) is called with
+        the declared ``init`` (or ``self.init``) in an ``InitDesc``, so a
+        declared init wins over a standard global one, while ``Mixed`` and
+        ``Load`` drive every parameter. With an unknown shape the draw
         waits for the layer's first forward."""
         if self._var is not None and not force_reinit:
             return
         if device is None:
             raise ValueError(f"Parameter {self.name}: initialize needs a "
                              "device")
-        init = init if init is not None else self.init
-        if init is None:
-            init = default_init if default_init is not None \
-                else init_mod.Uniform()
+        declared = init if init is not None else self.init
+        inits = (declared, default_init if default_init is not None
+                 else init_mod.Uniform())
         if not _shape_known(self._shape):
             if not self.allow_deferred_init:
                 raise ValueError(
                     f"Cannot initialize Parameter {self.name}: unknown "
                     f"shape {self._shape} and allow_deferred_init=False")
-            self._deferred = (init, torch.device(device), generator)
+            self._deferred = (inits, torch.device(device), generator)
             return
-        self._finish_init(init, torch.device(device), generator)
+        self._finish_init(inits, torch.device(device), generator)
 
-    def _finish_init(self, init, device, generator):
+    def _finish_init(self, inits, device, generator):
+        declared, global_init = inits
+        desc = init_mod.InitDesc(
+            self._structured_name or self.name,
+            {"__init__": declared} if declared is not None else {})
         with torch.inference_mode(False):
-            data = init_mod.create(init).init_tensor(
-                self._shape, self.dtype, device, generator)
+            data = init_mod.create(global_init).init_array(
+                desc, self._shape, self.dtype, device, generator,
+                explicit=declared is None)
             self._set_var(data)
         self._deferred = None
 
@@ -269,6 +279,8 @@ class Parameter:
     def _land_grad(self, var):
         # runs once per backward, after torch has summed every use of var
         g, var.grad = var.grad, None
+        if g is None:      # an autograd.Function's None gradient
+            return
         if self._grad_req == "add" and self._grad is not None:
             with torch.no_grad():
                 self._grad.add_(g)

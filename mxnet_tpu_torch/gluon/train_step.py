@@ -224,7 +224,7 @@ class TrainStep:
             outcome = _kopt._decide(cls, mp, w, st, p.grad())
             if outcome != "kernel":
                 return (f"param {p.name}: the optimizer ladder kernel does "
-                        f"not take it ({outcome})")
+                        f"not take it under {cls.__name__} ({outcome})")
         return None
 
     def _eligible(self):

@@ -21,8 +21,8 @@ the twin of ``Optimizer._fused_sqnorm`` (:func:`bucket_sqnorm_reference`).
 Which of the two runs is decided for each member before any launch, by the
 rule, the dtypes and the device alone, and counted by outcome
 (kernels/dispatch.py) under ``opt_<rule>``: ``unsupported_rule`` (not one
-of SGD, NAG, Signum, Adam, AdamW: a rule that couples elements cannot run
-per element); ``unsupported_dtype``; ``platform`` (the tensors are not CUDA
+of SGD, NAG, Signum, Adam, AdamW, the rules of the JAX package's Pallas
+ladder; the others, LAMB's layer-wise norms among them, run plain); ``unsupported_dtype``; ``platform`` (the tensors are not CUDA
 tensors); else ``kernel``. The members decided ``kernel`` go into one
 launch; once the decision is ``kernel``, a build or launch failure raises.
 The TPU kernel's size rule (a multiple of 1024 elements) was a lane rule:
@@ -85,7 +85,9 @@ CHUNK = 8192
 TABLE_CAPACITY = 384
 NORM_BLOCKS = 1024
 #: f32 values a member of :func:`bucket_step_dev` reads from its scalar
-#: buffer: lr, wd, b1c, b2c, lr_t, c1, rescale, unused (kScalarStride)
+#: buffer: lr, wd, b1c, b2c, lr_t, c1, rescale (kScalarStride), then the
+#: update count t, which the kernel does not read: the plain version hands
+#: it to a rule that computes its own powers of t (Nadam, FTML, LAMB, ...)
 SCALAR_STRIDE = 8
 
 #: one table entry, the layout of ``struct Entry`` in csrc/opt_ladder.cu
@@ -182,7 +184,7 @@ def _powf(x, y):
 
 def _hyper_f32(name, hyper):
     """(h0, h1, h2) of rule ``name`` as f32, zeros where it has none."""
-    hs = [_F32(hyper[k]) for k in _RULE_HYPER[name]]
+    hs = [_F32(hyper[k]) for k in _RULE_HYPER.get(name, ())]
     return tuple(hs + [_F32(0.0)] * (3 - len(hs)))
 
 
@@ -205,15 +207,15 @@ def ladder_scalars(cls, hyper, rescale, steps):
     """The scalar rows of :func:`bucket_step_dev` for members whose
     ``(lr, wd, t)`` are ``steps``: an f32 numpy array of shape
     ``(len(steps), SCALAR_STRIDE)``, each row :func:`_scalars` of its
-    member, then ``rescale`` in f32, then 0. Host work only."""
+    member, then ``rescale`` and ``t`` in f32. Host work only."""
     name = cls.__name__
     h0, h1, _ = _hyper_f32(name, hyper)
-    tail = (_F32(rescale), _F32(0.0))
     memo, rows = {}, []
     for key in steps:
         row = memo.get(key)
         if row is None:
-            row = memo[key] = _scalars(name, h0, h1, *key) + tail
+            row = memo[key] = _scalars(name, h0, h1, *key) + (
+                _F32(rescale), _F32(key[2]))
         rows.append(row)
     return _np.array(rows, dtype=_F32).reshape(len(steps), SCALAR_STRIDE)
 
@@ -432,15 +434,15 @@ def _launch_bucket_dev(name, clip, mp, members, scalars, hyper):
 def bucket_step_dev_reference(cls, clip, mp, members, scalars, hyper):
     """The plain version of :func:`bucket_step_dev`:
     ``Optimizer._fused_param_step`` over each ``(w, st, g)`` with the lr,
-    wd, ``1 - beta^t`` and rescale of its row of ``scalars`` (read on the
-    host: on a CUDA tensor this synchronises)."""
+    wd, ``1 - beta^t``, rescale and t of its row of ``scalars`` (read on
+    the host: on a CUDA tensor this synchronises)."""
     from ..optimizer.optimizer import Optimizer
     rows = scalars.tolist()
     for (w, st, g), row in zip(members, rows):
-        lr, wd, b1c, b2c, _lr_t, _c1, rescale = row[:7]
+        lr, wd, b1c, b2c, _lr_t, _c1, rescale, t = row
         h = dict(hyper, rescale_grad=rescale, b1c=b1c, b2c=b2c)
         Optimizer._fused_param_step(cls, clip, False, mp, w, st, g, lr, wd,
-                                    None, 1.0, h)
+                                    int(t), 1.0, h)
 
 
 def bucket_step_dev(cls, clip, mp, members, scalars, hyper):

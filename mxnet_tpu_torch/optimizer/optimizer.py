@@ -30,10 +30,17 @@ weak type takes the array's dtype, so where a scalar meets a bf16 or f16
 tensor (a low-precision weight without an f32 master) it is rounded on to
 that dtype, and each op rounds its result to it, as in the JAX package.
 
-Ported now: SGD, NAG, Signum, Adam, AdamW, the bookkeeping a checkpoint
-carries (``bookkeeping_state``) and the kvstore-side ``Updater``. The other
-rules of the JAX package and row-sparse gradients wait for a later slice;
-``create`` raises ``NotImplementedError`` for them.
+Every rule of the JAX package is here: SGD, NAG, Signum and Adam/AdamW,
+which the CUDA ladder kernel also runs; SGLD, DCASGD, Nadam, AdaBelief,
+Adamax, FTML, RMSProp, AdaGrad, AdaDelta, Ftrl, LAMB, LANS, LARS and
+GroupAdaGrad, which run as plain PyTorch on every device, as the JAX
+package's XLA path runs them (its Pallas ladder takes the first five only).
+A rule that reads its update count computes ``beta^t`` from ``hyper["t"]``
+with libm's ``powf``, in f32. The layer-wise rules (LAMB, LANS, LARS) keep
+their trust ratios on the device (``torch.where``), so a step reads no
+norm on the host. Beside them: the bookkeeping a checkpoint carries
+(``bookkeeping_state``) and the kvstore-side ``Updater``. Row-sparse
+gradients wait for ``ndarray/sparse.py``.
 """
 from __future__ import annotations
 
@@ -42,17 +49,15 @@ import pickle
 import numpy as _np
 import torch
 
+from .. import _random
 from ..kernels import opt as _kopt
 
 __all__ = ["Optimizer", "register", "create", "SGD", "NAG", "Signum",
-           "Adam", "AdamW", "Updater", "get_updater"]
+           "Adam", "AdamW", "SGLD", "DCASGD", "Nadam", "AdaBelief", "Adamax",
+           "FTML", "RMSProp", "AdaGrad", "AdaDelta", "Ftrl", "LAMB", "LANS",
+           "LARS", "GroupAdaGrad", "Updater", "get_updater"]
 
 _REG = {}
-
-#: rules of the JAX package that a later slice ports
-_LATER_RULES = frozenset((
-    "sgld", "dcasgd", "nadam", "adabelief", "adamax", "ftml", "rmsprop",
-    "adagrad", "adadelta", "ftrl", "lamb", "lans", "lars", "groupadagrad"))
 
 
 def register(klass):
@@ -66,11 +71,6 @@ def create(name, **kwargs):
     if isinstance(name, Optimizer):
         return name
     key = str(name).lower()
-    if key in _LATER_RULES:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet: the PyTorch port has "
-            f"{sorted(_REG)}; the remaining rules come with the slice that "
-            f"ports ResNet training")
     if key not in _REG:
         raise ValueError(f"unknown optimizer {name!r}; choose from "
                          f"{sorted(_REG)}")
@@ -543,6 +543,436 @@ class AdamW(Adam):
         vhat = v / _s(c2, v)
         upd = mhat / (torch.sqrt(vhat) + _s(hyper["eps"], w)) + _s(wd, w) * w
         return w - _s(lr, w) * upd, (m, v)
+
+
+def _bias(beta, t):
+    """``1 - beta^t`` in f32, with libm's ``powf``."""
+    return _ONE - _kopt._powf(_F32(beta), _F32(t))
+
+
+def _sq32(x):
+    """``x * x`` for a sum in f32: of a bf16 or f16 ``x``, the squares of
+    its f32 values, unrounded, as XLA computes ``(x * x).astype(f32)`` (it
+    drops the rounding to ``x``'s dtype before the widening)."""
+    return x.float().square() if x.dtype in _LOW_PRECISION else x * x
+
+
+def _norm(x):
+    """The L2 norm of ``x`` as a 0-dim tensor of its dtype, as
+    ``jnp.linalg.norm`` computes it under XLA: the squares summed in f32
+    (:func:`_sq32`), the sum rounded to ``x``'s dtype, then the root. It
+    stays on the device."""
+    return _sq32(x).sum().to(x.dtype).sqrt()
+
+
+def _trust(num, den, lower, upper, like):
+    """A layer-wise trust ratio on the device: ``num / den`` where both
+    are positive, else 1; then at least ``lower`` and, where ``upper`` is
+    positive, at most ``|upper|`` (LAMB and LANS, optimizer.py:1015)."""
+    ratio = torch.where((num > 0) & (den > 0), num / den, 1.0)
+    ratio = torch.clamp_min(ratio, _s(lower, like))
+    if upper > 0:
+        ratio = torch.clamp_max(ratio, _s(abs(upper), like))
+    return ratio
+
+
+def _sgld_normal(weight):
+    """SGLD's standard normal draws for ``weight``, in f32, from the port's
+    generator of the weight's device (``_random.generator``)."""
+    noise = torch.empty(weight.shape, dtype=torch.float32,
+                        device=weight.device)
+    return noise.normal_(generator=_random.generator(weight.device))
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (optimizer.py:SGLD). It
+    overrides ``update``, so a list of parameters takes the per-parameter
+    loop, as in the JAX package."""
+
+    def __init__(self, learning_rate=0.01, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+
+    def update(self, index, weight, grad, state):
+        if isinstance(index, (list, tuple)):
+            self._update_list(index, weight, grad, state,
+                              multi_precision=False)
+            return
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        with torch.no_grad():
+            g = grad * _s(self.rescale_grad, grad)
+            if self.clip_gradient is not None:
+                c = _s(self.clip_gradient, g)
+                g = g.clamp(-c, c)
+            g = g + _s(wd, weight) * weight
+            noise = _sgld_normal(weight) * _s(_np.sqrt(_F32(lr)))
+            weight.copy_(weight - _s(_F32(lr) / _F32(2), weight) * g
+                         + noise.to(weight.dtype))
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (optimizer.py:DCASGD). The state
+    is ``(momentum or None, previous weight)``."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, lamda=0.04,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = None if self.momentum == 0.0 else torch.zeros_like(
+            weight, requires_grad=False)
+        return (mom, weight.detach().clone())
+
+    def _hyper(self):
+        return {"momentum": self.momentum, "lamda": self.lamda}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        mom, prev_w = state
+        comp = g + _s(wd, w) * w + _s(hyper["lamda"], g) * g * g * (
+            w - prev_w)
+        if mom is None:
+            new_mom = None
+            upd = _s(-_F32(lr), comp) * comp
+        else:
+            new_mom = _s(hyper["momentum"], mom) * mom - _s(lr, comp) * comp
+            upd = new_mom
+        nw = w + upd
+        return nw, (new_mom, nw)
+
+
+@register
+class Nadam(Adam):
+    """Nesterov Adam (optimizer.py:Nadam)."""
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        m, v = state
+        b1, b2, t = _F32(hyper["beta1"]), _F32(hyper["beta2"]), hyper["t"]
+        g = g + _s(wd, w) * w
+        m = _s(b1, m) * m + _s(_ONE - b1, m) * g
+        v = _s(b2, v) * v + _s(_ONE - b2, v) * g * g
+        mhat = m / _s(_bias(b1, t + 1), m)
+        vhat = v / _s(_bias(b2, t), v)
+        m_bar = _s(b1, m) * mhat + _s(_ONE - b1, g) * g / _s(_bias(b1, t), g)
+        return (w - _s(lr, w) * m_bar
+                / (torch.sqrt(vhat) + _s(hyper["eps"], w))), (m, v)
+
+
+@register
+class AdaBelief(Adam):
+    """AdaBelief (optimizer.py:AdaBelief): the variance of ``g - m`` in
+    place of ``g^2``."""
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        m, s = state
+        b1, b2, t = _F32(hyper["beta1"]), _F32(hyper["beta2"]), hyper["t"]
+        eps = hyper["eps"]
+        g = g + _s(wd, w) * w
+        m = _s(b1, m) * m + _s(_ONE - b1, m) * g
+        s = (_s(b2, s) * s + _s(_ONE - b2, s) * torch.square(g - m)
+             + _s(eps, s))
+        lr_t = _s(_F32(lr) * _np.sqrt(_bias(b2, t)) / _bias(b1, t), w)
+        return w - lr_t * m / (torch.sqrt(s) + _s(eps, w)), (m, s)
+
+
+@register
+class Adamax(Adam):
+    """Adamax, Adam with the infinity norm (optimizer.py:Adamax)."""
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        m, u = state
+        b1, b2, t = _F32(hyper["beta1"]), _F32(hyper["beta2"]), hyper["t"]
+        g = g + _s(wd, w) * w
+        m = _s(b1, m) * m + _s(_ONE - b1, m) * g
+        u = torch.maximum(_s(b2, u) * u, torch.abs(g))
+        step = _s(_F32(lr) / _bias(b1, t), w)
+        return w - step * m / (u + _s(hyper["eps"], u)), (m, u)
+
+
+@register
+class FTML(Optimizer):
+    """Follow the Moving Leader (optimizer.py:FTML). The state is
+    ``(d, v, z)``."""
+
+    def __init__(self, learning_rate=0.0025, beta1=0.6, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return tuple(torch.zeros_like(weight, requires_grad=False)
+                     for _ in range(3))
+
+    def _hyper(self):
+        return {"beta1": self.beta1, "beta2": self.beta2, "eps": self.epsilon}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        d_prev, v, z = state
+        b1, b2, t = _F32(hyper["beta1"]), _F32(hyper["beta2"]), hyper["t"]
+        g = g + _s(wd, w) * w
+        v = _s(b2, v) * v + _s(_ONE - b2, v) * g * g
+        d = _s(_bias(b1, t) / _F32(lr), v) * (
+            torch.sqrt(v / _s(_bias(b2, t), v)) + _s(hyper["eps"], v))
+        sigma = d - _s(b1, d) * d_prev
+        z = _s(b1, z) * z + _s(_ONE - b1, z) * g - sigma * w
+        return -z / d, (d, v, z)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp (optimizer.py:RMSProp). The state is ``(n,)``, or ``(n, mg,
+    delta)`` when ``centered``."""
+
+    def __init__(self, learning_rate=0.001, rho=0.9, momentum=0.9,
+                 epsilon=1e-8, centered=False, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.rho, self.momentum, self.epsilon = rho, momentum, epsilon
+        self.centered = centered
+
+    def create_state(self, index, weight):
+        return tuple(torch.zeros_like(weight, requires_grad=False)
+                     for _ in range(3 if self.centered else 1))
+
+    def _hyper(self):
+        return {"rho": self.rho, "momentum": self.momentum,
+                "eps": self.epsilon}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        rho, eps = _F32(hyper["rho"]), hyper["eps"]
+        g = g + _s(wd, w) * w
+        if len(state) == 1:
+            (n,) = state
+            n = _s(rho, n) * n + _s(_ONE - rho, n) * g * g
+            return (w - _s(lr, g) * g / (torch.sqrt(n) + _s(eps, n))), (n,)
+        n, mg, delta = state
+        n = _s(rho, n) * n + _s(_ONE - rho, n) * g * g
+        mg = _s(rho, mg) * mg + _s(_ONE - rho, mg) * g
+        delta = _s(hyper["momentum"], delta) * delta - _s(lr, g) * g / (
+            torch.sqrt(n - mg * mg + _s(eps, n)))
+        return w + delta, (n, mg, delta)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (optimizer.py:AdaGrad)."""
+
+    def __init__(self, learning_rate=0.01, epsilon=1e-7, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight, requires_grad=False)
+
+    def _hyper(self):
+        return {"eps": self.epsilon}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        g = g + _s(wd, w) * w
+        hist = state + g * g
+        return (w - _s(lr, g) * g
+                / (torch.sqrt(hist) + _s(hyper["eps"], hist))), hist
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (optimizer.py:AdaDelta)."""
+
+    def __init__(self, learning_rate=1.0, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, requires_grad=False),
+                torch.zeros_like(weight, requires_grad=False))
+
+    def _hyper(self):
+        return {"rho": self.rho, "eps": self.epsilon}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        acc_g, acc_d = state
+        rho, eps = _F32(hyper["rho"]), hyper["eps"]
+        g = g + _s(wd, w) * w
+        acc_g = _s(rho, acc_g) * acc_g + _s(_ONE - rho, acc_g) * g * g
+        delta = (torch.sqrt(acc_d + _s(eps, acc_d))
+                 / torch.sqrt(acc_g + _s(eps, acc_g)) * g)
+        acc_d = (_s(rho, acc_d) * acc_d
+                 + _s(_ONE - rho, acc_d) * delta * delta)
+        return w - _s(lr, delta) * delta, (acc_g, acc_d)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (optimizer.py:Ftrl). The state is ``(z, n)``."""
+
+    def __init__(self, learning_rate=0.1, lamda1=0.01, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, requires_grad=False),
+                torch.zeros_like(weight, requires_grad=False))
+
+    def _hyper(self):
+        return {"lamda1": self.lamda1, "beta": self.beta}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        z, n = state
+        l1 = _s(hyper["lamda1"], z)
+        sigma = (torch.sqrt(n + g * g) - torch.sqrt(n)) / _s(lr, n)
+        z = z + g - sigma * w
+        n = n + g * g
+        den = (_s(hyper["beta"], n) + torch.sqrt(n)) / _s(lr, n) + _s(wd, n)
+        new_w = torch.where(torch.abs(z) > l1,
+                            -(z - torch.sign(z) * l1) / den,
+                            torch.zeros_like(w))
+        return new_w, (z, n)
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive moments for batch training (optimizer.py:LAMB):
+    Adam's step scaled per tensor by ``||w|| / ||r||``, kept on the
+    device."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, requires_grad=False),
+                torch.zeros_like(weight, requires_grad=False))
+
+    def _hyper(self):
+        return {"beta1": self.beta1, "beta2": self.beta2, "eps": self.epsilon,
+                "lower": self.lower_bound or 0.0,
+                "upper": self.upper_bound or -1.0,
+                "bias_corr": 1.0 if self.bias_correction else 0.0}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        m, v = state
+        b1, b2, t = _F32(hyper["beta1"]), _F32(hyper["beta2"]), hyper["t"]
+        m = _s(b1, m) * m + _s(_ONE - b1, m) * g
+        v = _s(b2, v) * v + _s(_ONE - b2, v) * g * g
+        if hyper["bias_corr"] > 0:
+            mhat = m / _s(_bias(b1, t), m)
+            vhat = v / _s(_bias(b2, t), v)
+        else:
+            mhat, vhat = m, v
+        r = mhat / (torch.sqrt(vhat) + _s(hyper["eps"], w)) + _s(wd, w) * w
+        ratio = _trust(_norm(w), _norm(r), hyper["lower"], hyper["upper"], w)
+        return w - _s(lr, w) * ratio * r, (m, v)
+
+
+@register
+class LANS(LAMB):
+    """LAMB with Nesterov momentum and a normalised gradient
+    (optimizer.py:LANS): two trust ratios, one for the momentum part and
+    one for the gradient part."""
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        m, v = state
+        b1, b2, t = _F32(hyper["beta1"]), _F32(hyper["beta2"]), hyper["t"]
+        g = g / torch.clamp_min(_norm(g), _s(1e-12, g))
+        m = _s(b1, m) * m + _s(_ONE - b1, m) * g
+        v = _s(b2, v) * v + _s(_ONE - b2, v) * g * g
+        mhat = m / _s(_bias(b1, t), m)
+        vhat = v / _s(_bias(b2, t), v)
+        denom = torch.sqrt(vhat) + _s(hyper["eps"], vhat)
+        r1 = mhat / denom + _s(wd, w) * w
+        r2 = g / denom + _s(wd, w) * w
+        w_norm = _norm(w)
+        lo, up = hyper["lower"], hyper["upper"]
+        upd = (_s(b1, w) * _trust(w_norm, _norm(r1), lo, up, w) * r1
+               + _s(_ONE - b1, w) * _trust(w_norm, _norm(r2), lo, up, w)
+               * r2)
+        return w - _s(lr, w) * upd, (m, v)
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling (optimizer.py:LARS), the trust
+    ratio kept on the device."""
+
+    def __init__(self, learning_rate=0.1, momentum=0.9, eta=0.001,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum, self.eta, self.epsilon = momentum, eta, epsilon
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight, requires_grad=False)
+
+    def _hyper(self):
+        return {"momentum": self.momentum, "eta": self.eta,
+                "eps": self.epsilon}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):
+        w_norm, g_norm = _norm(w), _norm(g)
+        wd_s = _s(wd, w)
+        trust = torch.where(
+            (w_norm > 0) & (g_norm > 0),
+            _s(hyper["eta"], w) * w_norm / (g_norm + wd_s * w_norm
+                                            + _s(hyper["eps"], w)), 1.0)
+        g = g + wd_s * w
+        mom = _s(hyper["momentum"], state) * state + _s(lr, w) * trust * g
+        return w - mom, mom
+
+
+@register
+class GroupAdaGrad(Optimizer):
+    """AdaGrad with one accumulator per row (optimizer.py:GroupAdaGrad):
+    ``history += mean(g^2 over the other axes)``, a ``(rows, 1)`` state.
+    Weight decay and weights of fewer than 2 dimensions are refused, as in
+    the JAX package. A weight of more than 2 dimensions is taken row-wise
+    too (the JAX package broadcasts its ``(rows, 1)`` history against a
+    ``(rows, 1, 1)`` mean: it computes only where the first two dimensions
+    are equal, with these values, its history grown to ``(rows, d1,
+    1)``)."""
+
+    def __init__(self, learning_rate=0.01, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        if self.wd != 0.0:
+            raise ValueError("GroupAdaGrad does not support weight decay")
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        if weight.dim() < 2:
+            raise ValueError(
+                "GroupAdaGrad needs >= 2-d weights (row-wise history)")
+        return torch.zeros((weight.shape[0], 1), dtype=weight.dtype,
+                           device=weight.device)
+
+    def _hyper(self):
+        return {"eps": self.epsilon}
+
+    @staticmethod
+    def _rule(w, g, state, lr, wd, hyper):  # noqa: ARG004 - no weight decay
+        axes = tuple(range(1, g.dim()))
+        mean = _sq32(g).mean(dim=axes).to(g.dtype)
+        hist = state + mean.reshape(state.shape)
+        # each row's history against that row's elements, whatever the
+        # weight's rank
+        rows = hist.reshape((g.shape[0],) + (1,) * (g.dim() - 1))
+        return (w - _s(lr, g) * g
+                / (torch.sqrt(rows) + _s(hyper["eps"], rows))), hist
 
 
 class Updater:

@@ -146,7 +146,7 @@ def test_attention_layers_take_generators_from_the_net_generator():
 @pytest.mark.parametrize("mp", [False, True])
 def test_ladder_scalar_rows_equal_scalars_and_plain_steps(mp):
     """For each rule: each row of ladder_scalars is _scalars of its
-    tensor's (lr, wd, t) and the rescale in f32, as the by-value table
+    tensor's (lr, wd, t), the rescale and t in f32, as the by-value table
     carries them; and the plain device-scalar step
     (bucket_step_dev_reference, reading those rows) is bit for bit the
     plain by-value step, in f32 (mp False) and in bf16 with f32 masters."""
@@ -166,7 +166,9 @@ def test_ladder_scalar_rows_equal_scalars_and_plain_steps(mp):
         for row, (lr, wd, t) in zip(rows, steps):
             want = kopt._scalars(name, h0, h1, lr, wd, t)
             assert tuple(row[:6]) == tuple(want), name
-            assert row[6] == onp.float32(1 / 3) and row[7] == 0
+            # the rescale, then the update count (for the rules that
+            # compute their own powers of t)
+            assert row[6] == onp.float32(1 / 3) and row[7] == onp.float32(t)
 
         def members():
             out = []

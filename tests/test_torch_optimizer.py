@@ -244,9 +244,10 @@ def test_create_names_and_rules_that_wait():
     assert isinstance(mt.optimizer.create("AdamW"), topt.AdamW)
     opt = mt.optimizer.create("sgd", learning_rate=0.3)
     assert mt.optimizer.create(opt) is opt and opt.learning_rate == 0.3
-    for later in ("lamb", "rmsprop", "LARS", "ftrl"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            mt.optimizer.create(later)
+    # the rules that once waited now create their classes
+    for name, cls in (("lamb", topt.LAMB), ("rmsprop", topt.RMSProp),
+                      ("LARS", topt.LARS), ("ftrl", topt.Ftrl)):
+        assert type(mt.optimizer.create(name)) is cls, name
     with pytest.raises(ValueError, match="unknown optimizer"):
         mt.optimizer.create("nope")
     # the schedulers are the port's own copy and agree with the JAX package
