@@ -160,11 +160,33 @@ failure exits non-zero, nothing is caught and carried on:
      per-element clip, on the card and on the CPU from one state; every
      leaf within 4 f32 ulps (one bf16 ulp for a bf16 leaf) of its largest
      value plus 1e-3 of its largest change.
- 19. a ``timing`` line (profiler windows taken, windows that came back
+ 19. ring flash attention (K6), a main path: BERT-base's attention width
+     (12 heads of 64, bf16) over a 32768-token sequence sharded on a mesh
+     ``{"sp": 4}`` of four positions on ``cuda:0``, through
+     ``parallel.ring_flash_attention_sharded`` and ``out.backward(dout)``,
+     non-causal and causal, the counts zeroed just before each and read
+     just after, under ``torch.cuda.set_sync_debug_mode("error")`` (no
+     synchronising call): K4, K5a and K5b 16 times each (n^2), causal 10
+     (n(n+1)/2), all on the tensor cores; out within 2^-7 of its largest
+     of the plain ring's (f32 online softmax) on the same q, k, v, and of
+     one K4 launch over the whole sequence; dq, dk, dv within 2^-7 + 4 x
+     2^-8 of their largest (each hop rounds its gradients to bf16 before
+     the f32 sum) of the ring backward with the plain flash backward on
+     each hop in place of K5, and of one K5 pair over the whole
+     sequence. Forward and backward p50 of
+     5 after 2 warm-ups (CUDA events), the same K4/K5 launches alone in
+     the ring's order, one K4 and one K5 pair over the whole sequence,
+     SDPA's forward and backward, the plain ring's forward, the bound.
+     Then at 4096 tokens the f32 ring (FP32 kernels) against the same
+     call on the CPU (1e-5 of the largest, out and gradients) and the
+     bf16 ring against the plain ring (2^-7); at 8192 Ulysses against the
+     plain ring (2^-7).
+ 20. a ``timing`` line (profiler windows taken, windows that came back
      without device events, and times taken with CUDA events instead
      where the profiler recorded none), a ``{"kernels": [...]}`` line
      (with each kernel's launches on the TrainStep paths, on the resumed
-     steps and on the LAMB steps), the card line, and as the last line
+     steps, on the LAMB steps and in the ring, and a row for K6), the
+     card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --bn-sites ROOT`` runs no phase but this: K1 and
@@ -3405,6 +3427,253 @@ def phase_rule_sweep(torch, mt, kopt, topt, dev, **model_kwargs):
     return out
 
 
+# -- ring flash attention over a mesh (phase 19) ------------------------------
+
+RING_POSITIONS = 4
+RING_HEADS = 12           # BERT-base's attention width: 12 heads of 64
+RING_SEQ = 32768          # the whole sequence, 8192 rows a position
+RING_SMALL = 4096         # the f32 and plain-ring comparisons
+RING_ULYSSES = 8192       # the plain score matrix of RING_SEQ does not fit
+RING_WARMUP, RING_TIMED = 2, 5
+
+
+def _p50_ms(torch, fn, before=None):
+    """p50 over RING_TIMED host-issued runs of ``fn(before())`` after
+    RING_WARMUP, each between two CUDA events (``before`` untimed)."""
+    times = []
+    for i in range(RING_WARMUP + RING_TIMED):
+        arg = before() if before is not None else None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        end.record()
+        end.synchronize()
+        if i >= RING_WARMUP:
+            times.append(start.elapsed_time(end))
+    return sorted(times)[RING_TIMED // 2]
+
+
+def _rel_err(got, want):
+    """``(max |got - want|, max |want|)`` in float32."""
+    return ((got.float() - want.float()).abs().max().item(),
+            want.float().abs().max().item())
+
+
+def _ring_operands(torch, gen, dev, s, heads, dt):
+    return tuple(torch.randn(1, heads, s, 64, device=dev, generator=gen)
+                 .to(dt) for _ in range(4))
+
+
+def phase_ring(torch, build, fa, card, seq=RING_SEQ, heads=RING_HEADS,
+               small=RING_SMALL, ulysses_seq=RING_ULYSSES):
+    """Phase 19 (module docstring): ``{"full": {...}, "causal": {...},
+    "f32": ..., "plain_small": ..., "ulysses": ...}``."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.parallel import mesh as pmesh
+    from mxnet_tpu_torch.parallel import ring_attention as ring
+    from mxnet_tpu_torch.parallel import ulysses
+
+    n = RING_POSITIONS
+    dev = torch.device("cuda", 0)
+    mesh = pmesh.make_mesh({"sp": n}, [dev] * n)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q, k, v, dout = _ring_operands(torch, gen, dev, seq, heads,
+                                   torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def ring_fwd(_=None, causal=False):
+        for t in leaves:
+            t.grad = None
+        return ring.ring_flash_attention_sharded(*leaves, mesh,
+                                                 causal=causal)
+
+    out = {}
+    for causal in (False, True):
+        label = "causal" if causal else "full"
+        want = n * (n + 1) // 2 if causal else n * n
+        # the main path: counts from 0 just before, read just after; no
+        # call inside may synchronise the host
+        torch.cuda.synchronize()
+        build.reset_counters()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            o = ring_fwd(causal=causal)
+            o.backward(dout)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        launches = {c.name: c.value for c in build.COUNTERS.values()
+                    if c.value}
+        grads = [t.grad for t in leaves]
+        for kname in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv"):
+            check(launches.get(f"{kname}_mma") == want
+                  and launches.get(kname) == want,
+                  f"ring {label}: {kname} launched "
+                  f"{launches.get(f'{kname}_mma')} times on the tensor "
+                  f"cores of {launches.get(kname)}, want {want}")
+        check(not any(name.endswith("_fp32") for name in launches),
+              f"ring {label}: an FP32 kernel launched: {launches}")
+        check(launches.get("ring_flash_attention") == 1
+              and launches.get("ring_flash_attention_bwd") == 1,
+              f"ring {label}: ring counts {launches}")
+        # against the plain ring (f32 online softmax) on the same inputs
+        with torch.no_grad():
+            plain = ring.ring_attention_sharded(q, k, v, mesh, causal=causal)
+        err, big = _rel_err(o, plain)
+        check(err <= 2 ** -7 * big, f"ring {label}: out vs the plain ring "
+              f"{err:.3g} (tol 2^-7 of {big:.3g})")
+        del plain
+        # the ring backward with the plain flash backward on each hop (at
+        # the local shard's shape) in place of K5, on the ring forward's
+        # saved out and lse
+        shards = [pmesh.split(t, mesh, "sp", 2) for t in (q, k, v, dout)]
+        qs, ks, vs, ds = shards
+        with torch.no_grad():
+            outs, lses = ring._ring_flash_fwd_impl(qs, ks, vs, causal,
+                                                   64 ** -0.5)
+            plain_grads = [pmesh.assemble(g, 2) for g in ring._ring_flash_bwd(
+                qs, ks, vs, outs, lses, ds, causal, 64 ** -0.5,
+                hop_bwd=fa.flash_attention_bwd_reference)]
+        gc_collect(torch)
+        # each hop's dq, dk, dv are rounded to bf16 before the f32 sum: n
+        # roundings of at most half a bf16 ulp (2^-8 relative) each, on top
+        # of the kernels' own 2^-7 of the largest
+        grad_tol = 2 ** -7 + n * 2 ** -8
+        grad_err = {}
+        for name, g, r in zip(("dq", "dk", "dv"), grads, plain_grads):
+            e, b = _rel_err(g, r)
+            check(e <= grad_tol * b, f"ring {label}: {name} vs the ring on "
+                  f"plain hops {e:.3g} (tol {grad_tol:.4g} of {b:.3g})")
+            grad_err[name] = e / b
+        del plain_grads
+        # a second witness: one kernel launch over the whole sequence
+        ref, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        ref_grads = fa.flash_attention_bwd(q, k, v, ref, lse, dout,
+                                           causal=causal)
+        e, b = _rel_err(o, ref)
+        check(e <= 2 ** -7 * b, f"ring {label}: out vs one K4 launch "
+              f"{e:.3g} (tol 2^-7 of {b:.3g})")
+        one_err = {"out": e / b}
+        for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+            e, b = _rel_err(g, r)
+            check(e <= grad_tol * b, f"ring {label}: {name} vs one K5 pair "
+                  f"{e:.3g} (tol {grad_tol:.4g} of {b:.3g})")
+            one_err[name] = e / b
+        # times: p50 of RING_TIMED after RING_WARMUP, CUDA events
+        fwd_ms = _p50_ms(torch, partial(ring_fwd, causal=causal))
+        bwd_ms = _p50_ms(torch, lambda o: o.backward(dout),
+                         partial(ring_fwd, causal=causal))
+        # the same kernel launches alone, in the ring's order, on the
+        # ring's operands: the rest of the ring's time is merges and moves
+        hops = [hop for live in ring._hops(n, causal) for hop in live]
+        k4_ms = _p50_ms(torch, lambda _: [
+            fa.flash_attention_fwd(qs[my], ks[src], vs[src], causal=c)
+            for my, src, c in hops])
+        k5_ms = _p50_ms(torch, lambda _: [
+            fa.flash_attention_bwd(qs[my], ks[src], vs[src], outs[my],
+                                   lses[my], ds[my], causal=c)
+            for my, src, c in hops])
+        one_k4_ms = _p50_ms(torch, lambda _: fa.flash_attention_fwd(
+            q, k, v, causal=causal))
+        one_k5_ms = _p50_ms(torch, lambda _: fa.flash_attention_bwd(
+            q, k, v, ref, lse, dout, causal=causal))
+
+        def sdpa(_=None):
+            for t in leaves:
+                t.grad = None
+            return F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+        sdpa_ms = _p50_ms(torch, sdpa)
+        sdpa_bwd_ms = _p50_ms(torch, lambda o: o.backward(dout), sdpa)
+        with torch.no_grad():
+            plain_ms = _p50_ms(torch, lambda _: ring.ring_attention_sharded(
+                q, k, v, mesh, causal=causal))
+        bound_ms, bound_by = attention_bound(1, heads, seq, 64, "bfloat16",
+                                             causal)
+        bwd_bound_ms, bwd_bound_by = attention_bwd_bound(
+            1, heads, seq, 64, "bfloat16", causal)["pair"]
+        out[label] = dict(
+            shape=[1, heads, seq, 64], positions=n, launches=launches,
+            max_abs_err=err, out_tol=2 ** -7 * big,
+            grad_err_over_largest=grad_err, grad_tol_of_largest=grad_tol,
+            one_launch_err_over_largest=one_err,
+            ms=fwd_ms, bwd_ms=bwd_ms, k4_ms=k4_ms, k5_ms=k5_ms,
+            rest_share_fwd=1 - k4_ms / fwd_ms,
+            rest_share_bwd=1 - k5_ms / bwd_ms,
+            one_k4_ms=one_k4_ms, one_k5_ms=one_k5_ms,
+            library_ms=sdpa_ms, library_bwd_ms=sdpa_bwd_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by)
+        r = out[label]
+        say(f"ring {label}: forward {r['ms']:.3f} ms (K4 alone "
+            f"{r['k4_ms']:.3f}, rest {r['rest_share_fwd']:.3f}), backward "
+            f"{r['bwd_ms']:.3f} ms (K5 alone {r['k5_ms']:.3f}, rest "
+            f"{r['rest_share_bwd']:.3f}); one K4 {r['one_k4_ms']:.3f}, one "
+            f"K5 pair {r['one_k5_ms']:.3f}; SDPA {r['library_ms']:.3f} + "
+            f"{r['library_bwd_ms']:.3f}; plain ring {r['plain_ms']:.3f}; "
+            f"bound {r['bound_ms']:.3f} + {r['bwd_bound_ms']:.3f} "
+            f"({r['bound_by']}); out err {err:.3g} and gradients "
+            f"{json.dumps(grad_err)} of their largest against the plain "
+            f"ring, {json.dumps(one_err)} against one launch; card: {card}")
+        del o, grads, ref, lse, ref_grads, shards, qs, ks, vs, ds, outs, lses
+        gc_collect(torch)
+    del q, k, v, dout, leaves
+    # f32 on the FP32 kernels against the same call on the CPU port
+    gen = torch.Generator(device=dev).manual_seed(20)
+    q, k, v, dout = _ring_operands(torch, gen, dev, small, heads,
+                                   torch.float32)
+    cpu_mesh = pmesh.make_mesh({"sp": n}, [torch.device("cpu")] * n)
+    sides = {}
+    for side, m in (("card", mesh), ("cpu", cpu_mesh)):
+        ts = [t.detach().to(m.positions("sp")[0]).requires_grad_()
+              for t in (q, k, v)]
+        o = ring.ring_flash_attention_sharded(*ts, m, causal=True)
+        o.backward(dout.to(o.device))
+        sides[side] = [o] + [t.grad for t in ts]
+    f32_err = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv"), sides["card"],
+                          sides["cpu"]):
+        e, big = _rel_err(a.cpu(), b)
+        check(e <= 1e-5 * big, f"ring f32 {name}: card vs CPU {e:.3g} (tol "
+              f"1e-5 of {big:.3g})")
+        f32_err[name] = e / big
+    # bf16 flash ring against the plain ring on the card
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    with torch.no_grad():
+        flash = ring.ring_flash_attention_sharded(qb, kb, vb, mesh,
+                                                  causal=True)
+        plain = ring.ring_attention_sharded(qb, kb, vb, mesh, causal=True)
+    e, big = _rel_err(flash, plain)
+    check(e <= 2 ** -7 * big, f"ring bf16 vs the plain ring {e:.3g} (tol "
+          f"2^-7 of {big:.3g})")
+    out["f32_vs_cpu"] = dict(shape=[1, heads, small, 64], causal=True,
+                             err_over_largest=f32_err, tol=1e-5)
+    out["bf16_vs_plain"] = dict(shape=[1, heads, small, 64], causal=True,
+                                max_abs_err=e, tol=2 ** -7 * big)
+    del q, k, v, dout, sides, qb, kb, vb
+    gc_collect(torch)
+    # Ulysses against the plain ring
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v, _ = _ring_operands(torch, gen, dev, ulysses_seq, heads,
+                                torch.bfloat16)
+    with torch.no_grad():
+        u = ulysses.ulysses_attention_sharded(q, k, v, mesh, causal=True)
+        r = ring.ring_attention_sharded(q, k, v, mesh, causal=True)
+    e, big = _rel_err(u, r)
+    check(e <= 2 ** -7 * big, f"Ulysses vs the plain ring {e:.3g} (tol "
+          f"2^-7 of {big:.3g})")
+    out["ulysses_vs_plain_ring"] = dict(shape=[1, heads, ulysses_seq, 64],
+                                        causal=True, max_abs_err=e,
+                                        tol=2 ** -7 * big)
+    del q, k, v, u, r
+    gc_collect(torch)
+    say(f"ring: {json.dumps(out)}")
+    return out
+
+
 def main():
     import torch
 
@@ -3485,8 +3754,10 @@ def main():
     lamb = phase_lamb_amp(torch, mt, finetune, build, kopt, topt, dispatch,
                           mt.gpu(0), adamw=train)
     rule_sweep = phase_rule_sweep(torch, mt, kopt, topt, mt.gpu(0))
+    # 19. ring flash attention over a four-position mesh on the card
+    ring_run = phase_ring(torch, build, fa, card)
 
-    # 19. the kernels line, card, ok. Each row's case is the main paths'
+    # 20. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over
@@ -3667,8 +3938,39 @@ def main():
                                                                 0)}
         # and over the 5 counted LAMB steps under AMP of phase 17
         m["lamb_amp_launches"] = lamb["launches"].get(k["name"], 0)
+        # and in the ring's forward and backward of phase 19, each way
+        m["ring_launches"] = {
+            label: ring_run[label]["launches"].get(k["name"], 0)
+            for label in ("full", "causal")}
         kernels.append(dict(name=k["name"], route=k["route"],
                             source=k["source"], replaces=k["replaces"], **m))
+    # K6, the ring: no pallas_call and no source of its own, it launches
+    # K4 (forward) and K5a, K5b (backward) on each live hop. Its row is the
+    # non-causal forward at 1 x 12 x 32768 x 64 bf16 over four positions
+    # (launches: ring forwards on phase 19's main path); the backward and
+    # the causal ring beside it, each with its plain, library and bound
+    full = ring_run["full"]
+    kernels.append(dict(
+        name="ring_flash_attention", route="cuda",
+        source="mxnet_tpu_torch/parallel/ring_attention.py",
+        replaces="mxnet_tpu/parallel/ring_attention.py:119",
+        launches=sum(ring_run[label]["launches"]["ring_flash_attention"]
+                     for label in ("full", "causal")),
+        bwd_launches=sum(
+            ring_run[label]["launches"]["ring_flash_attention_bwd"]
+            for label in ("full", "causal")),
+        max_abs_err=full["max_abs_err"], ms=full["ms"],
+        plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
+        bound_by=full["bound_by"], library_ms=full["library_ms"],
+        times_cover="ms: the ring's forward, p50 of 5 host-issued (CUDA "
+                    "events); max_abs_err: out against the plain f32 ring "
+                    "on the same inputs; plain: the plain f32 ring "
+                    "(ring_attention); library: SDPA's forward over the "
+                    "whole sequence; see full and causal for the "
+                    "backward, the kernels alone and one K4/K5 launch",
+        full=full, causal=ring_run["causal"],
+        checks={key: ring_run[key] for key in (
+            "f32_vs_cpu", "bf16_vs_plain", "ulysses_vs_plain_ring")}))
     say(f"lamb_amp summary: step {lamb['step_ms_p50']:.2f} ms (AdamW, "
         f"phase 6: {train['step_ms_p50']:.2f}), host "
         f"{lamb['host_ms_p50']:.2f} ms, {lamb['samples_per_s']:.1f} "

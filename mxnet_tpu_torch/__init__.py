@@ -11,14 +11,15 @@ from . import amp, autograd, env, gluon, initializer, lr_scheduler, optimizer
 from . import ndarray as nd
 from . import numpy as np
 from . import numpy_extension as npx
-from . import rtc
+from . import parallel, rtc
 from ._random import seed
 from .base import MXNetError
-from .device import cpu, current_device, default_device, gpu, tpu
+from .device import (cpu, current_device, default_device, gpu, num_gpus,
+                     tpu)
 from .ndarray import NDArray, waitall
 from .numpy import random
 
 __all__ = ["amp", "autograd", "env", "gluon", "initializer", "lr_scheduler",
-           "optimizer", "nd", "np", "npx", "random", "rtc", "seed",
-           "waitall", "NDArray", "MXNetError", "cpu", "gpu", "tpu",
-           "current_device", "default_device"]
+           "optimizer", "nd", "np", "npx", "parallel", "random", "rtc",
+           "seed", "waitall", "NDArray", "MXNetError", "cpu", "gpu", "tpu",
+           "num_gpus", "current_device", "default_device"]

@@ -19,8 +19,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "tpu", "default_device", "current_device",
-           "resolve"]
+__all__ = ["cpu", "gpu", "tpu", "num_gpus", "default_device",
+           "current_device", "resolve"]
 
 
 def cpu(device_id=0):  # noqa: ARG001 - one host device
@@ -37,6 +37,11 @@ def tpu(device_id=0):  # noqa: ARG001
     raise MXNetError(
         "mxnet_tpu_torch runs on CUDA cards: use gpu(i), or cpu() for the "
         "plain PyTorch path")
+
+
+def num_gpus():
+    """Number of CUDA cards visible to this process (0 without CUDA)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 def default_device():

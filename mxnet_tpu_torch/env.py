@@ -153,3 +153,8 @@ register(
     "MXTPU_SLO_MIN_EVENTS", int, 10,
     "Minimum windowed requests before a class's burn rate can count as "
     "burning — keeps one unlucky request from flagging an idle replica.")
+register(
+    "MXTPU_FUSED_BUCKET_MB", int, 25,
+    "Target flat-buffer size (MB) for the bucketed allreduce "
+    "(parallel.collectives.psum_tree_flat): leaves are concatenated into "
+    "flat buffers of roughly this size, one collective per buffer.")

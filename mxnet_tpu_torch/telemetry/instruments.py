@@ -1,7 +1,8 @@
-"""The serving subset of the metric catalog and the record_* helpers its
-hot paths call (a copy of mxnet_tpu/telemetry/instruments.py: the
-``serve_*`` instruments and their helpers; the others wait for the modules
-that record them).
+"""The serving and collective subsets of the metric catalog and the
+record_* helpers their hot paths call (a copy of
+mxnet_tpu/telemetry/instruments.py: the ``serve_*`` instruments, the
+``collective_*`` ones with ``fused_bucket_size``, and their helpers; the
+others wait for the modules that record them).
 
 Every serving touchpoint goes through ONE helper here, so the catalog below
 is the single source of metric names, labels, and buckets, call sites stay
@@ -29,11 +30,14 @@ __all__ = [
     "serve_slo_violation_total",
     "record_serve_request", "record_serve_batch", "record_serve_trace",
     "set_slo_burn", "record_slo_violation",
+    "collective_total", "collective_bytes_total", "collective_seconds_total",
+    "fused_bucket_size", "record_collective", "record_fused_bucket",
 ]
 
 _SERVE_LATENCY_BUCKETS = (.0005, .001, .0025, .005, .01, .025, .05, .1,
                           .25, .5, 1.0, 2.5, 5.0, 10.0)
 _SERVE_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+_FUSED_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 
 # -- serving (serving/engine.py) ---------------------------------------------
@@ -113,6 +117,23 @@ serve_slo_violation_total = counter(
     "(served but over the objective), 'shed', 'timeout', or 'error'",
     ["model", "cls", "kind"])
 
+# -- collectives (parallel/collectives.py) -----------------------------------
+collective_total = counter(
+    "collective_total", "Collective dispatches by op (kvstore pushpull/"
+    "broadcast, parallel.collectives psum/all_gather/...)", ["op"])
+collective_bytes_total = counter(
+    "collective_bytes_total", "Input bytes handed to each collective",
+    ["op"])
+collective_seconds_total = counter(
+    "collective_seconds_total",
+    "Host wall time in collective dispatch (async: excludes on-device "
+    "completion unless the call itself syncs)", ["op"])
+fused_bucket_size = histogram(
+    "fused_bucket_size",
+    "Parameters packed into each fused dispatch bucket, by site "
+    "(update = fused optimizer step, allreduce = flat-buffer collective)",
+    ["site"], buckets=_FUSED_BUCKETS)
+
 
 # -- helpers ----------------------------------------------------------------
 
@@ -162,3 +183,19 @@ def record_serve_batch(model, rows, bucket):
     serve_batch_size.labels(model).observe(rows)
     if bucket > rows:
         serve_padded_rows_total.labels(model).inc(bucket - rows)
+
+
+def record_collective(op, nbytes, seconds):
+    """One collective dispatched: its op, input bytes and host seconds."""
+    if not REGISTRY.enabled:
+        return
+    collective_total.labels(op).inc()
+    collective_bytes_total.labels(op).inc(nbytes)
+    collective_seconds_total.labels(op).inc(seconds)
+
+
+def record_fused_bucket(site, params):
+    """One fused bucket dispatched at `site` holding `params` parameters."""
+    if not REGISTRY.enabled:
+        return
+    fused_bucket_size.labels(site).observe(params)
