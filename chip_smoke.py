@@ -181,12 +181,29 @@ failure exits non-zero, nothing is caught and carried on:
      call on the CPU (1e-5 of the largest, out and gradients) and the
      bf16 ring against the plain ring (2^-7); at 8192 Ulysses against the
      plain ring (2^-7).
- 20. a ``timing`` line (profiler windows taken, windows that came back
+ 20. the vision zoo, a main path: K1 and K2 against their plain versions
+     at each of MobileNetV2-1.0's 53 BatchNorm shapes at batch 256 (bf16
+     NCHW, the scalar path, non-zero cotangents, a second launch bit for
+     bit), each timed alone L2-cold beside the plain versions and cuDNN on
+     the same tensor and summed over the 53 sites beside the byte bound;
+     then ``vision.mobilenet_v2_1_0(classes=1000)`` (NCHW, bf16 weights
+     with f32 masters, batch 256 of 224x224, SGD momentum 0.9, lr 0.1, wd
+     1e-4, softmax cross entropy on f32 logits) trained as 13-15 train
+     ResNet-50, phased and through TrainStep's graph (K1 = K2 = 53, K3 = 2
+     a step, one capture, graph and phased steps from one state held to
+     each other), then two more phased steps whose logits update
+     ``metric.Accuracy`` and ``metric.TopKAccuracy(5)``; then densenet121,
+     inception_v3 (299x299), vgg16_bn, mobilenet1_0, squeezenet1_1 and
+     alexnet at full width take a step each at batch 32 (bf16 with
+     masters), the counts zeroed just before: K1 = K2 = the net's
+     BatchNorm blocks, K3 once a bucket, the loss finite, peak memory.
+ 21. a ``timing`` line (profiler windows taken, windows that came back
      without device events, and times taken with CUDA events instead
      where the profiler recorded none), a ``{"kernels": [...]}`` line
      (with each kernel's launches on the TrainStep paths, on the resumed
-     steps, on the LAMB steps and in the ring, and a row for K6), the
-     card line, and as the last line
+     steps, on the LAMB steps, in the ring and on the vision zoo's steps,
+     and a row for K6; K1, K2 and K3 with MobileNetV2's path in
+     ``per_path``), the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --bn-sites ROOT`` runs no phase but this: K1 and
@@ -1356,69 +1373,16 @@ def phase_kernels_bn(torch, knorm, dispatch, build):
                0, 0)]
     rows = []
     for label, shape, axis, dt, compute, cts, misalign, sites in cases:
-        os.environ["MXTPU_BN_COMPUTE"] = compute
-        try:
-            axis = axis % len(shape)
-            x, dy, g, b, sh, dm, dv = bn_operands(torch, gen, dev, shape,
-                                                  axis, dt, cts, misalign)
-            got_f = knorm.bn_train_fwd(x, g, b, sh, 1e-5, axis)
-            want_f = knorm.bn_train_fwd_reference(x, g, b, sh, 1e-5, axis)
-            bwd_args = (x, g, sh, want_f[1], want_f[3], dy, dm, dv, axis)
-            got_b = knorm.bn_train_bwd(*bwd_args)
-            want_b = knorm.bn_train_bwd_reference(*bwd_args)
-            again = (knorm.bn_train_fwd(x, g, b, sh, 1e-5, axis)
-                     + knorm.bn_train_bwd(*bwd_args))
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, w) for a, w in zip(got_f + got_b,
-                                                        again)),
-                  f"bn {label}: a second launch on the same inputs gave "
-                  "other bits")
-            vector = knorm.launch_geometry(
-                x.shape, axis, x.element_size(), sms,
-                x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0).vector
-            check(vector == (axis == len(shape) - 1 and misalign == 0 and
-                             shape[-1] * x.element_size() % 16 == 0),
-                  f"bn {label}: launch_geometry chose the "
-                  f"{'vector' if vector else 'scalar'} path")
-            errs = {}
-            for key, a, w in (("out", got_f[0], want_f[0]),
-                              ("dx", got_b[0], want_b[0])):
-                errs[key] = (a.float() - w.float()).abs().max().item()
-                errs[key + "_scale"] = w.float().abs().max().item()
-            stat_err = max((a - w).abs().max().item() / max(
-                w.abs().max().item(), 1e-30) for a, w in zip(
-                    got_f[1:] + got_b[1:], want_f[1:] + want_b[1:]))
-            check(all(bool(torch.isfinite(t.float()).all())
-                      for t in (got_f[0], got_b[0])),
-                  f"bn {label}: non-finite output")
-            # statistics and dgamma/dbeta: f32 sums in another order. out
-            # and dx: rounded once to x's dtype (bf16: 2^-8 of the value);
-            # with bf16 elementwise math a coefficient may round to the
-            # neighbouring bf16 value too: 2^-6 of the largest value
-            tol = (2.0 ** -6 if compute == "bf16" else 2.0 ** -7
-                   if dt == bf16 else 1e-5)
-            check(stat_err <= 1e-4,
-                  f"bn {label}: statistics or dgamma/dbeta disagree with "
-                  f"the plain version: {stat_err:.3g} relative")
-            for key in ("out", "dx"):
-                check(errs[key] <= tol * max(1.0, errs[key + "_scale"]),
-                      f"bn {label}: {key} disagrees with the plain version: "
-                      f"{errs[key]:.3g} (scale {errs[key + '_scale']:.3g})")
-            row = dict(case=label, shape=list(shape), axis=axis,
-                       dtype=str(dt).replace("torch.", ""), compute=compute,
-                       nonzero_cotangents=cts, misaligned=bool(misalign),
-                       vector_path=vector, bitwise_repeat=True, sites=sites,
-                       out_max_abs_err=errs["out"], dx_max_abs_err=errs["dx"],
-                       stats_max_rel_err=stat_err)
-            if sites:
-                row.update(bn_site_times(torch, F, knorm, dispatch, x, dy, g,
-                                         b, sh, want_f, bwd_args, axis))
-            say("kernel_case_bn " + json.dumps(row))
-            rows.append(row)
-            del x, dy, got_f, want_f, got_b, want_b, bwd_args, again
-            torch.cuda.empty_cache()
-        finally:
-            os.environ.pop("MXTPU_BN_COMPUTE", None)
+        row, ops = bn_case(torch, knorm, gen, dev, sms, label, shape, axis,
+                           dt, compute, cts, misalign)
+        row["sites"] = sites
+        if sites:
+            row.update(bn_site_times(torch, F, knorm, dispatch, *ops,
+                                     axis % len(shape)))
+        say("kernel_case_bn " + json.dumps(row))
+        rows.append(row)
+        del ops
+        torch.cuda.empty_cache()
     timed = [r for r in rows if r["sites"]]
     check(sum(r["sites"] for r in timed) == 53, "ResNet-50 has 53 BN sites")
     total = {key: sum(r[key] * r["sites"] for r in timed) for key in (
@@ -1443,10 +1407,74 @@ def phase_kernels_bn(torch, knorm, dispatch, build):
     return summary
 
 
+def bn_case(torch, knorm, gen, dev, sms, label, shape, axis, dt, compute,
+            cts, misalign):
+    """K1 and K2 against their plain versions on one case (the checks of
+    :func:`phase_kernels_bn`): ``(row, (x, dy, g, b, sh, want_f,
+    bwd_args))``, the operands for :func:`bn_site_times`."""
+    os.environ["MXTPU_BN_COMPUTE"] = compute
+    try:
+        axis = axis % len(shape)
+        x, dy, g, b, sh, dm, dv = bn_operands(torch, gen, dev, shape,
+                                              axis, dt, cts, misalign)
+        got_f = knorm.bn_train_fwd(x, g, b, sh, 1e-5, axis)
+        want_f = knorm.bn_train_fwd_reference(x, g, b, sh, 1e-5, axis)
+        bwd_args = (x, g, sh, want_f[1], want_f[3], dy, dm, dv, axis)
+        got_b = knorm.bn_train_bwd(*bwd_args)
+        want_b = knorm.bn_train_bwd_reference(*bwd_args)
+        again = (knorm.bn_train_fwd(x, g, b, sh, 1e-5, axis)
+                 + knorm.bn_train_bwd(*bwd_args))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, w) for a, w in zip(got_f + got_b, again)),
+              f"bn {label}: a second launch on the same inputs gave "
+              "other bits")
+        vector = knorm.launch_geometry(
+            x.shape, axis, x.element_size(), sms,
+            x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0).vector
+        check(vector == (axis == len(shape) - 1 and misalign == 0 and
+                         shape[-1] * x.element_size() % 16 == 0),
+              f"bn {label}: launch_geometry chose the "
+              f"{'vector' if vector else 'scalar'} path")
+        errs = {}
+        for key, a, w in (("out", got_f[0], want_f[0]),
+                          ("dx", got_b[0], want_b[0])):
+            errs[key] = (a.float() - w.float()).abs().max().item()
+            errs[key + "_scale"] = w.float().abs().max().item()
+        stat_err = max((a - w).abs().max().item() / max(
+            w.abs().max().item(), 1e-30) for a, w in zip(
+                got_f[1:] + got_b[1:], want_f[1:] + want_b[1:]))
+        check(all(bool(torch.isfinite(t.float()).all())
+                  for t in (got_f[0], got_b[0])),
+              f"bn {label}: non-finite output")
+        # statistics and dgamma/dbeta: f32 sums in another order. out
+        # and dx: rounded once to x's dtype (bf16: 2^-8 of the value);
+        # with bf16 elementwise math a coefficient may round to the
+        # neighbouring bf16 value too: 2^-6 of the largest value
+        tol = (2.0 ** -6 if compute == "bf16" else 2.0 ** -7
+               if dt == torch.bfloat16 else 1e-5)
+        check(stat_err <= 1e-4,
+              f"bn {label}: statistics or dgamma/dbeta disagree with "
+              f"the plain version: {stat_err:.3g} relative")
+        for key in ("out", "dx"):
+            check(errs[key] <= tol * max(1.0, errs[key + "_scale"]),
+                  f"bn {label}: {key} disagrees with the plain version: "
+                  f"{errs[key]:.3g} (scale {errs[key + '_scale']:.3g})")
+        row = dict(case=label, shape=list(shape), axis=axis,
+                   dtype=str(dt).replace("torch.", ""), compute=compute,
+                   nonzero_cotangents=cts, misaligned=bool(misalign),
+                   vector_path=vector, bitwise_repeat=True,
+                   out_max_abs_err=errs["out"], dx_max_abs_err=errs["dx"],
+                   stats_max_rel_err=stat_err)
+        return row, (x, dy, g, b, sh, want_f, bwd_args)
+    finally:
+        os.environ.pop("MXTPU_BN_COMPUTE", None)
+
+
 def bn_site_times(torch, F, knorm, dispatch, x, dy, g, b, sh, want_f,
                   bwd_args, axis):
-    """The times of one ResNet-50 site (ms; the docstring of
-    :func:`phase_kernels_bn`)."""
+    """The times of one BatchNorm site (ms; the docstring of
+    :func:`phase_kernels_bn`): channels last (ResNet-50's, cuDNN on the
+    channels_last view) or, with ``axis`` 1, NCHW as it is."""
     shape, esize = tuple(x.shape), x.element_size()
     fwd_bound, bwd_bound = bn_bounds(shape, esize)
     n = math.prod(shape)
@@ -1459,22 +1487,20 @@ def bn_site_times(torch, F, knorm, dispatch, x, dy, g, b, sh, want_f,
     def bwd(xc, dyc):
         return knorm.bn_train_bwd(xc, g, sh, mean, inv, dyc, *bwd_args[6:])
 
-    y = torch.empty_like(x)
-    xl = x.detach().movedim(-1, 1).requires_grad_()
+    def nchw(t):
+        return t if axis == 1 else t.movedim(-1, 1)
+
+    xl = nchw(x.detach()).requires_grad_()
     gl, bl = (t.detach().requires_grad_() for t in (g, b))
     yl = F.batch_norm(xl, None, None, gl, bl, training=True, eps=1e-5)
-    dyl = dy.movedim(-1, 1)
-    lib_cold = [(c[0].movedim(-1, 1).requires_grad_(),) for c in cold_f]
+    dyl = nchw(dy)
+    lib_cold = [(nchw(c[0]).requires_grad_(),) for c in cold_f]
     lib_graphs = [(F.batch_norm(c[0], None, None, gl, bl, training=True,
                                 eps=1e-5), c[0]) for c in lib_cold]
+    y = torch.empty_like(x)
     times = dict(
         fwd_ms=device_ms(torch, [partial(fwd, c[0]) for c in cold_f]),
         bwd_ms=device_ms(torch, [partial(bwd, *c) for c in cold_b]),
-        fwd_ms_l2_warm=device_ms(torch, [partial(fwd, x)]),
-        bwd_ms_l2_warm=device_ms(torch, [partial(bwd, x, dy)]),
-        fwd_ms_host_issued=cuda_ms(torch, partial(fwd, x)),
-        bwd_ms_host_issued=cuda_ms(torch, partial(bwd, x, dy)),
-        copy_ms=device_ms(torch, [partial(y.copy_, c[0]) for c in cold_f]),
         plain_fwd_ms=cuda_ms(torch, lambda: knorm.bn_train_fwd_reference(
             x, g, b, sh, 1e-5, axis), iters=5),
         plain_bwd_ms=cuda_ms(torch, lambda: knorm.bn_train_bwd_reference(
@@ -1485,14 +1511,20 @@ def bn_site_times(torch, F, knorm, dispatch, x, dy, g, b, sh, want_f,
         library_bwd_ms=device_ms(torch, [partial(
             torch.autograd.grad, yc, (xc, gl, bl), dyl, retain_graph=True)
             for yc, xc in lib_graphs]),
-        library_fwd_ms_host_issued=cuda_ms(torch, lambda: F.batch_norm(
-            xl, None, None, gl, bl, training=True, eps=1e-5)),
-        library_bwd_ms_host_issued=cuda_ms(torch, lambda: torch.autograd.grad(
-            yl, (xl, gl, bl), dyl, retain_graph=True)),
         fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound, bound_by="bytes",
         # the design's own bytes: x twice and out once; x, dy twice, dx once
         fwd_design_ms=1e3 * 3 * n * esize / HBM_BYTES_PER_S,
-        bwd_design_ms=1e3 * 5 * n * esize / HBM_BYTES_PER_S)
+        bwd_design_ms=1e3 * 5 * n * esize / HBM_BYTES_PER_S,
+        fwd_ms_l2_warm=device_ms(torch, [partial(fwd, x)]),
+        bwd_ms_l2_warm=device_ms(torch, [partial(bwd, x, dy)]),
+        fwd_ms_host_issued=cuda_ms(torch, partial(fwd, x)),
+        bwd_ms_host_issued=cuda_ms(torch, partial(bwd, x, dy)),
+        copy_ms=device_ms(torch, [partial(y.copy_, c[0]) for c in cold_f]),
+        library_fwd_ms_host_issued=cuda_ms(torch, lambda: F.batch_norm(
+            xl, None, None, gl, bl, training=True, eps=1e-5)),
+        library_bwd_ms_host_issued=cuda_ms(
+            torch, lambda: torch.autograd.grad(yl, (xl, gl, bl), dyl,
+                                               retain_graph=True)))
     check(abs(times["fwd_design_ms"] + times["bwd_design_ms"]
               - 1e3 * dispatch.norm_region_bytes(shape, esize, 4)[1]
               / HBM_BYTES_PER_S) < 1e-9, "bn design bytes")
@@ -2186,23 +2218,31 @@ def phase_resnet_training(torch, mt, train_resnet, build, knorm, kopt, topt,
     del net, trainer, step, ps, stem, rm
     torch.cuda.empty_cache()
 
-    # kernels against their plain versions, f32, batch 32, lr 0.1: both
-    # nets start from the same weights, and after every step the plain
-    # net takes the kernel net's weights, running stats and momenta again.
-    # Whole runs cannot be compared: at lr 0.01 a first-step loss that
-    # agrees to 1.2e-5 grew into 0.018 and 0.063 apart over two more steps
-    # (one-ulp differences amplified, measured), and in bf16 the first step
-    # already differs by 0.022 of 9.1. The port has no switch that sends
-    # CUDA tensors to the plain versions, so this script puts them in the
-    # wrappers' places for the plain steps.
+    summary["kernels_vs_plain"] = kernels_vs_plain(
+        torch, build, knorm, kopt, lambda: train_resnet.build_resnet_train(
+            batch=32, dtype="float32", device=mt.gpu(0), seed=0,
+            learning_rate=RESNET_LR), "resnet50", 32, RESNET_LR)
+    return summary
+
+
+def kernels_vs_plain(torch, build, knorm, kopt, make, path, batch, lr):
+    """K1, K2 and K3 against their plain versions over three whole f32
+    training steps of ``path``: ``make()`` gives ``(net, trainer, step)``
+    from seed 0, built three times (kernels, kernels again, plain). After
+    every step the other two nets take the kernel net's weights, running
+    stats and momenta again, so each step starts from one state. Whole
+    runs cannot be compared: on ResNet-50 at lr 0.01 a first-step loss
+    that agrees to 1.2e-5 grew into 0.018 and 0.063 apart over two more
+    steps (one-ulp differences amplified, measured), and in bf16 the first
+    step already differs by 0.022 of 9.1. The port has no switch that
+    sends CUDA tensors to the plain versions, so this script puts them in
+    the wrappers' places for the plain steps. The second kernel net
+    measures how far two runs of the same code drift in one step
+    (cuDNN's algorithms need not repeat their bits). Returns the plain
+    side's errors per step."""
     saved = (knorm.bn_train_fwd, knorm.bn_train_bwd)
     plain = (knorm.bn_train_fwd_reference, knorm.bn_train_bwd_reference)
-    # a second kernel net measures how far two runs of the same code drift
-    # in one step (cuDNN's algorithms need not repeat their bits)
-    sides = {label: train_resnet.build_resnet_train(
-        batch=32, dtype="float32", device=mt.gpu(0), seed=0,
-        learning_rate=RESNET_LR)
-        for label in ("kernels", "kernels_again", "plain")}
+    sides = {label: make() for label in ("kernels", "kernels_again", "plain")}
     stats = {other: {"loss": [], "grad": [], "param": []}
              for other in ("kernels_again", "plain")}
     for _ in range(3):
@@ -2220,14 +2260,14 @@ def phase_resnet_training(torch, mt, train_resnet, build, knorm, kopt, topt,
                 "bn_train_fwd", "bn_train_bwd", "opt_ladder")}
             check(not any(mine.values()) if label == "plain"
                   else all(mine.values()),
-                  f"{label} step: kernel launches {mine}")
+                  f"{path} {label} step: kernel launches {mine}")
         knet, ktr, _ = sides["kernels"]
         kps = knet.collect_params()
         trainable = [k for k, p in kps.items() if p.grad_req != "null"]
         big = max(kps[k].grad().abs().max().item() for k in trainable)
         # a parameter's error over 1e-5 of its largest value plus 0.1 of
         # the step the net's largest gradient takes (lr * big / batch)
-        floor = 0.1 * RESNET_LR * big / 32
+        floor = 0.1 * lr * big / batch
         for other, st in stats.items():
             onet, otr, _ = sides[other]
             ops = onet.collect_params()
@@ -2247,29 +2287,28 @@ def phase_resnet_training(torch, mt, train_resnet, build, knorm, kopt, topt,
                     for a, b in zip(kopt._leaves(ks), kopt._leaves(os_)):
                         b.copy_(a)
     del sides, knet, ktr, kps, onet, otr, ops
-    torch.cuda.empty_cache()
+    gc_collect(torch)
     for other, st in stats.items():
-        say(f"resnet training kernels vs {other} (f32, batch 32, lr "
-            f"{RESNET_LR}, 3 steps, re-synchronised after each): loss rel "
+        say(f"{path} training kernels vs {other} (f32, batch {batch}, lr "
+            f"{lr}, 3 steps, re-synchronised after each): loss rel "
             f"diffs {st['loss']}; the 3 largest gradient errors over the "
             f"largest gradient, per step {st['grad']}; the 3 largest "
             f"parameter errors over tolerance, per step {st['param']}")
     st = stats["plain"]
     # f32, one step from the same state. K1/K2 sum in another order than the
     # plain versions, so the forward differs by about 1e-7 and the loss by
-    # 1.4e-6 (measured). That flips the ReLUs of the few activations within
-    # 1e-7 of zero, and each flip moves a whole gradient element: the
-    # early layers' gradients then differ by up to 0.025 of the net's
-    # largest gradient (measured at the stem and stage 1), where two runs
-    # of the kernels, whose forwards agree bit for bit, differ by 2.6e-5.
-    # Gradients are held to 0.1 of the largest, the parameters after the
-    # update to 0.1 of the largest step, the loss to 1e-4
+    # 1.4e-6 (ResNet-50, measured). That flips the ReLUs of the few
+    # activations within 1e-7 of zero, and each flip moves a whole gradient
+    # element: the early layers' gradients then differ by up to 0.025 of
+    # the net's largest gradient (measured at the stem and stage 1), where
+    # two runs of the kernels, whose forwards agree bit for bit, differ by
+    # 2.6e-5. Gradients are held to 0.1 of the largest, the parameters
+    # after the update to 0.1 of the largest step, the loss to 1e-4
     check(max(st["loss"]) <= 1e-4
           and max(e for step in st["grad"] for e, _ in step) <= 0.1
           and max(e for step in st["param"] for e, _ in step) <= 1.0,
-          "kernel and plain ResNet training steps disagree")
-    summary["kernels_vs_plain"] = st
-    return summary
+          f"kernel and plain {path} training steps disagree")
+    return st
 
 
 # -- mx.rtc (K7) ----------------------------------------------------------------
@@ -2588,6 +2627,13 @@ def _ts_build(mt, mods, path, dev):
         return train_resnet.build_resnet_train(
             batch=RESNET_BATCH, device=dev, seed=0, learning_rate=RESNET_LR,
             train_step=True)
+    if path == "mobilenet_v2":
+        from mxnet_tpu_torch.gluon.model_zoo import vision
+
+        return train_resnet.build_resnet_train(
+            batch=MNV2_BATCH, layout="NCHW", stem_s2d=False, device=dev,
+            seed=0, learning_rate=RESNET_LR, train_step=True,
+            model=vision.mobilenet_v2_1_0(classes=1000))
     net, trainer, step, _ = train_lenet.build_lenet_train(
         batch=LENET_BATCH, device=dev, seed=0, train_step=True)
     return net, trainer, step
@@ -2625,7 +2671,8 @@ def _ts_counted(torch, build, dispatch, kopt, step, n):
     return losses, secs, launches, kopt.TENSORS.value, outcomes
 
 
-def phase_train_step(torch, mt, build, dispatch, kopt, fa, mods, path):
+def phase_train_step(torch, mt, build, dispatch, kopt, fa, mods, path,
+                     after=None):
     """13-15. ``path`` (resnet50, lenet, bert without the global-norm
     clip) through ``gluon.TrainStep``: two builds from one seed, one
     through the graph, one phased (MXTPU_WHOLE_STEP=0). 2 warm-up steps
@@ -2635,7 +2682,8 @@ def phase_train_step(torch, mt, build, dispatch, kopt, fa, mods, path):
     TS_COMPARE steps of both from one state with an LR that changes every
     step, then both profiled in turns (phased, graph, graph, phased):
     host ms, device-busy ms, idle share, host calls beside the kernels the
-    device ran, peak memory."""
+    device ran, peak memory. ``after(net, trainer, step)`` (phase 20) runs
+    on the graph's side last and adds its dict to the summary."""
     from mxnet_tpu_torch.tools.profile_training import measure
 
     gc_collect(torch)
@@ -2676,7 +2724,7 @@ def phase_train_step(torch, mt, build, dispatch, kopt, fa, mods, path):
           f"{path}: TrainStep captured again: {ts.jit_trace_count()}")
     plan = opt_plan(kopt, gtr)
     want = {"opt_ladder": plan["launches"] * TRAIN_STEPS}
-    if path == "resnet50":
+    if path in ("resnet50", "mobilenet_v2"):
         want.update(bn_train_fwd=53 * TRAIN_STEPS,
                     bn_train_bwd=53 * TRAIN_STEPS)
     if path == "bert":
@@ -2728,8 +2776,8 @@ def phase_train_step(torch, mt, build, dispatch, kopt, fa, mods, path):
         # each parameter against 1e-5 of its largest value plus 0.1 of the
         # step the largest gradient takes (phase 8's measure): the f32
         # masters where there are any, else the weights
-        batch = 8 if path == "bert" else RESNET_BATCH if path == \
-            "resnet50" else LENET_BATCH
+        batch = {"bert": 8, "resnet50": RESNET_BATCH, "lenet": LENET_BATCH,
+                 "mobilenet_v2": MNV2_BATCH}[path]
         floor = 0.1 * lr * max(1.0, big / batch)
         errs = []
         for i, prm in enumerate(gtr._params):
@@ -2783,6 +2831,8 @@ def phase_train_step(torch, mt, build, dispatch, kopt, fa, mods, path):
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         peak_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
         card=card_line())
+    if after is not None:
+        summary.update(after(gnet, gtr, gstep))
     say(f"train_step {path}: {json.dumps(summary)}")
     del graph_side, phased_side, gnet, gtr, gstep, pnet, ptr, pstep, ts
     gc_collect(torch)
@@ -3674,6 +3724,218 @@ def phase_ring(torch, build, fa, card, seq=RING_SEQ, heads=RING_HEADS,
     return out
 
 
+# -- the vision zoo (phase 20) ------------------------------------------------
+
+MNV2_BATCH = 256
+ZOO_BATCH = 32
+#: the zoo's other families trained a step each: name, input size, and the
+#: BatchNorm blocks the net holds (the JAX package's nets hold as many: the
+#: CPU tests hold every collect_params() name equal)
+ZOO_FAMILIES = (("densenet121", 224, 121), ("inception_v3", 299, 94),
+                ("vgg16_bn", 224, 13), ("mobilenet1_0", 224, 27),
+                ("squeezenet1_1", 224, 0), ("alexnet", 224, 0))
+
+
+def mobilenet_v2_bn_sites(torch, vision, dev, batch):
+    """``[(NCHW shape, sites)]``: the input shape of each of
+    MobileNetV2-1.0's 53 BatchNorm blocks at 224x224, read by forward
+    pre-hooks from a predict-mode forward of one image on the card, at
+    ``batch``; in the order of their first site."""
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+
+    net = vision.mobilenet_v2_1_0(classes=1000)
+    net.initialize(device=dev)
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: shapes.append((batch,) + tuple(args[0].shape[1:])))
+        for m in net.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        net(torch.zeros(1, 3, 224, 224, device=dev))
+    for h in hooks:
+        h.remove()
+    check(len(shapes) == 53, f"MobileNetV2 has {len(shapes)} BN sites")
+    counts = {}
+    for shape in shapes:
+        counts[shape] = counts.get(shape, 0) + 1
+    return list(counts.items())
+
+
+def phase_kernels_bn_nchw(torch, knorm, dispatch, sites):
+    """K1 and K2 against their plain versions at every BatchNorm shape of
+    MobileNetV2-1.0 at batch 256, bf16 NCHW (the scalar path: the channel
+    axis is not innermost, a row of 196 or 49 elements is no multiple of
+    16 bytes), with non-zero cotangents of the statistics and a second
+    launch bit for bit (phase 3's checks); each shape timed as phase 3
+    times ResNet-50's sites (:func:`bn_site_times`), cuDNN's
+    ``F.batch_norm`` on the same NCHW tensor, summed over the 53 sites."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(78)
+    sms = knorm.sm_count(dev)
+    rows = []
+    for shape, n in sites:
+        label = "mobilenet_v2_{}x{}x{}".format(*shape[1:])
+        row, ops = bn_case(torch, knorm, gen, dev, sms, label, shape, 1,
+                           torch.bfloat16, "f32", True, 0)
+        row["sites"] = n
+        row["chunks"] = knorm.launch_geometry(shape, 1, 2, sms).chunks
+        row.update(bn_site_times(torch, F, knorm, dispatch, *ops, 1))
+        say("kernel_case_bn_nchw " + json.dumps(row))
+        rows.append(row)
+        del ops
+        torch.cuda.empty_cache()
+    elements = sum(math.prod(r["shape"]) * r["sites"] for r in rows)
+    total = {key: sum(r[key] * r["sites"] for r in rows) for key in (
+        "fwd_ms", "bwd_ms", "fwd_ms_l2_warm", "bwd_ms_l2_warm",
+        "fwd_ms_host_issued", "bwd_ms_host_issued", "copy_ms",
+        "plain_fwd_ms", "plain_bwd_ms", "library_fwd_ms", "library_bwd_ms",
+        "library_fwd_ms_host_issued", "library_bwd_ms_host_issued",
+        "fwd_bound_ms", "bwd_bound_ms", "fwd_design_ms", "bwd_design_ms")}
+    summary = dict(
+        mobilenet_v2_batch256_53_sites=total,
+        elements_per_image=elements / MNV2_BATCH,
+        input_gb=2 * elements / 1e9,
+        fwd_max_abs_err=max(r["out_max_abs_err"] for r in rows),
+        bwd_max_abs_err=max(r["dx_max_abs_err"] for r in rows),
+        stats_max_rel_err=max(r["stats_max_rel_err"] for r in rows),
+        distinct_shapes=len(rows), card=card_line())
+    say("bn_kernels_nchw " + json.dumps(summary))
+    return summary
+
+
+def _zoo_metrics(mt, net, trainer, step, n=2):
+    """After the timed window: ``n`` more phased steps on the step's batch,
+    each step's logits into ``metric.Accuracy`` and
+    ``metric.TopKAccuracy(5)``."""
+    x, y = step.args
+    acc, top5 = mt.gluon.metric.Accuracy(), mt.gluon.metric.TopKAccuracy(5)
+    lf = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    for _ in range(n):
+        with mt.autograd.record():
+            out = net(x)
+            loss = lf(out.float(), y)
+        mt.autograd.backward(loss)
+        trainer.step(x.shape[0])
+        acc.update(y, out.detach())
+        top5.update(y, out.detach())
+    return dict(metrics_after_steps=n, accuracy=acc.get()[1],
+                top5_accuracy=top5.get()[1])
+
+
+#: the families start as their Gluon training recipes start them, from
+#: Xavier(magnitude 2) weights and at lr 0.01: the default Uniform(0.07)
+#: gives AlexNet's and VGG's 4096-wide dense layers logits in the hundreds,
+#: and one step of SGD momentum from there diverges
+ZOO_LR = 0.01
+
+
+def phase_zoo_families(torch, mt, train_resnet, vision, build, kopt):
+    """Each other family at full width from Xavier(magnitude 2) weights,
+    one warm-up step (the deferred shapes, cuDNN's choices) and one
+    counted step through the phased path (bf16 weights, f32 masters,
+    batch 32, SGD momentum 0.9 at lr 0.01): the counts zeroed just before
+    and read just after: K1 = K2 = the net's BatchNorm blocks (counted by
+    walking it), K3 once a bucket; both losses finite; step ms and the
+    family's own peak memory (above what earlier phases still hold)."""
+    rows = []
+    for name, image, n_bn in ZOO_FAMILIES:
+        gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        net, trainer, step = train_resnet.build_resnet_train(
+            batch=ZOO_BATCH, layout="NCHW", stem_s2d=False, device=mt.gpu(0),
+            seed=0, image=image, learning_rate=ZOO_LR,
+            init=mt.initializer.Xavier(magnitude=2),
+            model=vision.get_model(name, classes=1000))
+        walked = sum(isinstance(m, mt.gluon.nn.BatchNorm)
+                     for m in net.modules())
+        check(walked == n_bn, f"{name}: {walked} BatchNorm blocks, want "
+                              f"{n_bn}")
+        first = step().float().mean().item()
+        build.reset_counters()
+        losses, secs = _run_steps(torch, step, 1)
+        launches = {c.name: c.value for c in build.COUNTERS.values()
+                    if c.value}
+        plan = opt_plan(kopt, trainer)
+        want = {"opt_ladder": plan["launches"]}
+        if n_bn:
+            want.update(bn_train_fwd=n_bn, bn_train_bwd=n_bn)
+        check(launches == want, f"{name}: launches {launches}, want {want}")
+        check(all(math.isfinite(v) for v in [first] + losses),
+              f"{name}: non-finite loss {first}, {losses}")
+        row = dict(model=name, image=image, batch=ZOO_BATCH, lr=ZOO_LR,
+                   bn_blocks=walked, first_loss=first, loss=losses[0],
+                   step_ms=1e3 * secs[0],
+                   launches=launches, opt_plan=plan,
+                   peak_gib=(torch.cuda.max_memory_allocated() - base)
+                   / 2 ** 30, held_before_gib=base / 2 ** 30,
+                   peak_reserved_gib=torch.cuda.max_memory_reserved()
+                   / 2 ** 30)
+        say("zoo_family " + json.dumps(row))
+        rows.append(row)
+        del net, trainer, step
+    return rows
+
+
+#: the batch of MobileNetV2's f32 steps against the plain versions (three
+#: nets at once)
+MNV2_PLAIN_BATCH = 64
+
+
+def phase_vision_zoo(torch, mt, build, dispatch, kopt, knorm, topt, fa,
+                     mods):
+    """20. The vision zoo: K1/K2 at MobileNetV2's 53 NCHW bf16 sites,
+    MobileNetV2-1.0 trained at batch 256 phased and through TrainStep's
+    graph (phase 13's method, with its metrics, then K3 over its trainer's
+    parameters against the plain ladder, phase 10's sweep), whole f32
+    steps of it with K1, K2 and K3 against their plain versions from one
+    state (phase 10's method), and each other family a step."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    t0 = time.perf_counter()
+    sites = mobilenet_v2_bn_sites(torch, vision, mt.gpu(0), MNV2_BATCH)
+    bn = phase_kernels_bn_nchw(torch, knorm, dispatch, sites)
+    seconds = {"bn_sites": time.perf_counter() - t0}
+
+    def after(net, trainer, step):
+        return dict(_zoo_metrics(mt, net, trainer, step),
+                    opt_sweep=phase_opt_sweep(torch, kopt, topt, dispatch,
+                                              trainer, "mobilenet_v2"))
+
+    run = phase_train_step(torch, mt, build, dispatch, kopt, fa, mods,
+                           "mobilenet_v2", after=after)
+    check(run["opt_plan"]["launches"] == 2,
+          f"MobileNetV2: {run['opt_plan']['launches']} K3 buckets, want 2")
+    seconds["train_step"] = time.perf_counter() - t0 - sum(seconds.values())
+    run["kernels_vs_plain"] = kernels_vs_plain(
+        torch, build, knorm, kopt, lambda: mods[1].build_resnet_train(
+            batch=MNV2_PLAIN_BATCH, dtype="float32", layout="NCHW",
+            stem_s2d=False, device=mt.gpu(0), seed=0,
+            learning_rate=RESNET_LR,
+            model=vision.mobilenet_v2_1_0(classes=1000)),
+        "mobilenet_v2", MNV2_PLAIN_BATCH, RESNET_LR)
+    seconds["vs_plain"] = time.perf_counter() - t0 - sum(seconds.values())
+    families = phase_zoo_families(torch, mt, mods[1], vision, build, kopt)
+    seconds["families"] = time.perf_counter() - t0 - sum(seconds.values())
+    prof = {p["path"]: p for p in run["profile"]}
+    summary = dict(
+        model="mobilenet_v2_1_0 (NCHW)", batch=MNV2_BATCH,
+        dtype="bfloat16+f32 masters",
+        step_ms_p50={k: v["host_ms_per_step_p50"] for k, v in prof.items()},
+        samples_per_s={k: MNV2_BATCH / v["host_ms_per_step_p50"] * 1e3
+                       for k, v in prof.items()},
+        issue_ms_p50={k: v["issue_ms_per_step_p50"] for k, v in prof.items()},
+        idle_share={k: v["device_idle_share"] for k, v in prof.items()},
+        peak_gib=run["peak_memory_gib"],
+        peak_reserved_gib=run["peak_reserved_gib"],
+        launches=run["launches"], accuracy=run["accuracy"],
+        top5_accuracy=run["top5_accuracy"], families=families,
+        phase_s=time.perf_counter() - t0, seconds=seconds, card=card_line())
+    say("vision_zoo " + json.dumps(summary))
+    return dict(summary, bn=bn, train_step=run)
+
+
 def main():
     import torch
 
@@ -3756,8 +4018,11 @@ def main():
     rule_sweep = phase_rule_sweep(torch, mt, kopt, topt, mt.gpu(0))
     # 19. ring flash attention over a four-position mesh on the card
     ring_run = phase_ring(torch, build, fa, card)
+    # 20. the vision zoo: MobileNetV2-1.0 and the other families
+    zoo = phase_vision_zoo(torch, mt, build, dispatch, kopt, knorm, topt,
+                           fa, mods)
 
-    # 20. the kernels line, card, ok. Each row's case is the main paths'
+    # 21. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over
@@ -3831,7 +4096,12 @@ def main():
                 own_bound_ms=bwd[f"{key}_bound_ms"],
                 own_bound_by=bwd[f"{key}_bound_by"], **pair)
     measured["flash_attention_fwd_mma"]["probes"] = probes
-    paths = {"bert": train, "resnet50": resnet, "lenet": lenet_run}
+    zoo_ts = zoo["train_step"]
+    paths = {"bert": train, "resnet50": resnet, "lenet": lenet_run,
+             # phased and graph steps launch alike (phase 20 holds them)
+             "mobilenet_v2": dict(
+                 zoo_ts, launches={"opt_sqnorm": 0, **zoo_ts["launches"]},
+                 opt_tensors_updated=zoo_ts["tensors_updated"])}
     per_path = {}
     for path, run in paths.items():
         sw = run["opt_sweep"]
@@ -3919,7 +4189,18 @@ def main():
                         "bf16 NHWC; ms and library_ms alone with inputs "
                         "rotated over copies exceeding the L2; copy_ms: "
                         "y.copy_(x) of each site's x the same way; library: "
-                        "F.batch_norm (cuDNN), another function")
+                        "F.batch_norm (cuDNN), another function; per_path: "
+                        "MobileNetV2-1.0's 53 sites, bf16 NCHW (phase 20)",
+            per_path={"mobilenet_v2": dict(
+                launches=zoo["train_step"]["phased_launches"][name],
+                graph_launches=zoo["train_step"]["launches"][name],
+                max_abs_err=zoo["bn"][f"{side}_max_abs_err"],
+                copy_ms=zoo["bn"]["mobilenet_v2_batch256_53_sites"][
+                    "copy_ms"],
+                **{key.replace(f"{side}_", "").replace(f"_{side}", ""): v
+                   for key, v in zoo["bn"][
+                       "mobilenet_v2_batch256_53_sites"].items()
+                   if side in key})})
     kernels = []
     for k in KERNELS:
         m = measured[k["name"]]
@@ -3942,6 +4223,15 @@ def main():
         m["ring_launches"] = {
             label: ring_run[label]["launches"].get(k["name"], 0)
             for label in ("full", "causal")}
+        # and in phase 20's 5 MobileNetV2 steps each way and the one step
+        # of each other family
+        m["vision_zoo_launches"] = dict(
+            mobilenet_v2_phased=zoo["train_step"]["phased_launches"].get(
+                k["name"], 0),
+            mobilenet_v2_graph=zoo["train_step"]["launches"].get(k["name"],
+                                                                 0),
+            **{f["model"]: f["launches"].get(k["name"], 0)
+               for f in zoo["families"]})
         kernels.append(dict(name=k["name"], route=k["route"],
                             source=k["source"], replaces=k["replaces"], **m))
     # K6, the ring: no pallas_call and no source of its own, it launches

@@ -1,9 +1,16 @@
 """Gluon of the port (counterpart of mxnet_tpu/gluon)."""
-from . import loss, model_zoo, nn
+from . import loss, metric, model_zoo, nn
+from ..base import DeferredInitializationError
 from .block import Block, HybridBlock
-from .parameter import Parameter
+from .parameter import Constant, Parameter
 from .train_step import TrainStep
 from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "Parameter", "TrainStep", "Trainer",
-           "loss", "model_zoo", "nn"]
+__all__ = ["Block", "Constant", "DeferredInitializationError", "HybridBlock",
+           "Parameter", "ParameterDict", "TrainStep", "Trainer", "loss",
+           "metric", "model_zoo", "nn"]
+
+
+class ParameterDict(dict):
+    """The 1.x name-to-Parameter dict (gluon/__init__.py:15), kept as a
+    plain dict as in the JAX package."""

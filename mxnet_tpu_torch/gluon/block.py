@@ -40,9 +40,18 @@ again (counted), so no replay reads a replaced tensor and no call raises
 for it. Values written in place (``set_data``, ``convert.load_jax_params``,
 the optimizer) are what the graph reads and need nothing. On the CPU the
 forward stays eager. Training steps are captured by ``gluon.TrainStep``.
+
+``register_op_hook`` calls its callback after each descendant block's
+forward with the JAX package's block and tensor names; inside a
+hybridized block only that block reports, as the JAX package's jit
+boundary does. A captured CUDA graph would call a callback once, at its
+capture, and never at a replay, so on the card ``call_cached_graph`` and
+``gluon.TrainStep``'s graph raise while any op hook is registered on the
+net; the CPU and the phased step run it.
 """
 from __future__ import annotations
 
+import math
 import os
 import re
 import threading
@@ -58,7 +67,28 @@ from ..ndarray.ndarray import NDArray
 from . import _graph
 from .parameter import Parameter, storage_epoch
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "check_no_op_hooks"]
+
+#: thread-local hook state: ``suppress`` (shape-inference passes report
+#: nothing) and ``boundary`` (the hybridized block whose forward runs)
+_HOOKS = threading.local()
+#: whether any op hook was ever registered in the process: until then
+#: neither a hybridized forward nor a CUDA graph looks for hooks
+_op_hooks_registered = False
+
+
+def check_no_op_hooks(block, where):
+    """Raise where an op hook of ``register_op_hook`` is registered on
+    ``block`` or a descendant: ``where`` (a CUDA graph) would skip it."""
+    if not _op_hooks_registered:
+        return
+    for m in block.modules():
+        if getattr(m, "_op_hook_handles", None):
+            raise RuntimeError(
+                f"{where}: {type(m).__name__} has an op hook "
+                "(register_op_hook), which a captured CUDA graph would call "
+                "once at its capture and never at a replay; run the block "
+                "on the CPU or phased (MXTPU_WHOLE_STEP=0) to monitor it")
 
 
 def _to_ndarrays(out):
@@ -100,6 +130,19 @@ class Block(torch.nn.Module):
         with torch.set_grad_enabled(_ag.is_recording()):
             return torch.nn.Module.__call__(self, *args, **kwargs)
 
+    # -- children ----------------------------------------------------------
+    def register_child(self, block, name=None):
+        """Add ``block`` as the child ``name``, by default the number of
+        children so far (block.py:152)."""
+        self.add_module(name or str(len(self._modules)), block)
+        return block
+
+    def setattr(self, name, value):
+        """Set the attribute ``name`` of every parameter (block.py:320),
+        e.g. ``setattr('grad_req', 'null')``."""
+        for p in self.collect_params().values():
+            setattr(p, name, value)
+
     # -- parameters --------------------------------------------------------
     def _collect_params_with_prefix(self, prefix=""):
         out = {prefix + name: p for name, p in self._reg_params.items()}
@@ -117,6 +160,42 @@ class Block(torch.nn.Module):
             return params
         pat = re.compile(select)
         return {k: v for k, v in params.items() if pat.match(k)}
+
+    @property
+    def params(self):
+        """This block's own Parameters by attribute name, its children's
+        not included (block.py:185)."""
+        return self._reg_params
+
+    def _replace_param(self, name, param):
+        old = self._reg_params.get(name)
+        if old is not None and old is not param:
+            old._owners[:] = [o for o in old._owners
+                              if not (o[0] is self and o[1] == name)]
+            self._parameters.pop(name, None)
+        self.__setattr__(name, param)
+
+    def share_parameters(self, shared):
+        """Take the Parameters of ``shared`` (a ``collect_params()`` dict)
+        whose names this block has (block.py:204): each becomes the same
+        Parameter object, so data and gradients are shared; other names
+        keep their own."""
+        if shared is None:
+            return self
+        if not isinstance(shared, dict):
+            raise ValueError("share_parameters expects the dict "
+                             f"collect_params() returns, got {type(shared)}")
+
+        def walk(block, prefix):
+            for name in list(block._reg_params):
+                if prefix + name in shared:
+                    block._replace_param(name, shared[prefix + name])
+            for cname, child in block._modules.items():
+                if isinstance(child, Block):
+                    walk(child, prefix + cname + ".")
+
+        walk(self, "")
+        return self
 
     def initialize(self, init=None, device=None, generator=None,
                    force_reinit=False):
@@ -182,6 +261,81 @@ class Block(torch.nn.Module):
         for p in self.collect_params().values():
             p.cast(dtype)
         return self
+
+    def reset_device(self, device=None, ctx=None):
+        """Move every parameter to ``device`` (block.py:304); gradient
+        buffers start from zeros there."""
+        for p in self.collect_params().values():
+            p.reset_device(device=device, ctx=ctx)
+
+    reset_ctx = reset_device
+
+    def register_op_hook(self, callback, monitor_all=False):
+        """Call ``callback(block_name, tensor_name, tensor)`` after the
+        forward of this block and of each descendant, for each output
+        (``<name>_output<i>``) and, with ``monitor_all``, each input
+        (``<name>_input<i>``) first (block.py:419). ``block_name`` is the
+        dotted child path (the root's class name); tensors arrive as
+        NDArrays. A hybridized block reports for itself alone, as the JAX
+        package's jit boundary does. On the card a CUDA graph
+        (``call_cached_graph``, ``gluon.TrainStep``) raises while an op
+        hook is registered, rather than skip it at its replays."""
+        def wrap(v):
+            return NDArray(v) if isinstance(v, torch.Tensor) else v
+
+        def make_hook(prefix):
+            def hook(block, inputs, output):
+                if getattr(_HOOKS, "suppress", 0):
+                    return
+                top = getattr(_HOOKS, "boundary", None)
+                if top is not None and block is not top:
+                    return
+                name = prefix or type(block).__name__
+                if monitor_all:
+                    for i, a in enumerate(inputs):
+                        callback(name, f"{name}_input{i}", wrap(a))
+                outs = (output if isinstance(output, (list, tuple))
+                        else [output])
+                for i, o in enumerate(outs):
+                    callback(name, f"{name}_output{i}", wrap(o))
+            return hook
+
+        def walk(block, prefix):
+            handles = block.__dict__.setdefault("_op_hook_handles", [])
+            handles.append(block.register_forward_hook(make_hook(prefix)))
+            for cname, child in block._modules.items():
+                if isinstance(child, Block):
+                    walk(child, f"{prefix}.{cname}" if prefix else cname)
+
+        global _op_hooks_registered
+        _op_hooks_registered = True
+        walk(self, "")
+        return self
+
+    def summary(self, *inputs):  # noqa: ARG002 - the reference's signature
+        """Print each block's dotted name, type and parameter count, then
+        the total, which it returns (block.py:451)."""
+        rows = []
+
+        def walk(block, prefix):
+            n_params = sum(math.prod(p.shape)
+                           for p in block._reg_params.values()
+                           if p.shape is not None)
+            rows.append((prefix or type(block).__name__,
+                         type(block).__name__, n_params))
+            for name, child in block._modules.items():
+                if isinstance(child, Block):
+                    walk(child, f"{prefix}.{name}" if prefix else name)
+
+        walk(self, "")
+        total = sum(r[2] for r in rows)
+        print(f"{'Layer':<40}{'Type':<24}{'Params':>12}")
+        print("-" * 76)
+        for name, typ, n in rows:
+            print(f"{name:<40}{typ:<24}{n:>12}")
+        print("-" * 76)
+        print(f"Total params: {total}")
+        return total
 
     def zero_grad(self):
         """Zero the gradient buffer of every initialized parameter that has
@@ -309,6 +463,7 @@ class _ServedGraphs:
         return moved
 
     def call(self, block, sig, args):
+        check_no_op_hooks(block, "call_cached_graph")
         dev = args[0].device
         with self.lock:
             if self.graphs and self._storage_moved(block):
@@ -368,9 +523,28 @@ class HybridBlock(Block):
                 child.hybridize(False)
 
     def _call(self, *args, **kwargs):
-        if self._active:
-            self._note_signature(args)
-        return super()._call(*args, **kwargs)
+        if not self._active:
+            return super()._call(*args, **kwargs)
+        self._note_signature(args)
+        if (not _op_hooks_registered
+                or getattr(_HOOKS, "boundary", None) is not None):
+            return super()._call(*args, **kwargs)
+        _HOOKS.boundary = self     # descendants' op hooks stay silent
+        try:
+            return super()._call(*args, **kwargs)
+        finally:
+            _HOOKS.boundary = None
+
+    def infer_shape(self, *args):
+        """Run the forward once, unrecorded and with op hooks silent, so
+        that deferred parameters take their shapes (block.py:653)."""
+        args = [a._data if isinstance(a, NDArray) else a for a in args]
+        _HOOKS.suppress = getattr(_HOOKS, "suppress", 0) + 1
+        try:
+            with _ag.pause():
+                self.forward(*args)
+        finally:
+            _HOOKS.suppress -= 1
 
     @staticmethod
     def _signature(args):

@@ -1,11 +1,13 @@
-"""Basic layers of BERT and ResNet (counterpart of
-mxnet_tpu/gluon/nn/basic_layers.py).
+"""Basic layers (counterpart of mxnet_tpu/gluon/nn/basic_layers.py).
 
-Dense, Dropout, Embedding, LayerNorm, BatchNorm, BatchNormReLU, Flatten,
-Activation and HybridSequential, with the JAX package's parameter names
-and child naming (``layers.0``, ``layers.1`` ...), so ``collect_params()``
-keys match across the two packages. Unknown input dims (``in_units=0``,
-``in_channels=0``) are inferred on the first forward.
+The containers (Sequential, HybridSequential, Concatenate,
+HybridConcatenate, Identity, Lambda, HybridLambda), Dense, Dropout,
+Embedding, the norms (LayerNorm, BatchNorm, BatchNormReLU, SyncBatchNorm,
+GroupNorm, InstanceNorm), Flatten and Activation, with the JAX package's
+parameter names and child naming (``layers.0``, ``layers.1`` ...), so
+``collect_params()`` keys match across the two packages. Unknown input
+dims (``in_units=0``, ``in_channels=0``) are inferred on the first
+forward.
 """
 from __future__ import annotations
 
@@ -14,24 +16,24 @@ import math
 import torch
 
 from ... import autograd as _ag
+from ...ndarray.ndarray import NDArray
 from ...ops import nn as _nn
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 from ..parameter import Parameter
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding",
-           "BatchNorm", "BatchNormReLU", "Flatten", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "LayerNorm",
+           "Embedding", "BatchNorm", "BatchNormReLU", "SyncBatchNorm",
+           "GroupNorm", "InstanceNorm", "Flatten", "Activation", "Identity",
+           "Lambda", "HybridLambda", "Concatenate", "HybridConcatenate"]
 
 
-class HybridSequential(HybridBlock):
-    """Sequential container; children are named "0", "1", ..."""
-
-    def __init__(self, *blocks):
-        super().__init__()
-        self.add(*blocks)
+class _SequentialMixin:
+    """Children named "0", "1", ... run in turn; the first takes the extra
+    arguments."""
 
     def add(self, *blocks):
         for b in blocks:
-            self.add_module(str(len(self._modules)), b)
+            self.register_child(b)
         return self
 
     def forward(self, x, *args):
@@ -40,14 +42,33 @@ class HybridSequential(HybridBlock):
             args = ()
         return x
 
-    def __getitem__(self, i):
-        return list(self._modules.values())[i]
+    def __getitem__(self, key):
+        children = list(self._modules.values())
+        if isinstance(key, slice):
+            return type(self)(*children[key])
+        return children[key]
 
     def __len__(self):
         return len(self._modules)
 
     def __iter__(self):
         return iter(self._modules.values())
+
+
+class Sequential(_SequentialMixin, Block):
+    """Sequential container (basic_layers.py:25)."""
+
+    def __init__(self, *blocks):
+        super().__init__()
+        self.add(*blocks)
+
+
+class HybridSequential(_SequentialMixin, HybridBlock):
+    """Sequential container that can be the serving boundary."""
+
+    def __init__(self, *blocks):
+        super().__init__()
+        self.add(*blocks)
 
 
 class Dense(HybridBlock):
@@ -235,6 +256,58 @@ class BatchNormReLU(BatchNorm):
         return torch.relu(super().forward(x))
 
 
+class SyncBatchNorm(BatchNorm):
+    """Cross-device BatchNorm (basic_layers.py:237): on one device it is
+    BatchNorm, as in the JAX package, and takes K1/K2 on the card."""
+
+    def __init__(self, in_channels=0, num_devices=None,
+                 **kwargs):  # noqa: ARG002
+        super().__init__(in_channels=in_channels, **kwargs)
+
+
+class GroupNorm(HybridBlock):
+    """Group normalization over axis 1 (basic_layers.py:277)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__()
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self.gamma = Parameter("gamma", shape=(in_channels,),
+                               init=gamma_initializer,
+                               allow_deferred_init=True,
+                               differentiable=scale)
+        self.beta = Parameter("beta", shape=(in_channels,),
+                              init=beta_initializer, allow_deferred_init=True,
+                              differentiable=center)
+
+    def _affine(self, x):
+        for p in (self.gamma, self.beta):
+            if p._is_deferred:
+                p._finish_deferred_init((x.shape[1],))
+        return self.gamma._tensor(), self.beta._tensor()
+
+    def forward(self, x):
+        gamma, beta = self._affine(x)
+        return _nn.group_norm(x, gamma, beta, num_groups=self._num_groups,
+                              eps=self._epsilon)
+
+
+class InstanceNorm(GroupNorm):
+    """Instance normalization: a group a channel (basic_layers.py:306)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):  # noqa: ARG002 - axis 1, as the reference
+        super().__init__(1, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels)
+
+    def forward(self, x):
+        gamma, beta = self._affine(x)
+        return _nn.instance_norm(x, gamma, beta, eps=self._epsilon)
+
+
 class Flatten(HybridBlock):
     """Flatten to (N, -1) (basic_layers.py:362)."""
 
@@ -255,3 +328,76 @@ class Activation(HybridBlock):
 
     def extra_repr(self):
         return self._act
+
+
+class Identity(HybridBlock):
+    """Returns its input (basic_layers.py:372)."""
+
+    def forward(self, x):
+        return x
+
+
+def _resolve_lambda(function):
+    """A callable, or the name of an operator of ``mx.npx``, ``mx.np`` or
+    ``mx.nd``, searched in that order (basic_layers.py:377)."""
+    if not isinstance(function, str):
+        if not callable(function):
+            raise ValueError("Lambda expects a callable or an operator name "
+                             f"string, got {type(function)}")
+        return function
+    from ... import ndarray as _nd
+    from ... import numpy as _mnp
+    from ... import numpy_extension as _npx
+
+    for ns in (_npx, _mnp, _nd):
+        fn = getattr(ns, function, None)
+        if callable(fn):
+            return fn
+    raise ValueError(f"no operator named {function!r} in npx/np/nd")
+
+
+def _tensors(out):
+    """An operator's NDArray results as the tensors the layers pass on."""
+    if isinstance(out, NDArray):
+        return out._data
+    if isinstance(out, (tuple, list)):
+        return type(out)(_tensors(o) for o in out)
+    return out
+
+
+class _LambdaMixin:
+    def __init__(self, function):
+        super().__init__()
+        self._func = _resolve_lambda(function)
+
+    def forward(self, *args):
+        return _tensors(self._func(*args))
+
+
+class Lambda(_LambdaMixin, Block):
+    """A function, or an operator's name, as a layer (basic_layers.py:397)."""
+
+
+class HybridLambda(_LambdaMixin, HybridBlock):
+    """:class:`Lambda` that can be the serving boundary
+    (basic_layers.py:409)."""
+
+
+class _ConcatenateMixin:
+    def __init__(self, axis=-1):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return torch.cat([block(x) for block in self._modules.values()],
+                         dim=self._axis)
+
+
+class Concatenate(_ConcatenateMixin, Sequential):
+    """Runs every child on the input and concatenates their outputs along
+    ``axis`` (basic_layers.py:418)."""
+
+
+class HybridConcatenate(_ConcatenateMixin, HybridSequential):
+    """:class:`Concatenate` that can be the serving boundary
+    (basic_layers.py:433)."""

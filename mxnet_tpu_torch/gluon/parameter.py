@@ -35,7 +35,7 @@ from .. import initializer as init_mod
 from ..base import DeferredInitializationError, normalize_dtype
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["Parameter", "storage_epoch"]
+__all__ = ["Parameter", "Constant", "storage_epoch"]
 
 _EPOCHS = itertools.count(1)
 _EPOCH = [0]
@@ -75,7 +75,7 @@ class Parameter:
         if grad_req not in ("write", "add", "null"):
             raise ValueError(
                 f"grad_req must be 'write', 'add' or 'null', got {grad_req!r}")
-        self.name = name
+        self._name = name
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self._shape = tuple(shape) if shape is not None else None
@@ -93,7 +93,15 @@ class Parameter:
         # Load and Mixed route by
         self._structured_name = None
 
-    # -- shape -------------------------------------------------------------
+    # -- identity ----------------------------------------------------------
+    @property
+    def name(self):
+        return self._name
+
+    @name.setter
+    def name(self, value):
+        self._name = value
+
     @property
     def shape(self):
         return self._shape
@@ -203,12 +211,56 @@ class Parameter:
         raise RuntimeError(f"Parameter {self.name} has not been initialized")
 
     # -- data access -------------------------------------------------------
-    def data(self):
+    def data(self, ctx=None, device=None):
         """The value as an NDArray over the parameter's own storage
         (mxnet_tpu/gluon/parameter.py:253): it reads the current value, a
         write through it (``p.data()[:] = x``) lands in the parameter, and
-        a computation recorded on it sends its gradient to :meth:`grad`."""
-        return _ParameterArray(self._tensor())
+        a computation recorded on it sends its gradient to :meth:`grad`.
+        A ``device`` (``ctx``) other than the parameter's raises."""
+        t = self._tensor()
+        device = device if device is not None else ctx
+        if device is not None and torch.device(device) != t.device:
+            raise RuntimeError(f"Parameter {self.name} not initialized on "
+                               f"{device}; it lives on {t.device}")
+        return _ParameterArray(t)
+
+    def data_for(self, x):  # noqa: ARG002 - one device a parameter
+        """The copy co-located with ``x`` (parameter.py:273): the one
+        value, a parameter lives on one device in the port."""
+        return self.data()
+
+    def logical_data(self, ctx=None, device=None):
+        """The value in the parameter's logical layout (parameter.py:283):
+        the port keeps no other physical layout, so :meth:`data`."""
+        return self.data(ctx=ctx, device=device)
+
+    def list_data(self):
+        """``[data()]``: one device a parameter (parameter.py:294)."""
+        return [self.data()]
+
+    def list_ctx(self):
+        """The devices holding a copy: ``[device]``."""
+        return [self._tensor().device]
+
+    list_device = list_ctx
+
+    def reset_device(self, device=None, ctx=None):
+        """Move the value to ``device`` (``ctx``; a list of one device is
+        taken too) (parameter.py:393). The tensor is replaced, so
+        :func:`storage_epoch` moves, and the gradient buffer starts from
+        zeros there. A parameter lives on one device in the port: two
+        devices raise."""
+        device = device if device is not None else ctx
+        devices = device if isinstance(device, (list, tuple)) else [device]
+        devices = {torch.device(d) for d in devices}
+        if len(devices) != 1:
+            raise ValueError(f"Parameter {self.name}: one device a parameter "
+                             f"in the port, got {sorted(map(str, devices))}")
+        value = self._tensor()
+        with torch.inference_mode(False), torch.no_grad():
+            self._set_var(value.detach().to(devices.pop(), copy=True))
+
+    reset_ctx = reset_device
 
     def _tensor(self):
         """The value, a ``torch.nn.Parameter``: what the port's layers,
@@ -316,3 +368,27 @@ class Parameter:
                 _storage_replaced()
                 if self._grad is not None:
                     self._grad = self._grad.to(self.dtype)
+
+
+class Constant(Parameter):
+    """A parameter that holds ``value`` and takes no gradient
+    (parameter.py:433): ``initialize`` copies the value to the device, the
+    global initializer is not called."""
+
+    def __init__(self, value, name="const"):
+        if isinstance(value, NDArray):
+            value = value._data
+        if not isinstance(value, torch.Tensor):
+            from ..ndarray.ndarray import _host_to_tensor
+
+            value = _host_to_tensor(value, None, torch.device("cpu"))
+        super().__init__(name=name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, differentiable=False,
+                         init=init_mod.Constant(0.0))
+        self._value = value.detach()
+
+    def _finish_init(self, inits, device, generator):  # noqa: ARG002
+        with torch.inference_mode(False):
+            self._set_var(self._value.to(device=device, dtype=self.dtype,
+                                         copy=True))
+        self._deferred = None

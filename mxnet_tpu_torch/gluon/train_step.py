@@ -64,6 +64,7 @@ from .. import env as _env
 from ..kernels import opt as _kopt
 from ..ndarray.ndarray import NDArray
 from . import _graph
+from . import block as _block
 from .block import HybridBlock
 from .trainer import _later
 
@@ -367,6 +368,7 @@ class TrainStep:
         return NDArray(loss) if self._nd else loss
 
     def _cuda_step(self, sig, tensors, rows):
+        _block.check_no_op_hooks(self._net, "gluon.TrainStep's CUDA graph")
         dev = self._device
         graph = self._graphs.get(sig)
         if graph is not None:

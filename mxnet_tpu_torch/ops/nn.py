@@ -1,4 +1,4 @@
-"""Neural-net ops of BERT and ResNet, as plain tensor functions
+"""Neural-net ops of the port's layers, as plain tensor functions
 (counterpart of mxnet_tpu/ops/nn.py).
 
 Each mirrors the JAX op's arithmetic: dtypes promote as ``jnp`` promotes
@@ -18,8 +18,9 @@ import torch.nn.functional as F
 
 from .. import env as _env
 
-__all__ = ["fully_connected", "conv", "pool", "flatten", "batch_norm",
-           "layer_norm", "activation", "softmax", "log_softmax",
+__all__ = ["fully_connected", "conv", "conv_transpose", "pool", "flatten",
+           "batch_norm", "layer_norm", "group_norm", "instance_norm",
+           "activation", "leaky_relu", "softmax", "log_softmax",
            "softmax_cross_entropy", "embedding", "dropout"]
 
 
@@ -68,6 +69,32 @@ def conv(x, weight, bias=None, stride=None, pad=None, dilate=None, groups=1,
         x, weight = x.movedim(-1, 1), weight.movedim(-1, 1)
     fn = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
     y = fn(x, weight, bias, stride, pad, dilate, groups)
+    return y.movedim(1, -1) if last else y
+
+
+def conv_transpose(x, weight, bias=None, stride=None, pad=None, dilate=None,
+                   output_padding=None, groups=1, layout=None):
+    """Transposed convolution (ops/nn.py:123), weight ``(I, O/g, *k)``
+    channels-first or ``(I, *k, O/g)`` channels-last, the JAX package's
+    shapes and PyTorch's own. Its padding is the JAX package's: the
+    dilated kernel extent less ``pad`` on each side, ``output_padding``
+    more on the high side, so an output dim is
+    ``(n - 1) * stride - 2 * pad + dilate * (k - 1) + output_padding + 1``,
+    which is ``F.conv_transpose*d``'s."""
+    nd = x.dim() - 2
+    stride, pad = _tup(stride or 1, nd), _tup(pad or 0, nd)
+    dilate = _tup(dilate or 1, nd)
+    output_padding = _tup(output_padding or 0, nd)
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    if bias is not None:
+        dt = torch.promote_types(dt, bias.dtype)
+        bias = bias.to(dt)
+    x, weight = x.to(dt), weight.to(dt)
+    last = _channels_last(layout)
+    if last:
+        x, weight = x.movedim(-1, 1), weight.movedim(-1, 1)
+    fn = (F.conv_transpose1d, F.conv_transpose2d, F.conv_transpose3d)[nd - 1]
+    y = fn(x, weight, bias, stride, pad, output_padding, groups, dilate)
     return y.movedim(1, -1) if last else y
 
 
@@ -313,25 +340,93 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     return out.to(x.dtype)
 
 
+def _hard_sigmoid(x):
+    """``jax.nn.hard_sigmoid``: relu6(x + 3) / 6."""
+    return F.relu6(x + 3.0) / 6.0
+
+
 _ACTS = {
     "relu": torch.relu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
     # the reference gelu is the exact erf form; the tanh approximation is
     # opt-in under its own name
     "gelu": lambda x: F.gelu(x, approximate="none"),
     "erf_gelu": lambda x: F.gelu(x, approximate="none"),
     "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+    "swish": F.silu,
+    "mish": lambda x: x * torch.tanh(F.softplus(x)),
+    "hard_sigmoid": _hard_sigmoid,
+    "hard_swish": lambda x: x * _hard_sigmoid(x),
+    # jnp.clip: min(max(x, 0), 6), whose gradient is split at the ties
+    "relu6": lambda x: torch.minimum(torch.maximum(x, x.new_zeros(())),
+                                     x.new_full((), 6.0)),
     "identity": lambda x: x,
 }
 
 
 def activation(x, act_type="relu"):
-    """Activation dispatch (ops/nn.py:592)."""
+    """Activation dispatch (ops/nn.py:592), over the JAX package's table
+    (ops/nn.py:569): ``softmax`` and ``log_softmax`` over the last axis,
+    ``softrelu`` softplus, ``hard_sigmoid`` relu6(x + 3) / 6."""
     try:
         return _ACTS[act_type](x)
     except KeyError:
         raise ValueError(f"unknown act_type '{act_type}'") from None
+
+
+_SELU_ALPHA = 1.6732632423543772848170429916717
+_SELU_SCALE = 1.0507009873554804934193349852946
+
+
+def leaky_relu(x, gamma=None, act_type="leaky", slope=0.25):
+    """The LeakyReLU family (ops/nn.py:602): leaky, prelu (``gamma`` per
+    channel of axis 1), elu, selu, gelu and rrelu (its predict-mode form,
+    a leaky ReLU). Each branch is a ``where``, so the gradient at 0 is the
+    positive side's, as in the JAX package."""
+    if act_type in ("leaky", "rrelu"):
+        return torch.where(x >= 0, x, slope * x)
+    if act_type == "prelu":
+        if gamma.dim() == 1 and x.dim() > 2:
+            gamma = gamma.reshape((1, -1) + (1,) * (x.dim() - 2))
+        return torch.where(x >= 0, x, gamma * x)
+    if act_type == "elu":
+        return torch.where(x >= 0, x, slope * torch.expm1(x))
+    if act_type == "selu":    # jax.nn.selu: expm1 of the negative side only
+        neg = torch.where(x > 0, torch.zeros_like(x), x)
+        return _SELU_SCALE * torch.where(x > 0, x,
+                                         _SELU_ALPHA * torch.expm1(neg))
+    if act_type == "gelu":
+        return F.gelu(x, approximate="none")
+    raise ValueError(f"unknown act_type '{act_type}'")
+
+
+def group_norm(x, gamma, beta, num_groups, eps=1e-5):
+    """Group normalization over (N, C, *spatial) (ops/nn.py:487): the
+    statistics of each of ``num_groups`` channel groups of a sample, the
+    variance biased, in x's dtype."""
+    n, c = x.shape[:2]
+    xg = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = ((xg - mean) ** 2).mean(dim=axes, keepdim=True)
+    out = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    bshape = (1, c) + (1,) * (x.dim() - 2)
+    if gamma is not None:
+        out = out * gamma.reshape(bshape)
+    if beta is not None:
+        out = out + beta.reshape(bshape)
+    return out
+
+
+def instance_norm(x, gamma, beta, eps=1e-5):
+    """Instance normalization: a group a channel (ops/nn.py:506)."""
+    return group_norm(x, gamma, beta, num_groups=x.shape[1], eps=eps)
 
 
 def softmax(x, axis=-1, length=None, temperature=None):

@@ -16,7 +16,8 @@ Two families:
   ``broadcast_*`` family (comparisons return the left operand's dtype),
   reductions with ``exclude``, ``argmax``/``argmin`` as float indices, the
   reshape codes 0/-1/-2/-3/-4, ``transpose``, ``slice``, ``take``, ``clip``,
-  ``concat``, ``stack``, ``split``, ``dot``, ``batch_dot`` and ``cast``.
+  ``concat``, ``stack``, ``split``, ``dot``, ``batch_dot``, ``cast``,
+  ``pad`` and ``depth_to_space``.
 
 Every function is differentiable through torch autograd where its math is.
 """
@@ -585,6 +586,50 @@ def cast(data, dtype):
 @register_op("swapaxes")
 def swapaxes(data, dim1=0, dim2=1):
     return data.transpose(dim1, dim2)
+
+
+@register_op("depth_to_space")
+def depth_to_space(data, block_size):
+    """(N, C, H, W) -> (N, C / b^2, H * b, W * b), DCR order
+    (ops/tensor.py:533)."""
+    n, c, h, w = data.shape
+    b = block_size
+    x = data.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+def _pad_index(n, before, after, mode, device):
+    """Source indices of a dim of ``n`` padded by (before, after): numpy's
+    ``reflect`` (the edge not repeated, reflecting again past the far
+    edge) or ``edge``."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    i = i.remainder(period)
+    return torch.where(i >= n, period - i, i)
+
+
+@register_op("pad")
+def pad(data, mode="constant", pad_width=None, constant_value=0.0):
+    """Pad every dim by the flat ``(before, after)`` list ``pad_width``
+    (ops/tensor.py:571): ``constant`` with ``constant_value``, ``reflect``
+    as ``jnp.pad``'s (the edge not repeated) or, in any other mode, the
+    edge value repeated. Reflect and edge pads gather along each padded
+    dim, so the gradient reaches the sources."""
+    pw = [(int(pad_width[2 * i]), int(pad_width[2 * i + 1]))
+          for i in range(len(pad_width) // 2)]
+    if mode == "constant":
+        flat = [v for lo_hi in reversed(pw) for v in lo_hi]
+        return F.pad(data, flat, value=constant_value)
+    out = data
+    for dim, (lo, hi) in enumerate(pw):
+        if lo or hi:
+            idx = _pad_index(out.shape[dim], lo, hi,
+                             "reflect" if mode == "reflect" else "edge",
+                             out.device)
+            out = out.index_select(dim, idx)
+    return out
 
 
 @register_op("stack")

@@ -34,20 +34,21 @@ OPTIMIZER_PARAMS = dict(momentum=0.9, wd=1e-4)
 def build_resnet_train(batch=256, layout="NHWC", stem_s2d=True,
                        dtype="bfloat16", device=None, seed=0, image=224,
                        classes=1000, model=None, learning_rate=0.1,
-                       train_step=False):
+                       train_step=False, init=None):
     """``(net, trainer, step)``: ``step()`` runs one recorded forward on the
     one fixed batch, backward on the per-sample loss vector and
     ``trainer.step(batch)``, and returns that loss vector (on the device,
     f32). Weights and batch are drawn from ``seed``. ``model`` replaces
     ResNet-50 by another vision net built with the same ``layout`` (a narrow
-    one for tests). With ``train_step=True``, ``step`` is
+    one for tests); ``init`` is the global initializer (default Uniform).
+    With ``train_step=True``, ``step`` is
     ``functools.partial`` of a ``gluon.TrainStep`` over the same net, loss
     and trainer and the fixed batch (``step.func`` is the TrainStep)."""
     device = _device.resolve(device)
     net = model if model is not None else vision.resnet50_v1(
         classes=classes, layout=layout, stem_s2d=stem_s2d)
     gen = torch.Generator().manual_seed(seed)
-    net.initialize(device=device, generator=gen)
+    net.initialize(init=init, device=device, generator=gen)
     opt = dict(OPTIMIZER_PARAMS, learning_rate=learning_rate)
     if dtype == "bfloat16":
         amp.convert_hybrid_block(net, "bfloat16")
