@@ -38,6 +38,10 @@ failure exits non-zero, nothing is caught and carried on:
      (through the FP32 attention kernels, counted) and once on the CPU
      (their plain versions): the logits, then the loss and every gradient
      of one training step.
+ 4b. the exact GELU (``ops/nn.py:gelu_exact``, 0.5 * x * erfc(-x /
+     sqrt 2)) on the card against the CPU at x = -8 ... 8: f32 within 2e-6
+     relative, its gradient within 1e-5 relative (plus 1e-7 of the largest
+     where it crosses zero), bf16 within 2^-7.
   5. serving, a main path: BERT-base (bf16, seq 384) with its SQuAD head
      served through InferenceEngine (rungs 1/2/4/8), whose warmup captures
      one CUDA graph per rung (``call_cached_graph``): a replay against the
@@ -160,27 +164,35 @@ failure exits non-zero, nothing is caught and carried on:
      per-element clip, on the card and on the CPU from one state; every
      leaf within 4 f32 ulps (one bf16 ulp for a bf16 leaf) of its largest
      value plus 1e-3 of its largest change.
- 19. ring flash attention (K6), a main path: BERT-base's attention width
-     (12 heads of 64, bf16) over a 32768-token sequence sharded on a mesh
-     ``{"sp": 4}`` of four positions on ``cuda:0``, through
+ 19. ring flash attention (K6), a main path: first each hop kernel
+     (ops/ring_hop.py: ring_flash_fwd, ring_flash_bwd) against its plain
+     version at the local shard (12 x 8192 x 64), at D 128, at a ragged
+     shard of 1000 rows (D 64 and 128), causal and not (forward from a
+     running state, a middle and a last hop: out or acc within 2^-7 of
+     the largest, lse within 1e-5; backward increments within 2^-7), and
+     HGMMA in each library's SASS (cuobjdump). Then BERT-base's attention
+     width (12 heads of 64, bf16) over a 32768-token sequence sharded on a
+     mesh ``{"sp": 4}`` of four positions on ``cuda:0``, through
      ``parallel.ring_flash_attention_sharded`` and ``out.backward(dout)``,
      non-causal and causal, the counts zeroed just before each and read
      just after, under ``torch.cuda.set_sync_debug_mode("error")`` (no
-     synchronising call): K4, K5a and K5b 16 times each (n^2), causal 10
-     (n(n+1)/2), all on the tensor cores; out within 2^-7 of its largest
-     of the plain ring's (f32 online softmax) on the same q, k, v, and of
-     one K4 launch over the whole sequence; dq, dk, dv within 2^-7 + 4 x
-     2^-8 of their largest (each hop rounds its gradients to bf16 before
-     the f32 sum) of the ring backward with the plain flash backward on
-     each hop in place of K5, and of one K5 pair over the whole
-     sequence. Forward and backward p50 of
-     5 after 2 warm-ups (CUDA events), the same K4/K5 launches alone in
-     the ring's order, one K4 and one K5 pair over the whole sequence,
-     SDPA's forward and backward, the plain ring's forward, the bound.
-     Then at 4096 tokens the f32 ring (FP32 kernels) against the same
-     call on the CPU (1e-5 of the largest, out and gradients) and the
-     bf16 ring against the plain ring (2^-7); at 8192 Ulysses against the
-     plain ring (2^-7).
+     synchronising call): the hop kernels 16 times each way (n^2), causal
+     10 (n(n+1)/2), K4 and K5 never, the "hop" route both ways; out within
+     2^-7 of its largest of the plain ring's (f32 online softmax) on the
+     same q, k, v, and of one K4 launch over the whole sequence; dq, dk,
+     dv within 2^-7 + 4 x 2^-8 of their largest (the K4/K5 route's
+     tolerance, kept) of the ring backward with the plain hop backward in
+     place of the kernel, and of one K5 pair over the whole sequence.
+     Forward and backward p50 of 5 after 2 warm-ups (CUDA events), the
+     hop kernels alone in the ring's order, K4/K5 per hop alone (the
+     earlier route), one K4 and one K5 pair over the whole sequence,
+     SDPA's forward and backward, the plain ring's forward, the bound; one
+     hop at the shard beside its plain version and SDPA; the forward hop
+     from an empty state at 8 x 12 x 384 x 64 beside K4. Then at 4096
+     tokens the f32 ring (K4/K5's FP32 kernels) against the same call on
+     the CPU (1e-5 of the largest, out and gradients) and the bf16 ring
+     against the plain ring (2^-7); at 8192 Ulysses against the plain
+     ring (2^-7).
  20. the vision zoo, a main path: K1 and K2 against their plain versions
      at each of MobileNetV2-1.0's 53 BatchNorm shapes at batch 256 (bf16
      NCHW, the scalar path, non-zero cotangents, a second launch bit for
@@ -202,8 +214,8 @@ failure exits non-zero, nothing is caught and carried on:
      where the profiler recorded none), a ``{"kernels": [...]}`` line
      (with each kernel's launches on the TrainStep paths, on the resumed
      steps, on the LAMB steps, in the ring and on the vision zoo's steps,
-     and a row for K6; K1, K2 and K3 with MobileNetV2's path in
-     ``per_path``), the card line, and as the last line
+     a row for each hop kernel and one for K6's ring; K1, K2 and K3 with
+     MobileNetV2's path in ``per_path``), the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --bn-sites ROOT`` runs no phase but this: K1 and
@@ -285,6 +297,17 @@ KERNELS = [
          replaces="mxnet_tpu/kernels/norm.py:202",
          wrapper="mxnet_tpu_torch.kernels.norm:bn_train_bwd",
          plain="mxnet_tpu_torch.kernels.norm:bn_train_bwd_reference"),
+    # K6's hop kernels: the ring's bf16 path at head dims 64 and 128
+    dict(name="ring_flash_fwd", route="cuda",
+         source="mxnet_tpu_torch/csrc/ring_flash_fwd.cu",
+         replaces="mxnet_tpu/parallel/ring_attention.py:119",
+         wrapper="mxnet_tpu_torch.ops.ring_hop:ring_hop_fwd",
+         plain="mxnet_tpu_torch.ops.ring_hop:ring_hop_fwd_reference"),
+    dict(name="ring_flash_bwd", route="cuda",
+         source="mxnet_tpu_torch/csrc/ring_flash_bwd.cu",
+         replaces="mxnet_tpu/parallel/ring_attention.py:210",
+         wrapper="mxnet_tpu_torch.ops.ring_hop:ring_hop_bwd",
+         plain="mxnet_tpu_torch.ops.ring_hop:ring_hop_bwd_reference"),
     # K7: user CUDA C++ (the RTC_* sources below) through mx.rtc
     dict(name="rtc", route="cuda", source="mxnet_tpu_torch/rtc.py",
          replaces="mxnet_tpu/rtc.py:65",
@@ -1565,6 +1588,46 @@ def phase_model_parity(torch, mt, bert, fa):
     check(bool(torch.isfinite(outs["cuda"]).all()), "non-finite logits")
     check(err <= 1e-3, f"CUDA and CPU BERT disagree: {err:.3g}")
     return err
+
+
+def phase_gelu(torch):
+    """Phase 4b: the exact GELU (ops/nn.py:gelu_exact, 0.5 * x * erfc(-x *
+    sqrt_half)) on the card against the CPU on x = -8 ... 8 (and
+    cotangents for the f32 gradient): f32 within 2e-6 relative (erfc is
+    within 4 ulps on CUDA, 1-2 on the CPU, plus one rounding of the
+    product), the f32 gradient within 1e-5 relative, bf16 within 2^-7 (one
+    bf16 ulp where the two erfc straddle a rounding boundary, and the
+    product's)."""
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    x = torch.linspace(-8.0, 8.0, 4097)
+    ct = torch.cos(7.0 * x)
+    errs = {}
+    for dt, rtol in ((torch.float32, 2e-6), (torch.bfloat16, 2 ** -7)):
+        sides = []
+        for dev in ("cuda", "cpu"):
+            xd = x.to(dev, dt).detach().clone().requires_grad_(
+                dt == torch.float32)
+            y = tnn.gelu_exact(xd)
+            if dt == torch.float32:
+                y.backward(ct.to(dev))
+            sides.append((y.detach().float().cpu(),
+                          None if xd.grad is None else xd.grad.cpu()))
+        (y, g), (y_cpu, g_cpu) = sides
+        err = ((y - y_cpu).abs() / y_cpu.abs().clamp_min(1e-38)).max().item()
+        check(err <= rtol, f"gelu {dt}: card vs CPU {err:.3g} relative "
+              f"(tol {rtol:.3g})")
+        errs[str(dt)] = err
+        if g is not None:
+            # 1e-5 relative, plus 1e-7 of the largest where the gradient
+            # crosses zero (x near -0.75, where its two terms cancel)
+            excess = ((g - g_cpu).abs() - 1e-5 * g_cpu.abs()).max().item()
+            atol = 1e-7 * g_cpu.abs().max().item()
+            check(excess <= atol, f"gelu f32 gradient: card vs CPU beyond "
+                  f"1e-5 relative by {excess:.3g} (tol {atol:.3g})")
+            errs["grad_float32_excess"] = excess
+    say(f"gelu: card vs CPU at x in [-8, 8], worst relative {json.dumps(errs)}")
+    return errs
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -3485,6 +3548,8 @@ RING_SEQ = 32768          # the whole sequence, 8192 rows a position
 RING_SMALL = 4096         # the f32 and plain-ring comparisons
 RING_ULYSSES = 8192       # the plain score matrix of RING_SEQ does not fit
 RING_WARMUP, RING_TIMED = 2, 5
+RING_RAGGED = 1000        # a local shard that is no multiple of a tile
+RING_SERVE = (8, 12, 384, 64)   # the forward hop beside K4 at serving shape
 
 
 def _p50_ms(torch, fn, before=None):
@@ -3510,23 +3575,121 @@ def _rel_err(got, want):
             want.float().abs().max().item())
 
 
-def _ring_operands(torch, gen, dev, s, heads, dt):
-    return tuple(torch.randn(1, heads, s, 64, device=dev, generator=gen)
+def _ring_operands(torch, gen, dev, s, heads, dt, d=64, b=1):
+    return tuple(torch.randn(b, heads, s, d, device=dev, generator=gen)
                  .to(dt) for _ in range(4))
 
 
+def ring_hop_bound(b, h, s, d, causal, backward):
+    """Least time (ms) of one hop and what bounds it: 4*D operations per
+    live (q, k) pair forward, 2.5 times that backward, at the bf16 peak;
+    bytes: the bf16 operands read once (q, k, v; and dout backward), the
+    f32 state read and written (acc and lse forward; lse and delta read,
+    dq, dk, dv read and written backward)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * b * h * pairs * d * (2.5 if backward else 1.0)
+    n = b * h * s * d
+    nbytes = (4 * n * 2 + 2 * b * h * s * 4 + 3 * 2 * n * 4 if backward
+              else 3 * n * 2 + 2 * n * 4 + 2 * b * h * s * 4)
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ring_hop_case(torch, rh, gen, dev, b, h, s, d, causal):
+    """Each hop kernel against its plain version on the same inputs: the
+    forward from a running state (a middle hop into acc, and a last hop
+    into bf16 out), out or acc within 2^-7 of its largest (P rounds to
+    bf16 against another running maximum) and lse within 1e-5 of its
+    largest; the backward's increments of dq, dk, dv within 2^-7 of their
+    largest (P and dS round to bf16 in both, sums in other orders)."""
+    q, k, v, do = _ring_operands(torch, gen, dev, s, h, torch.bfloat16, d, b)
+    scale = d ** -0.5
+    acc0 = 0.5 * torch.randn(b, h, s, d, device=dev, generator=gen)
+    lse0 = torch.randn(b, h, s, device=dev, generator=gen) + 3.0
+    errs = {}
+    for last in (False, True):
+        got = []
+        for fn in (rh.ring_hop_fwd, rh.ring_hop_fwd_reference):
+            acc, lse = acc0.clone(), lse0.clone()
+            out = torch.empty_like(q) if last else None
+            r, lse = fn(q, k, v, acc, lse, causal, scale, last, out)
+            got.append((r, lse))
+        (r, lse), (r_want, lse_want) = got
+        e, big = _rel_err(r, r_want)
+        check(e <= 2 ** -7 * big, f"ring_flash_fwd {b}x{h}x{s}x{d} causal "
+              f"{causal} last {last}: {e:.3g} (tol 2^-7 of {big:.3g})")
+        el, bigl = _rel_err(lse, lse_want)
+        check(el <= 1e-5 * max(bigl, 1.0), f"ring_flash_fwd lse {el:.3g} "
+              f"(tol 1e-5 of {bigl:.3g})")
+        errs[f"fwd_{'last' if last else 'middle'}"] = e
+        errs[f"fwd_{'last' if last else 'middle'}_over_largest"] = e / big
+        errs["lse"] = max(errs.get("lse", 0.0), el)
+    out, lse = rh.ring_hop_fwd_reference(
+        q, k, v, None, torch.empty(b, h, s, device=dev), causal, scale, True,
+        torch.empty_like(q), True)
+    delta = rh.ring_delta(out, do)
+    base = [torch.randn(b, h, s, d, device=dev, generator=gen)
+            for _ in range(3)]
+    sums = []
+    for fn in (rh.ring_hop_bwd, rh.ring_hop_bwd_reference):
+        gs = [t.clone() for t in base]
+        fn(q, k, v, do, lse, delta, *gs, causal, scale)
+        sums.append([g - z for g, z in zip(gs, base)])
+    for name, got, want in zip(("dq", "dk", "dv"), *sums):
+        e, big = _rel_err(got, want)
+        check(e <= 2 ** -7 * big, f"ring_flash_bwd {b}x{h}x{s}x{d} causal "
+              f"{causal}: {name} {e:.3g} (tol 2^-7 of {big:.3g})")
+        errs[f"bwd_{name}"] = e
+        errs[f"bwd_{name}_over_largest"] = e / big
+    return dict(shape=[b, h, s, d], causal=causal, **errs)
+
+
+def _sass_hgmma(build):
+    """HGMMA instructions in each hop library's SASS, by cuobjdump where
+    the toolkit has it (None where it does not)."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    found = {}
+    for name in ("ring_flash_fwd", "ring_flash_bwd"):
+        if not tool.is_file():
+            found[name] = None
+            continue
+        sass = subprocess.run([str(tool), "-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        found[name] = sass.count("HGMMA")
+        check(found[name] > 0, f"{name}: no HGMMA in its SASS")
+    return found
+
+
 def phase_ring(torch, build, fa, card, seq=RING_SEQ, heads=RING_HEADS,
-               small=RING_SMALL, ulysses_seq=RING_ULYSSES):
+               small=RING_SMALL, ulysses_seq=RING_ULYSSES,
+               ragged=RING_RAGGED, serve=RING_SERVE):
     """Phase 19 (module docstring): ``{"full": {...}, "causal": {...},
-    "f32": ..., "plain_small": ..., "ulysses": ...}``."""
+    "hop_cases": [...], "serve_hop": {...}, "f32_vs_cpu": ...,
+    "bf16_vs_plain": ..., "ulysses_vs_plain_ring": ...}``."""
     import torch.nn.functional as F
 
+    from mxnet_tpu_torch.ops import ring_hop as rh
     from mxnet_tpu_torch.parallel import mesh as pmesh
     from mxnet_tpu_torch.parallel import ring_attention as ring
     from mxnet_tpu_torch.parallel import ulysses
 
     n = RING_POSITIONS
+    shard = seq // n
     dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    out = {"hgmma_in_sass": _sass_hgmma(build)}
+    # each hop kernel against its plain version: the ring's shard, D 128,
+    # a ragged shard, causal and not
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out["hop_cases"] = [
+        ring_hop_case(torch, rh, gen, dev, 1, h, s, d, causal)
+        for h, s, d in ((heads, shard, 64), (heads, min(shard, 2048), 128),
+                        (heads, ragged, 64), (4, ragged, 128))
+        for causal in (False, True)]
+    gc_collect(torch)
     mesh = pmesh.make_mesh({"sp": n}, [dev] * n)
     gen = torch.Generator(device=dev).manual_seed(19)
     q, k, v, dout = _ring_operands(torch, gen, dev, seq, heads,
@@ -3539,7 +3702,6 @@ def phase_ring(torch, build, fa, card, seq=RING_SEQ, heads=RING_HEADS,
         return ring.ring_flash_attention_sharded(*leaves, mesh,
                                                  causal=causal)
 
-    out = {}
     for causal in (False, True):
         label = "causal" if causal else "full"
         want = n * (n + 1) // 2 if causal else n * n
@@ -3547,6 +3709,7 @@ def phase_ring(torch, build, fa, card, seq=RING_SEQ, heads=RING_HEADS,
         # call inside may synchronise the host
         torch.cuda.synchronize()
         build.reset_counters()
+        ring.ROUTES.clear()
         torch.cuda.set_sync_debug_mode("error")
         try:
             o = ring_fwd(causal=causal)
@@ -3556,19 +3719,19 @@ def phase_ring(torch, build, fa, card, seq=RING_SEQ, heads=RING_HEADS,
         torch.cuda.synchronize()
         launches = {c.name: c.value for c in build.COUNTERS.values()
                     if c.value}
+        routes = dict(ring.ROUTES)
         grads = [t.grad for t in leaves]
-        for kname in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                      "flash_attention_bwd_dkv"):
-            check(launches.get(f"{kname}_mma") == want
-                  and launches.get(kname) == want,
-                  f"ring {label}: {kname} launched "
-                  f"{launches.get(f'{kname}_mma')} times on the tensor "
-                  f"cores of {launches.get(kname)}, want {want}")
-        check(not any(name.endswith("_fp32") for name in launches),
-              f"ring {label}: an FP32 kernel launched: {launches}")
+        for kname in ("ring_flash_fwd", "ring_flash_bwd"):
+            check(launches.get(kname) == want,
+                  f"ring {label}: {kname} launched {launches.get(kname)} "
+                  f"times, want {want}")
+        check(not any(name.startswith("flash_attention") for name in
+                      launches),
+              f"ring {label}: K4/K5 launched inside the ring: {launches}")
         check(launches.get("ring_flash_attention") == 1
-              and launches.get("ring_flash_attention_bwd") == 1,
-              f"ring {label}: ring counts {launches}")
+              and launches.get("ring_flash_attention_bwd") == 1
+              and routes == {"hop": 2},
+              f"ring {label}: ring counts {launches}, routes {routes}")
         # against the plain ring (f32 online softmax) on the same inputs
         with torch.no_grad():
             plain = ring.ring_attention_sharded(q, k, v, mesh, causal=causal)
@@ -3576,21 +3739,22 @@ def phase_ring(torch, build, fa, card, seq=RING_SEQ, heads=RING_HEADS,
         check(err <= 2 ** -7 * big, f"ring {label}: out vs the plain ring "
               f"{err:.3g} (tol 2^-7 of {big:.3g})")
         del plain
-        # the ring backward with the plain flash backward on each hop (at
-        # the local shard's shape) in place of K5, on the ring forward's
-        # saved out and lse
+        # the ring backward with the plain hop backward on each hop (at
+        # the local shard's shape, the same in-place sums) in place of the
+        # hop kernel, on the ring forward's saved out and lse
         shards = [pmesh.split(t, mesh, "sp", 2) for t in (q, k, v, dout)]
         qs, ks, vs, ds = shards
+        scale = 64 ** -0.5
         with torch.no_grad():
-            outs, lses = ring._ring_flash_fwd_impl(qs, ks, vs, causal,
-                                                   64 ** -0.5)
+            outs, lses = ring._ring_flash_fwd_impl(qs, ks, vs, causal, scale)
             plain_grads = [pmesh.assemble(g, 2) for g in ring._ring_flash_bwd(
-                qs, ks, vs, outs, lses, ds, causal, 64 ** -0.5,
-                hop_bwd=fa.flash_attention_bwd_reference)]
+                qs, ks, vs, outs, lses, ds, causal, scale,
+                hop_bwd=rh.ring_hop_bwd_reference)]
         gc_collect(torch)
-        # each hop's dq, dk, dv are rounded to bf16 before the f32 sum: n
-        # roundings of at most half a bf16 ulp (2^-8 relative) each, on top
-        # of the kernels' own 2^-7 of the largest
+        # the tolerance of the K4/K5 route, kept: 2^-7 of the largest for
+        # the kernels, and n x 2^-8 for the bf16 rounding of each hop's
+        # gradients that route made before the f32 sum (the hop kernels add
+        # in f32 and round once)
         grad_tol = 2 ** -7 + n * 2 ** -8
         grad_err = {}
         for name, g, r in zip(("dq", "dk", "dv"), grads, plain_grads):
@@ -3599,7 +3763,7 @@ def phase_ring(torch, build, fa, card, seq=RING_SEQ, heads=RING_HEADS,
                   f"plain hops {e:.3g} (tol {grad_tol:.4g} of {b:.3g})")
             grad_err[name] = e / b
         del plain_grads
-        # a second witness: one kernel launch over the whole sequence
+        # a second witness: one K4/K5 launch over the whole sequence
         ref, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         ref_grads = fa.flash_attention_bwd(q, k, v, ref, lse, dout,
                                            causal=causal)
@@ -3616,16 +3780,35 @@ def phase_ring(torch, build, fa, card, seq=RING_SEQ, heads=RING_HEADS,
         fwd_ms = _p50_ms(torch, partial(ring_fwd, causal=causal))
         bwd_ms = _p50_ms(torch, lambda o: o.backward(dout),
                          partial(ring_fwd, causal=causal))
-        # the same kernel launches alone, in the ring's order, on the
-        # ring's operands: the rest of the ring's time is merges and moves
-        hops = [hop for live in ring._hops(n, causal) for hop in live]
+        # the hop kernels alone in the ring's order on the ring's operands
+        # (the rest of the ring's time is allocation, delta and moves)
+        hops = _hops_flat(ring, n, causal)
+        last = {my: i for i, my, _, _ in hops}
+        accs = [torch.empty(t.shape, dtype=torch.float32, device=dev)
+                for t in qs]
+        lse_s = [torch.empty(t.shape[:3], dtype=torch.float32, device=dev)
+                 for t in qs]
+        hop_outs = [torch.empty_like(t) for t in qs]
+        hop_fwd_ms = _p50_ms(torch, lambda _: [
+            rh.ring_hop_fwd(qs[my], ks[src], vs[src], accs[my], lse_s[my],
+                            c, scale, i == last[my], hop_outs[my], i == 0)
+            for i, my, src, c in hops])
+        deltas = [rh.ring_delta(o_, d_) for o_, d_ in zip(outs, ds)]
+        sums = [[torch.zeros(t.shape, device=dev) for t in qs]
+                for _ in range(3)]
+        hop_bwd_ms = _p50_ms(torch, lambda _: [
+            rh.ring_hop_bwd(qs[my], ks[src], vs[src], ds[my], lses[my],
+                            deltas[my], sums[0][my], sums[1][src],
+                            sums[2][src], c, scale)
+            for _, my, src, c in hops])
+        # K4/K5 per hop alone as the earlier route ran them (the yardstick)
         k4_ms = _p50_ms(torch, lambda _: [
             fa.flash_attention_fwd(qs[my], ks[src], vs[src], causal=c)
-            for my, src, c in hops])
+            for _, my, src, c in hops])
         k5_ms = _p50_ms(torch, lambda _: [
             fa.flash_attention_bwd(qs[my], ks[src], vs[src], outs[my],
                                    lses[my], ds[my], causal=c)
-            for my, src, c in hops])
+            for _, my, src, c in hops])
         one_k4_ms = _p50_ms(torch, lambda _: fa.flash_attention_fwd(
             q, k, v, causal=causal))
         one_k5_ms = _p50_ms(torch, lambda _: fa.flash_attention_bwd(
@@ -3647,30 +3830,50 @@ def phase_ring(torch, build, fa, card, seq=RING_SEQ, heads=RING_HEADS,
             1, heads, seq, 64, "bfloat16", causal)["pair"]
         out[label] = dict(
             shape=[1, heads, seq, 64], positions=n, launches=launches,
-            max_abs_err=err, out_tol=2 ** -7 * big,
+            routes=routes, max_abs_err=err, out_tol=2 ** -7 * big,
             grad_err_over_largest=grad_err, grad_tol_of_largest=grad_tol,
             one_launch_err_over_largest=one_err,
-            ms=fwd_ms, bwd_ms=bwd_ms, k4_ms=k4_ms, k5_ms=k5_ms,
-            rest_share_fwd=1 - k4_ms / fwd_ms,
-            rest_share_bwd=1 - k5_ms / bwd_ms,
+            ms=fwd_ms, bwd_ms=bwd_ms, hop_fwd_ms=hop_fwd_ms,
+            hop_bwd_ms=hop_bwd_ms, k4_ms=k4_ms, k5_ms=k5_ms,
+            rest_share_fwd=1 - hop_fwd_ms / fwd_ms,
+            rest_share_bwd=1 - hop_bwd_ms / bwd_ms,
             one_k4_ms=one_k4_ms, one_k5_ms=one_k5_ms,
             library_ms=sdpa_ms, library_bwd_ms=sdpa_bwd_ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by)
         r = out[label]
-        say(f"ring {label}: forward {r['ms']:.3f} ms (K4 alone "
-            f"{r['k4_ms']:.3f}, rest {r['rest_share_fwd']:.3f}), backward "
-            f"{r['bwd_ms']:.3f} ms (K5 alone {r['k5_ms']:.3f}, rest "
-            f"{r['rest_share_bwd']:.3f}); one K4 {r['one_k4_ms']:.3f}, one "
-            f"K5 pair {r['one_k5_ms']:.3f}; SDPA {r['library_ms']:.3f} + "
-            f"{r['library_bwd_ms']:.3f}; plain ring {r['plain_ms']:.3f}; "
-            f"bound {r['bound_ms']:.3f} + {r['bwd_bound_ms']:.3f} "
-            f"({r['bound_by']}); out err {err:.3g} and gradients "
-            f"{json.dumps(grad_err)} of their largest against the plain "
-            f"ring, {json.dumps(one_err)} against one launch; card: {card}")
-        del o, grads, ref, lse, ref_grads, shards, qs, ks, vs, ds, outs, lses
+        say(f"ring {label}: forward {r['ms']:.3f} ms (hop kernels alone "
+            f"{r['hop_fwd_ms']:.3f}, rest {r['rest_share_fwd']:.3f}; K4 per "
+            f"hop {r['k4_ms']:.3f}), backward {r['bwd_ms']:.3f} ms (hop "
+            f"kernels alone {r['hop_bwd_ms']:.3f}, rest "
+            f"{r['rest_share_bwd']:.3f}; K5 per hop {r['k5_ms']:.3f}); one "
+            f"K4 {r['one_k4_ms']:.3f}, one K5 pair {r['one_k5_ms']:.3f}; "
+            f"SDPA {r['library_ms']:.3f} + {r['library_bwd_ms']:.3f}; plain "
+            f"ring {r['plain_ms']:.3f}; bound {r['bound_ms']:.3f} + "
+            f"{r['bwd_bound_ms']:.3f} ({r['bound_by']}); out err {err:.3g} "
+            f"and gradients {json.dumps(grad_err)} of their largest against "
+            f"the plain ring, {json.dumps(one_err)} against one launch; "
+            f"card: {card}")
+        del (o, grads, ref, lse, ref_grads, shards, qs, ks, vs, ds, outs,
+             lses, accs, lse_s, hop_outs, deltas, sums)
         gc_collect(torch)
     del q, k, v, dout, leaves
+    # one hop at the shard's shape, each kernel alone beside its plain
+    # version, SDPA on the same q, k, v (the hop's attention without its
+    # merge) and the bound: the kernels line's rows
+    out["hop"] = ring_hop_times(torch, rh, F, dev, 1, heads, shard, 64)
+    # the forward hop from an empty state at serving shape, beside K4
+    b, h, s, d = serve
+    gen = torch.Generator(device=dev).manual_seed(22)
+    q, k, v, _ = _ring_operands(torch, gen, dev, s, h, torch.bfloat16, d, b)
+    lse = torch.empty(b, h, s, device=dev)
+    o = torch.empty_like(q)
+    out["serve_hop"] = dict(
+        shape=list(serve), hop_ms=_p50_ms(torch, lambda _: rh.ring_hop_fwd(
+            q, k, v, None, lse, False, d ** -0.5, True, o, True)),
+        k4_ms=_p50_ms(torch, lambda _: fa.flash_attention_fwd(q, k, v)))
+    del q, k, v, o, lse
+    gc_collect(torch)
     # f32 on the FP32 kernels against the same call on the CPU port
     gen = torch.Generator(device=dev).manual_seed(20)
     q, k, v, dout = _ring_operands(torch, gen, dev, small, heads,
@@ -3720,8 +3923,49 @@ def phase_ring(torch, build, fa, card, seq=RING_SEQ, heads=RING_HEADS,
                                         tol=2 ** -7 * big)
     del q, k, v, u, r
     gc_collect(torch)
+    out["seconds"] = time.perf_counter() - t_phase
     say(f"ring: {json.dumps(out)}")
     return out
+
+
+def _hops_flat(ring, n, causal):
+    """The ring's live hops in order: ``(round, position, block owner,
+    causal)``."""
+    return [(i, my, src, c) for i, live in enumerate(ring._hops(n, causal))
+            for my, src, c in live]
+
+
+def ring_hop_times(torch, rh, F, dev, b, h, s, d):
+    """One non-causal middle hop at (b, h, s, d) bf16, each kernel alone
+    (p50 of host-issued runs, CUDA events) beside its plain version, SDPA's
+    forward (backward) over the same q, k, v and the hop's bound."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, do = _ring_operands(torch, gen, dev, s, h, torch.bfloat16, d, b)
+    scale = d ** -0.5
+    acc = torch.zeros(b, h, s, d, device=dev)
+    lse = torch.zeros(b, h, s, device=dev)
+    delta = torch.zeros(b, h, s, device=dev)
+    gs = [torch.zeros(b, h, s, d, device=dev) for _ in range(3)]
+    times = {}
+    for side, fwd, bwd in (("ms", rh.ring_hop_fwd, rh.ring_hop_bwd),
+                           ("plain_ms", rh.ring_hop_fwd_reference,
+                            rh.ring_hop_bwd_reference)):
+        times[f"fwd_{side}"] = _p50_ms(torch, lambda _: fwd(
+            q, k, v, acc, lse, False, scale, False))
+        times[f"bwd_{side}"] = _p50_ms(torch, lambda _: bwd(
+            q, k, v, do, lse, delta, *gs, False, scale))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    times["fwd_library_ms"] = _p50_ms(
+        torch, lambda _: F.scaled_dot_product_attention(*leaves))
+    times["bwd_library_ms"] = _p50_ms(
+        torch, lambda o: o.backward(do),
+        lambda: F.scaled_dot_product_attention(*leaves))
+    for way, backward in (("fwd", False), ("bwd", True)):
+        times[f"{way}_bound_ms"], times[f"{way}_bound_by"] = ring_hop_bound(
+            b, h, s, d, False, backward)
+    del q, k, v, do, acc, lse, delta, gs, leaves
+    gc_collect(torch)
+    return dict(shape=[b, h, s, d], causal=False, **times)
 
 
 # -- the vision zoo (phase 20) ------------------------------------------------
@@ -3991,6 +4235,7 @@ def main():
     bn = phase_kernels_bn(torch, knorm, dispatch, build)
     build.reset_counters()  # the FP32 attention kernels' launches in 4
     phase_model_parity(torch, mt, bert, fa)
+    phase_gelu(torch)
     phase_train_parity(torch, mt, finetune, fa)
     f32_launches = {c.name: c.value for c in build.COUNTERS.values()}
     phase_resnet_parity(torch, mt, train_resnet, vision, knorm)
@@ -4201,6 +4446,31 @@ def main():
                    for key, v in zoo["bn"][
                        "mobilenet_v2_batch256_53_sites"].items()
                    if side in key})})
+    hop = ring_run["hop"]
+    for name, way in (("ring_flash_fwd", "fwd"), ("ring_flash_bwd", "bwd")):
+        measured[name] = dict(
+            launches=sum(ring_run[label]["launches"][name]
+                         for label in ("full", "causal")),
+            launches_from="phase 19: the ring's forward and backward, "
+                          "non-causal (16 hops) and causal (10)",
+            max_abs_err=max(c[key] for c in ring_run["hop_cases"]
+                            for key in c if key.startswith(way)
+                            and not key.endswith("largest")),
+            ms=hop[f"{way}_ms"], plain_ms=hop[f"{way}_plain_ms"],
+            bound_ms=hop[f"{way}_bound_ms"], bound_by=hop[f"{way}_bound_by"],
+            library_ms=hop[f"{way}_library_ms"],
+            ring_alone_ms={label: ring_run[label][f"hop_{way}_ms"]
+                           for label in ("full", "causal")},
+            hgmma_in_sass=ring_run["hgmma_in_sass"][name],
+            times_cover="one non-causal middle hop at the ring's shard "
+                        "(1 x 12 x 8192 x 64 bf16), p50 of 5 host-issued "
+                        "(CUDA events); library: SDPA over the same q, k, "
+                        "v (the hop's attention without its merge or its "
+                        "sums); ring_alone_ms: the ring's hops in order; "
+                        "max_abs_err: the largest against the plain "
+                        "version over hop_cases",
+            cases=ring_run["hop_cases"])
+    measured["ring_flash_fwd"]["serve_hop"] = ring_run["serve_hop"]
     kernels = []
     for k in KERNELS:
         m = measured[k["name"]]
@@ -4234,11 +4504,11 @@ def main():
                for f in zoo["families"]})
         kernels.append(dict(name=k["name"], route=k["route"],
                             source=k["source"], replaces=k["replaces"], **m))
-    # K6, the ring: no pallas_call and no source of its own, it launches
-    # K4 (forward) and K5a, K5b (backward) on each live hop. Its row is the
-    # non-causal forward at 1 x 12 x 32768 x 64 bf16 over four positions
-    # (launches: ring forwards on phase 19's main path); the backward and
-    # the causal ring beside it, each with its plain, library and bound
+    # K6, the ring: its Python schedule (ring_attention.py) over the hop
+    # kernels (their own rows above). Its row is the non-causal forward at
+    # 1 x 12 x 32768 x 64 bf16 over four positions (launches: ring forwards
+    # on phase 19's main path); the backward and the causal ring beside it,
+    # each with its plain, library and bound
     full = ring_run["full"]
     kernels.append(dict(
         name="ring_flash_attention", route="cuda",
@@ -4257,7 +4527,8 @@ def main():
                     "on the same inputs; plain: the plain f32 ring "
                     "(ring_attention); library: SDPA's forward over the "
                     "whole sequence; see full and causal for the "
-                    "backward, the kernels alone and one K4/K5 launch",
+                    "backward, the hop kernels alone, K4/K5 per hop and "
+                    "one K4/K5 launch",
         full=full, causal=ring_run["causal"],
         checks={key: ring_run[key] for key in (
             "f32_vs_cpu", "bf16_vs_plain", "ulysses_vs_plain_ring")}))

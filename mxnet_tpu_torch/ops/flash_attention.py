@@ -43,6 +43,7 @@ from ..kernels import build as _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_reference", "flash_attention_bwd_reference",
+           "attention_reference_f32", "attention_bwd_reference_f32",
            "launch_bwd_dq", "launch_bwd_dkv", "kernel_route", "tensor_route",
            "next_dropout_seed",
            "VARIANTS", "LAUNCHES", "LAUNCHES_BWD_DQ", "LAUNCHES_BWD_DKV",
@@ -155,6 +156,15 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
     accumulation, out in q's dtype, lse f32 (-inf for a fully masked
     row)."""
     _check_args(q, k, v, dropout_p, dropout_seed)
+    out, lse = attention_reference_f32(q, k, v, causal, scale, dropout_p,
+                                       dropout_seed)
+    return out.to(q.dtype), lse
+
+
+def attention_reference_f32(q, k, v, causal=False, scale=None,
+                            dropout_p=0.0, dropout_seed=None):
+    """:func:`flash_attention_reference` with out left in float32 (the ring's
+    hop partial, which is never rounded to q's dtype)."""
     b, h, s, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -179,7 +189,7 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
         p = torch.where(keep, p, torch.zeros_like(p))
         o_denom = denom * (1.0 - dropout_p)
     acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
-    return (acc / o_denom).to(q.dtype), lse
+    return acc / o_denom, lse
 
 
 def _lib():
@@ -345,6 +355,19 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal=False,
     dS^T q; P_d (kept P / (1 - p)) cast to dO's dtype before P_d^T dO; f32
     accumulation; dq, dk, dv in the inputs' dtypes."""
     _check_args(q, k, v, dropout_p, dropout_seed)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    dq, dk, dv = attention_bwd_reference_f32(q, k, v, lse, delta, dout,
+                                             causal, scale, dropout_p,
+                                             dropout_seed)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_reference_f32(q, k, v, lse, delta, dout, causal=False,
+                                scale=None, dropout_p=0.0,
+                                dropout_seed=None):
+    """:func:`flash_attention_bwd_reference` from a given ``delta`` (B, H, S)
+    f32, with dq, dk, dv left in float32 (the ring's hop, which adds them
+    into float32 sums)."""
     b, h, s, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -356,7 +379,6 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal=False,
     lse_safe = torch.where(live, lse_col, torch.zeros_like(lse_col))
     p = torch.where(live, torch.exp(scores - lse_safe),
                     torch.zeros_like(scores))
-    delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
     dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
     p_d = p
     if dropout_p > 0.0:
@@ -371,10 +393,10 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal=False,
         dp = torch.where(keep, dp, zero) / (1.0 - dropout_p)
     dv = torch.einsum("bhqk,bhqd->bhkd", p_d.to(dout.dtype).float(),
                       dout.float())
-    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
 
 
 def _lib_bwd():

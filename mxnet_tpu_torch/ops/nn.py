@@ -11,6 +11,7 @@ versions are ``_bn_train_impl`` and ``_bn_train_bwd`` here.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -340,6 +341,23 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _sqrt_half(dtype):
+    """sqrt(1/2) rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(math.sqrt(0.5), dtype=dtype))
+
+
+def gelu_exact(x):
+    """The exact GELU as ``jax.nn.gelu(x, approximate=False)`` computes it
+    (ops/nn.py:579 of the JAX package): ``0.5 * x * erfc(-x * sqrt_half)``
+    with ``sqrt_half`` rounded to x's dtype, op by op, so that bfloat16
+    rounds where JAX rounds (``x * -sqrt_half`` is ``-x * sqrt_half`` bit
+    for bit, one launch fewer). The erf form ``x/2 * (1 + erf(x/sqrt 2))``
+    cancels for x < -2; erfc does not. The gradient is autograd's through
+    these ops, as ``jax.vjp`` goes through them."""
+    return 0.5 * x * torch.special.erfc(x * -_sqrt_half(x.dtype))
+
+
 def _hard_sigmoid(x):
     """``jax.nn.hard_sigmoid``: relu6(x + 3) / 6."""
     return F.relu6(x + 3.0) / 6.0
@@ -355,8 +373,8 @@ _ACTS = {
     "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
     # the reference gelu is the exact erf form; the tanh approximation is
     # opt-in under its own name
-    "gelu": lambda x: F.gelu(x, approximate="none"),
-    "erf_gelu": lambda x: F.gelu(x, approximate="none"),
+    "gelu": gelu_exact,
+    "erf_gelu": gelu_exact,
     "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
     "silu": F.silu,
     "swish": F.silu,
@@ -402,7 +420,7 @@ def leaky_relu(x, gamma=None, act_type="leaky", slope=0.25):
         return _SELU_SCALE * torch.where(x > 0, x,
                                          _SELU_ALPHA * torch.expm1(neg))
     if act_type == "gelu":
-        return F.gelu(x, approximate="none")
+        return gelu_exact(x)
     raise ValueError(f"unknown act_type '{act_type}'")
 
 

@@ -6,7 +6,8 @@ computes (relu6, softrelu, softsign, silu, swish, mish, hard_sigmoid,
 hard_swish, softmax, log_softmax); each is held here, with the rest of the
 table, through all four surfaces: ``ops.nn.activation``,
 ``mx.npx.activation``, ``nn.Activation`` and ``Dense(activation=...)``.
-Inputs hold -0.0, +-3, +-6 and large +-x beside seeded normals. Tolerances:
+Inputs hold -0.0, +-3, -5, +-6, -8 and large +-x beside seeded normals.
+Tolerances:
 float32 1e-6 relative (plus 1e-7 absolute, and 1e-6 of the largest value
 for the row-normalised softmax family); bfloat16 two units in the last
 place of the JAX value (2^-6 relative): the JAX package rounds each op of
@@ -16,13 +17,12 @@ float32, 1e-5 relative plus 1e-6 absolute (a chain of several ops rounds
 several times in another order; a saturating derivative such as
 ``1 - tanh^2`` cancels).
 
-The GELU family (``gelu``, ``erf_gelu``, ``gelu_tanh``, the GELU block) is
-held to 1e-6 absolute in float32 (1e-5 for gradients) and to 2^-6 of the
-largest value in bfloat16: the JAX package computes the exact form as
-``x/2 * erfc(-x/sqrt 2)``, the port ``F.gelu``'s ``x/2 * (1 + erf(x/sqrt
-2))``, which cancels in the negative tail (7e-7 apart at x = -3; the tanh
-form cancels there in both, in other orders), and in bfloat16 the JAX
-package rounds each intermediate to bfloat16 (ROADMAP queue 3).
+The exact GELU (``gelu``, ``erf_gelu``, the GELU block, ``leaky_relu``'s
+gelu) is held to the table's own tolerances: both packages compute
+``0.5 * x * erfc(-x * sqrt_half)`` op by op (``ops/nn.py:gelu_exact``), so
+the negative tail (-3, -5, -8 among the inputs) does not cancel. The tanh
+form keeps a wider tolerance, for a gap in the JAX package's tanh
+(``_TANH_GELU`` below).
 """
 import jax
 import jax.numpy as jnp
@@ -39,7 +39,7 @@ ALL = sorted(jnn._ACTS)
 REPAIRED = ["relu6", "softrelu", "softsign", "silu", "swish", "mish",
             "hard_sigmoid", "hard_swish", "softmax", "log_softmax"]
 SPECIAL = [-0.0, 0.0, 3.0, -3.0, 6.0, -6.0, 2.5, -2.5, 40.0, -40.0, 1e3,
-           -1e3]
+           -1e3, -5.0, -8.0]
 
 
 def _inputs(seed=0):
@@ -49,17 +49,28 @@ def _inputs(seed=0):
     return x
 
 
+#: the tanh form (``gelu_tanh``, ``GELU('tanh')``) alone keeps 1e-6
+#: absolute in float32 (1e-5 for gradients): XLA's tanh saturates to -1
+#: for arguments below about -7.9 where torch's tanh is one float32 ulp of
+#: 1 above it, and ``1 + tanh`` cancels there, so the two differ by up to
+#: 3.0e-7 for x in [-5, -4] (measured on these inputs; 4.0e-7 at x = -4.5
+#: op by op in the JAX package's order). In bfloat16 it keeps 2^-6 of the
+#: largest value: the JAX package rounds each of its seven intermediates
+#: to bfloat16, torch's fused op rounds once (measured 2.9e-3 absolute)
+_TANH_GELU = ("gelu_tanh", "GELU('tanh',)")
+
+
 def _close(got, want, dtype, name, scale=False, grad=False):
     got, want = onp.asarray(got, "f"), onp.asarray(want, "f")
     if dtype == "bfloat16":
         rtol, atol = 2.0 ** -6, 2.0 ** -6 * 1e-3
     else:
         rtol, atol = (1e-5, 1e-6) if grad else (1e-6, 1e-7)
-    gelu = "gelu" in name.lower()
-    if scale or gelu and dtype == "bfloat16":
+    if scale:
         atol = max(atol, rtol * onp.abs(want).max())
-    elif gelu:
-        atol = 1e-5 if grad else 1e-6
+    elif name.startswith(_TANH_GELU):
+        atol = (max(atol, rtol * onp.abs(want).max()) if dtype == "bfloat16"
+                else 1e-5 if grad else 1e-6)
     onp.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
                                 err_msg=f"{name} {dtype}")
 

@@ -4,16 +4,17 @@ every test skips without a card. The file imports no JAX:
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_cuda_ring.py
 
-Four mesh positions on ``cuda:0``: each hop launches K4 forward and K5a,
-K5b backward at the local shard's shape (16 of each, 10 causal, all on the
-tensor cores for bf16, the FP32 kernels for f32), at D = 64 and at
-D = 12; the bf16 ring agrees with the plain ring on the card within 2^-7
-of the largest |out| (its gradients with the plain ring's autograd
-gradients within 2^-7 + 4 x 2^-8 of the largest: each hop rounds them to
-bf16), the f32 ring with the same
-call on the CPU within 1e-5 of the largest, ragged local shards (S = 100
-over 4, 25 rows a position) included; the last test runs chip_smoke.py's
-phase 19 at a small size.
+Four mesh positions on ``cuda:0``. At D = 64 a bf16 ring runs the hop
+kernels (ops/ring_hop.py: ring_flash_fwd and ring_flash_bwd, 16 launches
+of each, 10 causal; K4 and K5 none); at D = 12, and in f32, the earlier
+route (K4 forward and K5a, K5b backward per hop, on the tensor cores for
+bf16, the FP32 kernels for f32). The bf16 ring agrees with the plain ring
+on the card within 2^-7 of the largest |out| (its gradients with the plain
+ring's autograd gradients within 2^-7 + 4 x 2^-8 of the largest, the
+tolerance of the K4/K5 route, whose hops round their gradients to bf16),
+the f32 ring with the same call on the CPU within 1e-5 of the largest,
+ragged local shards (S = 100 over 4, 25 rows a position) included; the
+last test runs chip_smoke.py's phase 19 at a small size.
 """
 import pytest
 import torch
@@ -33,7 +34,8 @@ def cuda_device():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kbuild.build(["flash_attention_fwd", "flash_attention_bwd"])
+    kbuild.build(["flash_attention_fwd", "flash_attention_bwd",
+                  "ring_flash_fwd", "ring_flash_bwd"])
     return torch.device("cuda", 0)
 
 
@@ -59,20 +61,26 @@ def _err(a, b):
 @pytest.mark.parametrize("d", [64, 12])
 @pytest.mark.parametrize("causal", [False, True])
 def test_each_hop_launches_the_tensor_core_kernels(cuda_device, causal, d):
-    """D = 12 too: the kernels take a head dim that is not a multiple of
-    8 (by 2-byte loads), so the ring runs them as at D = 64."""
+    """D = 64: one hop kernel a hop each way. D = 12 (not a head dim the
+    hop kernels are built for): K4, K5a and K5b on every hop (by 2-byte
+    loads), as before."""
     mesh = pmesh.make_mesh({"sp": N}, [cuda_device] * N)
     ops = _operands(cuda_device, (1, 2, 512, d), torch.bfloat16, 1)
     torch.cuda.synchronize()
     kbuild.reset_counters()
+    ring.ROUTES.clear()
     got = _run(ring.ring_flash_attention_sharded, mesh, ops, causal)
     torch.cuda.synchronize()
     counts = {c.name: c.value for c in kbuild.COUNTERS.values()}
     want = N * (N + 1) // 2 if causal else N * N
+    hop = d in (64, 128)
+    for name in ("ring_flash_fwd", "ring_flash_bwd"):
+        assert counts.get(name, 0) == (want if hop else 0)
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
-        assert counts[name] == counts[f"{name}_mma"] == want
+        assert counts[name] == counts[f"{name}_mma"] == (0 if hop else want)
         assert counts[f"{name}_fp32"] == 0
+    assert ring.ROUTES == {"hop" if hop else "k4k5": 2}
     assert counts["ring_flash_attention"] == 1
     assert counts["ring_flash_attention_bwd"] == 1
     ref = _run(ring.ring_attention_sharded, mesh, ops, causal)
@@ -93,8 +101,9 @@ def test_ragged_local_shards_on_the_kernels(cuda_device, dt):
     ops = _operands(cuda_device, (2, 3, 100, 64), dt, 2)
     kbuild.reset_counters()
     got = _run(ring.ring_flash_attention_sharded, mesh, ops, True)
-    variant = "mma" if dt == torch.bfloat16 else "fp32"
-    assert kbuild.COUNTERS[f"flash_attention_fwd_{variant}"].value == 10
+    name = ("ring_flash_fwd" if dt == torch.bfloat16
+            else "flash_attention_fwd_fp32")
+    assert kbuild.COUNTERS[name].value == 10
     if dt == torch.float32:
         want = _run(ring.ring_flash_attention_sharded, cpu,
                     [t.cpu() for t in ops], True)
@@ -127,7 +136,9 @@ def test_forward_alone_takes_no_host_sync(cuda_device):
 @pytest.mark.cuda
 def test_phase_ring(cuda_device):
     out = chip_smoke.phase_ring(torch, kbuild, fa, "card", seq=2048,
-                                heads=4, small=512, ulysses_seq=512)
-    assert out["full"]["launches"]["flash_attention_fwd_mma"] == N * N
-    assert out["causal"]["launches"]["flash_attention_bwd_dkv_mma"] == 10
+                                heads=4, small=512, ulysses_seq=512,
+                                ragged=200, serve=(2, 4, 128, 64))
+    assert out["full"]["launches"]["ring_flash_fwd"] == N * N
+    assert out["causal"]["launches"]["ring_flash_bwd"] == 10
     assert out["full"]["ms"] > 0 and out["causal"]["bwd_ms"] > 0
+    assert len(out["hop_cases"]) == 8

@@ -86,7 +86,9 @@ def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
     wrapper and a plain version that exist in one module, a launch counter
     that the wrapper's module registers, and the TPU kernel it replaces
     (the optimizer's global-norm pre-pass: the reference's jitted XLA
-    norm, which no Pallas kernel computes)."""
+    norm, which no Pallas kernel computes; the ring's hop kernels: the
+    reference's ring forward and backward, which run the Pallas attention
+    kernels on each hop)."""
     import importlib
 
     sys.path.insert(0, str(ROOT))
@@ -105,7 +107,7 @@ def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
 
     sources = sorted(str(p.relative_to(ROOT))
                      for p in (ROOT / "mxnet_tpu_torch/csrc").glob("*.cu"))
-    assert len(sources) == 4
+    assert len(sources) == 6
     assert sorted({k["source"] for k in chip_smoke.KERNELS
                    if "/csrc/" in k["source"]}) == sources
     # the runtime-compiled kernels (K7) come from user sources through rtc
@@ -122,6 +124,11 @@ def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
         text = (ROOT / ref_file).read_text().splitlines()
         if k["name"] == "opt_sqnorm":
             assert "def _fused_norm_jitted(" in text[int(line) - 1]
+            continue
+        if k["name"] in ("ring_flash_fwd", "ring_flash_bwd"):
+            assert text[int(line) - 1].startswith(
+                ("def _ring_flash_fwd_impl(", "def _ring_flash_vjp_bwd(")), \
+                k["replaces"]
             continue
         assert ("_kernel(" in text[int(line) - 1]
                 or "pallas_call(" in text[int(line) - 1]), k["replaces"]

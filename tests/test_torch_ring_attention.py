@@ -1,15 +1,16 @@
 """The port's ring attention (mxnet_tpu_torch/parallel/ring_attention.py,
-K6: the flash kernels on every hop) against the JAX package's
+K6: a flash hop on every hop) against the JAX package's
 ``ring_flash_attention_sharded`` and ``ring_attention_sharded`` over 4 of
 the 8 virtual CPU devices of tests/conftest.py (its Pallas kernels in
 interpret mode), with the same numpy inputs and output gradient. The
-port's mesh holds 4 ``cpu`` positions, so each hop runs the kernels' plain
-versions. Causal and not; (2, 2, 64, 16) and local shards of 25 rows
-(S = 100 over 4: the JAX package tile-pads them to 128, the port pads
-nothing); D = 12, where the JAX package takes its plain ring and the port
-its flash ring (the kernels take any head dim). Forward within rtol
-1e-5, atol 1e-6; gradients within rtol 2e-4, atol 2e-5, the JAX package's
-own tolerances for its flash gradients.
+port's mesh holds 4 ``cpu`` positions, so each hop runs the hop kernels'
+plain versions (ops/ring_hop.py). Causal and not; (2, 2, 64, 16) and
+local shards of 25 rows (S = 100 over 4: the JAX package tile-pads them
+to 128, the port pads nothing); D = 12, where the JAX package takes its
+plain ring and the port its flash ring (the plain hops take any head dim;
+on the card D = 12 takes K4/K5 per hop). Forward within rtol 1e-5, atol
+1e-6; gradients within rtol 2e-4, atol 2e-5, the JAX package's own
+tolerances for its flash gradients.
 """
 import jax
 import jax.numpy as jnp
@@ -79,35 +80,39 @@ def test_plain_ring_and_a_ragged_head_dim_match_the_jax_package(causal):
 
 def test_hops_run_the_kernels_by_the_hop_schedule(monkeypatch):
     """n^2 forward and backward hops, or n(n+1)/2 causal: the diagonal hop
-    runs the causal kernel, past hops the full one, future hops none;
-    every hop takes the position's q and the resident block at the local
-    shard's shape, the backward hops the saved out and lse of the
-    position. On CPU tensors no kernel launches and K6 counts nothing."""
+    runs causal, past hops in full, future hops none; every hop takes the
+    position's q and the resident block at the local shard's shape, the
+    forward hops the position's running state (acc, lse), the backward
+    hops the position's dout, global lse and delta and the three float32
+    sums. On CPU tensors no kernel launches, K6 counts nothing and the
+    ring takes the plain route both ways."""
     calls = []
 
     def spy(name, fn):
-        def wrapper(q, k, v, *rest, causal, scale):
+        def wrapper(q, k, v, *rest, causal, scale, **kw):
             calls.append((name, causal, tuple(q.shape), tuple(k.shape),
                           len(rest)))
-            return fn(q, k, v, *rest, causal=causal, scale=scale)
+            return fn(q, k, v, *rest, causal=causal, scale=scale, **kw)
         return wrapper
 
-    monkeypatch.setattr(tring, "flash_attention_fwd",
-                        spy("fwd", tring.flash_attention_fwd))
-    monkeypatch.setattr(tring, "flash_attention_bwd",
-                        spy("bwd", tring.flash_attention_bwd))
+    monkeypatch.setattr(tring, "ring_hop_fwd",
+                        spy("fwd", tring.ring_hop_fwd))
+    monkeypatch.setattr(tring, "ring_hop_bwd",
+                        spy("bwd", tring.ring_hop_bwd))
     _, tm = _meshes({"sp": 4}, 4)
     before = {c.name: c.value for c in kbuild.COUNTERS.values()}
     arrs = _inputs(2, (1, 2, 64, 16))
     for causal, hops, diag in ((False, 16, 0), (True, 10, 4)):
         calls.clear()
+        tring.ROUTES.clear()
         _port_side(tring.ring_flash_attention_sharded, arrs, tm, causal)
-        for name, rest in (("fwd", 0), ("bwd", 3)):
+        for name, rest in (("fwd", 2), ("bwd", 6)):
             mine = [c for c in calls if c[0] == name]
             assert len(mine) == hops
             assert sum(c[1] for c in mine) == diag
             assert {c[2:] for c in mine} == {((1, 2, 16, 16), (1, 2, 16, 16),
                                               rest)}
+        assert tring.ROUTES == {"plain": 2}
     assert {c.name: c.value for c in kbuild.COUNTERS.values()} == before
     assert tring.LAUNCHES.value == before["ring_flash_attention"]
 
