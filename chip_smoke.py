@@ -209,13 +209,34 @@ failure exits non-zero, nothing is caught and carried on:
      alexnet at full width take a step each at batch 32 (bf16 with
      masters), the counts zeroed just before: K1 = K2 = the net's
      BatchNorm blocks, K3 once a bucket, the loss finite, peak memory.
- 21. a ``timing`` line (profiler windows taken, windows that came back
+ 21. the input pipeline, a main path: ``tools/train_mnist.py`` (LeNet,
+     the synthetic MNIST's 1024 samples, 2 epochs at batch 64, in the
+     caller: K3 once a step) and ``tools/train_cifar_resnet.py --bf16``
+     (``resnet18_v1(classes=10)`` at full width, ``nag``, one epoch of the
+     synthetic CIFAR-10 at batch 64) fed by ``gluon.data.DataLoader`` in
+     each mode from the same ``np.random.seed`` and initial weights: (a)
+     in the caller, (b) 4 fork workers forked after CUDA is initialised,
+     (c) a thread pool, (d) ``device_prefetch=2`` with ``pin_memory``,
+     (e) (d) through TrainStep's graph at batch 64 and 256. (a)-(d) give
+     the same batches in the same order (sha1 of each) and losses within
+     1e-4 (cuDNN deterministic); every run K1 = K2 = 20 a step and K3 once
+     a bucket a step on the card, ``data_prefetch_total`` = its batches
+     with prefetch (0 without), no worker process left after it, and with
+     prefetch its host-to-device copies on a stream that runs no compute
+     (the profiler's, else the loader's stream ids); each prints its
+     samples/s, step ms (CUDA events), ms waiting in ``next(loader)`` and
+     the device's idle share in a profiled epoch. Then K1 and K2 at
+     ResNet-18's 20 CIFAR BatchNorm sites at batch 64 (bf16 NCHW), as
+     phase 20 times MobileNetV2's.
+ 22. a ``timing`` line (profiler windows taken, windows that came back
      without device events, and times taken with CUDA events instead
      where the profiler recorded none), a ``{"kernels": [...]}`` line
      (with each kernel's launches on the TrainStep paths, on the resumed
-     steps, on the LAMB steps, in the ring and on the vision zoo's steps,
-     a row for each hop kernel and one for K6's ring; K1, K2 and K3 with
-     MobileNetV2's path in ``per_path``), the card line, and as the last line
+     steps, on the LAMB steps, in the ring, on the vision zoo's steps and
+     in the data phase's runs, a row for each hop kernel and one for K6's
+     ring; K3 with each training path's sweep and K1, K2 with
+     MobileNetV2's and ResNet-18's CIFAR sites in ``per_path``), the card
+     line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --bn-sites ROOT`` runs no phase but this: K1 and
@@ -1454,8 +1475,10 @@ def bn_case(torch, knorm, gen, dev, sms, label, shape, axis, dt, compute,
         vector = knorm.launch_geometry(
             x.shape, axis, x.element_size(), sms,
             x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0).vector
-        check(vector == (axis == len(shape) - 1 and misalign == 0 and
-                         shape[-1] * x.element_size() % 16 == 0),
+        # channels innermost among the dims of size > 1 (an NCHW site at
+        # 1x1 too), 16-byte rows, aligned bases
+        check(vector == (math.prod(shape[axis + 1:]) == 1 and misalign == 0
+                         and shape[axis] * x.element_size() % 16 == 0),
               f"bn {label}: launch_geometry chose the "
               f"{'vector' if vector else 'scalar'} path")
         errs = {}
@@ -3982,36 +4005,46 @@ ZOO_FAMILIES = (("densenet121", 224, 121), ("inception_v3", 299, 94),
 
 def mobilenet_v2_bn_sites(torch, vision, dev, batch):
     """``[(NCHW shape, sites)]``: the input shape of each of
-    MobileNetV2-1.0's 53 BatchNorm blocks at 224x224, read by forward
-    pre-hooks from a predict-mode forward of one image on the card, at
-    ``batch``; in the order of their first site."""
+    MobileNetV2-1.0's 53 BatchNorm blocks at 224x224 (:func:`bn_sites_of`)."""
+    return bn_sites_of(torch, vision.mobilenet_v2_1_0(classes=1000), dev,
+                       batch, 224, 53, "MobileNetV2")
+
+
+def bn_sites_of(torch, net, dev, batch, image, want, label):
+    """``[(NCHW shape, sites)]``: the input shape of each BatchNorm block of
+    ``net`` at ``image`` x ``image``, read by forward pre-hooks from a
+    predict-mode forward of one image on the card, at ``batch``; in the
+    order of their first site. There must be ``want`` of them."""
     from mxnet_tpu_torch.gluon.nn import BatchNorm
 
-    net = vision.mobilenet_v2_1_0(classes=1000)
     net.initialize(device=dev)
     shapes = []
     hooks = [m.register_forward_pre_hook(
         lambda mod, args: shapes.append((batch,) + tuple(args[0].shape[1:])))
         for m in net.modules() if isinstance(m, BatchNorm)]
     with torch.no_grad():
-        net(torch.zeros(1, 3, 224, 224, device=dev))
+        net(torch.zeros(1, 3, image, image, device=dev))
     for h in hooks:
         h.remove()
-    check(len(shapes) == 53, f"MobileNetV2 has {len(shapes)} BN sites")
+    check(len(shapes) == want, f"{label} has {len(shapes)} BN sites, want "
+                               f"{want}")
     counts = {}
     for shape in shapes:
         counts[shape] = counts.get(shape, 0) + 1
     return list(counts.items())
 
 
-def phase_kernels_bn_nchw(torch, knorm, dispatch, sites):
+def phase_kernels_bn_nchw(torch, knorm, dispatch, sites,
+                          model="mobilenet_v2", batch=MNV2_BATCH):
     """K1 and K2 against their plain versions at every BatchNorm shape of
-    MobileNetV2-1.0 at batch 256, bf16 NCHW (the scalar path: the channel
-    axis is not innermost, a row of 196 or 49 elements is no multiple of
-    16 bytes), with non-zero cotangents of the statistics and a second
-    launch bit for bit (phase 3's checks); each shape timed as phase 3
-    times ResNet-50's sites (:func:`bn_site_times`), cuDNN's
-    ``F.batch_norm`` on the same NCHW tensor, summed over the 53 sites."""
+    ``model`` (MobileNetV2-1.0 at batch 256; ResNet-18 on CIFAR, phase 21),
+    bf16 NCHW (the scalar path: the channel axis is not innermost, a row of
+    196 or 49 elements is no multiple of 16 bytes; a 1x1 site's channels
+    are innermost, so it takes the vector path), with non-zero
+    cotangents of the statistics and a second launch bit for bit (phase
+    3's checks); each shape timed as phase 3 times ResNet-50's sites
+    (:func:`bn_site_times`), cuDNN's ``F.batch_norm`` on the same NCHW
+    tensor, summed over the sites."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
@@ -4019,7 +4052,7 @@ def phase_kernels_bn_nchw(torch, knorm, dispatch, sites):
     sms = knorm.sm_count(dev)
     rows = []
     for shape, n in sites:
-        label = "mobilenet_v2_{}x{}x{}".format(*shape[1:])
+        label = "{}_{}x{}x{}".format(model, *shape[1:])
         row, ops = bn_case(torch, knorm, gen, dev, sms, label, shape, 1,
                            torch.bfloat16, "f32", True, 0)
         row["sites"] = n
@@ -4036,9 +4069,11 @@ def phase_kernels_bn_nchw(torch, knorm, dispatch, sites):
         "plain_fwd_ms", "plain_bwd_ms", "library_fwd_ms", "library_bwd_ms",
         "library_fwd_ms_host_issued", "library_bwd_ms_host_issued",
         "fwd_bound_ms", "bwd_bound_ms", "fwd_design_ms", "bwd_design_ms")}
-    summary = dict(
-        mobilenet_v2_batch256_53_sites=total,
-        elements_per_image=elements / MNV2_BATCH,
+    n_sites = sum(r["sites"] for r in rows)
+    summary = {
+        f"{model}_batch{batch}_{n_sites}_sites": total}
+    summary.update(
+        elements_per_image=elements / batch,
         input_gb=2 * elements / 1e9,
         fwd_max_abs_err=max(r["out_max_abs_err"] for r in rows),
         bwd_max_abs_err=max(r["dx_max_abs_err"] for r in rows),
@@ -4180,6 +4215,246 @@ def phase_vision_zoo(torch, mt, build, dispatch, kopt, knorm, topt, fa,
     return dict(summary, bn=bn, train_step=run)
 
 
+# -- phase 21 --------------------------------------------------------------
+
+DATA_BATCH = 64        # the examples' batch
+DATA_BIG_BATCH = 256   # (e) at the batch of the other training phases
+RESNET18_BN = 20       # BatchNorm layers of resnet18_v1
+
+
+def _data_profile(torch, run, want_side=False):
+    """One epoch of ``run()`` under ``torch.profiler``: the device's idle
+    share of the window (1 - the union of kernel and copy intervals over
+    the window's wall time) and where the host-to-device copies ran. A
+    window without device events, or with ``want_side`` without a copy on
+    a stream that runs no kernel, is taken again, twice at most (late in
+    the whole smoke the profiler drops events, §7 of PERF.md); then the
+    last window's numbers stand, or None without device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.tools.profile_training import _busy_us
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        TIMING["profiler_windows"] += 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = run()
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        dev = [e for e in prof.events() if e.device_type == cuda]
+        if not dev:
+            TIMING["empty_windows"] += 1
+            say("data: the profiler recorded no device activity")
+            continue
+        h2d = [e for e in dev if "HtoD" in e.name]
+        compute = {e.device_resource_id for e in dev
+                   if not e.name.startswith(("Memcpy", "Memset"))}
+        busy = _busy_us([(e.time_range.start, e.time_range.end)
+                         for e in dev])
+        out = dict(idle_share=1.0 - busy / window_us,
+                   window_ms=window_us / 1e3, steps=stats["steps"],
+                   h2d_copies=len(h2d),
+                   h2d_off_compute_stream=sum(
+                       e.device_resource_id not in compute for e in h2d),
+                   compute_streams=sorted(compute),
+                   h2d_streams=sorted({e.device_resource_id for e in h2d}))
+        if out["h2d_off_compute_stream"] or not want_side:
+            return out
+        say(f"data: the profiler saw {len(h2d)} host-to-device copies, "
+            "none off the compute streams")
+    if not dev:
+        return dict(idle_share=None, h2d_copies=None,
+                    h2d_off_compute_stream=None, steps=stats["steps"])
+    return out
+
+
+def data_run(torch, mt, build, dispatch, kopt, tools, label, make, prep,
+             epochs, train_step=False, want_prefetch=False):
+    """Build a training run with ``make()`` (net, trainer, loader, loss,
+    metric), train ``epochs`` epochs with the launch counters from 0 and
+    then one profiled epoch, close the loader, and check the launches (K1
+    and K2 once a BatchNorm layer a step, K3 once a bucket a step, every
+    dispatch decision the kernel's), ``data_prefetch_total`` and that no
+    worker process is left."""
+    import multiprocessing as mp
+
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.telemetry import instruments as inst
+
+    train_mnist = tools[0]
+    dev = mt.gpu(0)
+    net, trainer, loader, lossfn, metric = make()
+    bn_layers = sum(isinstance(m, mt.gluon.nn.BatchNorm)
+                    for m in net.modules())
+    try:
+        telemetry.reset()
+        build.reset_counters()
+        dispatch.reset_counts()
+        stats = train_mnist.run_epochs(
+            net, trainer, loader, lossfn, metric, epochs, prep, dev,
+            train_step=train_step, keep_batches=True, log=say)
+        torch.cuda.synchronize()
+        launches = {c.name: c.value for c in build.COUNTERS.values()}
+        outcomes = {f"{k}:{o}": n for (k, o), n in dispatch.COUNTS.items()}
+        prefetched = inst.data_prefetch_total.value
+        plan = opt_plan(kopt, trainer)
+        prof = _data_profile(torch, lambda: train_mnist.run_epochs(
+            net, trainer, loader, lossfn, metric, 1, prep, dev,
+            train_step=train_step, seed=epochs, log=lambda *_: None),
+            want_prefetch)
+        start = (loader._mp_pool._ctx.get_start_method()
+                 if loader._mp_pool is not None else None)
+    finally:
+        loader.close()
+    alive = [p.pid for p in mp.active_children()]
+    for pid in stats["pids"]:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    check(not alive, f"data {label}: worker processes left alive: {alive}")
+    n = stats["steps"]
+    check(n > 0 and all(math.isfinite(v) for v in stats["losses"]),
+          f"data {label}: {n} steps, losses {stats['losses'][:4]}")
+    want = dict(opt_ladder=plan["launches"] * n)
+    if bn_layers:
+        want.update(bn_train_fwd=bn_layers * n, bn_train_bwd=bn_layers * n)
+    got = {k: launches.get(k, 0) for k in want}
+    check(got == want, f"data {label}: launches {got}, want {want} "
+                       f"({bn_layers} BatchNorm layers, {plan['launches']} "
+                       f"K3 buckets, {n} steps)")
+    check(outcomes and all(k.endswith(":kernel") for k in outcomes),
+          f"data {label}: dispatch outcomes {outcomes}")
+    check(prefetched == (n if want_prefetch else 0),
+          f"data {label}: data_prefetch_total {prefetched} for {n} batches")
+    if want_prefetch:
+        # the loader's own record: each batch's copies went on a stream
+        # other than the one that consumed it
+        pairs = loader.prefetch_streams
+        check(pairs and all(a != b for a, b in pairs),
+              f"data {label}: prefetch copy and consumer streams {pairs}")
+        # and the profiler's, where its windows caught them (it drops
+        # events late in the whole smoke: then the count is printed and
+        # the loader's record stands alone)
+        if not prof["h2d_off_compute_stream"]:
+            say(f"data {label}: the profiler caught no batch copy: "
+                f"{prof}")
+    row = dict(
+        run=label, steps=n, batch=loader._batch_sampler._batch_size,
+        samples_per_s=stats["samples_per_s"],
+        samples_per_s_with_first=stats["samples_per_s_with_first"],
+        step_ms_p50=train_mnist.p50(stats["step_ms"]),
+        host_ms_p50=train_mnist.p50(stats["host_ms"]),
+        wait_ms_p50=train_mnist.p50(stats["wait_ms"]),
+        wait_ms_mean=sum(stats["wait_ms"]) / n,
+        wait_ms_first=stats["wait_ms"][0],
+        first_loss=stats["losses"][0], last_loss=stats["losses"][-1],
+        metric=stats["metric"], launches=got, outcomes=outcomes,
+        data_prefetch_total=prefetched, mp_start=start,
+        worker_pids=len(stats["pids"]),
+        prefetch_streams=sorted(loader.prefetch_streams),
+        profile=prof, card=card_line())
+    say("data_run " + json.dumps(row))
+    return row, stats
+
+
+def phase_data(torch, mt, build, dispatch, kopt, knorm):
+    """21. The input pipeline: tools/train_mnist.py (LeNet, 2 epochs of the
+    synthetic MNIST at batch 64, in the caller) and
+    tools/train_cifar_resnet.py --bf16 (ResNet-18 at full width, one epoch
+    of the synthetic CIFAR-10 at batch 64) in each loader mode from the
+    same np.random.seed and the same initial weights: (a) in the caller,
+    (b) 4 fork workers (forked after CUDA is initialised), (c) a thread
+    pool, (d) device_prefetch=2 with pin_memory, (e) (d) through
+    TrainStep's graph at batch 64 and 256. (a)-(d) must deliver the same
+    batches in the same order and agree on the losses; each run its
+    launches, ``data_prefetch_total``, no worker left and, with
+    prefetch, its copies off the compute stream (:func:`data_run`). Then
+    K1 and K2 at ResNet-18's 20 CIFAR sites at batch 64 against their
+    plain versions, bound and cuDNN (:func:`phase_kernels_bn_nchw`).
+    cuDNN runs deterministic here, so the modes' losses can be held
+    close."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.tools import train_cifar_resnet, train_mnist
+
+    t0 = time.perf_counter()
+    tools = (train_mnist, train_cifar_resnet)
+    dev = mt.gpu(0)
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = {}
+    try:
+        runs["mnist"], _ = data_run(
+            torch, mt, build, dispatch, kopt, tools, "mnist_lenet",
+            lambda: train_mnist.build_mnist_train(device=dev),
+            train_mnist.mnist_prep, 2)
+        check(runs["mnist"]["steps"] == 32, "MNIST: 2 epochs of 16 steps")
+        modes = {
+            "a_caller": dict(num_workers=0),
+            "b_fork_workers": dict(num_workers=4),
+            "c_thread_pool": dict(num_workers=4, thread_pool=True),
+            "d_device_prefetch": dict(device_prefetch=2, pin_memory=True),
+        }
+        prep = train_cifar_resnet.cifar_prep("bfloat16")
+        stats = {}
+        for mode, kw in modes.items():
+            runs[mode], stats[mode] = data_run(
+                torch, mt, build, dispatch, kopt, tools, mode,
+                lambda kw=kw: train_cifar_resnet.build_cifar_train(
+                    DATA_BATCH, bf16=True, device=dev,
+                    loader_kw=dict(kw, timeout=60)),
+                prep, 1, want_prefetch="device_prefetch" in kw)
+        check(runs["b_fork_workers"]["mp_start"] == "fork",
+              f"(b) started its workers by "
+              f"{runs['b_fork_workers']['mp_start']}: "
+              f"{[t.name for t in threading.enumerate()]}")
+        base = stats["a_caller"]
+        for mode in modes:
+            check(stats[mode]["batch_digests"] == base["batch_digests"],
+                  f"data {mode}: its batches differ from (a)'s or come in "
+                  "another order")
+            err = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(
+                stats[mode]["losses"], base["losses"]))
+            runs[mode]["loss_max_rel_err_vs_a"] = err
+            check(len(stats[mode]["losses"]) == len(base["losses"])
+                  and err <= 1e-4,
+                  f"data {mode}: losses {err:.3g} relative from (a)'s "
+                  "(tol 1e-4, phase 8's)")
+        for batch, epochs in ((DATA_BATCH, 1), (DATA_BIG_BATCH, 2)):
+            label = f"e_train_step_batch{batch}"
+            runs[label], _ = data_run(
+                torch, mt, build, dispatch, kopt, tools, label,
+                lambda batch=batch: train_cifar_resnet.build_cifar_train(
+                    batch, bf16=True, device=dev,
+                    loader_kw=dict(device_prefetch=2, pin_memory=True,
+                                   timeout=60)),
+                prep, epochs, train_step=True, want_prefetch=True)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = cudnn
+    seconds = {"runs": time.perf_counter() - t0}
+    sites = bn_sites_of(torch, vision.resnet18_v1(classes=10), dev,
+                        DATA_BATCH, 32, RESNET18_BN, "ResNet-18")
+    bn = phase_kernels_bn_nchw(torch, knorm, dispatch, sites,
+                               "resnet18_cifar", DATA_BATCH)
+    seconds["bn_sites"] = time.perf_counter() - t0 - seconds["runs"]
+    summary = dict(
+        runs={k: {key: v[key] for key in (
+            "samples_per_s", "step_ms_p50", "wait_ms_p50", "wait_ms_mean",
+            "steps", "batch")} | {"idle_share": v["profile"]["idle_share"]}
+            for k, v in runs.items()},
+        bn_sites=bn[f"resnet18_cifar_batch{DATA_BATCH}_{RESNET18_BN}_sites"],
+        phase_s=time.perf_counter() - t0, seconds=seconds, card=card_line())
+    say("data " + json.dumps(summary))
+    return dict(summary, runs=runs, bn=bn)
+
+
 def main():
     import torch
 
@@ -4266,8 +4541,11 @@ def main():
     # 20. the vision zoo: MobileNetV2-1.0 and the other families
     zoo = phase_vision_zoo(torch, mt, build, dispatch, kopt, knorm, topt,
                            fa, mods)
+    # 21. the input pipeline: the MNIST and CIFAR examples fed by the
+    # DataLoader in each worker mode
+    data = phase_data(torch, mt, build, dispatch, kopt, knorm)
 
-    # 21. the kernels line, card, ok. Each row's case is the main paths'
+    # 22. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over
@@ -4435,8 +4713,18 @@ def main():
                         "rotated over copies exceeding the L2; copy_ms: "
                         "y.copy_(x) of each site's x the same way; library: "
                         "F.batch_norm (cuDNN), another function; per_path: "
-                        "MobileNetV2-1.0's 53 sites, bf16 NCHW (phase 20)",
-            per_path={"mobilenet_v2": dict(
+                        "MobileNetV2-1.0's 53 sites, bf16 NCHW (phase 20), "
+                        "ResNet-18's 20 CIFAR sites at batch 64, bf16 NCHW "
+                        "(phase 21)",
+            per_path={"resnet18_cifar": dict(
+                launches=data["runs"]["a_caller"]["launches"][name],
+                max_abs_err=data["bn"][f"{side}_max_abs_err"],
+                copy_ms=data["bn"]["resnet18_cifar_batch64_20_sites"][
+                    "copy_ms"],
+                **{key.replace(f"{side}_", "").replace(f"_{side}", ""): v
+                   for key, v in data["bn"][
+                       "resnet18_cifar_batch64_20_sites"].items()
+                   if side in key}), "mobilenet_v2": dict(
                 launches=zoo["train_step"]["phased_launches"][name],
                 graph_launches=zoo["train_step"]["launches"][name],
                 max_abs_err=zoo["bn"][f"{side}_max_abs_err"],
@@ -4502,6 +4790,10 @@ def main():
                                                                  0),
             **{f["model"]: f["launches"].get(k["name"], 0)
                for f in zoo["families"]})
+        # and in phase 21's runs of the MNIST and CIFAR tools, each fed by
+        # the DataLoader in one mode
+        m["data_launches"] = {label: run["launches"].get(k["name"], 0)
+                              for label, run in data["runs"].items()}
         kernels.append(dict(name=k["name"], route=k["route"],
                             source=k["source"], replaces=k["replaces"], **m))
     # K6, the ring: its Python schedule (ring_attention.py) over the hop

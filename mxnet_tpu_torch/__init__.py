@@ -7,11 +7,11 @@ passes a CPU device or opens a device scope (``with mx.cpu():``).
 """
 from __future__ import annotations
 
-from . import amp, autograd, env, gluon, initializer, lr_scheduler, optimizer
+from . import amp, autograd, env, gluon, initializer, io, lr_scheduler
 from . import ndarray as nd
 from . import numpy as np
 from . import numpy_extension as npx
-from . import parallel, rtc
+from . import observability, optimizer, parallel, recordio, rtc, serving
 from ._random import seed
 from .base import MXNetError
 from .device import (cpu, current_device, default_device, gpu, num_gpus,
@@ -19,7 +19,8 @@ from .device import (cpu, current_device, default_device, gpu, num_gpus,
 from .ndarray import NDArray, waitall
 from .numpy import random
 
-__all__ = ["amp", "autograd", "env", "gluon", "initializer", "lr_scheduler",
-           "optimizer", "nd", "np", "npx", "parallel", "random", "rtc",
+__all__ = ["amp", "autograd", "env", "gluon", "initializer", "io",
+           "lr_scheduler", "observability", "optimizer", "nd", "np", "npx",
+           "parallel", "random", "recordio", "rtc", "serving",
            "seed", "waitall", "NDArray", "MXNetError", "cpu", "gpu", "tpu",
            "num_gpus", "current_device", "default_device"]

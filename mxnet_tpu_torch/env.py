@@ -158,3 +158,15 @@ register(
     "Target flat-buffer size (MB) for the bucketed allreduce "
     "(parallel.collectives.psum_tree_flat): leaves are concatenated into "
     "flat buffers of roughly this size, one collective per buffer.")
+register(
+    "MXTPU_DEVICE_PREFETCH", int, 0,
+    "Default DataLoader device_prefetch depth: keep up to N batches ahead "
+    "of the consumer already copied from pinned host memory to the card "
+    "on a side CUDA stream, so the next batch's host->device copy "
+    "overlaps the current step's compute. 0 disables; the "
+    "DataLoader(device_prefetch=...) argument overrides per loader.")
+register(
+    "MXTPU_MP_START", str, "",
+    "DataLoader multiprocessing start method override: fork | spawn | "
+    "forkserver. Default: fork from a parent without other Python "
+    "threads, else spawn.")

@@ -1,5 +1,5 @@
 """Gluon of the port (counterpart of mxnet_tpu/gluon)."""
-from . import loss, metric, model_zoo, nn
+from . import data, loss, metric, model_zoo, nn, utils
 from ..base import DeferredInitializationError
 from .block import Block, HybridBlock
 from .parameter import Constant, Parameter
@@ -7,8 +7,8 @@ from .train_step import TrainStep
 from .trainer import Trainer
 
 __all__ = ["Block", "Constant", "DeferredInitializationError", "HybridBlock",
-           "Parameter", "ParameterDict", "TrainStep", "Trainer", "loss",
-           "metric", "model_zoo", "nn"]
+           "Parameter", "ParameterDict", "TrainStep", "Trainer", "data", "loss",
+           "metric", "model_zoo", "nn", "utils"]
 
 
 class ParameterDict(dict):

@@ -65,7 +65,7 @@ from .._dtype_codec import (DTYPE_KEY, decode_entry, dtype_name,
                             encode_payload, read_sidecar)
 from ..ndarray.ndarray import NDArray
 from . import _graph
-from .parameter import Parameter, storage_epoch
+from .parameter import Parameter, one_device, storage_epoch
 
 __all__ = ["Block", "HybridBlock", "check_no_op_hooks"]
 
@@ -198,7 +198,7 @@ class Block(torch.nn.Module):
         return self
 
     def initialize(self, init=None, device=None, generator=None,
-                   force_reinit=False):
+                   force_reinit=False, ctx=None, verbose=False):  # noqa: ARG002
         """Initialize every parameter on ``device`` (default: the current
         device, ``cuda:0`` outside a device scope; raises without CUDA),
         drawing from ``generator`` (default: a CPU
@@ -211,8 +211,11 @@ class Block(torch.nn.Module):
         ``device``, once, here) and one generator on ``device`` (the
         Dropout layers' masks), handed to every block that has none of
         its own. A training run is then reproducible from ``generator``
-        alone."""
-        device = _device.resolve(device)
+        alone. ``ctx`` is ``device``'s old name (a list of one device is
+        taken too); ``verbose`` is accepted and changes nothing, as in the
+        JAX package (block.py:188)."""
+        device = one_device(device if device is not None else ctx,
+                            type(self).__name__)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for name, p in self.collect_params().items():
@@ -251,10 +254,12 @@ class Block(torch.nn.Module):
             return p.device
         raise RuntimeError(f"{type(self).__name__} has no parameters")
 
-    def hybridize(self, active=True):
+    def hybridize(self, active=True, **kwargs):
+        """Pass ``active`` and the flags (``static_alloc``,
+        ``static_shape``, ...) down to the children (block.py:316)."""
         for child in self.children():
             if isinstance(child, Block):
-                child.hybridize(active)
+                child.hybridize(active, **kwargs)
 
     def cast(self, dtype):
         """Cast every parameter (and its gradient buffer) to ``dtype``."""
@@ -512,12 +517,22 @@ class HybridBlock(Block):
         object.__setattr__(self, "_trace_counts", {})
         object.__setattr__(self, "_sig_lock", threading.Lock())
         object.__setattr__(self, "_served", _ServedGraphs())
+        object.__setattr__(self, "_flags", {})
 
-    def hybridize(self, active=True):
+    def hybridize(self, active=True, **kwargs):
         """Make this block the boundary; nested blocks stay plain, as in
         the JAX package, where the outermost hybridized block is the one
-        jit program."""
+        jit program. The flags (``static_alloc=True``,
+        ``static_shape=True``, ...) are kept in ``_flags`` as there
+        (block.py:564) and change nothing: a captured CUDA graph
+        (``call_cached_graph``, ``TrainStep``) is static by nature. A
+        subgraph ``backend`` is queue work and raises."""
+        kwargs.pop("backend_opts", None)
+        if kwargs.pop("backend", None) is not None:
+            raise NotImplementedError(
+                "hybridize(backend=...) is not ported (subgraph backends)")
         object.__setattr__(self, "_active", bool(active))
+        self._flags.update(kwargs)
         for child in self.children():
             if isinstance(child, Block):
                 child.hybridize(False)

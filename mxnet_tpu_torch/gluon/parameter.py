@@ -31,6 +31,7 @@ import itertools
 
 import torch
 
+from .. import device as _device
 from .. import initializer as init_mod
 from ..base import DeferredInitializationError, normalize_dtype
 from ..ndarray.ndarray import NDArray
@@ -66,6 +67,21 @@ class _ParameterArray(NDArray):
 def _shape_known(shape):
     return shape is not None and all(
         d is not None and int(d) > 0 for d in shape)
+
+
+def one_device(device, name):
+    """A ``torch.device`` from ``device`` or a list of one (None: the
+    current device; ``cuda`` the current card); ``name``'s parameters live
+    on one device in the port, so more raise."""
+    devices = device if isinstance(device, (list, tuple)) else [device]
+    devices = {_device.resolve(d) for d in devices}
+    devices = {_device.gpu(torch.cuda.current_device())
+               if d.type == "cuda" and d.index is None else d
+               for d in devices}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: one device a parameter in the port, got "
+                         f"{sorted(map(str, devices))}")
+    return devices.pop()
 
 
 class Parameter:
@@ -133,19 +149,20 @@ class Parameter:
 
     # -- initialization ----------------------------------------------------
     def initialize(self, init=None, device=None, default_init=None,
-                   generator=None, force_reinit=False):
+                   generator=None, force_reinit=False, ctx=None):
         """Draw the value on ``device`` from ``generator``, by the JAX
         package's protocol (gluon/parameter.py:_finish_init): the global
         initializer ``default_init`` (Uniform by default) is called with
         the declared ``init`` (or ``self.init``) in an ``InitDesc``, so a
         declared init wins over a standard global one, while ``Mixed`` and
         ``Load`` drive every parameter. With an unknown shape the draw
-        waits for the layer's first forward."""
+        waits for the layer's first forward. ``ctx`` is ``device``'s old
+        name; without either the current device is taken, as in the JAX
+        package (parameter.py:123)."""
         if self._var is not None and not force_reinit:
             return
-        if device is None:
-            raise ValueError(f"Parameter {self.name}: initialize needs a "
-                             "device")
+        device = one_device(device if device is not None else ctx,
+                            f"Parameter {self.name}")
         declared = init if init is not None else self.init
         inits = (declared, default_init if default_init is not None
                  else init_mod.Uniform())
@@ -250,15 +267,11 @@ class Parameter:
         :func:`storage_epoch` moves, and the gradient buffer starts from
         zeros there. A parameter lives on one device in the port: two
         devices raise."""
-        device = device if device is not None else ctx
-        devices = device if isinstance(device, (list, tuple)) else [device]
-        devices = {torch.device(d) for d in devices}
-        if len(devices) != 1:
-            raise ValueError(f"Parameter {self.name}: one device a parameter "
-                             f"in the port, got {sorted(map(str, devices))}")
+        device = one_device(device if device is not None else ctx,
+                            f"Parameter {self.name}")
         value = self._tensor()
         with torch.inference_mode(False), torch.no_grad():
-            self._set_var(value.detach().to(devices.pop(), copy=True))
+            self._set_var(value.detach().to(device, copy=True))
 
     reset_ctx = reset_device
 
@@ -340,9 +353,15 @@ class Parameter:
             self._grad = g  # 'write': the new gradient replaces the buffer
         self._grad_version += 1
 
-    def grad(self):
+    def grad(self, ctx=None, device=None):
         """The gradient buffer, in the parameter's dtype and on its device
-        (zeros before the first backward)."""
+        (zeros before the first backward). A ``device`` (``ctx``) other
+        than the parameter's raises ``KeyError``, as the JAX package's
+        lookup does (parameter.py:298)."""
+        device = device if device is not None else ctx
+        if device is not None and one_device(
+                device, f"Parameter {self.name}") != self.device:
+            raise KeyError(device)
         if self.grad_req == "null":
             raise RuntimeError(
                 f"Parameter {self.name} has grad_req='null'")

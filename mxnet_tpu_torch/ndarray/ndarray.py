@@ -290,7 +290,7 @@ class NDArray:
         return apply_op(lambda x: x.expand(tuple(shape)), self)
 
     def clip(self, a_min=None, a_max=None):
-        return apply_op(lambda x: torch.clamp(x, a_min, a_max), self)
+        return apply_op(lambda x: _ops.clip(x, a_min, a_max), self)
 
     def zeros_like(self):
         return NDArray(torch.zeros_like(self._data.detach()))

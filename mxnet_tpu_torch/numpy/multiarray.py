@@ -113,11 +113,13 @@ _FLOAT_FNS = {
 }
 
 
-def _angle(z):
+def _angle(z, deg=False):
     # numpy's arctan2(imag, real): -0.0 is pi, where torch.angle gives 0
-    if z.is_complex():
-        return torch.angle(z)
-    return torch.atan2(torch.zeros_like(z), z)
+    if not (z.is_floating_point() or z.is_complex()):
+        z = z.to(torch.float64)
+    out = (torch.angle(z) if z.is_complex()
+           else torch.atan2(torch.zeros_like(z), z))
+    return torch.rad2deg(out) if deg else out
 
 
 _UNARY_FNS = {name: _promote.float_fn(fn) for name, fn in _FLOAT_FNS.items()}
@@ -136,7 +138,7 @@ _UNARY_FNS.update({
     "sign": _promote.no_bool(torch.sign, "sign"), "signbit": torch.signbit,
     "square": lambda x: torch.square(
         x.to(_promote.numeric_dtype(x.dtype))),
-    "angle": _promote.default_float(_angle),
+    "angle": _angle,
     "real": torch.clone, "imag": torch.zeros_like,
     "nan_to_num": torch.nan_to_num,
 })
@@ -232,10 +234,48 @@ def _flip(m, axis=None):
     return torch.flip(m, _ops.np_axes(m.dim(), axis))
 
 
-def _concatenate(seq, axis=0):
+def _cast_all(seq, dtype):
+    seq = list(seq)
+    if dtype is None:
+        return seq
+    dt = normalize_dtype(dtype)
+    return [t.to(dt) for t in seq]
+
+
+def _concatenate(seq, axis=0, dtype=None):
+    seq = _cast_all(seq, dtype)
     if axis is None:
         return torch.cat([t.reshape(-1) for t in seq])
-    return torch.cat(list(seq), dim=axis)
+    return torch.cat(seq, dim=axis)
+
+
+def _stacker(fn):
+    def stack(tup, dtype=None):
+        return fn(_cast_all(tup, dtype))
+    return stack
+
+
+def _stack(arrays, axis=0, dtype=None):
+    return torch.stack(_cast_all(arrays, dtype), dim=axis)
+
+
+def _reshape(a, newshape=None, order="C", shape=None):
+    if (newshape is None) == (shape is None):
+        raise TypeError("reshape takes one of newshape and shape")
+    shape = newshape if shape is None else shape
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    if order == "C":
+        return a.reshape(shape)
+    if order != "F":
+        raise ValueError(f"order must be 'C' or 'F', got {order!r}")
+    # column-major: reverse the axes, fill row-major, reverse back
+    rev = tuple(range(a.dim() - 1, -1, -1))
+    out = a.permute(rev).reshape(shape[::-1])
+    return out.permute(tuple(range(out.dim() - 1, -1, -1)))
+
+
+def _ravel(a, order="C"):
+    return _reshape(a, -1, order)
 
 
 def _split(a, indices_or_sections, axis=0):
@@ -309,7 +349,7 @@ def _take(a, indices, axis=None, mode=None):
                        tuple(range(axis, axis + idx.dim())))
 
 
-def _take_along_axis(arr, indices, axis):
+def _take_along_axis(arr, indices, axis=-1):
     return torch.take_along_dim(arr, indices.long(), dim=axis)
 
 
@@ -324,16 +364,21 @@ def _searchsorted(a, v, side="left", sorter=None):
     return torch.searchsorted(a, v, right=side == "right").to(torch.int32)
 
 
-def _sort(a, axis=-1, kind=None, order=None):  # noqa: ARG001
+def _sort(a, axis=-1, kind=None, order=None, stable=True,  # noqa: ARG001
+          descending=False):
     if axis is None:
         a, axis = a.reshape(-1), 0
-    return torch.sort(a, dim=axis, stable=True).values
+    return torch.sort(a, dim=axis, stable=True,
+                      descending=descending).values
 
 
-def _argsort(a, axis=-1, kind=None, order=None):  # noqa: ARG001
+def _argsort(a, axis=-1, kind=None, order=None, stable=True,  # noqa: ARG001
+             descending=False):
+    """A descending sort keeps equal elements in their order, as
+    ``jnp.argsort(descending=True)`` does."""
     if axis is None:
         a, axis = a.reshape(-1), 0
-    return torch.argsort(a, dim=axis, stable=True)
+    return torch.argsort(a, dim=axis, stable=True, descending=descending)
 
 
 def _where(condition, x=None, y=None):
@@ -346,8 +391,9 @@ def _diag(v, k=0):
     return torch.diag(v, k)
 
 
-def _trace(a, offset=0, axis1=0, axis2=1):
-    return torch.diagonal(a, offset, axis1, axis2).sum(-1)
+def _trace(a, offset=0, axis1=0, axis2=1, dtype=None):
+    out = torch.diagonal(a, offset, axis1, axis2).sum(-1)
+    return out if dtype is None else out.to(normalize_dtype(dtype))
 
 
 def _tri(N, M=None, k=0, dtype=None):  # noqa: N803 - numpy's names
@@ -385,8 +431,11 @@ def _tensordot(a, b, axes=2):
     return torch.tensordot(a, b, dims=axes)
 
 
-def _cross(a, b, axis=-1):
-    return torch.linalg.cross(a, b, dim=axis)
+def _cross(a, b, axisa=-1, axisb=-1, axisc=-1, axis=None):
+    if axis is not None:
+        axisa = axisb = axisc = axis
+    a, b = torch.broadcast_tensors(a.movedim(axisa, -1), b.movedim(axisb, -1))
+    return torch.linalg.cross(a, b, dim=-1).movedim(-1, axisc)
 
 
 def _round(a, decimals=0):
@@ -405,8 +454,30 @@ def _clip(a, a_min=None, a_max=None):
     return torch.clamp(a, a_min, a_max)
 
 
-def _unique(ar):
-    return torch.unique(ar, sorted=True)
+def _unique(ar, return_index=False, return_inverse=False,
+            return_counts=False, axis=None):
+    """``np.unique`` with its three optional outputs; ``return_index``
+    gives each value's first position, as numpy's."""
+    if axis is None:
+        flat = ar.reshape(-1)
+        values, inverse, counts = torch.unique(
+            flat, sorted=True, return_inverse=True, return_counts=True)
+    else:
+        values, inverse, counts = torch.unique(
+            ar, sorted=True, return_inverse=True, return_counts=True,
+            dim=axis)
+    out = [values]
+    if return_index:
+        n = inverse.numel()
+        first = torch.full((values.shape[0 if axis is None else axis],), n,
+                           dtype=torch.int64, device=ar.device)
+        pos = torch.arange(n, device=ar.device)
+        out.append(first.scatter_reduce(0, inverse.reshape(-1), pos, "amin"))
+    if return_inverse:
+        out.append(inverse.reshape(ar.shape) if axis is None else inverse)
+    if return_counts:
+        out.append(counts)
+    return out[0] if len(out) == 1 else tuple(out)
 
 
 def _union1d(a, b):
@@ -486,12 +557,38 @@ def _cov(m, y=None, rowvar=True, bias=False, ddof=None):
     return torch.cov(m, correction=correction)
 
 
-def _diff(a, n=1, axis=-1):
+def _edge(a, value, axis):
+    """``value`` as a slab of ``a`` along ``axis``: a scalar broadcasts
+    (a Python number is weak, as in the JAX package)."""
+    v = torch.as_tensor(value, device=a.device)
+    v = v.to(_promote.result_dtype(a, value))
+    if v.dim() == 0:
+        shape = list(a.shape)
+        shape[axis] = 1
+        v = v.expand(shape)
+    return v
+
+
+def _diff(a, n=1, axis=-1, prepend=None, append=None):
+    if prepend is not None or append is not None:
+        parts = [a] if prepend is None else [_edge(a, prepend, axis), a]
+        if append is not None:
+            parts.append(_edge(a, append, axis))
+        dt = functools.reduce(torch.promote_types, [p.dtype for p in parts])
+        a = torch.cat([p.to(dt) for p in parts], dim=axis)
     return torch.diff(a, n=n, dim=axis)
 
 
-def _ediff1d(ary):
-    return torch.diff(ary.reshape(-1))
+def _ediff1d(ary, to_end=None, to_begin=None):
+    out = torch.diff(ary.reshape(-1))
+    parts = [out]
+    if to_begin is not None:
+        parts.insert(0, torch.as_tensor(to_begin, device=out.device)
+                     .reshape(-1).to(out.dtype))
+    if to_end is not None:
+        parts.append(torch.as_tensor(to_end, device=out.device)
+                     .reshape(-1).to(out.dtype))
+    return torch.cat(parts) if len(parts) > 1 else out
 
 
 def _trapezoid(y, x=None, dx=1.0, axis=-1):
@@ -521,6 +618,25 @@ def _append(arr, values, axis=None):
     return torch.cat([arr, values], dim=axis)
 
 
+def _meshgrid(*xi, copy=True, sparse=False, indexing="xy"):
+    """``sparse=True`` gives each grid only its own axis, the others 1;
+    ``copy=False`` raises, as in the JAX package."""
+    if not copy:
+        raise ValueError("meshgrid only supports copy=True")
+    grids = torch.meshgrid(*xi, indexing=indexing)
+    if not sparse:
+        return tuple(grids)
+    out = []
+    for i, x in enumerate(xi):
+        shape = [1] * len(xi)
+        axis = i
+        if indexing == "xy" and len(xi) > 1 and i < 2:
+            axis = 1 - i
+        shape[axis] = x.numel()
+        out.append(x.reshape(shape))
+    return tuple(out)
+
+
 def _matrix_transpose(x):
     return x.transpose(-1, -2)
 
@@ -536,8 +652,7 @@ def _unique_inverse(x):
 
 
 _OTHER_FNS = {
-    "reshape": lambda a, newshape: a.reshape(newshape),
-    "ravel": lambda a: a.reshape(-1),
+    "reshape": _reshape, "ravel": _ravel,
     "transpose": _transpose, "permute_dims": _transpose,
     "swapaxes": lambda a, axis1, axis2: a.transpose(axis1, axis2),
     "moveaxis": lambda a, source, destination: torch.movedim(
@@ -549,10 +664,8 @@ _OTHER_FNS = {
     "rot90": lambda m, k=1, axes=(0, 1): torch.rot90(m, k, list(axes)),
     "roll": lambda a, shift, axis=None: torch.roll(a, shift, axis),
     "concatenate": _concatenate,
-    "stack": lambda arrays, axis=0: torch.stack(list(arrays), dim=axis),
-    "vstack": lambda tup: torch.vstack(list(tup)),
-    "hstack": lambda tup: torch.hstack(list(tup)),
-    "dstack": lambda tup: torch.dstack(list(tup)),
+    "stack": _stack, "vstack": _stacker(torch.vstack),
+    "hstack": _stacker(torch.hstack), "dstack": _stacker(torch.dstack),
     "column_stack": lambda tup: torch.column_stack(list(tup)),
     "split": _split, "array_split": _array_split,
     "hsplit": lambda a, s: tuple(torch.hsplit(a, s)),
@@ -586,8 +699,7 @@ _OTHER_FNS = {
     "isin": _promote.set_fn(_isin),
     "atleast_1d": torch.atleast_1d, "atleast_2d": torch.atleast_2d,
     "atleast_3d": torch.atleast_3d,
-    "meshgrid": lambda *xi, indexing="xy": tuple(
-        torch.meshgrid(*xi, indexing=indexing)),
+    "meshgrid": _meshgrid,
     "unravel_index": _unravel_index, "diag_indices": _diag_indices,
     "tril_indices": _tril_indices, "triu_indices": _triu_indices,
     "bincount": _bincount, "digitize": _digitize,

@@ -252,8 +252,17 @@ def cumulate(name):
 # ---------------------------------------------------------------------------
 
 def cbrt(x):
-    """The real cube root, negative inputs too."""
-    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+    """The real cube root, negative inputs too; the sign is copied, so
+    -0.0 gives -0.0 (and ``rcbrt`` -inf) as ``jnp.cbrt`` does."""
+    return torch.copysign(torch.abs(x).pow(1.0 / 3.0), x)
+
+
+def digamma(x):
+    """``torch.digamma`` with nan at the pole x = 0 of either sign, as
+    ``jax.scipy.special.digamma`` gives (torch gives -inf at +0, +inf at
+    -0)."""
+    return torch.where(x == 0, torch.full_like(x, float("nan")),
+                       torch.digamma(x))
 
 
 _add = _promote.binary(torch.add)
@@ -273,7 +282,7 @@ _FLOAT = {
     "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
     "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
     "gamma": lambda x: torch.exp(torch.lgamma(x)), "gammaln": torch.lgamma,
-    "digamma": torch.digamma, "erf": torch.erf, "erfinv": torch.erfinv,
+    "digamma": digamma, "erf": torch.erf, "erfinv": torch.erfinv,
 }
 
 _UNARY = {name: _promote.float_fn(fn) for name, fn in _FLOAT.items()}
@@ -511,8 +520,19 @@ def reshape(data, shape=None, reverse=False):
 
 
 @register_op("reshape_like")
-def reshape_like(lhs, rhs):
-    return lhs.reshape(rhs.shape)
+def reshape_like(lhs, rhs, lhs_begin=None, lhs_end=None, rhs_begin=None,
+                 rhs_end=None):
+    """``lhs`` in ``rhs``'s shape, or with ``lhs.shape[lhs_begin:lhs_end]``
+    replaced by ``rhs.shape[rhs_begin:rhs_end]``."""
+    if lhs_begin is None and rhs_begin is None:
+        return lhs.reshape(rhs.shape)
+    lb = lhs_begin or 0
+    le = lhs_end if lhs_end is not None else lhs.dim()
+    rb = rhs_begin or 0
+    re_ = rhs_end if rhs_end is not None else rhs.dim()
+    shape = tuple(lhs.shape[:lb]) + tuple(rhs.shape[rb:re_]) \
+        + tuple(lhs.shape[le:])
+    return lhs.reshape(shape)
 
 
 @register_op("flatten")
@@ -556,6 +576,10 @@ def slice_axis(data, axis, begin, end):
 
 @register_op("clip")
 def clip(data, a_min=None, a_max=None):
+    """Without bounds the values come back unchanged, as in the JAX
+    package."""
+    if a_min is None and a_max is None:
+        return data.clone()
     return torch.clamp(data, a_min, a_max)
 
 

@@ -1,8 +1,9 @@
-"""The serving and collective subsets of the metric catalog and the
-record_* helpers their hot paths call (a copy of
+"""The serving, collective and input-pipeline subsets of the metric
+catalog and the record_* helpers their hot paths call (a copy of
 mxnet_tpu/telemetry/instruments.py: the ``serve_*`` instruments, the
-``collective_*`` ones with ``fused_bucket_size``, and their helpers; the
-others wait for the modules that record them).
+``collective_*`` ones with ``fused_bucket_size``, ``transfer_*`` and
+``data_prefetch_*``, and their helpers; the others wait for the modules
+that record them).
 
 Every serving touchpoint goes through ONE helper here, so the catalog below
 is the single source of metric names, labels, and buckets, call sites stay
@@ -32,6 +33,8 @@ __all__ = [
     "set_slo_burn", "record_slo_violation",
     "collective_total", "collective_bytes_total", "collective_seconds_total",
     "fused_bucket_size", "record_collective", "record_fused_bucket",
+    "transfer_total", "transfer_bytes_total", "record_transfer",
+    "data_prefetch_total", "data_prefetch_depth", "record_device_prefetch",
 ]
 
 _SERVE_LATENCY_BUCKETS = (.0005, .001, .0025, .005, .01, .025, .05, .1,
@@ -134,6 +137,23 @@ fused_bucket_size = histogram(
     "(update = fused optimizer step, allreduce = flat-buffer collective)",
     ["site"], buckets=_FUSED_BUCKETS)
 
+# -- host<->device transfers and the input pipeline (gluon/data) -------------
+transfer_total = counter(
+    "transfer_total", "Explicit array transfers by direction "
+    "(h2d: the DataLoader's device-prefetch copies)", ["direction"])
+transfer_bytes_total = counter(
+    "transfer_bytes_total", "Bytes moved by explicit array transfers",
+    ["direction"])
+data_prefetch_total = counter(
+    "data_prefetch_total",
+    "Batches pushed through the DataLoader device-prefetch stage "
+    "(host->device copy issued on a side stream ahead of the consuming "
+    "step)")
+data_prefetch_depth = gauge(
+    "data_prefetch_depth",
+    "Batches currently resident in the DataLoader device-prefetch "
+    "buffer (transferred or in flight, not yet consumed)")
+
 
 # -- helpers ----------------------------------------------------------------
 
@@ -199,3 +219,20 @@ def record_fused_bucket(site, params):
     if not REGISTRY.enabled:
         return
     fused_bucket_size.labels(site).observe(params)
+
+
+def record_transfer(direction, nbytes):
+    """One explicit transfer of ``nbytes`` in ``direction`` (h2d, d2h)."""
+    if not REGISTRY.enabled:
+        return
+    transfer_total.labels(direction).inc()
+    transfer_bytes_total.labels(direction).inc(nbytes)
+
+
+def record_device_prefetch(depth):
+    """One batch entered the DataLoader device-prefetch buffer, which now
+    holds ``depth`` batches ahead of the consumer."""
+    if not REGISTRY.enabled:
+        return
+    data_prefetch_total.inc()
+    data_prefetch_depth.set(depth)
