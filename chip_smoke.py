@@ -28,8 +28,9 @@ failure exits non-zero, nothing is caught and carried on:
      every BatchNorm shape of ResNet-50 at batch 256 (bf16, NHWC; timed
      alone L2-cold and L2-warm, host-issued, and beside a copy of the same
      bytes) and at edge cases (C = 3 and 8, NCHW, a misaligned view), each
-     launched twice for a bitwise repeat, its path (16-byte vector or
-     scalar) the one launch_geometry predicts.
+     launched twice for a bitwise repeat, its regime (16-byte vector or
+     scalar channels last; planes or resident channels not last) the one
+     launch_geometry predicts.
  3b. attention probes: the bf16 dropout mask of all three kernels bit for
      bit against ``_dropout_keep`` at S = D = 64 and 128 (q = k = 0,
      v = dO = I for out and dv; q = 0, k = I, v and dO one-hot for dq),
@@ -195,9 +196,12 @@ failure exits non-zero, nothing is caught and carried on:
      ring (2^-7).
  20. the vision zoo, a main path: K1 and K2 against their plain versions
      at each of MobileNetV2-1.0's 53 BatchNorm shapes at batch 256 (bf16
-     NCHW, the scalar path, non-zero cotangents, a second launch bit for
-     bit), each timed alone L2-cold beside the plain versions and cuDNN on
-     the same tensor and summed over the 53 sites beside the byte bound;
+     NCHW, the resident or planes regime as launch_geometry chooses, each
+     site's regime, CUDA launches a call (counted in a CUDA graph that
+     captured one call: exactly the regime's own kernels) and design
+     bytes printed, non-zero cotangents, a second launch bit for bit), each timed alone L2-cold beside the plain
+     versions and cuDNN on the same tensor and summed over the 53 sites
+     beside the byte bound;
      then ``vision.mobilenet_v2_1_0(classes=1000)`` (NCHW, bf16 weights
      with f32 masters, batch 256 of 224x224, SGD momentum 0.9, lr 0.1, wd
      1e-4, softmax cross entropy on f32 logits) trained as 13-15 train
@@ -239,18 +243,24 @@ failure exits non-zero, nothing is caught and carried on:
      line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --bn-sites ROOT`` runs no phase but this: K1 and
-K2 of the ``mxnet_tpu_torch`` package under ROOT (this checkout, or another
-one such as a parent commit's, unpacked with ``git archive``) timed at
-ResNet-50's 9 BatchNorm shapes exactly as phase 3 times them, so that two
-trees compare on one card in one call. It prints one ``bn_sites`` line,
-sums over the 53 sites, and no ``ok`` line.
+``python3 chip_smoke.py --bn-sites ROOT [SETS]`` runs no phase but this: K1
+and K2 of the ``mxnet_tpu_torch`` package under ROOT (this checkout, or
+another one such as a parent commit's, unpacked with ``git archive``) timed
+exactly as phase 3 times them at ResNet-50's 9 BatchNorm shapes (NHWC),
+MobileNetV2-1.0's 19 (phase 20's, NCHW) and ResNet-18's 5 CIFAR shapes
+(phase 21's), or the comma-separated SETS of ``resnet50``,
+``mobilenet_v2``, ``resnet18_cifar``, so that two trees compare on one
+card in one call. It prints a ``bn_site`` line for each NCHW shape, one
+``bn_sites`` line with the sums over each set's sites, and no ``ok``
+line.
 """
 import concurrent.futures
 import contextlib
+import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1399,7 +1409,6 @@ def phase_kernels_bn(torch, knorm, dispatch, build):
                       if "_vec_" in k}))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(77)
-    sms = knorm.sm_count(dev)
     bf16 = torch.bfloat16
     cases = [(f"resnet50_{s[1]}x{s[2]}x{s[3]}", s, -1, bf16, "f32", False, 0,
               k) for s, k in resnet50_bn_sites(256)]
@@ -1414,10 +1423,19 @@ def phase_kernels_bn(torch, knorm, dispatch, build):
               ("compute_bf16", (256, 14, 14, 1024), -1, bf16, "bf16", True, 0,
                0),
               ("cotangents_bf16", (256, 28, 28, 512), -1, bf16, "f32", True,
+               0, 0),
+              # channels not last: a 49-element plane, planes, a view off
+              # 16 bytes, bf16 elementwise math
+              ("nchw_7x7_bf16", (64, 160, 7, 7), 1, bf16, "f32", True, 0, 0),
+              ("nchw_planes_bf16", (24, 8, 224, 224), 1, bf16, "f32", True,
+               0, 0),
+              ("nchw_misaligned_bf16", (4, 40, 9, 11), 1, bf16, "f32", True,
+               1, 0),
+              ("nchw_compute_bf16", (64, 96, 14, 14), 1, bf16, "bf16", True,
                0, 0)]
     rows = []
     for label, shape, axis, dt, compute, cts, misalign, sites in cases:
-        row, ops = bn_case(torch, knorm, gen, dev, sms, label, shape, axis,
+        row, ops = bn_case(torch, knorm, gen, dev, label, shape, axis,
                            dt, compute, cts, misalign)
         row["sites"] = sites
         if sites:
@@ -1451,8 +1469,98 @@ def phase_kernels_bn(torch, knorm, dispatch, build):
     return summary
 
 
-def bn_case(torch, knorm, gen, dev, sms, label, shape, axis, dt, compute,
-            cts, misalign):
+#: the kernels of csrc/bn_train.cu each regime launches, by direction
+BN_REGIME_KERNELS = {
+    "last": lambda d: {f"bn_{d}_partials_kernel", f"bn_{d}_combine_kernel",
+                       f"bn_{d}_apply_kernel"},
+    "vector": lambda d: {f"bn_{d}_partials_vec_kernel",
+                         f"bn_{d}_combine_kernel", f"bn_{d}_apply_vec_kernel"},
+    "planes": lambda d: {f"bn_{d}_planes_partials_kernel",
+                         f"bn_{d}_planes_apply_kernel"},
+    "resident": lambda d: {f"bn_{d}_resident_kernel"}}
+
+
+def bn_geometries(knorm, x, dy, axis):
+    """K1's and K2's :class:`launch_geometry` at x's shape on its card, as
+    the wrappers take it."""
+    dev = x.device
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    return [knorm.launch_geometry(
+        x.shape, axis, x.element_size(), knorm.sm_count(dev), aligned,
+        backward, knorm.smem_per_block(dev)) for backward in (False, True)]
+
+
+def bn_resident(knorm, x, dy, axis):
+    """Whether K1 and K2 run resident at x's shape."""
+    return tuple(g.regime == "resident"
+                 for g in bn_geometries(knorm, x, dy, axis))
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h (CUDA 12): the function, grid
+    and block dimensions, shared bytes, arguments, kernel, context."""
+    _fields_ = [("func", ctypes.c_void_p), ("dims", ctypes.c_uint * 7),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernels(torch, fn):
+    """The CUDA kernels one call of ``fn`` launches, counted in a CUDA graph
+    that captured the call: each kernel node's function, by libcuda's
+    name for it (a ``bn_*`` kernel's shortened to the template's), in the
+    graph's node order. Copies and memsets are nodes of other types and
+    are not in it. The call runs once first, as a capture needs."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, size = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+    for fname, args in (("cuGraphGetNodes", [vp, vp, size]),
+                        ("cuGraphNodeGetType", [vp, ctypes.POINTER(
+                            ctypes.c_int)]),
+                        ("cuGraphKernelNodeGetParams_v2", [
+                            vp, ctypes.POINTER(_KernelNodeParams)]),
+                        ("cuFuncGetName", [ctypes.POINTER(ctypes.c_char_p),
+                                           vp]),
+                        ("cuKernelGetName", [ctypes.POINTER(ctypes.c_char_p),
+                                             vp])):
+        getattr(cu, fname).argtypes = args
+        getattr(cu, fname).restype = ctypes.c_int
+
+    def drv(err, what):
+        check(err == 0, f"graph_kernels: {what} returned CUresult {err}")
+
+    raw, n = vp(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    drv(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (vp * n.value)()
+    drv(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        drv(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+            "cuGraphNodeGetType")
+        if kind.value != 0:                     # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params, name = _KernelNodeParams(), ctypes.c_char_p()
+        drv(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+            "cuGraphKernelNodeGetParams_v2")
+        if params.func:
+            drv(cu.cuFuncGetName(ctypes.byref(name), params.func),
+                "cuFuncGetName")
+        else:
+            drv(cu.cuKernelGetName(ctypes.byref(name), params.kern),
+                "cuKernelGetName")
+        full = (name.value or b"").decode()
+        m = re.search(r"(bn_(?:fwd|bwd)_\w*?kernel)", full)
+        names.append(m.group(1) if m else full)
+    graph.reset()
+    return names
+
+
+def bn_case(torch, knorm, gen, dev, label, shape, axis, dt, compute, cts,
+            misalign):
     """K1 and K2 against their plain versions on one case (the checks of
     :func:`phase_kernels_bn`): ``(row, (x, dy, g, b, sh, want_f,
     bwd_args))``, the operands for :func:`bn_site_times`."""
@@ -1472,15 +1580,30 @@ def bn_case(torch, knorm, gen, dev, sms, label, shape, axis, dt, compute,
         check(all(torch.equal(a, w) for a, w in zip(got_f + got_b, again)),
               f"bn {label}: a second launch on the same inputs gave "
               "other bits")
-        vector = knorm.launch_geometry(
-            x.shape, axis, x.element_size(), sms,
-            x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0).vector
+        geoms = bn_geometries(knorm, x, dy, axis)
+        vector = geoms[0].regime == "vector"
         # channels innermost among the dims of size > 1 (an NCHW site at
         # 1x1 too), 16-byte rows, aligned bases
         check(vector == (math.prod(shape[axis + 1:]) == 1 and misalign == 0
                          and shape[axis] * x.element_size() % 16 == 0),
               f"bn {label}: launch_geometry chose the "
               f"{'vector' if vector else 'scalar'} path")
+        # channels not last: a plane regime, never a channels-last one
+        nchw = math.prod(shape[axis + 1:]) > 1
+        check(all((g.regime in ("planes", "resident")) == nchw
+                  for g in geoms),
+              f"bn {label}: regimes {[g.regime for g in geoms]}")
+        seen = [graph_kernels(torch, fn) for fn in (
+            lambda: knorm.bn_train_fwd(x, g, b, sh, 1e-5, axis),
+            lambda: knorm.bn_train_bwd(*bwd_args))]
+        # the kernels one call launched, counted in its captured graph:
+        # each of the regime's own once, and no other of bn_train.cu
+        launched = [[n for n in got if n.startswith("bn_")] for got in seen]
+        for side, mine, geo in zip(("fwd", "bwd"), launched, geoms):
+            check(sorted(mine) == sorted(BN_REGIME_KERNELS[geo.regime](side))
+                  and len(mine) == knorm.cuda_launches(geo),
+                  f"bn {label}: kernels launched {seen} for regimes "
+                  f"{[g.regime for g in geoms]}")
         errs = {}
         for key, a, w in (("out", got_f[0], want_f[0]),
                           ("dx", got_b[0], want_b[0])):
@@ -1508,7 +1631,13 @@ def bn_case(torch, knorm, gen, dev, sms, label, shape, axis, dt, compute,
         row = dict(case=label, shape=list(shape), axis=axis,
                    dtype=str(dt).replace("torch.", ""), compute=compute,
                    nonzero_cotangents=cts, misaligned=bool(misalign),
-                   vector_path=vector, bitwise_repeat=True,
+                   vector_path=vector,
+                   regime={"fwd": geoms[0].regime, "bwd": geoms[1].regime},
+                   chunks={"fwd": geoms[0].chunks, "bwd": geoms[1].chunks},
+                   cuda_launches={"fwd": len(launched[0]),
+                                  "bwd": len(launched[1])},
+                   kernels_launched={"fwd": seen[0], "bwd": seen[1]},
+                   bitwise_repeat=True,
                    out_max_abs_err=errs["out"], dx_max_abs_err=errs["dx"],
                    stats_max_rel_err=stat_err)
         return row, (x, dy, g, b, sh, want_f, bwd_args)
@@ -1524,6 +1653,7 @@ def bn_site_times(torch, F, knorm, dispatch, x, dy, g, b, sh, want_f,
     shape, esize = tuple(x.shape), x.element_size()
     fwd_bound, bwd_bound = bn_bounds(shape, esize)
     n = math.prod(shape)
+    resident = bn_resident(knorm, x, dy, axis)
     cold_f = cold_copies(torch, [x])
     cold_b = cold_copies(torch, [x, dy])
     fwd = partial(knorm.bn_train_fwd, gamma=g, beta=b, shift=sh, eps=1e-5,
@@ -1558,9 +1688,12 @@ def bn_site_times(torch, F, knorm, dispatch, x, dy, g, b, sh, want_f,
             torch.autograd.grad, yc, (xc, gl, bl), dyl, retain_graph=True)
             for yc, xc in lib_graphs]),
         fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound, bound_by="bytes",
-        # the design's own bytes: x twice and out once; x, dy twice, dx once
-        fwd_design_ms=1e3 * 3 * n * esize / HBM_BYTES_PER_S,
-        bwd_design_ms=1e3 * 5 * n * esize / HBM_BYTES_PER_S,
+        # the design's own bytes: x twice and out once; x, dy twice, dx
+        # once; resident, each once
+        fwd_design_ms=1e3 * (2 if resident[0] else 3) * n * esize
+        / HBM_BYTES_PER_S,
+        bwd_design_ms=1e3 * (3 if resident[1] else 5) * n * esize
+        / HBM_BYTES_PER_S,
         fwd_ms_l2_warm=device_ms(torch, [partial(fwd, x)]),
         bwd_ms_l2_warm=device_ms(torch, [partial(bwd, x, dy)]),
         fwd_ms_host_issued=cuda_ms(torch, partial(fwd, x)),
@@ -1571,9 +1704,10 @@ def bn_site_times(torch, F, knorm, dispatch, x, dy, g, b, sh, want_f,
         library_bwd_ms_host_issued=cuda_ms(
             torch, lambda: torch.autograd.grad(yl, (xl, gl, bl), dyl,
                                                retain_graph=True)))
+    design = dispatch.norm_region_bytes(shape, esize, 4, resident)
     check(abs(times["fwd_design_ms"] + times["bwd_design_ms"]
-              - 1e3 * dispatch.norm_region_bytes(shape, esize, 4)[1]
-              / HBM_BYTES_PER_S) < 1e-9, "bn design bytes")
+              - 1e3 * design[1] / HBM_BYTES_PER_S) < 1e-9,
+          "bn design bytes")
     return times
 
 
@@ -4005,16 +4139,33 @@ ZOO_FAMILIES = (("densenet121", 224, 121), ("inception_v3", 299, 94),
 
 def mobilenet_v2_bn_sites(torch, vision, dev, batch):
     """``[(NCHW shape, sites)]``: the input shape of each of
-    MobileNetV2-1.0's 53 BatchNorm blocks at 224x224 (:func:`bn_sites_of`)."""
+    MobileNetV2-1.0's 53 BatchNorm blocks at 224x224 (:func:`bn_sites_of`,
+    held to the study tool's list)."""
+    from mxnet_tpu_torch.tools import bn_regime_study
+
     return bn_sites_of(torch, vision.mobilenet_v2_1_0(classes=1000), dev,
-                       batch, 224, 53, "MobileNetV2")
+                       batch, 224,
+                       bn_regime_study.mobilenet_v2_bn_sites(batch),
+                       "MobileNetV2")
+
+
+def resnet18_cifar_bn_sites(torch, vision, dev, batch):
+    """``[(NCHW shape, sites)]`` of ResNet-18's 20 BatchNorm blocks on
+    CIFAR's 32x32 (:func:`bn_sites_of`, held to the study tool's list)."""
+    from mxnet_tpu_torch.tools import bn_regime_study
+
+    return bn_sites_of(torch, vision.resnet18_v1(classes=10), dev, batch, 32,
+                       [((batch,) + s[1:], k)
+                        for s, k in bn_regime_study.RESNET18_CIFAR_SITES],
+                       "ResNet-18")
 
 
 def bn_sites_of(torch, net, dev, batch, image, want, label):
     """``[(NCHW shape, sites)]``: the input shape of each BatchNorm block of
     ``net`` at ``image`` x ``image``, read by forward pre-hooks from a
     predict-mode forward of one image on the card, at ``batch``; in the
-    order of their first site. There must be ``want`` of them."""
+    order of their first site. They must be ``want``'s (the lists the
+    study tool and the CPU tests hold by hand), in any order."""
     from mxnet_tpu_torch.gluon.nn import BatchNorm
 
     net.initialize(device=dev)
@@ -4026,11 +4177,11 @@ def bn_sites_of(torch, net, dev, batch, image, want, label):
         net(torch.zeros(1, 3, image, image, device=dev))
     for h in hooks:
         h.remove()
-    check(len(shapes) == want, f"{label} has {len(shapes)} BN sites, want "
-                               f"{want}")
     counts = {}
     for shape in shapes:
         counts[shape] = counts.get(shape, 0) + 1
+    check(counts == dict(want), f"{label}'s BN sites {counts} are not the "
+                                f"study tool's {dict(want)}")
     return list(counts.items())
 
 
@@ -4038,26 +4189,30 @@ def phase_kernels_bn_nchw(torch, knorm, dispatch, sites,
                           model="mobilenet_v2", batch=MNV2_BATCH):
     """K1 and K2 against their plain versions at every BatchNorm shape of
     ``model`` (MobileNetV2-1.0 at batch 256; ResNet-18 on CIFAR, phase 21),
-    bf16 NCHW (the scalar path: the channel axis is not innermost, a row of
-    196 or 49 elements is no multiple of 16 bytes; a 1x1 site's channels
-    are innermost, so it takes the vector path), with non-zero
-    cotangents of the statistics and a second launch bit for bit (phase
-    3's checks); each shape timed as phase 3 times ResNet-50's sites
+    bf16 NCHW (the plane regimes: resident where a channel fits a cluster's
+    shared memory, else planes; a 1x1 site's channels are innermost, so it
+    takes the vector path), with non-zero cotangents of the statistics and
+    a second launch bit for bit (phase 3's checks); each site's row names
+    K1's and K2's regime, chunks (resident: the cluster's CTAs), CUDA
+    launches a call (counted in a captured graph of one call, the kernels
+    by name) and design bytes;
+    each shape timed as phase 3 times ResNet-50's sites
     (:func:`bn_site_times`), cuDNN's ``F.batch_norm`` on the same NCHW
     tensor, summed over the sites."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(78)
-    sms = knorm.sm_count(dev)
     rows = []
     for shape, n in sites:
         label = "{}_{}x{}x{}".format(model, *shape[1:])
-        row, ops = bn_case(torch, knorm, gen, dev, sms, label, shape, 1,
+        row, ops = bn_case(torch, knorm, gen, dev, label, shape, 1,
                            torch.bfloat16, "f32", True, 0)
         row["sites"] = n
-        row["chunks"] = knorm.launch_geometry(shape, 1, 2, sms).chunks
         row.update(bn_site_times(torch, F, knorm, dispatch, *ops, 1))
+        row["design_bytes"] = {
+            side: row[f"{side}_design_ms"] * HBM_BYTES_PER_S / 1e3
+            for side in ("fwd", "bwd")}
         say("kernel_case_bn_nchw " + json.dumps(row))
         rows.append(row)
         del ops
@@ -4078,7 +4233,17 @@ def phase_kernels_bn_nchw(torch, knorm, dispatch, sites,
         fwd_max_abs_err=max(r["out_max_abs_err"] for r in rows),
         bwd_max_abs_err=max(r["dx_max_abs_err"] for r in rows),
         stats_max_rel_err=max(r["stats_max_rel_err"] for r in rows),
-        distinct_shapes=len(rows), card=card_line())
+        distinct_shapes=len(rows),
+        # from the kernels each site's captured call launched (bn_case holds
+        # them equal to its regime's own)
+        sites_by_regime={side: {reg: sum(r["sites"] for r in rows
+                                          if r["regime"][side] == reg)
+                                for reg in ("vector", "planes", "resident")}
+                         for side in ("fwd", "bwd")},
+        cuda_launches_per_step={side: sum(
+            r["sites"] * r["cuda_launches"][side] for r in rows)
+            for side in ("fwd", "bwd")},
+        card=card_line())
     say("bn_kernels_nchw " + json.dumps(summary))
     return summary
 
@@ -4439,8 +4604,7 @@ def phase_data(torch, mt, build, dispatch, kopt, knorm):
         torch.backends.cudnn.deterministic, \
             torch.backends.cudnn.benchmark = cudnn
     seconds = {"runs": time.perf_counter() - t0}
-    sites = bn_sites_of(torch, vision.resnet18_v1(classes=10), dev,
-                        DATA_BATCH, 32, RESNET18_BN, "ResNet-18")
+    sites = resnet18_cifar_bn_sites(torch, vision, dev, DATA_BATCH)
     bn = phase_kernels_bn_nchw(torch, knorm, dispatch, sites,
                                "resnet18_cifar", DATA_BATCH)
     seconds["bn_sites"] = time.perf_counter() - t0 - seconds["runs"]
@@ -4718,6 +4882,9 @@ def main():
                         "(phase 21)",
             per_path={"resnet18_cifar": dict(
                 launches=data["runs"]["a_caller"]["launches"][name],
+                sites_by_regime=data["bn"]["sites_by_regime"][side],
+                cuda_launches_per_step=data["bn"][
+                    "cuda_launches_per_step"][side],
                 max_abs_err=data["bn"][f"{side}_max_abs_err"],
                 copy_ms=data["bn"]["resnet18_cifar_batch64_20_sites"][
                     "copy_ms"],
@@ -4727,6 +4894,9 @@ def main():
                    if side in key}), "mobilenet_v2": dict(
                 launches=zoo["train_step"]["phased_launches"][name],
                 graph_launches=zoo["train_step"]["launches"][name],
+                sites_by_regime=zoo["bn"]["sites_by_regime"][side],
+                cuda_launches_per_step=zoo["bn"]["cuda_launches_per_step"][
+                    side],
                 max_abs_err=zoo["bn"][f"{side}_max_abs_err"],
                 copy_ms=zoo["bn"]["mobilenet_v2_batch256_53_sites"][
                     "copy_ms"],
@@ -4840,8 +5010,24 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
-def bn_sites(root):
-    """``--bn-sites ROOT`` (the module docstring)."""
+#: the site sets ``--bn-sites`` times: (batch, channel axis, non-zero
+#: cotangents), the shapes from :func:`bn_site_sets`
+BN_SITE_SETS = {"resnet50": (256, 3, False),
+                "mobilenet_v2": (MNV2_BATCH, 1, True),
+                "resnet18_cifar": (DATA_BATCH, 1, True)}
+
+
+def bn_site_sets(torch, vision, dev, name):
+    """``[(shape, sites)]`` of one of :data:`BN_SITE_SETS`."""
+    if name == "resnet50":
+        return resnet50_bn_sites(256)
+    if name == "mobilenet_v2":
+        return mobilenet_v2_bn_sites(torch, vision, dev, MNV2_BATCH)
+    return resnet18_cifar_bn_sites(torch, vision, dev, DATA_BATCH)
+
+
+def bn_sites(root, names=tuple(BN_SITE_SETS)):
+    """``--bn-sites ROOT [SETS]`` (the module docstring)."""
     import torch
     import torch.nn.functional as F
 
@@ -4851,6 +5037,7 @@ def bn_sites(root):
     check((root / "mxnet_tpu_torch" / "csrc" / "bn_train.cu").is_file(),
           f"no mxnet_tpu_torch package under {root}")
     sys.path.insert(0, str(root))
+    from mxnet_tpu_torch.gluon.model_zoo import vision
     from mxnet_tpu_torch.kernels import build, dispatch, norm as knorm
 
     check(Path(knorm.__file__).resolve().is_relative_to(root),
@@ -4858,25 +5045,42 @@ def bn_sites(root):
     build.build(["bn_train"])
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(77)
-    total = {}
-    for shape, sites in resnet50_bn_sites(256):
-        x, dy, g, b, sh, dm, dv = bn_operands(torch, gen, dev, shape, 3,
-                                              torch.bfloat16, False, 0)
-        want_f = knorm.bn_train_fwd_reference(x, g, b, sh, 1e-5, 3)
-        bwd_args = (x, g, sh, want_f[1], want_f[3], dy, dm, dv, 3)
-        times = bn_site_times(torch, F, knorm, dispatch, x, dy, g, b, sh,
-                              want_f, bwd_args, 3)
-        for key, v in times.items():
-            if isinstance(v, float):
-                total[key] = total.get(key, 0.0) + v * sites
-        del x, dy, want_f, bwd_args
-        torch.cuda.empty_cache()
-    say("bn_sites " + json.dumps(dict(root=str(root), card=card_line(),
-                                      resnet50_batch256_53_sites=total)))
+    result = dict(root=str(root), card=card_line())
+    for name in names:
+        batch, axis, cts = BN_SITE_SETS[name]
+        sites = bn_site_sets(torch, vision, dev, name)
+        total = {}
+        for shape, k in sites:
+            x, dy, g, b, sh, dm, dv = bn_operands(torch, gen, dev, shape,
+                                                  axis, torch.bfloat16, cts,
+                                                  0)
+            want_f = knorm.bn_train_fwd_reference(x, g, b, sh, 1e-5, axis)
+            bwd_args = (x, g, sh, want_f[1], want_f[3], dy, dm, dv, axis)
+            times = bn_site_times(torch, F, knorm, dispatch, x, dy, g, b, sh,
+                                  want_f, bwd_args, axis)
+            for key, v in times.items():
+                if isinstance(v, float):
+                    total[key] = total.get(key, 0.0) + v * k
+            if axis == 1:
+                regime = [geo.regime for geo in bn_geometries(knorm, x, dy,
+                                                                axis)]
+                say("bn_site " + json.dumps(dict(
+                    root=str(root), shape=list(shape), sites=k,
+                    regime=regime, **{key: times[key] for key in (
+                        "fwd_ms", "bwd_ms", "fwd_ms_l2_warm",
+                        "bwd_ms_l2_warm", "fwd_ms_host_issued",
+                        "bwd_ms_host_issued", "library_fwd_ms",
+                        "library_bwd_ms", "fwd_bound_ms",
+                        "bwd_bound_ms")})))
+            del x, dy, want_f, bwd_args
+            torch.cuda.empty_cache()
+        result[f"{name}_batch{batch}_{sum(k for _, k in sites)}_sites"] = total
+    say("bn_sites " + json.dumps(result))
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--bn-sites"] and len(sys.argv) == 3:
-        bn_sites(sys.argv[2])
+    if sys.argv[1:2] == ["--bn-sites"] and len(sys.argv) in (3, 4):
+        bn_sites(sys.argv[2], *([sys.argv[3].split(",")]
+                                if len(sys.argv) == 4 else []))
     else:
         main()

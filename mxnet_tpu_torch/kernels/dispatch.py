@@ -86,24 +86,26 @@ def optimizer_region_bytes(w_size, w_itemsize, n_state, mp):
     return floor, floor
 
 
-def norm_region_bytes(shape, x_itemsize, ew_itemsize):
+def norm_region_bytes(shape, x_itemsize, ew_itemsize,
+                      resident=(False, False)):
     """``(plain_bytes, kernel_bytes)`` that ONE BatchNorm training site
     moves through device memory, forward and backward together (own copy
-    of mxnet_tpu/passes/memory.py:norm_region_bytes).
+    of mxnet_tpu/passes/memory.py:norm_region_bytes; ``resident`` is the
+    port's own: which of K1 and K2 run in the resident regime).
 
     Plain (XLA's fusion boundaries): the forward reads x, round-trips the
     centred population in the elementwise dtype across the sum/sum^2
     reduction, writes out; the backward reads x and dy, round-trips x-hat
     and the cast dy across the dbeta/dgamma reduction, writes dx. Kernel:
     the forward reads x twice (statistics, then normalize) and writes out;
-    the backward reads x and dy twice and writes dx. Per-channel vectors
-    are ignored."""
+    the backward reads x and dy twice and writes dx; a resident K1 or K2
+    reads its inputs once. Per-channel vectors are ignored."""
     n = 1
     for d in shape:
         n *= int(d)
     bx, be = int(x_itemsize), int(ew_itemsize)
     plain_fwd = n * bx + 2 * n * be + n * bx
     plain_bwd = 2 * n * bx + 4 * n * be + n * bx
-    k_fwd = 2 * n * bx + n * bx
-    k_bwd = 2 * (2 * n * bx) + n * bx
+    k_fwd = (1 if resident[0] else 2) * n * bx + n * bx
+    k_bwd = (1 if resident[1] else 2) * (2 * n * bx) + n * bx
     return plain_fwd + plain_bwd, k_fwd + k_bwd

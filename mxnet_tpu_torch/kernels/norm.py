@@ -4,15 +4,19 @@ mxnet_tpu/kernels/norm.py).
 
 The TPU kernels ``_fwd_kernel`` (launched by ``_fwd_pallas``) and
 ``_bwd_kernel`` (``_bwd_pallas``) become the hand-written CUDA kernels of
-``csrc/bn_train.cu``: per-CTA f32 partial sums over a fixed row chunk, a
-combine pass that adds them in a fixed order (no atomics: the bits repeat
-from run to run), and a normalize (forward) or dx (backward) pass, which
-visits the chunks in reverse so that it starts where the L2 is warm.
-Channels-last tensors whose rows start on 16 bytes take 16-byte vector
-loads: :func:`launch_geometry` decides, and the C launchers refuse the
-16-byte kernels where they cannot run. Their
-plain versions are ops/nn.py:``_bn_train_impl`` and ``_bn_train_bwd``,
-here with the wrappers' signatures as ``bn_train_fwd_reference`` and
+``csrc/bn_train.cu``, in one of four regimes that :func:`launch_geometry`
+chooses from the shape (the C launchers refuse one that cannot run):
+channels last, per-CTA f32 partial sums over a fixed row chunk, a combine
+pass that adds them in a fixed order and a normalize (forward) or dx
+(backward) pass that visits the chunks in reverse, where the L2 is warm
+(``last``; ``vector`` with 16-byte loads where every row starts on 16
+bytes); channels not last, the planes walked as 16-byte slots, either
+partials and one apply pass that adds its channel's partials itself
+(``planes``) or, where a channel's x (and dy) fits the shared memory of one
+CTA or of a cluster of up to 8, one launch that reads them once
+(``resident``). No atomics: the bits repeat from run to run. Their plain
+versions are ops/nn.py:``_bn_train_impl`` and ``_bn_train_bwd``, here with
+the wrappers' signatures as ``bn_train_fwd_reference`` and
 ``bn_train_bwd_reference``.
 
 :func:`bn_train` has the JAX package's contract: ``(out, mean, var)`` from
@@ -42,7 +46,8 @@ from . import dispatch as _dispatch
 
 __all__ = ["bn_train", "bn_train_fwd", "bn_train_bwd",
            "bn_train_fwd_reference", "bn_train_bwd_reference",
-           "launch_geometry", "Geometry", "sm_count",
+           "launch_geometry", "Geometry", "REGIMES", "plane_slots",
+           "cuda_launches", "sm_count", "smem_per_block",
            "KERNEL_FWD", "KERNEL_BWD", "LAUNCHES_FWD", "LAUNCHES_BWD"]
 
 SOURCE = "bn_train"
@@ -56,8 +61,11 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # the kernels' geometry (csrc/bn_train.cu): 256 threads a CTA, about 8 CTAs
 # an SM. Vector path: 16-byte lanes, slabs of at most 32 lanes a CTA, K1's
 # 8 loads in flight a thread; a chunk of at least 128 rows, so that its
-# partials are at most 1/32 of its bytes. Scalar path: 32 channels a CTA
-# when the channel axis is innermost, else one.
+# partials are at most 1/32 of its bytes. Scalar path: 32 channels a CTA.
+# Channels not last: 16-byte slots of the planes, a planes chunk of at
+# least 8 slots a thread; a resident channel in the shared memory of a
+# cluster of 1, 2, 4 or 8 CTAs (H100: 227 KB a block, 228 an SM, 1 KB of
+# it the system's for each block; 1 KB for the kernels' own).
 _THREADS = 256
 _CTAS_PER_SM = 8
 _SLAB_LANES = 32
@@ -65,27 +73,83 @@ _VEC_UNROLL = 8
 _MIN_ROWS_VEC = 128
 _TILE_C = 32
 _MIN_ROWS_LAST = 64
-_MIN_ROWS_FIRST = 2048
+_MIN_ITEMS = _THREADS * _VEC_UNROLL
 _MAX_CHUNKS = 65535
+_CLUSTERS = (1, 2, 4, 8)
+_SMEM_BLOCK = 232448
+_SMEM_RESERVED = 1024
+_SMEM_STATIC = 1024
 
-Geometry = collections.namedtuple("Geometry",
-                                  "outer c inner chunks vector")
+#: the regimes, in the order of csrc/bn_train.cu's codes
+REGIMES = ("last", "vector", "planes", "resident")
+
+Geometry = collections.namedtuple("Geometry", "outer c inner chunks regime")
 
 
-def launch_geometry(shape, axis, itemsize, sm_count, aligned=True):
-    """:class:`Geometry` of a launch: the tensor read as (outer, C, inner)
-    around the channel axis, the number of row chunks (rows = outer *
-    inner) each channel's sums are split into, one CTA per chunk and
-    channel tile, and whether the kernels take the 16-byte vector path
-    (channels last, ``C * itemsize`` a multiple of 16 and, ``aligned``,
-    every tensor's base on 16 bytes; the wrappers pass the answer to the C
-    launchers). A function of its arguments alone, so one shape sums in
+def plane_slots(inner, itemsize):
+    """The 16-byte slots a plane of ``inner`` elements spans at most: its
+    bytes / 16 when they are a multiple of 16 (every plane then starts on
+    16 bytes), else room for the largest head offset a plane can have,
+    16 - gcd(bytes, 16)."""
+    pb = inner * itemsize
+    if pb % 16 == 0:
+        return pb // 16
+    return -(-(pb + 16 - (pb & -pb)) // 16)
+
+
+def _resident_cluster(items, c, nin, sms, smem_block):
+    """The CTAs (1, 2, 4 or 8: one cluster) that hold a channel of
+    ``items`` 16-byte slots of each of ``nin`` inputs in shared memory, or 0
+    where 8 cannot: the smallest that gives the grid the card's SM count
+    and two CTAs an SM, else the smallest that gives it the SM count, else
+    the largest. A split leaves a CTA at least one slot a thread."""
+    fits = []
+    for cs in _CLUSTERS:
+        per = -(-items // cs)
+        data = per * 16 * nin
+        if (cs == 1 or per >= _THREADS) and data + _SMEM_STATIC <= smem_block:
+            fits.append((cs, data))
+    if not fits:
+        return 0
+    per_sm = smem_block + _SMEM_RESERVED
+    for two in (True, False):
+        for cs, data in fits:
+            if c * cs >= sms and (not two or 2 * (
+                    data + _SMEM_STATIC + _SMEM_RESERVED) <= per_sm):
+                return cs
+    return fits[-1][0]
+
+
+def launch_geometry(shape, axis, itemsize, sm_count, aligned=True,
+                    backward=False, smem_block=_SMEM_BLOCK):
+    """:class:`Geometry` of a K1 (or, ``backward``, K2) launch: the tensor
+    read as (outer, C, inner) around the channel axis, the regime
+    (``REGIMES``), and ``chunks``: the CTAs a channel's sums are split
+    into (``resident``: the cluster's). Channels last (inner = 1): row
+    chunks, one CTA per chunk and channel tile, the 16-byte ``vector``
+    regime where ``C * itemsize`` is a multiple of 16 and, ``aligned``,
+    every tensor's base is on 16 bytes, else ``last``. Channels not last:
+    ``resident`` where a channel's x (K1) or x and dy (K2) fits the shared
+    memory of a cluster of at most 8 CTAs (``smem_block`` bytes a block),
+    else ``planes``, chunks of a channel's 16-byte slots (the wrappers copy
+    a tensor whose base is not on 16 bytes first, so ``aligned`` does not
+    matter there). A function of its arguments alone, so one shape sums in
     one order on one card."""
     outer = math.prod(shape[:axis])
     c = shape[axis]
     inner = math.prod(shape[axis + 1:])
-    rows = outer * inner
-    vector = inner == 1 and (c * itemsize) % 16 == 0 and bool(aligned)
+    target = sm_count * _CTAS_PER_SM
+    if inner > 1:
+        items = outer * plane_slots(inner, itemsize)
+        cs = _resident_cluster(items, c, 2 if backward else 1, sm_count,
+                               smem_block)
+        if cs:
+            return Geometry(outer, c, inner, cs, "resident")
+        least = -(-items // (1 << 30))  # int items in a chunk
+        chunks = max(least, min(-(-target // c), -(-items // _MIN_ITEMS)), 1)
+        return Geometry(outer, c, inner, min(chunks, _MAX_CHUNKS), "planes")
+    rows = outer
+    vector = (c * itemsize) % 16 == 0 and bool(aligned)
     least = 1
     if vector:
         lanes = c * itemsize // 16
@@ -93,35 +157,75 @@ def launch_geometry(shape, axis, itemsize, sm_count, aligned=True):
         tiles = -(-lanes // slab)
         min_rows = max(_MIN_ROWS_VEC, _THREADS // slab * _VEC_UNROLL)
         least = -(-(rows * lanes) // (1 << 30))  # int offsets in a chunk
-    elif inner == 1:
-        tiles, min_rows = -(-c // _TILE_C), _MIN_ROWS_LAST
     else:
-        tiles, min_rows = c, _MIN_ROWS_FIRST
-    target = sm_count * _CTAS_PER_SM
+        tiles, min_rows = -(-c // _TILE_C), _MIN_ROWS_LAST
     chunks = max(least, min(-(-target // tiles), -(-rows // min_rows)), 1)
-    return Geometry(outer, c, inner, min(chunks, _MAX_CHUNKS), vector)
+    return Geometry(outer, c, inner, min(chunks, _MAX_CHUNKS),
+                    "vector" if vector else "last")
+
+
+def cuda_launches(geometry):
+    """CUDA launches of one call in this geometry: partials, combine and
+    apply (channels last); partials and apply (planes); one (resident)."""
+    return {"last": 3, "vector": 3, "planes": 2, "resident": 1}[
+        geometry.regime]
 
 
 _SM_COUNT = {}
+_SMEM = {}
+
+
+def _device_index(device):
+    idx = torch.device(device).index
+    return torch.cuda.current_device() if idx is None else idx
 
 
 def sm_count(device):
     """The card's number of SMs (cached per device)."""
-    idx = torch.device(device).index
-    if idx is None:
-        idx = torch.cuda.current_device()
+    idx = _device_index(device)
     if idx not in _SM_COUNT:
         _SM_COUNT[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
     return _SM_COUNT[idx]
 
 
+def smem_per_block(device):
+    """The shared memory one block may take on the card, opted in (cached
+    per device): the property where torch has it, else the SM's less the
+    system's share of a block."""
+    idx = _device_index(device)
+    if idx not in _SMEM:
+        props = torch.cuda.get_device_properties(idx)
+        optin = getattr(props, "shared_memory_per_block_optin", None)
+        _SMEM[idx] = int(optin if optin else
+                         props.shared_memory_per_multiprocessor
+                         - _SMEM_RESERVED)
+    return _SMEM[idx]
+
+
 def _aligned(*tensors):
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+def _on16(t):
+    """``t``, or a copy of it whose base is on 16 bytes (the NCHW regimes
+    need it; the model's activations are already)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _geometry(x, axis, aligned, backward):
+    return launch_geometry(x.shape, axis, x.element_size(),
+                           sm_count(x.device), aligned, backward,
+                           smem_per_block(x.device))
+
+
 def _lib():
-    lib = _build.load(SOURCE)
+    return _bind(_build.load(SOURCE))
+
+
+def _bind(lib):
+    """``lib`` (bn_train's library, or a copy with its C interface) with
+    its functions' argument and result types set."""
     if lib.mxtpu_bn_train_fwd.argtypes is None:
         lib.mxtpu_bn_train_fwd.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
@@ -171,9 +275,10 @@ def bn_train_fwd(x, gamma, beta, shift, eps, axis):
     x = x.contiguous()
     ew_low = _nn._bn_ew_dtype(x) != torch.float32
     out = torch.empty_like(x)
-    outer, c, inner, chunks, vector = launch_geometry(
-        x.shape, axis, x.element_size(), sm_count(x.device),
-        _aligned(x, out))
+    geom = _geometry(x, axis, _aligned(x, out), False)
+    outer, c, inner, chunks, regime = geom
+    if regime in ("planes", "resident"):
+        x = _on16(x)
     # separate tensors, not views of one: mean and var are outputs of the
     # autograd Function
     mean, var, inv = (torch.empty(c, dtype=torch.float32, device=x.device)
@@ -187,7 +292,7 @@ def bn_train_fwd(x, gamma, beta, shift, eps, axis):
         err = lib.mxtpu_bn_train_fwd(
             x.data_ptr(), g.data_ptr(), b.data_ptr(), s.data_ptr(),
             out.data_ptr(), mean.data_ptr(), var.data_ptr(), inv.data_ptr(),
-            work.data_ptr(), outer, c, inner, chunks, int(vector),
+            work.data_ptr(), outer, c, inner, chunks, REGIMES.index(regime),
             int(x.dtype == torch.bfloat16), int(ew_low),
             float(x.numel() // c), float(eps), stream)
     _raise_on(lib, err, "forward")
@@ -206,9 +311,10 @@ def bn_train_bwd(x, gamma, shift, mean, inv, dy, dmean, dvar, axis):
     x, dy = x.contiguous(), dy.contiguous()
     ew = _nn._bn_ew_dtype(x)
     dx = torch.empty_like(x)
-    outer, c, inner, chunks, vector = launch_geometry(
-        x.shape, axis, x.element_size(), sm_count(x.device),
-        _aligned(x, dy, dx))
+    geom = _geometry(x, axis, _aligned(x, dy, dx), True)
+    outer, c, inner, chunks, regime = geom
+    if regime in ("planes", "resident"):
+        x, dy = _on16(x), _on16(dy)
     dgamma, dbeta = (torch.empty(c, dtype=torch.float32, device=x.device)
                      for _ in range(2))
     work = torch.empty((2 * chunks + 4) * c, dtype=torch.float32,
@@ -223,7 +329,7 @@ def bn_train_bwd(x, gamma, shift, mean, inv, dy, dmean, dvar, axis):
             dm.data_ptr() if dm is not None else None,
             dv.data_ptr() if dv is not None else None,
             dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-            work.data_ptr(), outer, c, inner, chunks, int(vector),
+            work.data_ptr(), outer, c, inner, chunks, REGIMES.index(regime),
             int(x.dtype == torch.bfloat16), int(ew != torch.float32),
             _nn._n_in(x.numel() // c, ew), stream)
     _raise_on(lib, err, "backward")

@@ -18,6 +18,8 @@ import torch
 
 from mxnet_tpu_torch.kernels import norm as knorm
 from mxnet_tpu_torch.ops import nn as tnn
+from mxnet_tpu_torch.tools.bn_regime_study import (RESNET18_CIFAR_SITES,
+                                                   mobilenet_v2_bn_sites)
 
 SMS = (132, 114)
 
@@ -57,7 +59,7 @@ def test_resnet50_sites_take_the_vector_path():
     for shape, _ in sites:
         for sms in SMS:
             g = knorm.launch_geometry(shape, 3, 2, sms)
-            assert g.vector, shape
+            assert g.regime == "vector", shape
             assert (g.outer, g.c, g.inner) == (shape[0] * shape[1] * shape[2],
                                                shape[3], 1)
             assert 1 <= g.chunks <= 65535
@@ -83,7 +85,8 @@ def test_edge_shapes():
     for shape, axis, itemsize, aligned, vector in cases:
         for sms in SMS:
             g = knorm.launch_geometry(shape, axis, itemsize, sms, aligned)
-            assert g.vector == vector, (shape, itemsize, aligned)
+            assert (g.regime == "vector") == vector, (shape, itemsize,
+                                                     aligned)
             assert 1 <= g.chunks <= 65535
             assert g.outer * g.c * g.inner == onp.prod(shape)
             assert g.inner == (1 if axis == len(shape) - 1
@@ -99,7 +102,8 @@ def test_vector_path_exactly_where_c_and_alignment_allow():
                                               aligned)
                     want = (axis == 2 and c * itemsize % 16 == 0
                             and aligned)
-                    assert g.vector == want, (shape, axis, itemsize, aligned)
+                    assert (g.regime == "vector") == want, (shape, axis,
+                                                          itemsize, aligned)
 
 
 def test_chunks_bounded_and_offsets_fit_an_int():
@@ -107,7 +111,7 @@ def test_chunks_bounded_and_offsets_fit_an_int():
     for sms in SMS:
         g = knorm.launch_geometry(huge, 1, 2, sms)
         lanes = huge[1] * 2 // 16
-        assert g.vector and g.chunks <= 65535
+        assert g.regime == "vector" and g.chunks <= 65535
         assert -(-huge[0] // g.chunks) * lanes < 2 ** 30 + lanes
         g = knorm.launch_geometry((2 ** 26, 64, 1), 1, 4, sms)  # NCHW-ish
         assert 1 <= g.chunks <= 65535
@@ -122,7 +126,7 @@ def test_every_row_visited_once():
         itemsize = 4 if shape == (5, 11, 100) else 2
         for sms in SMS:
             g = knorm.launch_geometry(shape, len(shape) - 1, itemsize, sms)
-            assert g.vector
+            assert g.regime == "vector"
             seen, _, _ = _vector_rows(g, itemsize)
             assert (seen == 1).all(), (shape, sms)
 
@@ -218,3 +222,113 @@ def test_f32_folded_algebra_matches_the_plain_versions(layout):
     for g, w in ((gdx, wdx), (gdg, wdg), (gdb, wdb)):
         scale = max(1.0, w.abs().max().item())
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * scale)
+
+
+# -- channels not last: the plane regimes of csrc/bn_train.cu ---------------
+
+
+def test_nchw_regimes_at_mobilenet_v2_and_cifar_sites():
+    mnv2 = mobilenet_v2_bn_sites(256)
+    assert len(mnv2) == 19 and sum(k for _, k in mnv2) == 53
+    assert sum(k for _, k in RESNET18_CIFAR_SITES) == 20
+    for sms in SMS:
+        for shape, _ in mnv2 + RESNET18_CIFAR_SITES:
+            hw = shape[2]
+            for backward in (False, True):
+                g = knorm.launch_geometry(shape, 1, 2, sms, True, backward)
+                want = ("vector" if hw == 1 else "planes" if hw == 112
+                        or (hw == 56 and backward) else "resident")
+                assert g.regime == want, (shape, backward, sms, g)
+                # a misaligned base takes the same regime (the wrappers
+                # copy it onto 16 bytes first)
+                assert knorm.launch_geometry(
+                    shape, 1, 2, sms, False, backward).regime in (want,
+                                                                  "last")
+                if want == "resident":
+                    assert g.chunks in (1, 2, 4, 8)
+                    kc = knorm.plane_slots(shape[2] * shape[3], 2)
+                    per = -(-shape[0] * kc // g.chunks)
+                    # two CTAs an SM, but where 8 CTAs hold 1/8 of a
+                    # channel each (K1 at 56x56)
+                    data = per * 16 * (2 if backward else 1)
+                    assert data + knorm._SMEM_STATIC <= knorm._SMEM_BLOCK
+                    assert g.chunks == 8 or 2 * (
+                        data + knorm._SMEM_STATIC + knorm._SMEM_RESERVED) <= (
+                        knorm._SMEM_BLOCK + knorm._SMEM_RESERVED)
+                    # the grid covers the card where 8 CTAs a channel can
+                    assert shape[1] * g.chunks >= sms or g.chunks == 8 or (
+                        per < 2 * knorm._THREADS)
+                elif want == "planes":
+                    assert 1 <= g.chunks <= 65535
+                assert knorm.cuda_launches(g) == {
+                    "vector": 3, "planes": 2, "resident": 1}[want]
+            # the same sites channels last take the 16-byte path
+            nhwc = (shape[0], shape[2], shape[3], shape[1])
+            assert knorm.launch_geometry(nhwc, 3, 2, sms).regime == "vector"
+    # edges: C = 1, a plane of 1 element (channels last), of 49 (7 slots,
+    # heads at every even byte), f32 planes of 2
+    g = knorm.launch_geometry((64, 1, 28, 28), 1, 2, 132)
+    assert (g.regime, g.chunks) == ("resident", 8)
+    assert knorm.launch_geometry((64, 3, 1, 1), 1, 2, 132).regime == "last"
+    assert knorm.plane_slots(49, 2) == 7 and knorm.plane_slots(196, 2) == 25
+    assert knorm.plane_slots(784, 2) == 98 and knorm.plane_slots(2, 4) == 1
+    assert knorm.launch_geometry((5, 100, 2), 1, 4, 132).regime == "resident"
+    big = knorm.launch_geometry((2, 1, 2 ** 26), 1, 2, 132)
+    assert big.regime == "planes" and big.chunks <= 65535
+
+
+def _walk(geom, itemsize, c):
+    """How often the plane walk of csrc/bn_train.cu (for_items over each
+    CTA's items [q * per, ...), a thread's cursor stepped by (qs, rs))
+    visits each element of channel ``c``; every slot it loads (one that
+    overlaps its plane) lies inside the tensor's last 16 bytes."""
+    outer, C, inner = geom.outer, geom.c, geom.inner
+    pb, kc = inner * itemsize, knorm.plane_slots(inner, itemsize)
+    items = outer * kc
+    per = -(-items // geom.chunks)
+    qs, rs = divmod(256, kc)
+    seen = onp.zeros(outer * inner, dtype=onp.int64)
+    t = onp.arange(256)
+    end16 = -(-outer * C * pb // 16) * 16
+    for q in range(geom.chunks):
+        i0, i1 = q * per, min((q + 1) * per, items)
+        cnt = onp.maximum(0, -(-(i1 - i0 - t) // 256))
+        n, k = divmod(i0 + t, kc)
+        for j in range(int(cnt.max())):
+            act = j < cnt
+            # the cursor is the item's (plane, slot), and the slot a
+            # resident CTA keeps it in lies inside the CTA's share
+            assert (n * kc + k == i0 + t + 256 * j)[act].all()
+            assert (t + 256 * j < per)[act].all()
+            start = (n * C + c) * pb
+            head = start % 16
+            lo, hi = head - 16 * k, head + pb - 16 * k
+            loaded = act & (hi > 0)
+            assert (start - head + 16 * k + 16 <= end16)[loaded].all()
+            for v in range(16 // itemsize):
+                byte = v * itemsize
+                ok = act & (lo <= byte) & (byte < hi)
+                e = (16 * k + byte - head) // itemsize
+                onp.add.at(seen, (n * inner + e)[ok], 1)
+            k = k + rs
+            n = n + qs
+            wrap = k >= kc
+            k[wrap] -= kc
+            n[wrap] += 1
+    return seen
+
+
+def test_nchw_walk_visits_every_element_once():
+    shapes = ([(s, 2) for s, _ in mobilenet_v2_bn_sites(8)]
+              + [(s, 2) for s, _ in RESNET18_CIFAR_SITES[:4]]
+              + [((256, 144, 28, 28), 2), ((256, 160, 7, 7), 2),
+                 ((64, 1, 28, 28), 2), ((4, 40, 9, 11), 4),
+                 ((5, 100, 2), 4), ((3, 7, 5, 5), 2), ((24, 4, 224, 224), 2)])
+    for shape, itemsize in shapes:
+        for backward in (False, True):
+            g = knorm.launch_geometry(shape, 1, itemsize, 132, True,
+                                      backward)
+            assert g.regime in ("planes", "resident")
+            for c in sorted({0, min(1, g.c - 1), g.c - 1}):
+                seen = _walk(g, itemsize, c)
+                assert (seen == 1).all(), (shape, backward, c, g)

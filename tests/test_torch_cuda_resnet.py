@@ -74,7 +74,8 @@ def test_cuda_bn_kernels_match_plain(cuda_device, monkeypatch, shape, axis,
     # (channels last, whole 16-byte rows, bases on 16 bytes)
     vector = knorm.launch_geometry(shape, axis, x.element_size(), 132,
                                    x.data_ptr() % 16 == 0
-                                   and dy.data_ptr() % 16 == 0).vector
+                                   and dy.data_ptr() % 16 == 0
+                                   ).regime == "vector"
     assert vector == (axis == len(shape) - 1
                       and shape[axis] * x.element_size() % 16 == 0
                       and offset == 0)

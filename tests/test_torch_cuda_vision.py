@@ -4,10 +4,11 @@ without a card. The file imports no JAX:
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_cuda_vision.py
 
-K1 and K2 at MobileNetV2-1.0's BatchNorm shapes (bf16 NCHW, the scalar
-path, batch 64) against their plain versions with chip_smoke.py's checks;
-a narrow MobileNetV2 training step on the card against the port on the
-CPU; the activation table on the card against the CPU.
+K1 and K2 at MobileNetV2-1.0's BatchNorm shapes (bf16 NCHW, batch 64)
+and at the NCHW regimes' edges against their plain versions with
+chip_smoke.py's checks; a narrow MobileNetV2 training step on the card
+against the port on the CPU; the activation table on the card against the
+CPU.
 """
 import pytest
 import torch
@@ -34,17 +35,80 @@ def cuda_device():
 def test_bn_kernels_at_mobilenet_v2_nchw_sites(cuda_device):
     """Each of the 19 shapes of MobileNetV2's 53 sites at batch 64: the
     statistics within 1e-4 relative, out and dx within 2^-7 of their
-    largest value, a second launch bit for bit, the scalar path."""
+    largest value, a second launch bit for bit, a plane regime."""
     kbuild.build(["bn_train"])
     sites = chip_smoke.mobilenet_v2_bn_sites(torch, vision, cuda_device, 64)
     assert sum(n for _, n in sites) == 53 and len(sites) == 19
     gen = torch.Generator(device=cuda_device).manual_seed(5)
-    sms = knorm.sm_count(cuda_device)
     for shape, _ in sites:
-        row, ops = chip_smoke.bn_case(torch, knorm, gen, cuda_device, sms,
+        row, ops = chip_smoke.bn_case(torch, knorm, gen, cuda_device,
                                       str(shape), shape, 1, torch.bfloat16,
                                       "f32", True, 0)
         assert not row["vector_path"] and row["bitwise_repeat"]
+        assert set(row["regime"].values()) <= {"planes", "resident"}
+        del ops
+
+
+def _resident_edge(c, hw, backward, sms, smem):
+    """The largest batch at which a (N, c, hw, hw) bf16 channel still takes
+    the resident regime (by launch_geometry)."""
+    n = 1
+    while knorm.launch_geometry((n + 1, c, hw, hw), 1, 2, sms, True,
+                                backward, smem).regime == "resident":
+        n += 1
+    return n
+
+
+# (label, shape, dtype, MXTPU_BN_COMPUTE, elements the views start into
+# their storage)
+NCHW_EDGES = [
+    ("plane_49_elements", (16, 24, 7, 7), torch.bfloat16, "f32", 0),
+    ("cluster_c32", (64, 32, 28, 28), torch.bfloat16, "f32", 0),
+    ("c1", (64, 1, 28, 28), torch.bfloat16, "f32", 0),
+    ("n1", (1, 64, 56, 56), torch.bfloat16, "f32", 0),
+    ("f32_ragged_plane", (8, 40, 9, 11), torch.float32, "f32", 0),
+    ("f32_planes", (8, 2, 256, 256), torch.float32, "f32", 0),
+    ("f32_two_element_plane", (5, 100, 2), torch.float32, "f32", 0),
+    ("bf16_math_resident", (32, 96, 14, 14), torch.bfloat16, "bf16", 0),
+    ("bf16_math_planes", (24, 4, 224, 224), torch.bfloat16, "bf16", 0),
+    ("misaligned_view", (4, 40, 9, 11), torch.bfloat16, "f32", 1),
+    ("misaligned_planes", (24, 4, 224, 224), torch.bfloat16, "f32", 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,shape,dtype,compute,misalign", NCHW_EDGES,
+                         ids=[e[0] for e in NCHW_EDGES])
+def test_bn_kernels_nchw_edges(cuda_device, label, shape, dtype, compute,
+                               misalign):
+    """K1 and K2 at the NCHW regimes' edges against their plain versions
+    (chip_smoke.bn_case: tolerances, a second launch bit for bit, the
+    regime launch_geometry chooses, the CUDA launches a call)."""
+    kbuild.build(["bn_train"])
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    row, ops = chip_smoke.bn_case(torch, knorm, gen, cuda_device, label,
+                                  shape, 1, dtype, compute, True, misalign)
+    assert row["bitwise_repeat"] and not row["vector_path"]
+    del ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backward", [False, True])
+def test_bn_kernels_at_the_resident_limit(cuda_device, backward):
+    """Just inside the resident regime's limit (the largest batch of a
+    (N, 2, 56, 56) bf16 channel that a cluster of 8 holds) and just
+    outside it (one image more: planes), against the plain versions."""
+    kbuild.build(["bn_train"])
+    sms = knorm.sm_count(cuda_device)
+    smem = knorm.smem_per_block(cuda_device)
+    n = _resident_edge(2, 56, backward, sms, smem)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    side = "bwd" if backward else "fwd"
+    for batch, want in ((n, "resident"), (n + 1, "planes")):
+        row, ops = chip_smoke.bn_case(torch, knorm, gen, cuda_device,
+                                      f"edge_{batch}", (batch, 2, 56, 56), 1,
+                                      torch.bfloat16, "f32", True, 0)
+        assert row["regime"][side] == want, (batch, row["regime"])
         del ops
 
 

@@ -110,6 +110,10 @@ def train_pair(make, x, y, steps=2, reset=lambda: None):
                     generator=torch.Generator().manual_seed(11))
     with mt.autograd.predict_mode():
         tnet(torch.from_numpy(x))
+    # the load overwrites every parameter: Zero only spares the JAX
+    # package's default Uniform, a random draw compiled for each weight
+    # shape (~12 s of MobileNetV2's test)
+    jnet.initialize(init=jmx.initializer.Zero())
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "net.params")
         tnet.save_parameters(path)

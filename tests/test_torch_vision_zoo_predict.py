@@ -76,6 +76,8 @@ def predict_pair(name, make, hw):
     with mt.autograd.predict_mode():
         tnet(torch.from_numpy(x))
     _random_bn_state(tnet, 12)
+    # the load overwrites every parameter (test_torch_vision_zoo.train_pair)
+    jnet.initialize(init=jmx.initializer.Zero())
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "net.params")
         tnet.save_parameters(path)
