@@ -232,7 +232,29 @@ failure exits non-zero, nothing is caught and carried on:
      the device's idle share in a profiled epoch. Then K1 and K2 at
      ResNet-18's 20 CIFAR BatchNorm sites at batch 64 (bf16 NCHW), as
      phase 20 times MobileNetV2's.
- 22. a ``timing`` line (profiler windows taken, windows that came back
+ 22. the operator corpus, main paths (``mx.nd``/``mx.npx`` filled from
+     the op registry): (a) ResNet-50 v1 written in the legacy ops
+     (``nd.Convolution``, ``nd.BatchNorm(fix_gamma=False)``,
+     ``nd.Activation``, ``nd.Pooling``, ``nd.Flatten``,
+     ``nd.FullyConnected``, ``nd.SoftmaxOutput``) at full width, NCHW f32,
+     batch 64 of 224x224, from the weights of the Gluon ``resnet50_v1``
+     after ``initialize``: three steps under ``autograd.record()`` ->
+     ``backward()`` -> ``nd.sgd_mom_update(w, g, mom, lr 0.1, momentum
+     0.9, wd 1e-4, out=w)``, the counts zeroed just before and read just
+     after (K1 = K2 = 53 a step), every result on ``cuda:0``; the first
+     step's loss and gradients held to the Gluon net's forward and summed
+     ``SoftmaxCrossEntropyLoss`` backward, the weights after the first
+     update to a ``Trainer('sgd')`` step (tolerance from the Gluon step's
+     own run-to-run noise); step p50 ms and samples/s. (b)
+     ``npx.flash_attention`` and ``nd.flash_attention`` at 8 x 12 x 384 x
+     64 bf16, causal and not, dropout 0.1 with a seed, forward and
+     backward: K4, K5a, K5b once each a call; out and the gradients bit for
+     bit the direct call's, within the kernels' tolerances of the plain
+     versions. (c) every case of ``mxnet_tpu_torch/ops/_sweep_cases.py``
+     on ``cuda:0``: results on the card, deterministic cases against the
+     CPU, samplers reproducible under one seed; the number swept and
+     failed (0).
+ 23. a ``timing`` line (profiler windows taken, windows that came back
      without device events, and times taken with CUDA events instead
      where the profiler recorded none), a ``{"kernels": [...]}`` line
      (with each kernel's launches on the TrainStep paths, on the resumed
@@ -4619,6 +4641,357 @@ def phase_data(torch, mt, build, dispatch, kopt, knorm):
     return dict(summary, runs=runs, bn=bn)
 
 
+# -- the operator corpus on the card (phase 22) ------------------------------
+
+REG_BATCH = 64                     # 22a: ResNet-50 v1 in the legacy ops
+REG_STEPS = 3
+
+
+def legacy_resnet50(nd, net, W, x, y):
+    """ResNet-50 v1 written in the legacy op vocabulary (``nd.Convolution``,
+    ``nd.BatchNorm(fix_gamma=False)``, ``nd.Activation``, ``nd.Pooling``,
+    ``nd.Flatten``, ``nd.FullyConnected``, ``nd.SoftmaxOutput``) over the
+    NDArrays ``W[parameter]``, the architecture and hyperparameters read
+    off the Gluon ``resnet50_v1`` ``net``: the 7x7/2 stem, BatchNorm,
+    ReLU, the 3x3/2 max pool, 16 bottlenecks, the global average pool and
+    the dense head. Returns the class probabilities."""
+    def conv(c, h):
+        return nd.Convolution(h, W[c.weight], kernel=c._kernel,
+                              stride=c._strides, pad=c._padding,
+                              num_filter=c._channels, no_bias=True)
+
+    def bn(b, h):
+        return nd.BatchNorm(h, W[b.gamma], W[b.beta], W[b.running_mean],
+                            W[b.running_var], eps=1e-5, momentum=0.9,
+                            fix_gamma=False)
+
+    def relu(h):
+        return nd.Activation(h, act_type="relu")
+
+    f = net.features
+    h = relu(bn(f[1], conv(f[0], x)))
+    h = nd.Pooling(h, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                   pool_type="max")
+    for stage in list(f)[4:8]:
+        for blk in stage:
+            b = blk.body
+            r = relu(bn(b[1], conv(b[0], h)))
+            r = relu(bn(b[4], conv(b[3], r)))
+            r = bn(b[7], conv(b[6], r))
+            short = h if blk.downsample is None else bn(
+                blk.downsample[1], conv(blk.downsample[0], h))
+            h = relu(r + short)
+    h = nd.Flatten(nd.Pooling(h, kernel=(1, 1), global_pool=True,
+                              pool_type="avg"))
+    return nd.SoftmaxOutput(nd.FullyConnected(
+        h, W[net.output.weight], W[net.output.bias], num_hidden=1000), y)
+
+
+def _max_rel(pairs):
+    """The largest ``max |a - b| / max |b|`` over ``(a, b)`` tensor pairs."""
+    return max(((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+               for a, b in pairs)
+
+
+def phase_registry_resnet(torch, mt, build, vision):
+    """22a: ResNet-50 v1 in the legacy vocabulary at full width (NCHW, f32,
+    batch 64 of 224x224, 1000 classes) from the weights of the Gluon
+    ``resnet50_v1`` after ``initialize``, three steps under
+    ``autograd.record()`` -> ``backward()`` -> ``nd.sgd_mom_update(w, g,
+    mom, lr=0.1, momentum=0.9, wd=1e-4, out=w)`` for every weight, the
+    counts zeroed just before and read just after (K1 = K2 = 53 a step).
+
+    Held against the Gluon net on the same weights and batch: the first
+    step's loss and gradients against its forward and the summed backward
+    of ``SoftmaxCrossEntropyLoss``, the weights after the first update
+    against one ``Trainer('sgd', momentum 0.9, wd 1e-4, rescale_grad 1)``
+    step. Tolerance: cuDNN chooses its algorithms per call, and the weight
+    gradients of some sum in an order that changes between calls, so the
+    same Gluon step run twice from one state may differ; each gradient
+    may differ by 8 times that (the noise floor measured here, per tensor
+    relative to its largest value) plus 1e-3 of its largest value: the
+    heads round apart (softmax minus one-hot in SoftmaxOutput, log-softmax's
+    backward in the loss) and 53 BatchNorms carry that last-bit difference
+    to 7.6e-5 of the largest gradient (measured on an H100). A weight may
+    differ by lr times its gradient's tolerance, a moving statistic by
+    1e-4 of the largest, the loss by 1e-5 relative."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    mt.random.seed(0)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(device=dev)
+    params = list(net.collect_params().values())
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(REG_BATCH, 3, 224, 224, device=dev, generator=gen)
+    y = torch.randint(0, 1000, (REG_BATCH,), device=dev, generator=gen)
+    net(x[:1])        # predict mode: the deferred shapes, no statistics
+    W = {p: mt.np.array(p.data()._data.detach()) for p in params}
+    trained = [p for p in params if p.grad_req != "null"]
+    check(len(trained) == 161, f"{len(trained)} trained weights")
+    moms = {p: mt.np.zeros(p.shape) for p in trained}
+    for p in trained:
+        W[p].attach_grad()
+    data, label = mt.np.array(x), mt.np.array(y.float())
+
+    # the Gluon reference, twice from the same state for cuDNN's noise
+    # floor (the running statistics put back between: they are K1's
+    # shift), then one update
+    lossf = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    running = [p for p in params if p.grad_req == "null"]
+    start = [p.data()._data.clone() for p in running]
+    ref = []
+    for _ in range(2):
+        for p, t in zip(running, start):
+            p.set_data(t)
+        with mt.autograd.record():
+            loss = lossf(net(x), y)
+        mt.autograd.backward(loss)        # ones: the per-sample losses summed
+        ref.append((loss.detach().mean().item(),
+                    [p.grad().clone() for p in trained]))
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", dict(
+        learning_rate=0.1, momentum=0.9, wd=1e-4, rescale_grad=1.0))
+    trainer.step(1)
+    noise = [_max_rel([(a, b)]) for a, b in zip(ref[0][1], ref[1][1])]
+
+    build.reset_counters()
+    times, first = [], None
+    for step in range(REG_STEPS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with mt.autograd.record():
+            prob = legacy_resnet50(mt.nd, net, W, data, label)
+        prob.backward()
+        if step == 0:
+            grads = [W[p].grad._data.clone() for p in trained]
+        for p in trained:
+            mt.nd.sgd_mom_update(W[p], W[p].grad, moms[p], lr=0.1,
+                                 momentum=0.9, wd=1e-4, out=W[p])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        if step == 0:
+            p_y = prob._data.gather(1, y[:, None]).squeeze(1)
+            first = dict(loss=(-p_y.log().mean()).item(), grads=grads,
+                         weights=[W[p]._data.clone() for p in trained],
+                         running=[W[p]._data.clone() for p in running])
+    counts = {c.name: c.value for c in build.COUNTERS.values()}
+    arrays = [prob, *W.values(), *moms.values()]
+    check(all(a._data.device == dev for a in arrays)
+          and all(W[p].grad._data.device == dev for p in trained),
+          "22a: a result off cuda:0")
+    check(all(bool(torch.isfinite(a._data).all()) for a in arrays),
+          "22a: non-finite values")
+    for name in ("bn_train_fwd", "bn_train_bwd"):
+        check(counts.get(name, 0) == 53 * REG_STEPS,
+              f"22a: {name} launched {counts.get(name, 0)} times in "
+              f"{REG_STEPS} steps, not {53 * REG_STEPS}")
+    grad_err = [_max_rel([(g, r)]) for g, r in zip(first["grads"],
+                                                    ref[0][1])]
+    # each tensor within 8x its own run-to-run noise (cuDNN's per-call
+    # algorithms) plus 1e-4 of its largest value
+    grad_tol = [8 * n + 1e-4 for n in noise]
+    grad_ok = [e <= t for e, t in zip(grad_err, grad_tol)]
+    check(all(grad_ok), "22a: gradients against the Gluon step: worst "
+                        f"{max(grad_err):.3g} (noise {max(noise):.3g})")
+    loss_err = abs(first["loss"] - ref[0][0]) / abs(ref[0][0])
+    check(loss_err <= 1e-5, f"22a: loss {first['loss']} against Gluon's "
+                            f"{ref[0][0]}")
+    w_err = [((w - p.data()._data).abs().max()
+              / p.data()._data.abs().max()).item()
+             for w, p in zip(first["weights"], trained)]
+    # an update moves a weight by lr * (its gradient's difference) at most
+    w_tol = [0.1 * t * r.abs().max().item()
+             / p.data()._data.abs().max().item() + 1e-6
+             for t, r, p in zip(grad_tol, ref[0][1], trained)]
+    check(all(e <= t for e, t in zip(w_err, w_tol)),
+          f"22a: weights after the update against the Trainer's: worst "
+          f"{max(w_err):.3g}")
+    run_err = _max_rel([(a, p.data()._data)
+                        for a, p in zip(first["running"], running)])
+    check(run_err <= 1e-4, f"22a: moving statistics against the Gluon "
+                           f"step's: {run_err:.3g} of the largest")
+    p50 = sorted(times)[len(times) // 2]
+    out = dict(batch=REG_BATCH, steps=REG_STEPS, step_ms=times,
+               step_ms_p50=p50, samples_per_s=REG_BATCH / p50 * 1e3,
+               loss=first["loss"], gluon_loss=ref[0][0],
+               grad_max_rel_err=max(grad_err),
+               gluon_noise_max_rel=max(noise),
+               weight_max_rel_err=max(w_err),
+               running_stats_max_rel_err=run_err,
+               launches={k: v for k, v in counts.items() if v},
+               seconds=time.perf_counter() - t0, card=card_line())
+    say("registry_resnet50 " + json.dumps(out))
+    del W, moms, net, trainer
+    gc_collect(torch)
+    return out
+
+
+REG_ATTN = (8, 12, 384, 64)       # 22b: BERT-base's attention
+
+
+def phase_registry_attention(torch, mt, build, fa):
+    """22b: ``npx.flash_attention`` and ``nd.flash_attention`` at BERT-base's
+    shape in bf16, non-causal and causal, dropout 0.1 with a seed, forward
+    and backward on NDArrays inside ``record()``: one launch of K4, K5a
+    and K5b a call (the counts zeroed just before each call and read just
+    after); out and dq, dk, dv bit for bit those of
+    ``ops/flash_attention.flash_attention`` called directly with the same
+    seed, and within the kernels' tolerances of the plain versions (out
+    3e-2, the gradients 2^-7 of their largest: bf16 rounds P, dS and the
+    outputs at other points)."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2222)
+    q, k, v, dout = (torch.randn(*REG_ATTN, device=dev, generator=gen)
+                     .to(torch.bfloat16) for _ in range(4))
+    kernels = ("flash_attention_fwd_mma", "flash_attention_bwd_dq_mma",
+               "flash_attention_bwd_dkv_mma")
+    rows, totals = [], dict.fromkeys(kernels, 0)
+    for causal in (False, True):
+        kw = dict(causal=causal, dropout_p=0.1, dropout_seed=7)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        want = fa.flash_attention(*leaves, **kw)
+        want_g = torch.autograd.grad(want, leaves, dout)
+        ref, lse = fa.flash_attention_reference(q, k, v, causal=causal,
+                                                dropout_p=0.1,
+                                                dropout_seed=7)
+        ref_g = fa.flash_attention_bwd_reference(q, k, v, ref, lse, dout,
+                                                 causal=causal,
+                                                 dropout_p=0.1,
+                                                 dropout_seed=7)
+        big = max(g.float().abs().max().item() for g in ref_g)
+        for ns in ("npx", "nd"):
+            xs = [mt.np.array(t) for t in (q, k, v)]
+            for a in xs:
+                a.attach_grad()
+            build.reset_counters()
+            with mt.autograd.record():
+                out = getattr(mt, ns).flash_attention(*xs, **kw)
+            out.backward(mt.np.array(dout))
+            torch.cuda.synchronize()
+            counts = {c.name: c.value for c in build.COUNTERS.values()}
+            label = f"{ns} causal={causal}"
+            check([counts.get(n, 0) for n in kernels] == [1, 1, 1],
+                  f"22b {label}: launches {counts}")
+            for n in kernels:
+                totals[n] += counts[n]
+            check(out._data.device == dev and all(
+                a.grad._data.device == dev for a in xs), f"22b {label}: "
+                                                          "off cuda:0")
+            check(torch.equal(out._data, want.detach()) and all(
+                torch.equal(a.grad._data, g) for a, g in zip(xs, want_g)),
+                f"22b {label}: not bit for bit the direct call's")
+            err = (out._data.float() - ref.float()).abs().max().item()
+            gerr = max((a.grad._data.float() - g.float()).abs().max().item()
+                       for a, g in zip(xs, ref_g))
+            check(err <= 3e-2 and gerr <= 2.0 ** -7 * big,
+                  f"22b {label}: against the plain versions out {err:.3g}, "
+                  f"grads {gerr:.3g} (tol {2.0 ** -7 * big:.3g})")
+            rows.append(dict(call=label, out_max_abs_err=err,
+                             grad_max_abs_err=gerr, launches=counts))
+    out = dict(shape=list(REG_ATTN), dtype="bfloat16", dropout_p=0.1,
+               calls=rows, launches=totals)
+    say("registry_attention " + json.dumps(out))
+    return out
+
+
+def _host(out):
+    """The tensors of a result, on the host."""
+    if isinstance(out, (list, tuple)):
+        return [leaf for o in out for leaf in _host(o)]
+    return [] if out is None else [out._data.detach().cpu()]
+
+
+def phase_registry_sweep(torch, mt):
+    """22c: every case of ``ops/_sweep_cases.py`` (each op this slice adds
+    to the registry, ``mx.np.linalg``, ``mx.np.random``, ``mx.random``,
+    ``mx.nd.random``) once on ``cuda:0`` NDArrays: every result on
+    ``cuda:0``; a deterministic case against the same call on CPU
+    NDArrays (1e-4 relative to the largest value plus 1e-5: cuBLAS,
+    cuDNN and cuSOLVER sum in other orders than the CPU's libraries; a
+    factor's vectors compared by absolute value, their sign being free);
+    a sampler's shape and dtype against the CPU's, two draws after one
+    ``mx.random.seed`` equal."""
+    from mxnet_tpu_torch.ops import _sweep_cases as sc
+
+    dev = torch.device("cuda", 0)
+    data = sc.inputs(0)
+    t0 = time.perf_counter()
+    failed = []
+
+    def run(case, on_cpu):
+        scope = mt.cpu() if on_cpu else contextlib.nullcontext()
+        with scope:
+            args, kw = sc.materialize(
+                case, data, lambda a: mt.np.array(a, dtype=a.dtype))
+            out = sc.function_of(mt, case.key)(*args, **kw)
+            return args[0] if case.kind == "sample_inplace" else out
+
+    def arrays(out):
+        if isinstance(out, (list, tuple)):
+            return [a for o in out for a in arrays(o)]
+        return [out] if isinstance(out, mt.NDArray) else []
+
+    for case in sc.CASES:
+        try:
+            mt.random.seed(11)
+            got = run(case, False)
+            if any(a._data.device != dev for a in arrays(got)):
+                failed.append((case.key, "off cuda:0"))
+                continue
+            if case.kind == "det":
+                want = run(case, True)
+                pairs = list(zip(_host(got), _host(want)))
+                if len(_host(got)) != len(_host(want)):
+                    failed.append((case.key, "outputs"))
+                for a, b in pairs:
+                    if case.check == "abs":
+                        a, b = a.abs(), b.abs()
+                    if a.dtype != b.dtype or a.shape != b.shape:
+                        failed.append((case.key, "dtype/shape"))
+                    elif a.is_floating_point() or a.is_complex():
+                        tol = 1e-4 * b.abs().max().item() + 1e-5
+                        if (a - b).abs().max().item() > tol:
+                            failed.append((case.key, "value"))
+                    elif not torch.equal(a, b):
+                        failed.append((case.key, "value"))
+            else:
+                mt.random.seed(11)
+                again = _host(run(case, False))
+                cpu = _host(run(case, True))
+                for a, b, c in zip(_host(got), again, cpu):
+                    if not torch.equal(a, b):
+                        failed.append((case.key, "seeded draws differ"))
+                    if (a.shape, a.dtype) != (c.shape, c.dtype):
+                        failed.append((case.key, "shape/dtype vs the CPU"))
+        except Exception as e:  # noqa: BLE001 - every case is reported
+            failed.append((case.key, f"{type(e).__name__}: {e}"[:200]))
+    torch.cuda.synchronize()
+    out = dict(swept=len(sc.CASES),
+               deterministic=sum(c.kind == "det" for c in sc.CASES),
+               failed=len(failed), failures=failed[:20],
+               seconds=time.perf_counter() - t0)
+    say("registry_sweep " + json.dumps(out))
+    check(not failed, f"22c: {len(failed)} of {len(sc.CASES)} cases "
+                      f"failed: {failed[:10]}")
+    return out
+
+
+def phase_registry(torch, mt, build, fa, vision):
+    """Phase 22, the operator corpus on the card: 22a, 22b, 22c."""
+    t0 = time.perf_counter()
+    resnet = phase_registry_resnet(torch, mt, build, vision)
+    attention = phase_registry_attention(torch, mt, build, fa)
+    sweep = phase_registry_sweep(torch, mt)
+    seconds = time.perf_counter() - t0
+    say(f"registry: ResNet-50 in the legacy ops {resnet['step_ms_p50']:.2f}"
+        f" ms a step (p50 of {REG_STEPS}), {resnet['samples_per_s']:.1f} "
+        f"samples/s at batch {REG_BATCH} f32; {sweep['swept']} names swept, "
+        f"{sweep['failed']} failed; phase {seconds:.1f} s; card: "
+        f"{card_line()}")
+    return dict(resnet=resnet, attention=attention, sweep=sweep,
+                seconds=seconds)
+
+
 def main():
     import torch
 
@@ -4708,8 +5081,11 @@ def main():
     # 21. the input pipeline: the MNIST and CIFAR examples fed by the
     # DataLoader in each worker mode
     data = phase_data(torch, mt, build, dispatch, kopt, knorm)
+    # 22. the operator corpus: ResNet-50 in the legacy ops, the registered
+    # flash_attention, the sweep of every new name
+    registry = phase_registry(torch, mt, build, fa, vision)
 
-    # 22. the kernels line, card, ok. Each row's case is the main paths'
+    # 23. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over
@@ -4964,6 +5340,13 @@ def main():
         # the DataLoader in one mode
         m["data_launches"] = {label: run["launches"].get(k["name"], 0)
                               for label, run in data["runs"].items()}
+        # and in phase 22: the 3 legacy ResNet-50 steps, the 4 registered
+        # flash_attention calls
+        m["registry_launches"] = {
+            "resnet50_legacy_ops": registry["resnet"]["launches"].get(
+                k["name"], 0),
+            "flash_attention_op": registry["attention"]["launches"].get(
+                k["name"], 0)}
         kernels.append(dict(name=k["name"], route=k["route"],
                             source=k["source"], replaces=k["replaces"], **m))
     # K6, the ring: its Python schedule (ring_attention.py) over the hop

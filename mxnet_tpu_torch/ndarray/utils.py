@@ -13,7 +13,7 @@ import torch
 from .._dtype_codec import decode_npz, encode_payload
 from .ndarray import NDArray, array
 
-__all__ = ["save", "load"]
+__all__ = ["save", "savez", "load"]
 
 _LIST_PREFIX = "__mx_list__:"
 
@@ -49,6 +49,15 @@ def save(fname, data):
     payload = encode_payload(payload)
     with open(fname, "wb") as f:
         _np.savez(f, **payload)
+
+
+def savez(fname, *args, **kwargs):
+    """numpy's ``savez``: positional arrays as ``arr_0``, ..., keyword
+    arrays by name (utils.py:66); numpy appends ``.npz`` to a name without
+    an extension."""
+    payload = {f"arr_{i}": _to_np(a) for i, a in enumerate(args)}
+    payload.update({k: _to_np(v) for k, v in kwargs.items()})
+    _np.savez(fname, **encode_payload(payload))
 
 
 def _array(v, device):

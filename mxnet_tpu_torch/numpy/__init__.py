@@ -2,6 +2,6 @@
 mxnet_tpu/numpy). Its functions are generated over torch from the JAX
 package's name lists (``multiarray.py``), plus hand-written creation and
 random functions that honor the device scope."""
-from . import random  # noqa: F401
+from . import linalg, random  # noqa: F401
 from .multiarray import *  # noqa: F401,F403
 from .multiarray import GENERATED, MISSING, __all__, ndarray  # noqa: F401

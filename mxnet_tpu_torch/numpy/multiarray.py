@@ -784,7 +784,7 @@ def _generated(fn, name, binary=False):
 
 
 __all__ = ["ndarray", "array", "zeros", "ones", "full", "arange",
-           "zeros_like", "ones_like", "full_like", "dtype", "pi", "e", "inf", "nan", "newaxis", "euler_gamma",
+           "zeros_like", "ones_like", "full_like", "linspace", "dtype", "pi", "e", "inf", "nan", "newaxis", "euler_gamma",
            "float16", "float32", "float64", "bfloat16", "int8", "int16",
            "int32", "int64", "uint8", "bool_", "put_along_axis", "einsum",
            "concat", "fix", "round_", "MISSING"]
@@ -920,6 +920,22 @@ def ones_like(a, dtype=None, **kwargs):  # noqa: ARG001
     return NDArray(torch.ones_like(_unwrap(a).detach(),
                                    dtype=normalize_dtype(dtype)
                                    if dtype is not None else None))
+
+
+def linspace(start, stop, num=50, endpoint=True, retstep=False, dtype=None,
+             axis=0, **kwargs):  # noqa: ARG001 - scalar bounds, axis 0
+    """``num`` evenly spaced values from ``start`` to ``stop`` (its end
+    included with ``endpoint``), computed in float64 and rounded to the
+    default float dtype (multiarray.py:448); ``retstep`` also returns the
+    step."""
+    dev = _device_of(kwargs)
+    step = (stop - start) / ((num - 1) if endpoint else num) if num > 1 \
+        else 0.0
+    out = start + step * torch.arange(num, dtype=torch.float64, device=dev)
+    if endpoint and num > 1:
+        out[-1] = stop
+    out = NDArray(out.to(_float_default(dtype)))
+    return (out, step) if retstep else out
 
 
 def full_like(a, fill_value, dtype=None, **kwargs):  # noqa: ARG001

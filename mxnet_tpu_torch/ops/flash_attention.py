@@ -40,6 +40,7 @@ import math
 import torch
 
 from ..kernels import build as _build
+from .registry import register_op
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_reference", "flash_attention_bwd_reference",
@@ -544,10 +545,13 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(q, k, v, causal=False, scale=None, dropout_p=0.0,
+@register_op("flash_attention")
+def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
+                    block_k=128, interpret=None, dropout_p=0.0,
                     dropout_seed=None):
     """Fused multi-head attention ``softmax(q k^T * scale) v`` over
-    (B, H, S, D), the ``flash_attention`` entry point of the JAX package.
+    (B, H, S, D), the ``flash_attention`` op of the JAX package with its
+    whole signature (ops/pallas_attention.py:466).
 
     ``dropout_p > 0`` with a ``dropout_seed`` (an int, or a one-element
     int32 tensor on q's device) applies attention-prob dropout with the
@@ -555,7 +559,15 @@ def flash_attention(q, k, v, causal=False, scale=None, dropout_p=0.0,
     Differentiable in q, k and v: when torch autograd is recording, the
     backward runs the backward kernels on CUDA tensors and the plain
     backward on CPU tensors. A CUDA input the kernels do not take raises
-    here, in the forward."""
+    here, in the forward; there is no other path on a card.
+
+    ``block_q``, ``block_k`` and ``interpret`` are the Pallas kernel's
+    tiling and its interpreter switch. They are accepted and change
+    nothing: the CUDA kernels choose their own tiles (a tile is what the
+    Hopper kernel's shared memory and warps take, not the TPU's), and the
+    plain version of a CPU tensor is what the interpreter stood for; the
+    result does not depend on them in the JAX package either."""
+    del block_q, block_k, interpret
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, scale, dropout_p,

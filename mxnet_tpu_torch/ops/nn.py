@@ -18,17 +18,27 @@ import torch
 import torch.nn.functional as F
 
 from .. import env as _env
+from ..base import normalize_dtype
+from .registry import register_op
 
 __all__ = ["fully_connected", "conv", "conv_transpose", "pool", "flatten",
            "batch_norm", "layer_norm", "group_norm", "instance_norm",
-           "activation", "leaky_relu", "softmax", "log_softmax",
-           "softmax_cross_entropy", "embedding", "dropout"]
+           "rms_norm", "lrn", "activation", "leaky_relu", "softmax",
+           "log_softmax", "softmin", "softmax_cross_entropy", "embedding",
+           "dropout", "one_hot", "pick", "topk", "sequence_mask",
+           "sequence_last", "sequence_reverse", "l2_normalization",
+           "upsample", "moments"]
 
 
-def fully_connected(x, weight, bias=None, flatten=True):
+def fully_connected(x, weight, bias=None, flatten=True, num_hidden=None,
+                    no_bias=None):  # noqa: ARG001 - the op's signature
     """``y = x @ W^T + b`` with weight (units, in_units) (ops/nn.py:26).
     With ``flatten`` the input is reshaped to (N, -1) first. Mixed dtypes
-    promote (bf16 activations into an f32 head give f32), as in JAX."""
+    promote (bf16 activations into an f32 head give f32), as in JAX.
+    ``num_hidden`` is the reference's shape hint (the weight decides);
+    ``no_bias`` drops a bias that was passed."""
+    if no_bias:
+        bias = None
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
     dt = torch.promote_types(x.dtype, weight.dtype)
@@ -479,10 +489,22 @@ def softmax_cross_entropy(data, label):
     return -picked.sum()
 
 
-def embedding(indices, weight):
-    """Embedding lookup (ops/nn.py:650): rows of ``weight`` by int32 or
-    int64 ids."""
-    return F.embedding(indices, weight)
+def embedding(indices, weight, input_dim=None, output_dim=None, dtype=None,
+              sparse_grad=False):  # noqa: ARG001 - the op's signature
+    """Embedding lookup (ops/nn.py:650): rows of ``weight`` by ids of any
+    dtype (floats truncate, as the JAX package's int32 cast does).
+    ``input_dim``/``output_dim`` are checked against the weight, ``dtype``
+    casts the rows."""
+    if input_dim is not None and weight.shape[0] != input_dim:
+        raise ValueError(f"embedding input_dim {input_dim} != weight rows "
+                         f"{weight.shape[0]}")
+    if output_dim is not None and weight.shape[-1] != output_dim:
+        raise ValueError(f"embedding output_dim {output_dim} != weight "
+                         f"cols {weight.shape[-1]}")
+    if indices.dtype not in (torch.int32, torch.int64):
+        indices = indices.to(torch.int32)
+    out = F.embedding(indices, weight)
+    return out if dtype is None else out.to(normalize_dtype(dtype))
 
 
 def dropout(x, p=0.5, training=True, axes=None, generator=None):
@@ -500,3 +522,185 @@ def dropout(x, p=0.5, training=True, axes=None, generator=None):
         keep, generator=generator).bool()
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
+
+
+def rms_norm(x, gamma, axis=-1, eps=1e-6):
+    """RMSNorm (ops/nn.py:512): the mean square in f32, the normalized
+    value cast back to x's dtype, then times ``gamma``."""
+    ms = x.float().square().mean(dim=axis, keepdim=True)
+    out = (x.float() * torch.rsqrt(ms + eps)).to(x.dtype)
+    return out * gamma if gamma is not None else out
+
+
+def lrn(x, nsize=5, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Local response normalization across channels (ops/nn.py:522):
+    ``x / (knorm + alpha / nsize * sum of squares over the window) **
+    beta``, the window zero-padded at the channel edges."""
+    half = nsize // 2
+    sq = F.pad(x.square(), (0, 0) * (x.dim() - 2) + (half, half))
+    acc = sum(sq.narrow(1, i, x.shape[1]) for i in range(nsize))
+    return x / (knorm + alpha / nsize * acc) ** beta
+
+
+def softmin(x, axis=-1):
+    """Softmax of ``-x`` (ops/nn.py:561)."""
+    return torch.softmax(-x, dim=axis)
+
+
+def one_hot(indices, depth, on_value=1.0, off_value=0.0,
+            dtype=torch.float32):
+    """One-hot rows of ``depth`` (ops/nn.py:677); an index outside
+    [0, depth) gives a row of ``off_value``, as ``jax.nn.one_hot``."""
+    idx = indices.to(torch.int64).unsqueeze(-1)
+    oh = (idx == torch.arange(depth, device=idx.device)).to(
+        normalize_dtype(dtype))
+    if on_value != 1.0 or off_value != 0.0:
+        oh = oh * (on_value - off_value) + off_value
+    return oh
+
+
+def pick(x, index, axis=-1, keepdims=False, mode="clip"):
+    """Elements of ``x`` along ``axis`` by ``index`` (ops/nn.py:685);
+    out-of-range indices clip or wrap."""
+    n = x.shape[axis]
+    index = index.to(torch.int64)
+    index = index.clamp(0, n - 1) if mode == "clip" else index % n
+    picked = torch.take_along_dim(x, index.unsqueeze(axis), dim=axis)
+    return picked if keepdims else picked.squeeze(axis)
+
+
+def topk(x, k=1, axis=-1, ret_typ="indices", is_ascend=False,
+         dtype="float32"):
+    """The ``k`` largest (or smallest) along ``axis`` (ops/nn.py:697).
+    ``lax.top_k`` keeps the lower index first among ties; a stable sort
+    does the same. ``dtype`` is the returned indices' (None: int32);
+    ``ret_typ`` is indices, value, both or mask."""
+    axis = axis % x.dim()
+    vals, idx = torch.sort(x, dim=axis, descending=not is_ascend,
+                           stable=True)
+    vals, idx = vals.narrow(axis, 0, k), idx.narrow(axis, 0, k)
+    cast = (lambda i: i.to(torch.int32)) if dtype is None else (
+        lambda i: i.to(normalize_dtype(dtype)))
+    if ret_typ == "indices":
+        return cast(idx)
+    if ret_typ == "value":
+        return vals
+    if ret_typ == "both":
+        return vals, cast(idx)
+    if ret_typ == "mask":
+        return torch.zeros_like(x).scatter(axis, idx, 1.0)
+    raise ValueError(f"unknown ret_typ {ret_typ}")
+
+
+def _steps_mask(x, sequence_length, axis):
+    """(T, N) or (N, T) mask of the steps inside each sequence,
+    broadcastable against ``x``."""
+    steps = torch.arange(x.shape[axis], device=x.device)
+    if axis == 0:
+        mask = steps[:, None] < sequence_length[None, :]
+    else:
+        mask = steps[None, :] < sequence_length[:, None]
+    return mask.reshape(tuple(mask.shape) + (1,) * (x.dim() - 2))
+
+
+def sequence_mask(x, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0):
+    """``value`` past each sequence's length (ops/nn.py:734); ``x`` is
+    (T, N, ...) for axis 0, else (N, T, ...)."""
+    if not use_sequence_length or sequence_length is None:
+        return x
+    return torch.where(_steps_mask(x, sequence_length, axis), x,
+                       torch.full((), value, dtype=x.dtype,
+                                  device=x.device))
+
+
+def sequence_last(x, sequence_length=None, use_sequence_length=False,
+                  axis=0):
+    """The last step of each sequence (ops/nn.py:750)."""
+    if not use_sequence_length or sequence_length is None:
+        return x.select(axis, -1)
+    idx = (sequence_length - 1).to(torch.int64)
+    shape = (1, -1) if axis == 0 else (-1, 1)
+    idx = idx.reshape(shape + (1,) * (x.dim() - 2))
+    return torch.take_along_dim(x, idx, dim=axis).squeeze(axis)
+
+
+def sequence_reverse(x, sequence_length=None, use_sequence_length=False,
+                     axis=0):
+    """Each sequence reversed within its length, the steps past it left
+    in place (ops/nn.py:764); (T, N, ...) only, as there."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(x, (axis,))
+    if axis != 0:
+        raise NotImplementedError(
+            "sequence_reverse supports axis=0 (T,N,...)")
+    steps = torch.arange(x.shape[0], device=x.device)[:, None]
+    lengths = sequence_length.to(torch.int64)[None, :]
+    rev = torch.where(steps < lengths, lengths - 1 - steps, steps)
+    return torch.take_along_dim(
+        x, rev.reshape(tuple(rev.shape) + (1,) * (x.dim() - 2)), dim=0)
+
+
+def l2_normalization(x, eps=1e-10, mode="instance"):
+    """``x`` over its L2 norm per instance, channel or spatial position
+    (ops/nn.py:781)."""
+    if mode == "instance":
+        axes = tuple(range(1, x.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, x.dim()))
+    return x / torch.sqrt(x.square().sum(dim=axes, keepdim=True) + eps)
+
+
+def upsample(x, scale=2, sample_type="nearest"):
+    """(N, C, H, W) upsampled by ``scale`` (ops/nn.py:793): nearest
+    repeats each pixel, bilinear interpolates at half-pixel centres, as
+    ``jax.image.resize`` does when it enlarges."""
+    if sample_type == "nearest":
+        return F.interpolate(x, scale_factor=scale, mode="nearest")
+    return F.interpolate(x, scale_factor=scale, mode="bilinear",
+                         align_corners=False)
+
+
+def moments(x, axes=None, keepdims=False):
+    """``(mean, biased variance)`` over ``axes`` (ops/nn.py:802)."""
+    dims = None if axes is None else tuple(axes)
+    mean = x.mean(dim=dims, keepdim=keepdims)
+    var = (x - x.mean(dim=dims, keepdim=True)).square().mean(
+        dim=dims, keepdim=keepdims)
+    return mean, var
+
+
+def _dropout_op(x, key=None, p=0.5, training=True, axes=None):
+    """The registry's ``dropout`` (ops/nn.py:628): the JAX package's key is
+    a ``torch.Generator`` here, on x's device; None draws from the
+    device's generator (``_random.generator``)."""
+    if key is None:
+        from .. import _random
+
+        key = _random.generator(x.device)
+    return dropout(x, p=p, training=training, axes=axes, generator=key)
+
+
+# The op names of ops/nn.py's registrations (and the two aliases.py gives
+# nn functions, and tensor.py's softmax_cross_entropy), with the
+# reference's call signatures.
+for _name, _fn in (
+        ("fully_connected", fully_connected), ("convolution", conv),
+        ("deconvolution", conv_transpose), ("pooling", pool),
+        ("batch_norm", batch_norm), ("_contrib_SyncBatchNorm", batch_norm),
+        ("layer_norm", layer_norm), ("group_norm", group_norm),
+        ("GroupNorm", group_norm), ("instance_norm", instance_norm),
+        ("rms_norm", rms_norm), ("lrn", lrn), ("softmax", softmax),
+        ("log_softmax", log_softmax), ("softmin", softmin),
+        ("softmax_cross_entropy", softmax_cross_entropy),
+        ("activation", activation), ("leaky_relu", leaky_relu),
+        ("dropout", _dropout_op), ("embedding", embedding),
+        ("one_hot", one_hot), ("pick", pick), ("topk", topk),
+        ("sequence_mask", sequence_mask), ("sequence_last", sequence_last),
+        ("sequence_reverse", sequence_reverse),
+        ("l2_normalization", l2_normalization), ("upsampling", upsample),
+        ("moments", moments)):
+    register_op(_name, _fn)
+del _name, _fn

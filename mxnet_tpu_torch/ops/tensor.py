@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from ..base import normalize_dtype
 from . import promote as _promote
-from .registry import register_op
+from .registry import _OPS, register_op
 
 __all__ = ["NP_REDUCE", "cumulate", "legacy_reshape_shape", "int_default",
            "np_axes", "np_dot", "cbrt"]
@@ -721,3 +721,420 @@ def stop_gradient(data):
 
 
 register_op("stop_gradient", stop_gradient)
+
+
+# ---------------------------------------------------------------------------
+# the rest of ops/tensor.py's registrations: indexing, shape, windows
+# ---------------------------------------------------------------------------
+
+@register_op("smooth_l1")
+def smooth_l1(data, scalar=1.0):
+    """Huber-like smooth L1 with ``sigma = scalar`` (tensor.py:149)."""
+    s2 = scalar * scalar
+    a = data.abs()
+    return torch.where(a < 1.0 / s2, 0.5 * s2 * data.square(), a - 0.5 / s2)
+
+
+@register_op("argmax_channel")
+def argmax_channel(data):
+    """Float indices of the largest along axis 1 (tensor.py:212)."""
+    return argmax(data, axis=1)
+
+
+@register_op("batch_take")
+def batch_take(a, indices):
+    """``out[i] = a[i, indices[i]]``, the indices clipped (tensor.py:253)."""
+    idx = indices.to(torch.int64).clamp(0, a.shape[1] - 1)
+    return torch.take_along_dim(a, idx[:, None], dim=1)[:, 0]
+
+
+@register_op("choose_element_0index")
+def choose_element_0index(lhs, rhs):
+    """``out[i] = lhs[i, rhs[i]]`` with float indices (tensor.py:495)."""
+    idx = rhs.to(torch.int64)
+    return torch.take_along_dim(lhs, idx[:, None], dim=1)[:, 0]
+
+
+@register_op("fill_element_0index")
+def fill_element_0index(lhs, mhs, rhs):
+    """``lhs`` with ``lhs[i, rhs[i]] = mhs[i]``, out of place
+    (tensor.py:504)."""
+    rows = torch.arange(lhs.shape[0], device=lhs.device)
+    return lhs.index_put((rows, rhs.to(torch.int64)), mhs.to(lhs.dtype))
+
+
+def _nd_index(indices):
+    idx = indices.to(torch.int64)
+    return tuple(idx[i] for i in range(idx.shape[0]))
+
+
+@register_op("gather_nd")
+def gather_nd(data, indices):
+    """``indices`` (M, ...) select along the first M dims of ``data``
+    (tensor.py:260)."""
+    return data[_nd_index(indices)]
+
+
+@register_op("scatter_nd")
+def scatter_nd(data, indices, shape):
+    """A zero array of ``shape`` with ``data`` set at ``indices``
+    (tensor.py:269)."""
+    out = torch.zeros(tuple(shape), dtype=data.dtype, device=data.device)
+    return out.index_put(_nd_index(indices), data)
+
+
+@register_op("ravel_multi_index")
+def ravel_multi_index(data, shape):
+    """(ndim, n) coordinates to flat indices, as float32 (tensor.py:278)."""
+    idx = data.to(torch.int32)
+    out = torch.zeros(tuple(idx.shape[1:]), dtype=torch.int32,
+                      device=idx.device)
+    for i, s in enumerate(shape):
+        out = out * s + idx[i]
+    return out.to(torch.float32)
+
+
+@register_op("unravel_index")
+def unravel_index(data, shape):
+    """Flat indices to (ndim, n) coordinates, as float32 (tensor.py:288)."""
+    idx = data.to(torch.int32)
+    coords = []
+    for s in reversed(shape):
+        coords.append(idx % s)
+        idx = idx // s
+    return torch.stack(coords[::-1]).to(torch.float32)
+
+
+register_op("_ravel_multi_index", ravel_multi_index)
+register_op("_unravel_index", unravel_index)
+
+
+@register_op("diag")
+def diag(data, k=0, axis1=0, axis2=1):
+    """A diagonal matrix of a vector, or the ``k``-th diagonal of
+    ``data`` over (axis1, axis2) (tensor.py:298)."""
+    if data.dim() == 1:
+        return torch.diag(data, k)
+    return torch.diagonal(data, offset=k, dim1=axis1, dim2=axis2)
+
+
+@register_op("trace")
+def trace(data, offset=0, axis1=0, axis2=1):
+    """The sum of a diagonal (tensor.py:803); an int sum is int64."""
+    d = torch.diagonal(data, offset=offset, dim1=axis1, dim2=axis2)
+    return NP_REDUCE["sum"](d, axis=-1)
+
+
+@register_op("slice_like")
+def slice_like(data, shape_like, axes=None):
+    """``data`` cut to ``shape_like``'s extent on ``axes`` (default: the
+    dims both have) (tensor.py:436)."""
+    idx = [builtins.slice(None)] * data.dim()
+    axes = axes if axes else range(builtins.min(data.dim(),
+                                                shape_like.dim()))
+    for ax in axes:
+        idx[ax] = builtins.slice(0, shape_like.shape[ax])
+    return data[tuple(idx)]
+
+
+@register_op("broadcast_like")
+def broadcast_like(lhs, rhs):
+    """``lhs`` broadcast to ``rhs``'s shape (tensor.py:809)."""
+    return lhs.expand(rhs.shape)
+
+
+@register_op("arange_like")
+def arange_like(data, start=0.0, step=1.0, repeat=1, axis=None):
+    """float32 ``start + step * i`` shaped like ``data`` (or as long as its
+    ``axis``), each value ``repeat`` times (tensor.py:815)."""
+    n = data.shape[axis] if axis is not None else data.numel()
+    count = -(-n // repeat) if repeat > 1 else n
+    out = torch.arange(count, dtype=torch.float32,
+                       device=data.device) * step + start
+    if repeat > 1:
+        out = torch.repeat_interleave(out, repeat)[:n]
+    return out.reshape(data.shape) if axis is None else out
+
+
+@register_op("histogram")
+def histogram(data, bins=None, bin_cnt=None, range=None):  # noqa: A002
+    """``(counts int64, edges)`` (tensor.py:469): an array ``bins`` gives
+    the edges; an int count needs ``range``, its edges from float64 on the
+    host cast to the data's dtype. Each bin is closed on the left, the
+    last on both sides; values outside are not counted."""
+    if isinstance(bins, torch.Tensor):
+        edges = bins
+    else:
+        n = bin_cnt if bin_cnt is not None else (bins or 10)
+        if range is None:
+            raise ValueError(
+                "histogram with an integer bin count requires range= "
+                "(reference histogram.cc contract)")
+        import numpy as onp
+
+        edges = torch.as_tensor(onp.linspace(range[0], range[1],
+                                             int(n) + 1),
+                                dtype=data.dtype, device=data.device)
+    x = data.reshape(-1).to(edges.dtype)
+    nb = edges.numel() - 1
+    idx = torch.bucketize(x, edges, right=True) - 1
+    idx = torch.where(x == edges[-1], torch.full_like(idx, nb - 1), idx)
+    valid = (x >= edges[0]) & (x <= edges[-1])
+    counts = torch.bincount(idx[valid], minlength=nb)[:nb]
+    return counts.to(torch.int64), edges
+
+
+@register_op("shape_array")
+def shape_array(data):
+    return torch.tensor(tuple(data.shape), dtype=torch.int64,
+                        device=data.device)
+
+
+@register_op("size_array")
+def size_array(data):
+    return torch.tensor([data.numel()], dtype=torch.int64,
+                        device=data.device)
+
+
+@register_op("space_to_depth")
+def space_to_depth(data, block_size):
+    """(N, C, H, W) -> (N, C * b^2, H / b, W / b) (tensor.py:543), the
+    inverse of ``depth_to_space``."""
+    n, c, h, w = data.shape
+    b = block_size
+    x = data.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+@register_op("khatri_rao")
+def khatri_rao(*args):
+    """Column-wise Kronecker product (tensor.py:625)."""
+    out = args[0]
+    for b in args[1:]:
+        out = torch.einsum("ik,jk->ijk", out, b).reshape(-1, out.shape[1])
+    return out
+
+
+register_op("cumsum", cumulate("cumsum"))
+
+
+@register_op("relu6")
+def relu6(data):
+    """``min(max(x, 0), 6)`` (tensor.py:829), its gradient split at the
+    ties as ``jnp.clip``'s."""
+    return torch.minimum(torch.maximum(data, data.new_zeros(())),
+                         data.new_full((), 6))
+
+
+@register_op("mish")
+def mish(data):
+    return data * torch.tanh(F.softplus(data))
+
+
+@register_op("silu")
+def silu(data):
+    return F.silu(data)
+
+
+def _nd_tuple(v, nd, default):
+    v = default if v is None else v
+    return (v,) * nd if isinstance(v, int) else tuple(v)
+
+
+def _windows(x, kernel, stride, dilate):
+    """(N, C, *L, *k) sliding windows of a padded (N, C, *spatial)
+    tensor."""
+    nd = len(kernel)
+    for i, (k, s, d) in enumerate(zip(kernel, stride, dilate)):
+        x = x.unfold(2 + i, (k - 1) * d + 1, s)
+        if d > 1:
+            x = x[..., ::d]
+    # unfold appends each window dim last: (N, C, *L, *k) already
+    return x, x.shape[2:2 + nd]
+
+
+@register_op("im2col")
+def im2col(data, kernel, stride=None, dilate=None, pad=None):
+    """(N, C, *spatial) -> (N, C * prod(kernel), L) columns of the
+    sliding windows, channel-major (tensor.py:845)."""
+    nd = data.dim() - 2
+    kernel = _nd_tuple(kernel, nd, 1)
+    stride = _nd_tuple(stride, nd, 1)
+    dilate = _nd_tuple(dilate, nd, 1)
+    pad = _nd_tuple(pad, nd, 0)
+    xp = F.pad(data, [p for q in reversed(pad) for p in (q, q)])
+    win, out_sp = _windows(xp, kernel, stride, dilate)
+    n, c = data.shape[:2]
+    perm = (0, 1) + tuple(range(2 + nd, 2 + 2 * nd)) + tuple(range(2,
+                                                                   2 + nd))
+    return win.permute(perm).reshape(n, c * math.prod(kernel),
+                                     math.prod(out_sp))
+
+
+@register_op("col2im")
+def col2im(data, output_size, kernel, stride=None, dilate=None, pad=None):
+    """The adjoint of :func:`im2col` (tensor.py:872): each column entry is
+    added back onto the image position it was read from."""
+    nd = len(output_size)
+    kernel = _nd_tuple(kernel, nd, 1)
+    stride = _nd_tuple(stride, nd, 1)
+    dilate = _nd_tuple(dilate, nd, 1)
+    pad = _nd_tuple(pad, nd, 0)
+    n = data.shape[0]
+    c = data.shape[1] // math.prod(kernel)
+    padded = tuple(s + 2 * p for s, p in zip(output_size, pad))
+    where = torch.arange(c * math.prod(padded), device=data.device).reshape(
+        (1, c) + padded)
+    win, out_sp = _windows(where, kernel, stride, dilate)
+    perm = (0, 1) + tuple(range(2 + nd, 2 + 2 * nd)) + tuple(range(2,
+                                                                   2 + nd))
+    idx = win.permute(perm).reshape(-1)
+    flat = torch.zeros((n, c * math.prod(padded)), dtype=data.dtype,
+                       device=data.device)
+    flat = flat.index_add(1, idx, data.reshape(n, -1))
+    img = flat.reshape((n, c) + padded)
+    for i, (s, p) in enumerate(zip(output_size, pad)):
+        img = img.narrow(2 + i, p, s)
+    return img
+
+
+# ---------------------------------------------------------------------------
+# the loss-output ops: forward as written, backward the reference's fixed
+# gradient whatever the head gradient (tensor.py:658-790)
+# ---------------------------------------------------------------------------
+
+class _MakeLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, grad_scale):
+        ctx.grad_scale = grad_scale
+        ctx.meta = (data.shape, data.dtype, data.device)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):  # noqa: ARG004 - the head gradient is ignored
+        shape, dtype, device = ctx.meta
+        return torch.full(shape, ctx.grad_scale, dtype=dtype,
+                          device=device), None
+
+
+@register_op("make_loss")
+def make_loss(data, grad_scale=1.0, valid_thresh=0.0,
+              normalization="null"):  # noqa: ARG001
+    """Forward identity; backward ``grad_scale`` everywhere, whatever the
+    head gradient (tensor.py:675)."""
+    return _MakeLoss.apply(data, grad_scale)
+
+
+register_op("MakeLoss", make_loss)
+
+
+def _one_hot_class_axis(label, out):
+    """The one-hot of ``label`` over ``out``'s axis 1."""
+    lab = label.to(torch.int64)
+    oh = (lab.unsqueeze(-1) == torch.arange(out.shape[1],
+                                             device=out.device)).to(out.dtype)
+    return oh.movedim(-1, 1) if out.dim() > 2 else oh
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore):
+        out = torch.softmax(data, dim=1)
+        ctx.save_for_backward(out, label)
+        ctx.args = (grad_scale, ignore_label, use_ignore)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):  # noqa: ARG004 - the head gradient is ignored
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore = ctx.args
+        grad = out - _one_hot_class_axis(label, out)
+        if use_ignore:
+            keep = (label.to(torch.int64) != int(ignore_label)).to(out.dtype)
+            grad = grad * keep.unsqueeze(1)
+        return grad * grad_scale, None, None, None, None
+
+
+@register_op("SoftmaxOutput")
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1,
+                   use_ignore=False, multi_output=False,  # noqa: ARG001
+                   normalization="null", **kwargs):  # noqa: ARG001
+    """Softmax over axis 1; backward ``(p - onehot(label)) * grad_scale``
+    whatever the head gradient, rows whose label is ``ignore_label``
+    zeroed under ``use_ignore`` (tensor.py:713). ``normalization`` is
+    accepted and, as in the JAX package, scales nothing."""
+    return _SoftmaxOutput.apply(data, label, grad_scale, ignore_label,
+                                use_ignore)
+
+
+register_op("softmax_output", softmax_output)
+
+
+class _RegressionOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, kind):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.args = (grad_scale, kind)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):  # noqa: ARG004 - the head gradient is ignored
+        out, label = ctx.saved_tensors
+        grad_scale, kind = ctx.args
+        diff = out - label.reshape(out.shape).to(out.dtype)
+        grad = torch.sign(diff) if kind == "mae" else diff
+        return grad * grad_scale, None, None, None
+
+
+@register_op("LinearRegressionOutput")
+def linear_regression_output(data, label, grad_scale=1.0):
+    """Identity; backward ``(out - label) * grad_scale`` (tensor.py:750)."""
+    return _RegressionOutput.apply(data, label, grad_scale, "linear")
+
+
+@register_op("LogisticRegressionOutput")
+def logistic_regression_output(data, label, grad_scale=1.0):
+    """Sigmoid; backward ``(out - label) * grad_scale`` (tensor.py:755)."""
+    return _RegressionOutput.apply(data, label, grad_scale, "logistic")
+
+
+@register_op("MAERegressionOutput")
+def mae_regression_output(data, label, grad_scale=1.0):
+    """Identity; backward ``sign(out - label) * grad_scale``
+    (tensor.py:760)."""
+    return _RegressionOutput.apply(data, label, grad_scale, "mae")
+
+
+class _SVMOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.args = (margin, reg, use_linear)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):  # noqa: ARG004 - the head gradient is ignored
+        x, label = ctx.saved_tensors
+        margin, reg, use_linear = ctx.args
+        y = 2.0 * _one_hot_class_axis(label, x) - 1.0
+        viol = (margin - y * x) > 0
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        if use_linear:
+            grad = torch.where(viol, -y * reg, zero)
+        else:
+            grad = torch.where(viol, -2.0 * reg * (margin - y * x) * y, zero)
+        return grad.to(x.dtype), None, None, None, None
+
+
+@register_op("SVMOutput")
+def svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+               use_linear=False):
+    """Identity; backward the hinge loss's gradient, squared unless
+    ``use_linear`` (tensor.py:765)."""
+    return _SVMOutput.apply(data, label, margin, regularization_coefficient,
+                            use_linear)
+
+
+for _name in ("and", "or", "xor"):
+    register_op(f"_npi_logical_{_name}", _OPS[f"broadcast_logical_{_name}"])
