@@ -254,7 +254,35 @@ failure exits non-zero, nothing is caught and carried on:
      on ``cuda:0``: results on the card, deterministic cases against the
      CPU, samplers reproducible under one seed; the number swept and
      failed (0).
- 23. a ``timing`` line (profiler windows taken, windows that came back
+ 23. sparse arrays and the row-sparse training path, a main path (no
+     kernel: the JAX package's sparse compute is XLA, so the port's is
+     plain PyTorch): (a) ``tools/matrix_factorization.py`` at MovieLens-20M's
+     table sizes (138 493 users x 27 278 items, rank 64, f32: tables of
+     35.5 and 7.0 MB; two ``Embedding(sparse_grad=True)`` tables, Adam
+     with ``lazy_update``, L2Loss, lr 0.01), 20 steps of 4096 sampled
+     pairs whose ratings come from the two factors and hashed noise: step
+     ms (CUDA events), rows touched a step per table; the first 3 steps
+     also on a CPU twin from the same weights (weights and Adam states
+     within 1e-5 of each tensor's largest value); rows no step touched bit
+     for bit their initial values, their states zero; the rmse over the
+     example's fixed pairs before and after (it must fall); the update
+     alone (p50 of 5: CUDA events, the host's ms to return, the profiler's
+     device ms and kernels) lazy against ``lazy_update=False`` from one
+     state, with K3's launches counted from 0 (none lazy, some dense; the
+     LAMB and hybridized steps' too); a LAMB step moves every row the batch did not touch
+     (dense), and so does an Adam step through the hybridized model (no
+     rows recorded). (b) ``sparse.dot`` of a CSR batch of 8192 rows over
+     2^20 columns, 32 nonzeros a row, with a 2^20 x 64 f32 weight
+     (csr·dense), and its transpose with an 8192 x 64 operand
+     (csr^T·dense): forward and the dense operand's gradient within 1e-5
+     of the largest value of the same calls on the CPU; ms (p50 of 5)
+     beside the byte bound (the dense operand's rows read once: the
+     distinct columns' for csr·dense, all 8192 for the transpose) and
+     ``torch.sparse.mm`` on the same CSR as an
+     indication. (c) every case of ``_sweep_cases.REST_CASES`` (the rest
+     of ``mx.np``, ``mx.nd.sparse``, the new NDArray methods) on the card
+     against the CPU, as 22c: the number swept and failed (0).
+ 24. a ``timing`` line (profiler windows taken, windows that came back
      without device events, and times taken with CUDA events instead
      where the profiler recorded none), a ``{"kernels": [...]}`` line
      (with each kernel's launches on the TrainStep paths, on the resumed
@@ -4895,22 +4923,35 @@ def phase_registry_attention(torch, mt, build, fa):
 
 
 def _host(out):
-    """The tensors of a result, on the host."""
+    """The tensors of a result, on the host (a sparse array's dense
+    value)."""
     if isinstance(out, (list, tuple)):
         return [leaf for o in out for leaf in _host(o)]
+    if hasattr(out, "todense"):
+        out = out.todense()
     return [] if out is None else [out._data.detach().cpu()]
 
 
 def phase_registry_sweep(torch, mt):
     """22c: every case of ``ops/_sweep_cases.py`` (each op this slice adds
     to the registry, ``mx.np.linalg``, ``mx.np.random``, ``mx.random``,
-    ``mx.nd.random``) once on ``cuda:0`` NDArrays: every result on
-    ``cuda:0``; a deterministic case against the same call on CPU
-    NDArrays (1e-4 relative to the largest value plus 1e-5: cuBLAS,
-    cuDNN and cuSOLVER sum in other orders than the CPU's libraries; a
-    factor's vectors compared by absolute value, their sign being free);
-    a sampler's shape and dtype against the CPU's, two draws after one
-    ``mx.random.seed`` equal."""
+    ``mx.nd.random``) once on ``cuda:0`` NDArrays, by
+    :func:`sweep_on_card`."""
+    from mxnet_tpu_torch.ops import _sweep_cases as sc
+
+    return sweep_on_card(torch, mt, sc.CASES, "22c", "registry_sweep")
+
+
+def sweep_on_card(torch, mt, cases, label, line):
+    """Each case of ``cases`` (``ops/_sweep_cases.py``) once on ``cuda:0``
+    NDArrays: every result on ``cuda:0`` (a sparse array's stored
+    arrays); a deterministic case against the same call on CPU NDArrays
+    (1e-4 relative to the largest value plus 1e-5: cuBLAS, cuDNN and
+    cuSOLVER sum in other orders than the CPU's libraries; a factor's
+    vectors compared by absolute value, their sign being free; complex
+    values sorted where the order is the solver's); a sampler's shape and
+    dtype against the CPU's, two draws after one ``mx.random.seed``
+    equal. Prints ``line`` with the counts; fails on any failed case."""
     from mxnet_tpu_torch.ops import _sweep_cases as sc
 
     dev = torch.device("cuda", 0)
@@ -4929,9 +4970,16 @@ def phase_registry_sweep(torch, mt):
     def arrays(out):
         if isinstance(out, (list, tuple)):
             return [a for o in out for a in arrays(o)]
+        if isinstance(out, mt.nd.BaseSparseNDArray):
+            return [out.data, out.indices]
         return [out] if isinstance(out, mt.NDArray) else []
 
-    for case in sc.CASES:
+    def ordered(t):
+        import numpy as np
+
+        return torch.from_numpy(np.sort_complex(t.numpy()))
+
+    for case in cases:
         try:
             mt.random.seed(11)
             got = run(case, False)
@@ -4946,6 +4994,8 @@ def phase_registry_sweep(torch, mt):
                 for a, b in pairs:
                     if case.check == "abs":
                         a, b = a.abs(), b.abs()
+                    elif case.check == "sorted":
+                        a, b = ordered(a), ordered(b)
                     if a.dtype != b.dtype or a.shape != b.shape:
                         failed.append((case.key, "dtype/shape"))
                     elif a.is_floating_point() or a.is_complex():
@@ -4966,12 +5016,12 @@ def phase_registry_sweep(torch, mt):
         except Exception as e:  # noqa: BLE001 - every case is reported
             failed.append((case.key, f"{type(e).__name__}: {e}"[:200]))
     torch.cuda.synchronize()
-    out = dict(swept=len(sc.CASES),
-               deterministic=sum(c.kind == "det" for c in sc.CASES),
+    out = dict(swept=len(cases),
+               deterministic=sum(c.kind == "det" for c in cases),
                failed=len(failed), failures=failed[:20],
                seconds=time.perf_counter() - t0)
-    say("registry_sweep " + json.dumps(out))
-    check(not failed, f"22c: {len(failed)} of {len(sc.CASES)} cases "
+    say(f"{line} " + json.dumps(out))
+    check(not failed, f"{label}: {len(failed)} of {len(cases)} cases "
                       f"failed: {failed[:10]}")
     return out
 
@@ -4990,6 +5040,353 @@ def phase_registry(torch, mt, build, fa, vision):
         f"{card_line()}")
     return dict(resnet=resnet, attention=attention, sweep=sweep,
                 seconds=seconds)
+
+
+# -- sparse arrays and the row-sparse training path (phase 23) ---------------
+
+#: 23a: the matrix-factorization example at MovieLens-20M's table sizes
+#: (138 493 users x 27 278 items, the counts of GroupLens's ml-20m README)
+MF_USERS, MF_ITEMS, MF_RANK = 138493, 27278, 64
+MF_BATCH, MF_STEPS, MF_LR = 4096, 20, 0.01
+MF_PARITY_STEPS, MF_OPT_REPEATS = 3, 5
+#: 23b: a CSR batch of 8192 rows over 2^20 columns, 32 nonzeros a row,
+#: against a 2^20 x 64 f32 weight
+DOT_ROWS, DOT_COLS, DOT_NNZ, DOT_D = 8192, 1 << 20, 32, 64
+
+
+def _flat_states(trainer):
+    """Every optimizer state tensor of ``trainer``, in parameter order."""
+    out = []
+
+    def walk(s):
+        if s is None:
+            return
+        if isinstance(s, (list, tuple)):
+            for x in s:
+                walk(x)
+        else:
+            out.append(s)
+
+    for s in trainer._states:
+        walk(s)
+    return out
+
+
+def _within(torch, got, want, tol):
+    """Each pair's ``max |got - want|`` as a share of ``max |want|``
+    (the largest such share), checked against ``tol``."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        scale = b.abs().max().item() or 1.0
+        worst = max(worst, (a - b).abs().max().item() / scale)
+    return worst, worst <= tol
+
+
+def _p50(values):
+    return sorted(values)[len(values) // 2] if values else None
+
+
+def _step_ms(torch, fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_sparse_mf(torch, mt, users=MF_USERS, items=MF_ITEMS, rank=MF_RANK,
+                    batch=MF_BATCH, steps=MF_STEPS, lr=MF_LR):
+    """23a: the port's tools/matrix_factorization.py at MovieLens-20M's
+    table sizes: two ``Embedding(sparse_grad=True)`` tables (rank 64, f32),
+    Adam with ``lazy_update`` through the Trainer, L2Loss, batches of 4096
+    sampled pairs whose ratings come from the factors and hashed noise.
+    ``steps`` steps on the card; the first ``MF_PARITY_STEPS`` also on a
+    CPU twin from the same weights (weights and Adam states within 1e-5 of
+    each tensor's largest value); rows no step touched bit for bit their
+    initial values, their states zero; the rmse over the example's fixed
+    pairs before and after (it must fall). Then the update alone, lazy
+    against ``lazy_update=False`` from one state (CUDA-event ms, the host's
+    ms to return, the profiler's device ms and kernels, K3 launches counted
+    from 0: none lazy, some dense); LAMB's update (layer-wise
+    norms: dense) and a hybridized forward's (no rows recorded: dense)
+    each move rows the batch did not touch."""
+    import numpy as np
+
+    from mxnet_tpu_torch.tools import matrix_factorization as mf
+
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(0)
+    ratings = mf.Ratings(users, items, rank, rs, dev)
+    net, tr, lossfn = mf.build_mf(users, items, rank, lr, dev)
+    pairs = mf.eval_pairs(users, items)
+    rmse_before = mf.rmse(net, ratings, pairs)
+    tables = {"user": net.user.weight, "item": net.item.weight}
+    initial = {k: p._tensor().detach().clone() for k, p in tables.items()}
+    touched = {k: torch.zeros(p.shape[0], dtype=torch.bool, device=dev)
+               for k, p in tables.items()}
+    cnet, ctr, clf = mf.build_mf(users, items, rank, lr, cpu)
+    for name, p in cnet.collect_params().items():
+        p.set_data(net.collect_params()[name]._tensor().detach().cpu())
+    step_ms, rows = [], {"user": [], "item": []}
+    parity = None
+    for step in range(steps):
+        uid, iid, y = mf.draw_batch(ratings, rs, batch)
+        for k, ids in (("user", uid), ("item", iid)):
+            touched[k][ids.long()] = True
+            rows[k].append(int(torch.unique(ids).numel()))
+        step_ms.append(_step_ms(torch, lambda: mf.train_step(
+            net, tr, lossfn, uid, iid, y)))
+        if step < MF_PARITY_STEPS:
+            with mt.cpu():
+                mf.train_step(cnet, ctr, clf, uid.cpu(), iid.cpu(), y.cpu())
+        if step == MF_PARITY_STEPS - 1:
+            got = [p._tensor() for p in net.collect_params().values()] \
+                + _flat_states(tr)
+            want = [p._tensor() for p in cnet.collect_params().values()] \
+                + _flat_states(ctr)
+            worst, ok = _within(torch, got, want, 1e-5)
+            parity = worst
+            check(len(got) == len(want) == 6 and ok,
+                  f"23a: {MF_PARITY_STEPS} steps on the card differ from "
+                  f"the CPU by {worst:.3g} of the largest (tol 1e-5)")
+    torch.cuda.synchronize()
+    rmse_after = mf.rmse(net, ratings, pairs)
+    check(rmse_after < rmse_before,
+          f"23a: rmse did not fall ({rmse_before} -> {rmse_after})")
+    untouched = {}
+    for k, p in tables.items():
+        keep = ~touched[k]
+        untouched[k] = int(keep.sum())
+        check(torch.equal(p._tensor().detach()[keep], initial[k][keep]),
+              f"23a: a row of {k} no step touched moved")
+        i = tr._param_names.index(f"{k}.weight")
+        for s in tr._states[i]:
+            check(not bool(s[keep].any()),
+                  f"23a: a state row of {k} no step touched is not zero")
+    # the update alone, lazy and dense, from one state
+    uid, iid, y = mf.draw_batch(ratings, rs, batch)
+    with mt.autograd.record():
+        loss = lossfn(net(uid, iid), y)
+    mt.autograd.backward(loss)
+    params = list(net.collect_params().values())
+    saved = ([p._tensor().detach().clone() for p in params],
+             [s.clone() for s in _flat_states(tr)],
+             [list(p._sparse_row_hints) for p in params],
+             dict(tr._grad_versions), dict(tr._optimizer._index_update_count),
+             tr._optimizer.num_update)
+
+    def restore():
+        with torch.no_grad():
+            for p, w in zip(params, saved[0]):
+                p._tensor().copy_(w)
+            for s, v in zip(_flat_states(tr), saved[1]):
+                s.copy_(v)
+        for p, h in zip(params, saved[2]):
+            p._sparse_row_hints = list(h)
+        tr._grad_versions = dict(saved[3])
+        tr._optimizer._index_update_count = dict(saved[4])
+        tr._optimizer.num_update = saved[5]
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.kernels import build, opt as kopt
+
+    def update(host):
+        h0 = time.perf_counter()
+        tr.step(batch)
+        host.append((time.perf_counter() - h0) * 1e3)
+
+    # each mode: CUDA-event ms with the host's ms to return from the step,
+    # K3 launches counted from 0 just before; then the same update again
+    # under the profiler for its kernels' device ms and their number
+    upd = {m: {k: [] for k in ("ms", "host_ms", "device_ms", "kernels",
+                               "k3_launches")} for m in ("lazy", "dense")}
+    for _ in range(MF_OPT_REPEATS):
+        for mode, u in upd.items():
+            tr._optimizer.lazy_update = mode == "lazy"
+            restore()
+            torch.cuda.synchronize()
+            build.reset_counters()
+            u["ms"].append(_step_ms(torch, lambda: update(u["host_ms"])))
+            u["k3_launches"].append(kopt.LAUNCHES.value)
+            restore()
+            torch.cuda.synchronize()
+            TIMING["profiler_windows"] += 1
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                tr.step(batch)
+                torch.cuda.synchronize()
+            ev = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            if not ev:
+                TIMING["empty_windows"] += 1
+                continue
+            u["device_ms"].append(
+                sum(e.time_range.elapsed_us() for e in ev) / 1e3)
+            u["kernels"].append(len(ev))
+    tr._optimizer.lazy_update = True
+    check(set(upd["lazy"]["k3_launches"]) == {0}
+          and min(upd["dense"]["k3_launches"]) > 0,
+          f"23a: K3 launches a step, lazy {upd['lazy']['k3_launches']} "
+          f"(want 0), dense {upd['dense']['k3_launches']} (want > 0)")
+    restore()
+    for p in params:
+        p._sparse_row_hints = []
+    # LAMB densifies: a row no batch touched moves (its weight decay)
+    before = {k: p._tensor().detach().clone() for k, p in tables.items()}
+    lamb = mt.gluon.Trainer(net.collect_params(), "lamb",
+                            {"learning_rate": lr, "wd": 0.01})
+    uid, iid, y = mf.draw_batch(ratings, rs, batch)
+    build.reset_counters()
+    mf.train_step(net, lamb, lossfn, uid, iid, y)
+    k3 = {"lamb": kopt.LAUNCHES.value}
+    lamb_moved = {}
+    for k, p in tables.items():
+        idle = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+        idle[(uid if k == "user" else iid).long()] = False
+        moved = (p._tensor().detach()[idle] != before[k][idle]).any(1)
+        lamb_moved[k] = float(moved.float().mean())
+        check(bool(moved.all()),
+              f"23a: LAMB left {int((~moved).sum())} idle rows of {k}")
+    # a hybridized forward records no rows: Adam's update is dense, so
+    # rows with momentum that this batch does not touch move
+    net.hybridize()
+    before = {k: p._tensor().detach().clone() for k, p in tables.items()}
+    uid, iid, y = mf.draw_batch(ratings, rs, batch)
+    build.reset_counters()
+    mf.train_step(net, tr, lossfn, uid, iid, y)
+    k3["hybridized"] = kopt.LAUNCHES.value
+    hybrid_moved = {}
+    for k, p in tables.items():
+        idle = touched[k].clone()
+        idle[(uid if k == "user" else iid).long()] = False
+        moved = (p._tensor().detach()[idle] != before[k][idle]).any(1)
+        hybrid_moved[k] = float(moved.float().mean())
+        check(bool(moved.all()),
+              f"23a: the hybridized step left {int((~moved).sum())} rows "
+              f"of {k} with momentum unchanged")
+    net.hybridize(False)
+    torch.cuda.synchronize()
+    out = dict(
+        users=users, items=items, rank=rank, batch=batch, steps=steps,
+        lr=lr, step_ms=step_ms, step_ms_p50=sorted(step_ms)[len(step_ms) // 2],
+        rows_touched=rows, untouched_rows=untouched,
+        rmse_before=rmse_before, rmse_after=rmse_after,
+        parity_max_share=parity,
+        optimizer=upd,
+        optimizer_p50={m: {k: _p50(v) for k, v in u.items()}
+                       for m, u in upd.items()},
+        lamb_idle_rows_moved=lamb_moved,
+        hybridized_idle_rows_moved=hybrid_moved, k3_launches=k3,
+        table_mb={k: p._tensor().numel() * 4 / 1e6
+                  for k, p in tables.items()},
+        seconds=time.perf_counter() - t0)
+    say("sparse_mf " + json.dumps(out))
+    return out
+
+
+def phase_sparse_dot(torch, mt, rows=DOT_ROWS, cols=DOT_COLS, nnz=DOT_NNZ,
+                     d=DOT_D):
+    """23b: ``sparse.dot`` of a CSR batch (``rows`` x ``cols``, ``nnz`` a
+    row) with a ``cols`` x ``d`` f32 weight (csr·dense) and of its
+    transpose with a ``rows`` x ``d`` operand (csrᵀ·dense), forward and the
+    dense operand's gradient, against the same calls on the CPU (within
+    1e-5 of the largest value); each forward's ms (p50 of 5, CUDA events)
+    beside its byte bound (the dense operand's rows that it reads, each
+    once, the stored indices and values, the output) and
+    ``torch.sparse.mm`` on the same CSR as an indication."""
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(23)
+    col = torch.randint(0, cols, (rows, nnz), device=dev, generator=g)
+    col = col.sort(dim=1).values.reshape(-1)
+    vals = torch.randn(rows * nnz, device=dev, generator=g)
+    ptr = torch.arange(0, rows * nnz + 1, nnz, device=dev)
+    w = torch.randn(cols, d, device=dev, generator=g)
+    x = torch.randn(rows, d, device=dev, generator=g)
+    cot = {"csr_dense": torch.randn(rows, d, device=dev, generator=g),
+           "csrT_dense": torch.randn(cols, d, device=dev, generator=g)}
+    forms = {"csr_dense": (w, {}), "csrT_dense": (x, {"transpose_a": True})}
+    nnz_all = rows * nnz
+    distinct = int(torch.unique(col).numel())
+    out = {}
+    for name, (rhs, kw) in forms.items():
+        csr = sp.CSRNDArray(vals, col, ptr, (rows, cols))
+        res = {}
+        for where in (dev, cpu):
+            c = csr if where == dev else sp.CSRNDArray(
+                vals.cpu(), col.cpu(), ptr.cpu(), (rows, cols))
+            r = mt.NDArray(rhs.to(where).clone())
+            r.attach_grad()
+            with mt.autograd.record():
+                y = sp.dot(c, r, **kw)
+            y.backward(mt.NDArray(cot[name].to(where)))
+            res[where.type] = (y._data.detach(), r.grad._data)
+        worst, ok = _within(torch, res["cuda"], res["cpu"], 1e-5)
+        check(ok, f"23b: {name} on the card differs from the CPU by "
+                  f"{worst:.3g} of the largest (tol 1e-5)")
+        r = mt.NDArray(rhs)
+        times = [_step_ms(torch, lambda: sp.dot(csr, r, **kw))
+                 for _ in range(6)][1:]
+        # the dense operand read once: the distinct rows that csr·dense
+        # gathers, all of csrᵀ·dense's; column indices, values and row
+        # pointers as stored; the output written once
+        read_rows = rows if kw else distinct
+        out_rows = cols if kw else rows
+        nbytes = (read_rows * d * 4
+                  + nnz_all * (col.element_size() + vals.element_size())
+                  + (rows + 1) * ptr.element_size() + out_rows * d * 4)
+        lib = None
+        try:
+            tcsr = torch.sparse_csr_tensor(ptr, col, vals, (rows, cols))
+            a = tcsr.t() if kw else tcsr
+            torch.sparse.mm(a, rhs)
+            lib = sorted(_step_ms(torch, lambda: torch.sparse.mm(a, rhs))
+                         for _ in range(6))[3]
+        except Exception as e:  # noqa: BLE001 - an indication only
+            say(f"23b: torch.sparse.mm refused {name}: {e}"[:200])
+        out[name] = dict(ms=sorted(times)[2], ms_all=times,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                         bound_bytes=nbytes, torch_sparse_mm_ms=lib,
+                         max_share_vs_cpu=worst)
+    torch.cuda.synchronize()
+    out.update(rows=rows, cols=cols, nnz_per_row=nnz, d=d,
+               distinct_columns=distinct,
+               weight_mb=cols * d * 4 / 1e6,
+               seconds=time.perf_counter() - t0)
+    say("sparse_dot " + json.dumps(out))
+    return out
+
+
+def phase_sparse(torch, mt):
+    """Phase 23, sparse arrays and the row-sparse training path on the
+    card: 23a, 23b, 23c (the sweep of the slice's new names)."""
+    t0 = time.perf_counter()
+    from mxnet_tpu_torch.ops import _sweep_cases as sc
+
+    mf_run = phase_sparse_mf(torch, mt)
+    dot = phase_sparse_dot(torch, mt)
+    sweep = sweep_on_card(torch, mt, sc.REST_CASES, "23c", "sparse_sweep")
+    seconds = time.perf_counter() - t0
+    lazy, dense = (mf_run["optimizer_p50"][m] for m in ("lazy", "dense"))
+    say(f"sparse: matrix factorization at {MF_USERS} x {MF_ITEMS} rank "
+        f"{MF_RANK}: {mf_run['step_ms_p50']:.2f} ms a step (p50 of "
+        f"{MF_STEPS}), update lazy {lazy['ms']:.3f} ms ({lazy['device_ms']}"
+        f" on the device) against dense {dense['ms']:.3f} "
+        f"({dense['device_ms']}), rmse "
+        f"{mf_run['rmse_before']:.5f} -> {mf_run['rmse_after']:.5f}; dot "
+        f"{dot['csr_dense']['ms']:.3f} ms (bound "
+        f"{dot['csr_dense']['bound_ms']:.4f}), transposed "
+        f"{dot['csrT_dense']['ms']:.3f} ms (bound "
+        f"{dot['csrT_dense']['bound_ms']:.4f}); {sweep['swept']} names "
+        f"swept, {sweep['failed']} failed; phase {seconds:.1f} s; card: "
+        f"{card_line()}")
+    return dict(mf=mf_run, dot=dot, sweep=sweep, seconds=seconds)
 
 
 def main():
@@ -5084,8 +5481,12 @@ def main():
     # 22. the operator corpus: ResNet-50 in the legacy ops, the registered
     # flash_attention, the sweep of every new name
     registry = phase_registry(torch, mt, build, fa, vision)
+    # 23. sparse arrays and the row-sparse training path: the
+    # matrix-factorization example at MovieLens-20M's table sizes, sparse
+    # dot at a realistic size, the sweep of the slice's new names
+    phase_sparse(torch, mt)
 
-    # 23. the kernels line, card, ok. Each row's case is the main paths'
+    # 24. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over

@@ -8,19 +8,27 @@ passes a CPU device or opens a device scope (``with mx.cpu():``).
 from __future__ import annotations
 
 from . import amp, autograd, env, gluon, initializer, io, lr_scheduler
+from . import attribute, base, context, device, error, log, name
+from . import ndarray
 from . import ndarray as nd
 from . import numpy as np
 from . import numpy_extension as npx
-from . import observability, optimizer, parallel, recordio, rtc, serving
+from . import observability, optimizer, parallel, recordio, registry, rtc
+from . import serving, test_utils, util
 from ._random import seed
+from .attribute import AttrScope
 from .base import MXNetError
-from .device import (cpu, current_device, default_device, gpu, num_gpus,
-                     tpu)
+from .device import (Context, Device, cpu, cpu_pinned, current_device,
+                     default_device, gpu, num_gpus, num_tpus, tpu)
+from .name import NameManager
 from .ndarray import NDArray, waitall
 from .numpy import random
 
 __all__ = ["amp", "autograd", "env", "gluon", "initializer", "io",
-           "lr_scheduler", "observability", "optimizer", "nd", "np", "npx",
-           "parallel", "random", "recordio", "rtc", "serving",
-           "seed", "waitall", "NDArray", "MXNetError", "cpu", "gpu", "tpu",
-           "num_gpus", "current_device", "default_device"]
+           "lr_scheduler", "observability", "optimizer", "nd", "ndarray",
+           "np", "npx", "parallel", "random", "recordio", "rtc", "serving",
+           "seed", "waitall", "NDArray", "MXNetError", "Context", "Device",
+           "cpu", "cpu_pinned", "gpu", "tpu", "num_gpus", "num_tpus",
+           "current_device", "default_device", "attribute", "base",
+           "context", "device", "error", "log", "name", "registry",
+           "test_utils", "util", "AttrScope", "NameManager"]

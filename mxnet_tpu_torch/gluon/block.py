@@ -72,6 +72,17 @@ __all__ = ["Block", "HybridBlock", "check_no_op_hooks"]
 #: thread-local hook state: ``suppress`` (shape-inference passes report
 #: nothing) and ``boundary`` (the hybridized block whose forward runs)
 _HOOKS = threading.local()
+# how many active hybridized blocks this thread's forward is inside: the
+# JAX package traces such a forward, so what it sees there is not concrete
+_HYBRID = threading.local()
+
+
+def in_hybridized_forward():
+    """Whether this thread runs inside an active hybridized block's
+    forward (where the JAX package's forward is a trace)."""
+    return getattr(_HYBRID, "depth", 0) > 0
+
+
 #: whether any op hook was ever registered in the process: until then
 #: neither a hybridized forward nor a CUDA graph looks for hooks
 _op_hooks_registered = False
@@ -541,14 +552,18 @@ class HybridBlock(Block):
         if not self._active:
             return super()._call(*args, **kwargs)
         self._note_signature(args)
-        if (not _op_hooks_registered
-                or getattr(_HOOKS, "boundary", None) is not None):
-            return super()._call(*args, **kwargs)
-        _HOOKS.boundary = self     # descendants' op hooks stay silent
+        _HYBRID.depth = getattr(_HYBRID, "depth", 0) + 1
         try:
-            return super()._call(*args, **kwargs)
+            if (not _op_hooks_registered
+                    or getattr(_HOOKS, "boundary", None) is not None):
+                return super()._call(*args, **kwargs)
+            _HOOKS.boundary = self     # descendants' op hooks stay silent
+            try:
+                return super()._call(*args, **kwargs)
+            finally:
+                _HOOKS.boundary = None
         finally:
-            _HOOKS.boundary = None
+            _HYBRID.depth -= 1
 
     def infer_shape(self, *args):
         """Run the forward once, unrecorded and with op hooks silent, so

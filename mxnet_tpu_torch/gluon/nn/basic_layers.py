@@ -168,17 +168,27 @@ class LayerNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Embedding lookup; weight (input_dim, output_dim)."""
+    """Embedding lookup; weight (input_dim, output_dim).
+
+    ``sparse_grad=True``: the gradient buffer stays dense, but a recorded
+    forward keeps the ids it looked up on the weight, so the Trainer hands
+    the optimizer a RowSparseNDArray of those rows and a ``lazy_update``
+    writes only them (basic_layers.py:330)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None):
+                 weight_initializer=None, sparse_grad=False):
         super().__init__()
         self._input_dim = input_dim
         self._output_dim = output_dim
-        self.weight = Parameter("weight", shape=(input_dim, output_dim),
-                                dtype=dtype, init=weight_initializer)
+        self._sparse_grad = sparse_grad
+        self.weight = Parameter(
+            "weight", shape=(input_dim, output_dim), dtype=dtype,
+            init=weight_initializer,
+            grad_stype="row_sparse" if sparse_grad else "default")
 
     def forward(self, x):
+        if self._sparse_grad:
+            self.weight._record_sparse_rows(x)
         return _nn.embedding(x, self.weight._tensor())
 
     def extra_repr(self):

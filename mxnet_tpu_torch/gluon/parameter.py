@@ -87,10 +87,20 @@ def one_device(device, name):
 class Parameter:
     def __init__(self, name="weight", grad_req="write", shape=None,
                  dtype="float32", init=None, allow_deferred_init=False,
-                 differentiable=True, lr_mult=1.0, wd_mult=1.0):
+                 differentiable=True, lr_mult=1.0, wd_mult=1.0,
+                 stype="default", grad_stype="default"):  # noqa: ARG002
         if grad_req not in ("write", "add", "null"):
             raise ValueError(
                 f"grad_req must be 'write', 'add' or 'null', got {grad_req!r}")
+        if grad_stype not in ("default", "row_sparse"):
+            raise ValueError(f"grad_stype must be 'default' or "
+                             f"'row_sparse', got {grad_stype!r}")
+        # row_sparse: the gradient buffer stays dense (autograd sums the
+        # lookups' gradients into it), and the forward records the rows it
+        # touched, so the Trainer hands the optimizer only those rows
+        # (_as_row_sparse_grad) and a lazy update writes only them
+        self.grad_stype = grad_stype
+        self._sparse_row_hints = []   # id tensors recorded by Embedding
         self._name = name
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
@@ -377,6 +387,35 @@ class Parameter:
         if self.grad_req != "null" and self._var is not None:
             self.grad().zero_()
             self._grad_version += 1
+        self._sparse_row_hints = []
+
+    def _record_sparse_rows(self, ids):
+        """Keep the row ids a sparse-gradient layer's forward looked up:
+        only while recording, and not inside an active hybridized block,
+        where the JAX package's forward is traced and sees no concrete ids
+        (its update is then dense, and so is the port's)."""
+        if self.grad_stype != "row_sparse" or self.grad_req == "null":
+            return
+        from .. import autograd as _ag
+        from .block import in_hybridized_forward
+
+        if not _ag.is_recording() or in_hybridized_forward():
+            return
+        self._sparse_row_hints.append(ids.detach().reshape(-1))
+
+    def _as_row_sparse_grad(self, g):
+        """The dense gradient ``g`` as a RowSparseNDArray over the unique
+        rows touched since the last update, found on ``g``'s device; ``g``
+        itself where no rows were recorded (a hybridized forward)."""
+        if not self._sparse_row_hints:
+            return g
+        from ..ndarray.sparse import RowSparseNDArray
+
+        ids = torch.cat([h.to(device=g.device, dtype=torch.int64)
+                         for h in self._sparse_row_hints])
+        self._sparse_row_hints = []
+        rows = torch.unique(ids)
+        return RowSparseNDArray(g.index_select(0, rows), rows, g.shape)
 
     def cast(self, dtype):
         """Change the dtype of the value and of its gradient buffer."""

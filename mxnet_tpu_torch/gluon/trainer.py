@@ -16,10 +16,12 @@ exist with the same nesting, shapes and dtypes, so the state objects and
 their storage stay (a captured ``gluon.TrainStep`` replays on the loaded
 values), and creates the others on the parameter's device.
 
-``step(batch_size)`` sets ``rescale_grad = scale / batch_size`` and hands
-every dense parameter with a fresh gradient to the Optimizer in one
-list-form call (``update_fused`` for every rule that has a ``_rule``), which
-updates weights and states in place. Each step ends in
+``step(batch_size)`` sets ``rescale_grad = scale / batch_size``, updates
+each parameter with a row-sparse gradient (``grad_stype='row_sparse'``)
+alone over the rows its forwards touched, and hands every other parameter
+with a fresh gradient to the Optimizer in one list-form call
+(``update_fused`` for every rule that has a ``_rule``), which updates
+weights and states in place. Each step ends in
 ``_record_step_complete``, which ``gluon.TrainStep`` calls too.
 """
 from __future__ import annotations
@@ -153,11 +155,17 @@ class Trainer:
                 continue
             w = p._tensor()
             self._ensure_states(i, w)
+            self._grad_versions[i] = p._grad_version
+            if p.grad_stype == "row_sparse":
+                # updated here, in list order as the JAX package does
+                # (trainer.py:292): only the rows its forwards touched
+                self._optimizer.update_multi_precision(
+                    i, w, p._as_row_sparse_grad(p.grad()), self._states[i])
+                continue
             f_idx.append(i)
             f_w.append(w)
             f_g.append(p.grad())
             f_s.append(self._states[i])
-            self._grad_versions[i] = p._grad_version
         if f_idx:
             self._optimizer.update_multi_precision(f_idx, f_w, f_g, f_s)
 

@@ -23,8 +23,10 @@ from ..ops import random_legacy as _random_legacy  # noqa: F401
 from ..ops import tensor as _tensor  # noqa: F401
 from ..ops import vision as _vision  # noqa: F401
 from ..ops.registry import get_op
-from . import random, register, utils  # noqa: F401
+from . import random, register, sparse, utils  # noqa: F401
 from .ndarray import NDArray, apply_op, waitall  # noqa: F401
+from .sparse import (BaseSparseNDArray, CSRNDArray,  # noqa: F401
+                     RowSparseNDArray)
 from .register import make_eager, populate, write_into
 from .utils import load, save, savez  # noqa: F401
 

@@ -29,7 +29,7 @@ import torch
 
 from .. import autograd as _ag
 from ..base import normalize_dtype, numpy_dtype
-from ..device import current_device
+from ..device import current_device, is_pinned, pin, resolve
 from ..ops import promote as _promote
 from ..ops import tensor as _ops
 
@@ -87,6 +87,16 @@ class NDArray:
     def stype(self):
         return "default"
 
+    def tostype(self, stype):
+        """This array in storage ``stype``: 'default' is itself, 'csr' and
+        'row_sparse' the sparse arrays of ndarray/sparse.py, made on its
+        device."""
+        if stype == "default":
+            return self
+        from .sparse import cast_storage
+
+        return cast_storage(self, stype)
+
     @property
     def grad(self):
         return self._grad
@@ -142,6 +152,97 @@ class NDArray:
     def __repr__(self):
         return f"{self.asnumpy()!r} <NDArray {self.shape} @{self.device}>"
 
+    # -- numpy's protocols: numpy functions and ufuncs of NDArrays run as
+    # the mx.np functions of the same name (ndarray.py:236, :260) --------------
+    _NOOP_KWARGS = ("out", "where", "casting", "order", "subok",
+                    "signature")
+
+    @staticmethod
+    def _np_impl(name):
+        from .. import numpy as _mxnp
+
+        fn = getattr(_mxnp, name, None)
+        if fn is None:
+            fn = getattr(_mxnp.linalg, name, None)
+        return fn
+
+    @staticmethod
+    def _write_out(result, out):
+        """``result`` into numpy's ``out=`` buffer, an NDArray or a numpy
+        array of the result's shape."""
+        target = out[0] if isinstance(out, tuple) else out
+        rdata = result._data if isinstance(result, NDArray) \
+            else torch.as_tensor(result)
+        if tuple(rdata.shape) != tuple(target.shape):
+            raise ValueError(
+                f"non-broadcastable output operand with shape "
+                f"{tuple(target.shape)} doesn't match the result shape "
+                f"{tuple(rdata.shape)}")
+        if isinstance(target, NDArray):
+            target._assign(rdata.to(target._data.dtype))
+            return target
+        _np.copyto(target, NDArray(rdata).asnumpy().astype(target.dtype))
+        return target
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        """``numpy.exp(a)``, ``onp_array + a``: the ``mx.np`` function of
+        the ufunc's name, on the arrays' device (ndarray.py:236). A method
+        other than a call, a keyword other than ``axis``, a ufunc that
+        ``mx.np`` lacks or an ``out=`` of another kind is NotImplemented."""
+        if method != "__call__":
+            return NotImplemented
+        out = kwargs.pop("out", None)
+        if out is not None:
+            target = out[0] if isinstance(out, tuple) else out
+            if not isinstance(target, (NDArray, _np.ndarray)):
+                return NotImplemented
+        for k in NDArray._NOOP_KWARGS:
+            if kwargs.get(k) is None:
+                kwargs.pop(k, None)
+        dtype = kwargs.pop("dtype", None)
+        if set(kwargs) - {"axis"}:
+            return NotImplemented
+        fn = NDArray._np_impl(ufunc.__name__)
+        if fn is None:
+            return NotImplemented
+        result = fn(*inputs, **kwargs)
+        if dtype is not None and isinstance(result, NDArray):
+            result = result.astype(dtype)
+        if out is not None:
+            return NDArray._write_out(result, out)
+        return result
+
+    def __array_function__(self, func, types, args, kwargs):
+        """``numpy.concatenate([a, b])``, ``numpy.mean(a)``: the ``mx.np``
+        (or ``mx.np.linalg``) function of the same name (ndarray.py:260).
+        A function ``mx.np`` lacks, an argument of another framework or an
+        ``out=`` of another kind is NotImplemented."""
+        if not all(issubclass(t, (NDArray, _np.ndarray))
+                   or t in (int, float, bool, list, tuple) for t in types):
+            return NotImplemented
+        fn = NDArray._np_impl(func.__name__)
+        if fn is None:
+            return NotImplemented
+        kwargs = dict(kwargs)
+        out = kwargs.pop("out", None)
+        if out is not None and not isinstance(
+                out[0] if isinstance(out, tuple) else out,
+                (NDArray, _np.ndarray)):
+            return NotImplemented
+        for k in NDArray._NOOP_KWARGS:
+            if kwargs.get(k) is None:
+                kwargs.pop(k, None)
+        result = fn(*args, **kwargs)
+        if out is not None:
+            return NDArray._write_out(result, out)
+        return result
+
+    def __dlpack__(self, **kwargs):
+        return self._data.detach().__dlpack__(**kwargs)
+
+    def __dlpack_device__(self):
+        return self._data.__dlpack_device__()
+
     def __array__(self, dtype=None, copy=None):  # noqa: ARG002
         a = self.asnumpy()
         return a.astype(dtype) if dtype is not None else a
@@ -150,14 +251,12 @@ class NDArray:
         return self.asnumpy().tolist()
 
     # -- autograd --------------------------------------------------------------
-    def attach_grad(self, grad_req="write", stype=None):
+    def attach_grad(self, grad_req="write", stype=None):  # noqa: ARG002
         """Attach a zero gradient buffer that ``backward`` fills by
         ``grad_req`` ('write' replaces it, 'add' accumulates). On an array
         computed inside ``record()`` the buffer retains the gradient that
-        flows through it, and the flow goes on (ndarray.py:290)."""
-        if stype not in (None, "default"):
-            raise NotImplementedError(
-                "sparse gradient buffers are not ported (ndarray/sparse.py)")
+        flows through it, and the flow goes on (ndarray.py:290). The buffer
+        is dense whatever ``stype`` says, as in the JAX package."""
         if grad_req not in ("write", "add", "null"):
             raise ValueError(
                 f"grad_req must be 'write', 'add' or 'null', got {grad_req!r}")
@@ -206,6 +305,12 @@ class NDArray:
         return self.as_in_ctx(device)
 
     def as_in_ctx(self, device):
+        if is_pinned(device):
+            t = self._data
+            if t.device.type == "cpu" and (not torch.cuda.is_available()
+                                           or t.is_pinned()):
+                return self
+            return self.copyto(device)
         if self.device == torch.device(device):
             return self
         return self.copyto(device)
@@ -213,10 +318,13 @@ class NDArray:
     to_device = as_in_ctx
 
     def copyto(self, other):
-        """A copy on a device, or a copy written into another NDArray."""
+        """A copy on a device (pinned host memory for ``cpu_pinned()``), or
+        a copy written into another NDArray."""
         if isinstance(other, NDArray):
             other._assign(self._data.detach().to(other.device, copy=True))
             return other
+        if is_pinned(other):
+            return NDArray(pin(self._data.detach().to("cpu", copy=True)))
         return NDArray(self._data.detach().to(torch.device(other),
                                               copy=True))
 
@@ -285,6 +393,44 @@ class NDArray:
     def repeat(self, repeats, axis=None):
         return apply_op(lambda x: torch.repeat_interleave(x, repeats, axis),
                         self)
+
+    def split(self, indices_or_sections=None, axis=None, num_outputs=None,
+              squeeze_axis=False):
+        """numpy's split (``indices_or_sections``, axis 0 by default), or
+        the legacy one (``num_outputs``, ``squeeze_axis``, axis 1 by
+        default) (ndarray.py:438)."""
+        if num_outputs is not None:
+            from .. import ndarray as _nd
+
+            return _nd.split(self, num_outputs=num_outputs,
+                             axis=1 if axis is None else axis,
+                             squeeze_axis=squeeze_axis)
+        if squeeze_axis:
+            raise TypeError(
+                "split: squeeze_axis requires the legacy num_outputs= "
+                "spelling (a.split(num_outputs=2, squeeze_axis=True))")
+        from ..numpy import split
+
+        return split(self, indices_or_sections, 0 if axis is None else axis)
+
+    def take(self, indices, axis=None, mode="clip"):
+        """``jnp.take`` with the legacy default mode 'clip'; float indices
+        are cast to int32 (ndarray.py:465)."""
+        from ..numpy.multiarray import _take
+
+        def pure(x, i):
+            i = torch.as_tensor(i, device=x.device)
+            if i.is_floating_point():
+                i = i.to(torch.int32)
+            return _take(x, i, axis, mode)
+
+        return apply_op(pure, self, indices)
+
+    def norm(self, ord=None, axis=None, keepdims=False):  # noqa: A002
+        """``np.linalg.norm`` of the array (ndarray.py:563)."""
+        from ..numpy import linalg
+
+        return linalg.norm(self, ord=ord, axis=axis, keepdims=keepdims)
 
     def broadcast_to(self, shape):
         return apply_op(lambda x: x.expand(tuple(shape)), self)
@@ -561,7 +707,7 @@ def apply_op(fn, *args, name=None):  # noqa: ARG001 - the reference's signature
 def creation_device(device=None):
     """``device`` as a ``torch.device``; None is the current device scope's
     (device.current_device: ``cuda:0`` outside any scope, or raises)."""
-    return current_device() if device is None else torch.device(device)
+    return current_device() if device is None else resolve(device)
 
 
 def _host_to_tensor(source, dtype, device):
@@ -587,8 +733,12 @@ def _host_to_tensor(source, dtype, device):
 
 def array(source, dtype=None, device=None, ctx=None):
     """An NDArray on ``device`` (default: the current device) from an
-    array-like, a tensor or an NDArray (ndarray.py:854)."""
-    device = creation_device(device if device is not None else ctx)
+    array-like, a tensor or an NDArray (ndarray.py:854); in pinned host
+    memory for ``cpu_pinned()``."""
+    requested = device if device is not None else ctx
+    if is_pinned(requested):
+        return NDArray(pin(array(source, dtype, torch.device("cpu"))._data))
+    device = creation_device(requested)
     if isinstance(source, NDArray):
         source = source._data
     if isinstance(source, torch.Tensor):

@@ -21,7 +21,7 @@ import functools
 import numpy as _np
 import torch
 
-from ..base import normalize_dtype
+from ..base import normalize_dtype, numpy_dtype
 from ..ndarray.ndarray import NDArray, apply_op, creation_device
 from ..ndarray.ndarray import array as _nd_array
 from ..ops import promote as _promote
@@ -295,14 +295,162 @@ def _repeat(a, repeats, axis=None):
     return torch.repeat_interleave(a, repeats, dim=axis)
 
 
-def _pad(array, pad_width, mode="constant", constant_values=0):
-    if mode != "constant":
-        raise NotImplementedError(f"pad mode {mode!r} is not ported; only "
-                                  "'constant'")
-    pw = _np.broadcast_to(_np.asarray(pad_width, dtype=_np.int64),
-                          (array.dim(), 2))
-    flat = [int(v) for pair in pw[::-1] for v in pair]
-    return torch.nn.functional.pad(array, flat, value=constant_values)
+def _pairs(value, nd):
+    """numpy's per-axis ``(before, after)`` pairs from a scalar, a pair or
+    one pair an axis."""
+    arr = _np.asarray(value, dtype=object)
+    return [tuple(p) for p in _np.broadcast_to(arr, (nd, 2)).tolist()]
+
+
+def _pad_reflect(a, ax, before, after, symmetric, odd):
+    """``jnp.pad``'s 'reflect' and 'symmetric' along ``ax``, chunk by chunk
+    (lax_numpy.py:_pad_symmetric_or_reflect): each chunk mirrors what is
+    already there; 'odd' reflects about the edge value."""
+    n = a.shape[ax]
+    offset = 1 if (not symmetric and n > 1) else 0
+    for padding, first in ((before, True), (after, False)):
+        edge = a.narrow(ax, 0 if first else a.shape[ax] - 1, 1)
+        while padding > 0:
+            cur = builtins.min(padding, n - offset)
+            padding -= cur
+            if first:
+                x = a.narrow(ax, offset, cur)
+            else:
+                stop = a.shape[ax] - (0 if (symmetric or n == 1) else 1)
+                x = a.narrow(ax, stop - cur, cur)
+            x = x.flip(ax)
+            if odd:
+                x = 2 * edge - x
+                if n > 1:
+                    edge = x.narrow(ax, 0 if first else cur - 1, 1)
+            a = torch.cat([x, a] if first else [a, x], ax)
+    return a
+
+
+def _pad_ramp(a, ax, before, after, ends):
+    """'linear_ramp' along ``ax``: from each end value to the edge, the edge
+    excluded, by ``jnp.linspace``'s formula (floored for integers)."""
+    dt = _promote.inexact_dtype(a.dtype)
+    parts = []
+    for num, end, at, first in ((before, ends[0], 0, True),
+                                (after, ends[1], a.shape[ax] - 1, False)):
+        edge = a.narrow(ax, at, 1).to(dt)
+        step = torch.arange(num, dtype=dt, device=a.device) / torch.tensor(
+            num, dtype=dt, device=a.device) if num else \
+            torch.empty(0, dtype=dt, device=a.device)
+        shape = [1] * a.dim()
+        shape[ax] = num
+        step = step.reshape(shape)
+        start = torch.as_tensor(end, dtype=dt, device=a.device)
+        ramp = start * (1 - step) + edge * step
+        if not (a.is_floating_point() or a.is_complex()):
+            ramp = ramp.floor()
+        ramp = ramp.to(a.dtype)
+        parts.append(ramp if first else ramp.flip(ax))
+    return torch.cat([parts[0], a, parts[1]], ax)
+
+
+_PAD_STATS = {"maximum": lambda t, ax: t.amax(ax, keepdim=True),
+              "minimum": lambda t, ax: t.amin(ax, keepdim=True),
+              "mean": lambda t, ax: _promote.inexact(t).mean(ax, keepdim=True),
+              "median": None}
+
+
+def _pad_stat(a, ax, before, after, lengths, mode):
+    """'maximum', 'minimum', 'mean', 'median' along ``ax``: the statistic
+    of the first (last) ``stat_length`` values, rounded for integers."""
+    n = a.shape[ax]
+    if lengths is None:
+        slices = (a, a)
+    else:
+        lb, la = lengths
+        if lb == 0 or la == 0:
+            raise ValueError("stat_length of 0 yields no value for padding")
+        lb, la = builtins.min(lb, n), builtins.min(la, n)
+        slices = (a.narrow(ax, 0, lb), a.narrow(ax, n - la, la))
+    stats = []
+    for t in slices:
+        if mode == "median":
+            st = torch.quantile(_promote.inexact(t), 0.5, dim=ax,
+                                keepdim=True)
+        else:
+            st = _PAD_STATS[mode](t, ax)
+        if not (a.is_floating_point() or a.is_complex()):
+            st = torch.round(st)
+        stats.append(st.to(a.dtype))
+    rep = [1] * a.dim()
+    out = []
+    for st, num in zip(stats, (before, after)):
+        rep[ax] = num
+        out.append(st.repeat(rep))
+    return torch.cat([out[0], a, out[1]], ax)
+
+
+def _pad(array, pad_width, mode="constant", constant_values=0,
+         stat_length=None, end_values=0, reflect_type="even"):
+    """``jnp.pad`` in every mode: 'constant' (per-axis values too), 'edge',
+    'wrap', 'reflect' and 'symmetric' (``reflect_type`` 'even' or 'odd'),
+    'linear_ramp' (``end_values``), 'maximum', 'minimum', 'mean',
+    'median' (``stat_length``) and 'empty' (zeros, as in the JAX
+    package)."""
+    nd = array.dim()
+    if nd == 0:
+        return array
+    pw = [(int(b), int(a)) for b, a in _pairs(pad_width, nd)]
+    if builtins.any(b < 0 or a < 0 for b, a in pw):
+        raise ValueError("index can't contain negative values")
+    if mode == "constant":
+        values = _pairs(constant_values, nd)
+        out = array
+        for ax, ((b, a), (vb, va)) in enumerate(zip(pw, values)):
+            shape = list(out.shape)
+            parts = []
+            for num, v in ((b, vb), (a, va)):
+                shape[ax] = num
+                parts.append(torch.full(shape, v, dtype=out.dtype,
+                                        device=out.device)
+                             if not isinstance(v, torch.Tensor)
+                             else v.to(out.dtype).expand(shape))
+            out = torch.cat([parts[0], out, parts[1]], ax)
+        return out
+    if mode not in ("edge", "wrap", "reflect", "symmetric", "linear_ramp",
+                    "maximum", "minimum", "mean", "median", "empty"):
+        raise NotImplementedError(f"mode {mode!r} not implemented")
+    if reflect_type not in ("even", "odd"):
+        raise ValueError(f"reflect_type must be 'even' or 'odd', got "
+                         f"{reflect_type!r}")
+    ends = _pairs(end_values, nd) if mode == "linear_ramp" else None
+    lengths = _pairs(stat_length, nd) if stat_length is not None else None
+    out = array
+    for ax, (b, a) in enumerate(pw):
+        n = out.shape[ax]
+        if mode == "edge":
+            rep = [1] * nd
+            rep[ax] = b
+            head = out.narrow(ax, 0, 1).repeat(rep)
+            rep[ax] = a
+            tail = out.narrow(ax, n - 1, 1).repeat(rep)
+            out = torch.cat([head, out, tail], ax)
+        elif mode == "wrap":
+            idx = torch.arange(-b, n + a, device=out.device).remainder(n)
+            out = out.index_select(ax, idx)
+        elif mode in ("reflect", "symmetric"):
+            if b or a:
+                out = _pad_reflect(out, ax, b, a, mode == "symmetric",
+                                   reflect_type == "odd")
+        elif mode == "linear_ramp":
+            out = _pad_ramp(out, ax, b, a, ends[ax])
+        elif mode == "empty":
+            shape = list(out.shape)
+            shape[ax] = b
+            head = torch.zeros(shape, dtype=out.dtype, device=out.device)
+            shape[ax] = a
+            tail = torch.zeros(shape, dtype=out.dtype, device=out.device)
+            out = torch.cat([head, out, tail], ax)
+        else:
+            out = _pad_stat(out, ax, b, a,
+                            None if lengths is None else lengths[ax], mode)
+    return out
 
 
 def _take_fill(dtype):
@@ -710,6 +858,706 @@ _OTHER_FNS = {
     "array_equal": _array_equal, "append": _append,
     "matrix_transpose": _matrix_transpose,
 }
+# -- the rest of _OTHER (the names MISSING listed until PR 19) -----------------
+
+def _axis_last(a, axis):
+    return a.movedim(axis % a.dim(), -1)
+
+
+def _apply_along_axis(func1d, axis, arr, *args, **kwargs):
+    """``func1d`` of every 1-D slice along ``axis`` (it gets tensors); its
+    result's dims take ``axis``'s place."""
+    axis %= arr.dim()
+    moved = arr.movedim(axis, -1)
+    lead = moved.shape[:-1]
+    outs = []
+    for row in moved.reshape(-1, moved.shape[-1]):
+        r = func1d(row, *args, **kwargs)
+        outs.append(torch.as_tensor(r._data if isinstance(r, NDArray)
+                                    else r, device=arr.device))
+    out = torch.stack(outs).reshape(tuple(lead) + tuple(outs[0].shape))
+    k = outs[0].dim()
+    return out.movedim(tuple(range(len(lead), len(lead) + k)),
+                       tuple(range(axis, axis + k)))
+
+
+def _partition_sort(a, axis):
+    moved = _axis_last(a, axis)
+    return moved, torch.sort(moved, dim=-1, stable=True)
+
+
+def _partition(a, kth, axis=-1):
+    """``jnp.partition``: the ``kth + 1`` smallest ascending, then the rest
+    descending (lax.top_k's order)."""
+    moved, (s, _) = _partition_sort(a, axis)
+    kth %= moved.shape[-1]
+    out = torch.cat([s[..., :kth + 1], s[..., kth + 1:].flip(-1)], -1)
+    return out.movedim(-1, axis % a.dim())
+
+
+def _argpartition(a, kth, axis=-1):
+    """``jnp.argpartition``: the indices of the ``kth + 1`` smallest by value
+    (ties by index), then the other indices ascending."""
+    moved, (_, order) = _partition_sort(a, axis)
+    n = moved.shape[-1]
+    kth %= n
+    bottom = order[..., :kth + 1]
+    rest = torch.ones(moved.shape, dtype=torch.bool, device=a.device)
+    rest.scatter_(-1, bottom, False)
+    top = torch.argsort((~rest).to(torch.uint8), dim=-1,
+                        stable=True)[..., :n - kth - 1]
+    out = torch.cat([bottom, top], -1).to(torch.int32)
+    return out.movedim(-1, axis % a.dim())
+
+
+def _array_equiv(a1, a2):
+    try:
+        x, y = torch.broadcast_tensors(a1, a2)
+    except RuntimeError:
+        return torch.tensor(False, device=a1.device)
+    return (x == y).all()
+
+
+def _choose(a, choices, out=None, mode="raise"):
+    if out is not None:
+        raise NotImplementedError("The 'out' argument to choose is not "
+                                  "supported.")
+    if a.is_floating_point() or a.dtype == torch.bool:
+        raise ValueError("`a` array must be integer typed")
+    n = len(choices)
+    if mode == "raise":
+        if builtins.bool(((a < 0) | (a >= n)).any()):
+            raise ValueError("invalid entry in choice array")
+    elif mode == "wrap":
+        a = a.remainder(n)
+    elif mode == "clip":
+        a = a.clamp(0, n - 1)
+    else:
+        raise ValueError(f"mode={mode!r} not understood. Must be 'raise', "
+                         "'wrap', or 'clip'")
+    choices = [torch.as_tensor(c, device=a.device) for c in choices]
+    a, *choices = torch.broadcast_tensors(a, *choices)
+    stacked = torch.stack(choices)
+    return stacked.gather(0, a.long().unsqueeze(0)).squeeze(0)
+
+
+def _compress(condition, a, axis=None):
+    condition = torch.as_tensor(condition, device=a.device).bool()
+    if condition.dim() != 1:
+        raise ValueError("condition must be a 1D array")
+    if axis is None:
+        a, axis = a.reshape(-1), 0
+    n = a.shape[axis]
+    if builtins.bool(condition[n:].any()):
+        raise IndexError(f"condition contains entries that are out of "
+                         f"bounds for axis {axis}")
+    idx = torch.nonzero(condition[:n]).reshape(-1)
+    return a.index_select(axis, idx)
+
+
+def _conv1d(x, y, mode, correlate):
+    """``jnp.convolve``/``jnp.correlate`` of 1-D arrays, in their inexact
+    dtype."""
+    if x.dim() != 1 or y.dim() != 1:
+        raise ValueError("convolve/correlate take 1-D arrays")
+    dt = _promote.inexact_dtype(torch.promote_types(x.dtype, y.dtype))
+    x, y = x.to(dt), y.to(dt)
+    reverse = False
+    if correlate:
+        y = y.conj()
+        if x.shape[0] < y.shape[0]:
+            x, y, reverse = y, x, True
+    else:
+        if x.shape[0] < y.shape[0]:
+            x, y = y, x
+        y = y.flip(0)
+    m = y.shape[0]
+    if mode == "valid":
+        pads = (0, 0)
+    elif mode == "same":
+        pads = (m // 2, m - m // 2 - 1)
+    elif mode == "full":
+        pads = (m - 1, m - 1)
+    else:
+        raise ValueError(f"mode must be one of ['full', 'same', 'valid'], "
+                         f"got {mode!r}")
+    xp = torch.nn.functional.pad(x, pads)
+    out = (xp.unfold(0, m, 1) * y).sum(-1)
+    return out.flip(0) if reverse else out
+
+
+def _cumulative_sum(x, axis=None, dtype=None, include_initial=False):
+    if axis is None:
+        if x.dim() != 1:
+            raise ValueError("cumulative_sum: axis is required for arrays "
+                             "of more than one dimension")
+        axis = 0
+    out = torch.cumsum(x, dim=axis, dtype=normalize_dtype(dtype)
+                       if dtype is not None else None)
+    if x.dtype == torch.bool and dtype is None:
+        out = out.to(torch.int64)
+    if include_initial:
+        shape = list(out.shape)
+        shape[axis] = 1
+        out = torch.cat([torch.zeros(shape, dtype=out.dtype,
+                                     device=out.device), out], axis)
+    return out
+
+
+def _delete(arr, obj, axis=None, assume_unique_indices=False):  # noqa: ARG001
+    if axis is None:
+        arr, axis = arr.reshape(-1), 0
+    axis %= arr.dim()
+    n = arr.shape[axis]
+    if isinstance(obj, int) or (isinstance(obj, torch.Tensor)
+                                and obj.dim() == 0 and not obj.is_floating_point()
+                                and obj.dtype != torch.bool):
+        obj = int(obj)
+        if not -n <= obj < n:
+            raise ValueError(f"index {obj} out of bounds for axis of size "
+                             f"{n}")
+        obj %= n
+        keep = torch.ones(n, dtype=torch.bool, device=arr.device)
+        keep[obj] = False
+    elif isinstance(obj, slice):
+        keep = torch.ones(n, dtype=torch.bool, device=arr.device)
+        keep[obj] = False
+    else:
+        obj = torch.as_tensor(obj, device=arr.device)
+        if obj.dtype == torch.bool:
+            if tuple(obj.shape) != (n,):
+                raise ValueError("np.delete(arr, obj): for boolean indices, "
+                                 "obj must be one-dimensional with length "
+                                 "matching specified axis.")
+            keep = ~obj
+        elif obj.is_floating_point():
+            raise ValueError(f"np.delete(arr, obj): got obj.dtype="
+                             f"{obj.dtype}; must be integer or bool.")
+        else:
+            keep = torch.ones(n, dtype=torch.bool, device=arr.device)
+            keep[obj.reshape(-1).long()] = False
+    return arr.index_select(axis, torch.nonzero(keep).reshape(-1))
+
+
+def _fill_diagonal(a, val, wrap=False, inplace=True):  # noqa: ARG001
+    """``jnp.fill_diagonal``: out of place only (``inplace=False``), as in
+    the JAX package; ``wrap`` changes nothing there either."""
+    if inplace:
+        raise NotImplementedError("JAX arrays are immutable, must use "
+                                  "inplace=False")
+    if a.dim() < 2:
+        raise ValueError("array must be at least 2-d")
+    if a.dim() > 2 and builtins.any(n != a.shape[0] for n in a.shape[1:]):
+        raise ValueError("All dimensions of input must be of equal length")
+    n = builtins.min(a.shape)
+    val = torch.as_tensor(val, dtype=a.dtype, device=a.device)
+    if val.dim():
+        val = val.reshape(-1).repeat(-(-n // val.numel()))[:n]
+    idx = torch.arange(n, device=a.device)
+    out = a.clone()
+    out[(idx,) * a.dim()] = val
+    return out
+
+
+def _gradient(f, *varargs, axis=None, edge_order=None):
+    """``jnp.gradient``: central differences inside, one-sided at the
+    edges; a scalar or a coordinate array of spacing per axis."""
+    if edge_order is not None:
+        raise NotImplementedError("The 'edge_order' argument to gradient is "
+                                  "not supported.")
+    dt = _promote.result_dtype(f, *varargs)
+    dt = _promote.inexact_dtype(dt)
+    a = f.to(dt)
+
+    def along(h, ax):
+        def sl(start, stop):
+            return a.narrow(ax, start, stop - start)
+        n = a.shape[ax]
+        upper = sl(1, 2) - sl(0, 1)
+        lower = sl(n - 1, n) - sl(n - 2, n - 1)
+        if not isinstance(h, torch.Tensor) or h.dim() == 0:
+            inner = (sl(2, n) - sl(0, n - 2)) * 0.5 / h
+            return torch.cat([upper / h, inner, lower / h], ax)
+        h = h.to(dt)
+        shape = [1] * a.dim()
+        shape[ax] = h.shape[0]
+        h = h.reshape(shape)
+
+        def sx(start, stop):
+            return h.narrow(ax, start, stop - start)
+        upper = upper / (sx(1, 2) - sx(0, 1))
+        lower = lower / (sx(n - 1, n) - sx(n - 2, n - 1))
+        dx1 = sx(1, n - 1) - sx(0, n - 2)
+        dx2 = sx(2, n) - sx(1, n - 1)
+        ca = -dx2 / (dx1 * (dx1 + dx2))
+        cb = (dx2 - dx1) / (dx1 * dx2)
+        cc = dx1 / (dx2 * (dx1 + dx2))
+        inner = ca * sl(0, n - 2) + cb * sl(1, n - 1) + cc * sl(2, n)
+        return torch.cat([upper, inner, lower], ax)
+
+    axes = tuple(range(a.dim())) if axis is None else tuple(
+        x % a.dim() for x in ((axis,) if isinstance(axis, int) else axis))
+    if not axes:
+        return []
+    if builtins.min(a.shape[x] for x in axes) < 2:
+        raise ValueError("Shape of array too small to calculate a numerical "
+                         "gradient, at least 2 elements are required.")
+    dx = [1.0] * len(axes) if not varargs else (
+        list(varargs) * len(axes) if len(varargs) == 1 else list(varargs))
+    out = [along(h, ax) for ax, h in zip(axes, dx)]
+    return out[0] if len(axes) == 1 else out
+
+
+def _lin(start, stop, num, endpoint, dt, device):
+    """``jnp.linspace``'s formula in ``dt``: ``start * (1 - step) + stop *
+    step`` with ``step = iota / div``, the end appended."""
+    start = torch.as_tensor(start, dtype=dt, device=device)
+    stop = torch.as_tensor(stop, dtype=dt, device=device)
+    if num == 1:
+        return start.reshape(1)
+    if num == 0:
+        return torch.empty(0, dtype=dt, device=device)
+    div = (num - 1) if endpoint else num
+    step = torch.arange(div, dtype=dt, device=device) / torch.tensor(
+        div, dtype=dt, device=device)
+    out = start * (1 - step) + stop * step
+    return torch.cat([out, stop.reshape(1)]) if endpoint else out
+
+
+def _bin_edges(a, bins, rng):
+    dt = _promote.inexact_dtype(a.dtype)
+    if isinstance(bins, torch.Tensor) and bins.dim() == 1:
+        return bins.to(dt)
+    if isinstance(bins, (list, tuple)):
+        return torch.as_tensor(bins, dtype=dt, device=a.device)
+    if rng is None:
+        lo, hi = a.min().to(dt), a.max().to(dt)
+    else:
+        lo, hi = (torch.as_tensor(v, dtype=dt, device=a.device)
+                  for v in rng)
+    same = lo == hi
+    lo, hi = torch.where(same, lo - 0.5, lo), torch.where(same, hi + 0.5, hi)
+    return _lin(lo, hi, int(bins) + 1, True, dt, a.device)
+
+
+def _histogram(a, bins=10, range=None, weights=None, density=None):  # noqa: A002
+    """``jnp.histogram``: counts in ``a``'s inexact dtype (the weights'
+    dtype where given), the last bin closed."""
+    a = a.reshape(-1)
+    edges = _bin_edges(a, bins, range)
+    if weights is None:
+        weights = torch.ones_like(a, dtype=edges.dtype)
+    weights = weights.reshape(-1)
+    idx = torch.searchsorted(edges, a.to(edges.dtype), right=True)
+    idx = torch.where(a.to(edges.dtype) == edges[-1], edges.shape[0] - 1,
+                      idx)
+    counts = torch.zeros(edges.shape[0] + 1, dtype=weights.dtype,
+                         device=a.device).index_add(0, idx, weights)
+    counts = counts[1:edges.shape[0]]
+    if density:
+        widths = torch.diff(edges)
+        counts = counts / widths / counts.sum()
+    return counts, edges
+
+
+def _histogramdd(sample, bins=10, range=None, weights=None, density=None):  # noqa: A002
+    n, d = sample.shape
+    per_dim = bins if isinstance(bins, (list, tuple)) else [bins] * d
+    idxs, edges = [], []
+    for i in builtins.range(d):
+        col = sample[:, i].contiguous()
+        e = _bin_edges(col, per_dim[i], None if range is None else range[i])
+        j = torch.searchsorted(e, col.to(e.dtype), right=True)
+        j = torch.where(col.to(e.dtype) == e[-1], j - 1, j)
+        idxs.append(j)
+        edges.append(e)
+    nbins = [e.shape[0] + 1 for e in edges]
+    flat = torch.zeros(n, dtype=torch.int64, device=sample.device)
+    for j, nb in zip(idxs, nbins):
+        flat = flat * nb + j.clamp(0, nb - 1)
+    total = int(_np.prod(nbins))
+    if weights is None:
+        hist = torch.bincount(flat, minlength=total)
+    else:
+        hist = torch.zeros(total, dtype=weights.dtype,
+                           device=sample.device).index_add(0, flat, weights)
+    hist = hist.reshape(nbins)[(slice(1, -1),) * d]
+    if density:
+        hist = hist.to(sample.dtype)
+        hist = hist / hist.sum()
+        for k in builtins.range(d):
+            shape = [1] * d
+            shape[k] = nbins[k] - 2
+            hist = hist / torch.diff(edges[k]).reshape(shape)
+    return hist, edges
+
+
+def _histogram2d(x, y, bins=10, range=None, weights=None, density=None):  # noqa: A002
+    hist, edges = _histogramdd(torch.stack([x, y], 1), bins, range,
+                               weights, density)
+    return hist, edges[0], edges[1]
+
+
+def _indices(dimensions, dtype=None, sparse=False):
+    dt = normalize_dtype(dtype) if dtype is not None else torch.int64
+    dev = creation_device()
+    out = []
+    for i, n in enumerate(dimensions):
+        shape = [1] * len(dimensions)
+        shape[i] = n
+        r = torch.arange(n, dtype=dt, device=dev).reshape(shape)
+        out.append(r if sparse else r.expand(tuple(dimensions)))
+    return tuple(out) if sparse else torch.stack(out)
+
+
+def _insert(arr, obj, values, axis=None):
+    """``jnp.insert`` (numpy's rules): ``values`` at positions ``obj`` of
+    ``axis`` (the flattened array without one)."""
+    if axis is None:
+        arr, axis = arr.reshape(-1), 0
+    axis %= arr.dim()
+    n_input = arr.shape[axis]
+    if isinstance(obj, slice):
+        indices = torch.arange(*obj.indices(n_input), device=arr.device)
+    else:
+        indices = torch.as_tensor(obj, device=arr.device)
+    if indices.dim() > 1:
+        raise ValueError("insert(): obj must be a slice, a one-dimensional "
+                         f"array, or a scalar; got {obj}")
+    if indices.is_floating_point() or indices.dtype == torch.bool:
+        raise ValueError(f"insert(): index array must be integer typed; "
+                         f"got {obj}")
+    values = torch.as_tensor(values, device=arr.device).to(arr.dtype)
+    while values.dim() < arr.dim():
+        values = values.unsqueeze(0)
+    if indices.numel() == 1:
+        index = indices.reshape(-1)[0]
+        if indices.dim() == 0:
+            values = values.movedim(0, axis)
+        indices = index.expand(values.shape[axis])
+    n_insert = torch.broadcast_shapes(tuple(indices.shape),
+                                      (values.shape[axis],))[0]
+    indices = indices.long().expand(n_insert)
+    indices = torch.where(indices < 0, indices + n_input, indices)
+    indices = indices.clamp(0, n_input)
+    order = torch.argsort(indices, stable=True)
+    values_ind = indices.clone()
+    values_ind[order] += torch.arange(n_insert, device=arr.device)
+    mask = torch.ones(n_input + n_insert, dtype=torch.bool,
+                      device=arr.device)
+    mask[values_ind] = False
+    arr_ind = torch.nonzero(mask).reshape(-1)
+    shape = list(arr.shape)
+    shape[axis] += n_insert
+    out = torch.zeros(shape, dtype=arr.dtype, device=arr.device)
+    vshape = list(arr.shape)
+    vshape[axis] = n_insert
+    out.index_copy_(axis, values_ind, values.expand(vshape).contiguous())
+    out.index_copy_(axis, arr_ind, arr)
+    return out
+
+
+def _interp(x, xp, fp, left=None, right=None, period=None):
+    """``jnp.interp``: ``left``/``right`` 'extrapolate' extend the end
+    segments; ``period`` wraps."""
+    if tuple(xp.shape) != tuple(fp.shape) or xp.dim() != 1:
+        raise ValueError("xp and fp must be one-dimensional arrays of equal "
+                         "size")
+    dt = _promote.inexact_dtype(torch.promote_types(x.dtype, xp.dtype))
+    x, xp = x.to(dt), xp.to(dt)
+    fp = _promote.inexact(fp)
+    if period is not None:
+        period = builtins.abs(period)
+        x, xp = x.remainder(period), xp.remainder(period)
+        xp, order = torch.sort(xp, stable=True)
+        fp = fp[order]
+        xp = torch.cat([xp[-1:] - period, xp, xp[:1] + period])
+        fp = torch.cat([fp[-1:], fp, fp[:1]])
+    i = torch.searchsorted(xp, x, right=True).clamp(1, xp.shape[0] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = float(_np.spacing(_np.finfo(numpy_dtype(dt)).eps))
+    dx0 = dx.abs() <= eps
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, 1, dx)) * df)
+    if period is None and not isinstance(left, str):
+        f = torch.where(x < xp[0], fp[0] if left is None else
+                        torch.as_tensor(left, dtype=f.dtype,
+                                        device=f.device), f)
+    if period is None and not isinstance(right, str):
+        f = torch.where(x > xp[-1], fp[-1] if right is None else
+                        torch.as_tensor(right, dtype=f.dtype,
+                                        device=f.device), f)
+    return f
+
+
+def _lexsort(keys, axis=-1):
+    """Indices sorting by the last key, then the one before, ...: stable
+    sorts from the first key to the last."""
+    keys = list(keys)
+    order = None
+    for k in keys:
+        k = k.movedim(axis, -1)
+        if order is None:
+            order = torch.argsort(k, dim=-1, stable=True)
+        else:
+            order = order.gather(-1, torch.argsort(k.gather(-1, order),
+                                                   dim=-1, stable=True))
+    return order.movedim(-1, axis)
+
+
+def _packbits(a, axis=None, bitorder="big"):
+    if a.is_floating_point() or a.is_complex():
+        raise TypeError("Expected an input array of integer or boolean data "
+                        "type")
+    if bitorder not in ("little", "big"):
+        raise ValueError("'order' must be either 'little' or 'big'")
+    a = (a != 0).to(torch.uint8)
+    bits = torch.arange(8, dtype=torch.uint8, device=a.device)
+    if bitorder == "big":
+        bits = bits.flip(0)
+    if axis is None:
+        a, axis = a.reshape(-1), 0
+    a = a.movedim(axis, -1)
+    rem = a.shape[-1] % 8
+    if rem:
+        a = torch.nn.functional.pad(a, (0, 8 - rem))
+    a = a.reshape(a.shape[:-1] + (a.shape[-1] // 8, 8))
+    packed = (a.to(torch.int32) << bits.to(torch.int32)).sum(-1)
+    return packed.to(torch.uint8).movedim(-1, axis)
+
+
+def _unpackbits(a, axis=None, count=None, bitorder="big"):
+    if a.dtype != torch.uint8:
+        raise TypeError("Expected an input array of unsigned byte data type")
+    if bitorder not in ("little", "big"):
+        raise ValueError("'order' must be either 'little' or 'big'")
+    bits = (1 << torch.arange(8, device=a.device)).to(torch.uint8)
+    if bitorder == "big":
+        bits = bits.flip(0)
+    if axis is None:
+        a, axis = a.reshape(-1), 0
+    a = a.movedim(axis, -1)
+    out = ((a[..., None] & bits) > 0).to(torch.uint8)
+    out = out.reshape(out.shape[:-2] + (-1,))
+    if count is not None:
+        if count > out.shape[-1]:
+            out = torch.nn.functional.pad(out, (0, count - out.shape[-1]))
+        else:
+            out = out[..., :count]
+    return out.movedim(-1, axis)
+
+
+def _piecewise(x, condlist, funclist, *args, **kw):
+    """``jnp.piecewise``: where several conditions hold the last wins; the
+    default (``funclist`` one longer) where none does, else 0."""
+    nc, nf = len(condlist), len(funclist)
+    if nf == nc + 1:
+        funclist = funclist[-1:] + funclist[:-1]
+    elif nf == nc:
+        funclist = [0] + list(funclist)
+    else:
+        raise ValueError(f"with {nc} condition(s), either {nc} or {nc + 1} "
+                         f"functions are expected; got {nf}")
+    conds = torch.stack([torch.as_tensor(c, device=x.device).bool()
+                         .expand(x.shape) for c in condlist])
+    which = torch.cat([torch.zeros_like(conds[:1], dtype=torch.int64),
+                       conds.long()]).cumsum(0).argmax(0)
+    out = torch.zeros_like(x)
+    for i, f in enumerate(funclist):
+        v = f(x, *args, **kw) if callable(f) else f
+        v = torch.as_tensor(v._data if isinstance(v, NDArray) else v,
+                            device=x.device).to(x.dtype)
+        out = torch.where(which == i, v, out)
+    return out
+
+
+def _polyval(p, x, unroll=16):  # noqa: ARG001
+    dt = _promote.inexact_dtype(torch.promote_types(p.dtype, x.dtype))
+    p, x = p.to(dt), x.to(dt)
+    y = torch.zeros(torch.broadcast_shapes(tuple(p.shape[1:]),
+                                           tuple(x.shape)),
+                    dtype=dt, device=x.device)
+    for c in p:
+        y = y * x + c
+    return y
+
+
+def _polyfit(x, y, deg, rcond=None, full=False, w=None, cov=False):
+    """``jnp.polyfit`` by least squares over scaled Vandermonde columns."""
+    dt = _promote.inexact_dtype(torch.promote_types(x.dtype, y.dtype))
+    x, y = x.to(dt), y.to(dt)
+    order = int(deg) + 1
+    if rcond is None:
+        rcond = x.shape[0] * float(torch.finfo(dt).eps)
+    lhs = torch.vander(x, order)
+    rhs = y
+    if w is not None:
+        w = w.to(dt)
+        lhs = lhs * w[:, None]
+        rhs = rhs * (w if rhs.dim() == 1 else w[:, None])
+    scale = torch.sqrt((lhs * lhs).sum(0))
+    lhs = lhs / scale
+    # the card's solver is QR (full rank); the CPU's the SVD, as jnp's
+    kw = dict(driver="gels") if lhs.is_cuda else dict(rcond=rcond,
+                                                      driver="gelsd")
+    sol = torch.linalg.lstsq(lhs, rhs if rhs.dim() == 2 else rhs[:, None],
+                             **kw)
+    c = sol.solution / scale[:, None]
+    if rhs.dim() == 1:
+        c = c[:, 0]
+    if full:
+        return c, sol.residuals, sol.rank, sol.singular_values, rcond
+    if cov:
+        raise NotImplementedError("polyfit(cov=True) is not ported")
+    return c
+
+
+def _ravel_multi_index(multi_index, dims, mode="raise", order="C"):
+    idx = [torch.as_tensor(i) for i in multi_index]
+    if len(idx) != len(dims):
+        raise ValueError("len(multi_index) != len(dims)")
+    for i in idx:
+        if i.is_floating_point() or i.dtype == torch.bool:
+            raise TypeError("only int indices permitted")
+    if mode == "raise":
+        if builtins.any(builtins.bool(((i < 0) | (i >= d)).any())
+                        for i, d in zip(idx, dims)):
+            raise ValueError("invalid entry in coordinates array")
+    elif mode == "clip":
+        idx = [i.clamp(0, d - 1) for i, d in zip(idx, dims)]
+    elif mode == "wrap":
+        idx = [i.remainder(d) for i, d in zip(idx, dims)]
+    else:
+        raise ValueError(f"invalid mode={mode!r}. Expected 'raise', 'wrap', "
+                         "or 'clip'")
+    dims = tuple(int(d) for d in dims)
+    if order == "F":
+        strides = _np.cumprod((1,) + dims[:-1])
+    elif order == "C":
+        strides = _np.cumprod((1,) + dims[1:][::-1])[::-1]
+    else:
+        raise ValueError(f"invalid order={order!r}. Expected 'C' or 'F'")
+    out = torch.zeros((), dtype=idx[0].dtype, device=idx[0].device)
+    for i, s in zip(idx, strides):
+        out = out + i * int(s)
+    return out
+
+
+def _real_if_close(a, tol=100):
+    """numpy's ``real_if_close`` (the JAX package has none): the real part
+    of a complex array whose imaginary parts are all within ``tol``
+    machine epsilons of 0, else the array."""
+    if not a.is_complex():
+        return a.clone()
+    eps = torch.finfo(a.real.dtype).eps
+    limit = tol * eps if tol > 1 else tol
+    if builtins.bool((a.imag.abs() < limit).all()):
+        return a.real.clone()
+    return a.clone()
+
+
+def _resize(a, new_shape):
+    shape = (new_shape,) if isinstance(new_shape, int) else tuple(new_shape)
+    a = a.reshape(-1)
+    size = int(_np.prod(shape))
+    if a.numel() == 0 or size == 0:
+        return torch.zeros(shape, dtype=a.dtype, device=a.device)
+    reps = -(-size // a.numel())
+    return a.repeat(reps)[:size].reshape(shape)
+
+
+def _roots(p, strip_zeros=True):
+    """``jnp.roots``: the eigenvalues of the companion matrix, complex;
+    leading zeros stripped, trailing ones give roots at 0."""
+    p = _promote.inexact(torch.atleast_1d(p))
+    if strip_zeros:
+        nz = torch.nonzero(p).reshape(-1)
+        if nz.numel() == 0:
+            return torch.zeros(0, dtype=p.dtype, device=p.device)
+        p = p[int(nz[0]):]
+    trailing = 0
+    while p.shape[0] > 1 and builtins.bool(p[-1] == 0):
+        p, trailing = p[:-1], trailing + 1
+    n = p.shape[0]
+    if n < 2:
+        r = torch.zeros(0, dtype=p.dtype, device=p.device)
+    else:
+        comp = torch.diag(torch.ones(n - 2, dtype=p.dtype,
+                                     device=p.device), -1)
+        comp[0, :] = -p[1:] / p[0]
+        r = torch.linalg.eigvals(comp)
+    if trailing:
+        r = torch.cat([r.to(torch.promote_types(r.dtype, torch.complex64)
+                            if not r.is_complex() else r.dtype),
+                       torch.zeros(trailing, dtype=r.dtype if r.is_complex()
+                                   else torch.complex64, device=p.device)])
+    return r
+
+
+def _select(condlist, choicelist, default=0):
+    if len(condlist) != len(choicelist):
+        raise ValueError("condlist must have length equal to choicelist")
+    if not condlist:
+        raise ValueError("condlist must be non-empty")
+    out = torch.as_tensor(default, device=choicelist[0].device)
+    dt = functools.reduce(torch.promote_types,
+                          [c.dtype for c in choicelist])
+    for c, v in zip(reversed(condlist), reversed(choicelist)):
+        out = torch.where(c.bool(), v.to(dt), out.to(dt))
+    return out
+
+
+def _sort_complex(a):
+    """Sorted along the last axis by real part, then imaginary part; a
+    complex result."""
+    if not a.is_complex():
+        dt = torch.complex128 if a.dtype in (torch.float64, torch.int64) \
+            else torch.complex64
+        return torch.sort(a, dim=-1, stable=True).values.to(dt)
+    order = torch.argsort(a.imag, dim=-1, stable=True)
+    order = order.gather(-1, torch.argsort(a.real.gather(-1, order), dim=-1,
+                                           stable=True))
+    return a.gather(-1, order)
+
+
+def _trim_zeros(filt, trim="fb"):
+    nz = torch.nonzero(filt.reshape(-1)).reshape(-1)
+    if nz.numel() == 0:
+        return filt[:0]
+    trim = trim.lower()
+    start = int(nz[0]) if "f" in trim else 0
+    end = int(nz[-1]) + 1 if "b" in trim else filt.shape[0]
+    return filt[start:end]
+
+
+def _unique_all(x):
+    values, index, inverse, counts = _unique(
+        x, return_index=True, return_inverse=True, return_counts=True)
+    return values, index, inverse, counts
+
+
+_OTHER_FNS.update({
+    "apply_along_axis": _apply_along_axis, "argpartition": _argpartition,
+    "partition": _partition, "array_equiv": _array_equiv,
+    "choose": _choose, "compress": _compress,
+    "convolve": lambda a, v, mode="full": _conv1d(a, v, mode, False),
+    "correlate": lambda a, v, mode="valid": _conv1d(a, v, mode, True),
+    "cumulative_sum": _cumulative_sum, "delete": _delete,
+    "fill_diagonal": _fill_diagonal, "gradient": _gradient,
+    "histogram": _histogram, "histogram2d": _histogram2d,
+    "histogramdd": _histogramdd, "indices": _indices, "insert": _insert,
+    "interp": _interp, "lexsort": _lexsort, "packbits": _packbits,
+    "unpackbits": _unpackbits, "piecewise": _piecewise,
+    "polyfit": _polyfit, "polyval": _polyval,
+    "ravel_multi_index": _ravel_multi_index,
+    "real_if_close": _real_if_close, "resize": _resize, "roots": _roots,
+    "select": _select, "sort_complex": _sort_complex,
+    "trim_zeros": _trim_zeros, "unique_all": _unique_all,
+})
+
+
 # quantiles and the floor division appear in _OTHER too
 for _name in ("nanquantile", "nanpercentile"):
     _OTHER_FNS[_name] = _ops.NP_REDUCE[_name]
@@ -803,8 +1651,8 @@ for _names, _fns, _binary in ((_UNARY, _UNARY_FNS, False),
             __all__.append(_name)
 #: names of the JAX package's lists still without a counterpart
 MISSING = sorted({n for n in _UNARY + _BINARY + _REDUCE + _OTHER
-                  if n not in GENERATED and n not in ("put_along_axis",
-                                                      "einsum")})
+                  if n not in GENERATED
+                  and n not in ("put_along_axis", "einsum")})
 del _names, _fns, _binary, _name
 
 concat = concatenate  # noqa: F821 - generated above
@@ -867,8 +1715,11 @@ def _float_default(dtype):
 def array(object, dtype=None, **kwargs):  # noqa: A002 - numpy's name
     """An array on the current device (multiarray.py:359): Python lists
     give float32, float64 gives float32 and int64 gives int32 unless
-    ``dtype`` says otherwise."""
-    return _nd_array(object, dtype=dtype, device=_device_of(kwargs))
+    ``dtype`` says otherwise; in pinned host memory for ``cpu_pinned()``."""
+    dev = kwargs.pop("device", None)
+    return _nd_array(object, dtype=dtype,
+                     device=dev if dev is not None else kwargs.pop("ctx",
+                                                                    None))
 
 
 
@@ -963,3 +1814,295 @@ def arange(start, stop=None, step=1, dtype=None, **kwargs):
             dtype = torch.float32
     return NDArray(torch.arange(start, stop, step,
                                 dtype=normalize_dtype(dtype), device=dev))
+
+
+# -- the rest of the JAX package's mx.np (multiarray.py:330-605) ---------------
+
+uint16 = _np.uint16
+uint32 = _np.uint32
+uint64 = _np.uint64
+_g["bool"] = _np.bool_
+
+NAN = NaN = nan
+NINF = -_np.inf
+PINF = _np.inf
+NZERO = -0.0
+PZERO = 0.0
+
+boolean_dtypes = (_np.bool_,)
+integer_dtypes = (_np.int8, _np.int16, _np.int32, _np.int64,
+                  _np.uint8, _np.uint16, _np.uint32, _np.uint64)
+floating_dtypes = (_np.float16, _np.float32, _np.float64)
+numeric_dtypes = integer_dtypes + floating_dtypes
+
+row_stack = vstack  # noqa: F821 - generated above
+empty = zeros
+
+
+def empty_like(a, dtype=None, **kwargs):
+    """Zeros: the JAX package has no uninitialized buffers either."""
+    return zeros_like(a, dtype=dtype, **kwargs)
+
+
+def asarray(a, dtype=None, **kwargs):
+    """``a`` itself when it is an NDArray of ``dtype`` (or no dtype is
+    asked), else :func:`array` of it."""
+    if isinstance(a, NDArray) and (
+            dtype is None or a._data.dtype == normalize_dtype(dtype)):
+        return a
+    return array(a, dtype=dtype, **kwargs)
+
+
+ascontiguousarray = asarray
+
+
+def frombuffer(buffer, dtype=float, **kwargs):
+    return array(_np.frombuffer(buffer, dtype=dtype), **kwargs)
+
+
+def genfromtxt(*args, **kwargs):
+    return array(_np.genfromtxt(*args, **kwargs))
+
+
+def copy(a):
+    return a.copy() if isinstance(a, NDArray) else array(a)
+
+
+def astype(a, dtype):
+    return a.astype(dtype)
+
+
+def shape(a):
+    return a.shape if isinstance(a, NDArray) else _np.shape(a)
+
+
+def ndim(a):
+    return a.ndim if isinstance(a, NDArray) else _np.ndim(a)
+
+
+def size(a, axis=None):
+    if isinstance(a, NDArray):
+        return a.size if axis is None else a.shape[axis]
+    return _np.size(a, axis)
+
+
+def may_share_memory(a, b, max_work=None):  # noqa: ARG001
+    """Whether the two arrays' storage overlaps (a view shares its base's
+    storage in the port; the JAX package answers whether they are the same
+    buffer)."""
+    if not (isinstance(a, NDArray) and isinstance(b, NDArray)):
+        return _np.may_share_memory(a, b)
+    sa, sb = a._data.untyped_storage(), b._data.untyped_storage()
+    if sa.device != sb.device:
+        return False
+    pa, pb = sa.data_ptr(), sb.data_ptr()
+    return pa < pb + sb.nbytes() and pb < pa + sa.nbytes()
+
+
+shares_memory = may_share_memory
+
+
+def set_printoptions(*args, **kwargs):
+    _np.set_printoptions(*args, **kwargs)
+
+
+def from_dlpack(x):
+    """An NDArray sharing ``x``'s memory through DLPack."""
+    return NDArray(torch.from_dlpack(x))
+
+
+def _dtype_of(x):
+    if isinstance(x, (NDArray, torch.Tensor, _np.ndarray, _np.generic)):
+        x = x.dtype
+    if isinstance(x, torch.dtype) or x is bfloat16 or x == "bfloat16":
+        return torch.bfloat16 if x in (torch.bfloat16, "bfloat16") else x
+    return _np.dtype(x)
+
+
+def finfo(dtype):
+    """Machine limits of a float dtype (``torch.finfo`` for bfloat16)."""
+    dt = _dtype_of(dtype)
+    if isinstance(dt, torch.dtype):
+        return torch.finfo(dt)
+    return _np.finfo(dt)
+
+
+def iinfo(dtype):
+    dt = _dtype_of(dtype)
+    if isinstance(dt, torch.dtype):
+        return torch.iinfo(dt)
+    return _np.iinfo(dt)
+
+
+def promote_types(type1, type2):
+    """``jnp.promote_types``: an integer or bool with a float gives the
+    float, bfloat16 with float16 gives float32; otherwise numpy's
+    lattice."""
+    a, b = _dtype_of(type1), _dtype_of(type2)
+    if torch.bfloat16 in (a, b):
+        other = b if a is torch.bfloat16 else a
+        if other is torch.bfloat16 or other.kind in "biu":
+            return bfloat16
+        if other == _np.float16:
+            return _np.dtype(_np.float32)
+        return other
+    if a.kind in "biu" and b.kind in "fc":
+        return b
+    if b.kind in "biu" and a.kind in "fc":
+        return a
+    return _np.promote_types(a, b)
+
+
+def result_type(*arrays_and_dtypes):
+    """``jnp.result_type``: :func:`promote_types` over the arguments; a
+    Python int or float is weak (promote.result_dtype)."""
+    strong = [x for x in arrays_and_dtypes if not _promote.is_weak(x)]
+    weak = [x for x in arrays_and_dtypes if _promote.is_weak(x)]
+    dt = functools.reduce(promote_types, [_dtype_of(x) for x in strong]) \
+        if strong else None
+    for x in weak:
+        if isinstance(x, float):
+            if dt is None or dt is not bfloat16 and dt.kind not in "fc":
+                dt = _np.dtype(_np.float64)
+        elif dt is None or dt is not bfloat16 and dt.kind == "b":
+            dt = _np.dtype(_np.int64)
+    return dt
+
+
+def can_cast(from_, to, casting="safe"):
+    return _np.can_cast(_dtype_of(from_), _dtype_of(to), casting)
+
+
+def diag_indices_from(arr):
+    a = _unwrap(arr)
+    return tuple(NDArray(i) for i in _diag_indices(a.shape[0], a.dim()))
+
+
+def tril_indices_from(arr, k=0):
+    a = _unwrap(arr)
+    ij = torch.tril_indices(a.shape[-2], a.shape[-1], k, device=a.device)
+    return NDArray(ij[0]), NDArray(ij[1])
+
+
+def triu_indices_from(arr, k=0):
+    a = _unwrap(arr)
+    ij = torch.triu_indices(a.shape[-2], a.shape[-1], k, device=a.device)
+    return NDArray(ij[0]), NDArray(ij[1])
+
+
+def _window(fn):
+    def window(M, dtype=None, **kwargs):  # noqa: N803 - numpy's name
+        return array(fn(M), dtype=dtype or _np.float32, **kwargs)
+    window.__name__ = window.__qualname__ = fn.__name__
+    return window
+
+
+blackman = _window(_np.blackman)
+hamming = _window(_np.hamming)
+hanning = _window(_np.hanning)
+
+
+def logspace(start, stop, num=50, endpoint=True, base=10.0, dtype=None,
+             axis=0, **kwargs):  # noqa: ARG001 - scalar bounds, axis 0
+    """``base ** linspace(start, stop)``, computed in ``dtype`` by
+    ``jnp.linspace``'s formula (jnp.logspace)."""
+    dev = _device_of(kwargs)
+    dt = normalize_dtype(dtype)
+    ct = _promote.inexact_dtype(dt)
+    lin = _lin(start, stop, num, endpoint, ct, dev)
+    return NDArray(torch.pow(torch.tensor(base, dtype=ct, device=dev),
+                             lin).to(dt))
+
+
+def geomspace(start, stop, num=50, endpoint=True, dtype=None, axis=0,
+              **kwargs):  # noqa: ARG001
+    """Geometric steps from ``start`` to ``stop`` (jnp.geomspace: the
+    sign of ``start`` times :func:`logspace` of the log10s)."""
+    dev = _device_of(kwargs)
+    dt = normalize_dtype(dtype)
+    ct = _promote.inexact_dtype(dt)
+    start = torch.as_tensor(start, dtype=ct, device=dev)
+    stop = torch.as_tensor(stop, dtype=ct, device=dev)
+    sign = torch.sign(start)
+    lin = _lin(torch.log10(start / sign), torch.log10(stop / sign), num,
+               endpoint, ct, dev)
+    return NDArray((sign * torch.pow(torch.tensor(10.0, dtype=ct,
+                                                  device=dev), lin)).to(dt))
+
+
+def _block_tensor(arrays):
+    """numpy's ``block`` over nested lists of tensors: the innermost lists
+    join along the last axis, each outer level along the one before."""
+    def depth(x):
+        return 1 + depth(x[0]) if isinstance(x, list) else 0
+
+    def leaves(x):
+        return [t for e in x for t in leaves(e)] if isinstance(x, list) \
+            else [x]
+
+    d = depth(arrays)
+    nd = builtins.max([d] + [t.dim() for t in leaves(arrays)])
+
+    def build(x, level):
+        if isinstance(x, list):
+            return torch.cat([build(e, level + 1) for e in x],
+                             dim=-(d - level))
+        return x.reshape((1,) * (nd - x.dim()) + tuple(x.shape))
+
+    return build(arrays, 0)
+
+
+def block(arrays):
+    """numpy's ``block``: arrays assembled from nested lists."""
+    def unwrap(x):
+        if isinstance(x, list):
+            return [unwrap(e) for e in x]
+        return _unwrap(x) if isinstance(x, NDArray) else torch.as_tensor(x)
+
+    flat = []
+
+    def collect(x):
+        if isinstance(x, list):
+            for e in x:
+                collect(e)
+        elif isinstance(x, NDArray):
+            flat.append(x)
+
+    collect(arrays)
+    return apply_op(lambda *_: _block_tensor(unwrap(arrays)), *flat)
+
+
+def _float_default_wrap(fn):
+    """``fn`` with the default float dtype where no dtype is given, by
+    keyword or by position (multiarray.py:578)."""
+    import inspect
+
+    params = list(inspect.signature(fn).parameters)
+    pos = params.index("dtype") if "dtype" in params else None
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if "dtype" not in kwargs and (pos is None or len(args) <= pos):
+            from ..numpy_extension import default_float_dtype
+
+            kwargs["dtype"] = default_float_dtype()
+        return fn(*args, **kwargs)
+
+    return wrapped
+
+
+for _name in ("eye", "identity", "linspace", "logspace", "geomspace",
+              "tri", "hanning", "hamming", "blackman"):
+    _g[_name] = _float_default_wrap(_g[_name])
+del _name
+
+__all__ += ["uint16", "uint32", "uint64", "bool", "NAN", "NaN", "NINF",
+            "PINF", "NZERO", "PZERO", "boolean_dtypes", "integer_dtypes",
+            "floating_dtypes", "numeric_dtypes", "row_stack", "empty",
+            "empty_like", "asarray", "ascontiguousarray", "frombuffer",
+            "genfromtxt", "copy", "astype", "shape", "ndim", "size",
+            "may_share_memory", "shares_memory", "set_printoptions",
+            "from_dlpack", "finfo", "iinfo", "promote_types", "result_type",
+            "can_cast", "diag_indices_from", "tril_indices_from",
+            "triu_indices_from", "blackman", "hamming", "hanning",
+            "logspace", "geomspace", "block"]

@@ -15,6 +15,8 @@ the data-dependent ``nonzero``, ``boolean_mask``, ``constraint_check``;
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as _np
 import torch
 import torch.nn.functional as F
@@ -124,12 +126,19 @@ def reset_np():
     _flags.update(dtype=False, array=False, shape=False)
 
 
+# thread-local overrides of "array" and "shape" by util.np_array and
+# util.np_shape scopes (numpy_extension/__init__.py:142)
+_np_tls = threading.local()
+
+
 def is_np_array():
-    return _flags["array"]
+    over = getattr(_np_tls, "array", None)
+    return _flags["array"] if over is None else over
 
 
 def is_np_shape():
-    return _flags["shape"]
+    over = getattr(_np_tls, "shape", None)
+    return _flags["shape"] if over is None else over
 
 
 def is_np_default_dtype():

@@ -5,8 +5,8 @@ against the CPU) both run.
 
 A case names its function (a registry op by its name, or
 ``"np.linalg.svd"``-style for the namespaces), its arguments (numpy
-arrays made from a seed by :func:`inputs`, named by :class:`A`, or plain
-values) and its kind: ``"det"`` (deterministic: the same inputs give the
+arrays made from a seed by :func:`inputs`, named by :class:`A`, or by
+:class:`S` in a sparse storage, or plain values) and its kind: ``"det"`` (deterministic: the same inputs give the
 same values), ``"sample"`` (a draw: shape, dtype and device are checked,
 and two draws after one seed must be equal) or ``"sample_inplace"`` (a
 draw into its argument). ``check`` says how two results of a
@@ -22,7 +22,7 @@ import dataclasses
 
 import numpy as onp
 
-__all__ = ["A", "Case", "CASES", "EARLIER", "inputs", "function_of",
+__all__ = ["A", "S", "Case", "CASES", "REST_CASES", "EARLIER", "inputs", "function_of",
            "materialize", "host_leaves"]
 
 #: the registry's names before the slice that brought this table
@@ -50,6 +50,14 @@ transpose trunc where
 class A:
     """An argument: the array of :func:`inputs` by this name."""
     name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class S:
+    """An argument: the array of :func:`inputs` by this name, in storage
+    ``stype`` (``tostype``)."""
+    name: str
+    stype: str
 
 
 @dataclasses.dataclass
@@ -120,6 +128,19 @@ def inputs(seed=0):
         q=u(1, 2, 24, 32), k=u(1, 2, 24, 32), v=u(1, 2, 24, 32),
     )
     d["x8"] = d["x2"] * 8
+    d["sparse"] = d["x2"] * d["mask"]
+    d["sparse"][[1, 3]] = 0
+    d["keep"] = onp.array([0, 1, 2], "int32")
+    d.update(
+        pick=onp.array([0, 1, 2, 3], "int32"), v5b=u(5),
+        mask5=onp.array([True, False, True, True, False]),
+        ci=onp.array([1, 0, 3], "int32"), cj=onp.array([2, 5, 1], "int32"),
+        zeros_in=onp.array([0, 0, 1.5, 0, 2, 0], f),
+        xp=onp.array([-1.0, -0.3, 0.2, 1.0], f),
+        v5sq=(3 * d["v5"] * d["v5"] - d["v5"] + 1).astype(f),
+        cubic=onp.array([1.0, -6.0, 11.0, -6.0], f),
+        bits=r.uniform(0, 1, (3, 10)) > 0.5,
+        bytes=r.randint(0, 256, (2, 3)).astype("uint8"))
     return d
 
 
@@ -447,6 +468,87 @@ CASES = [
     C("np.linalg.diagonal", (A("bmat"),)),
 ]
 
+def _double_sum(r):
+    return (r * 2).sum()
+
+
+def _halve(x):
+    return x * 0.5
+
+
+#: the names of ROADMAP queue 1 item 4's last group (slice 19): the rest of
+#: ``mx.np``, ``mx.nd.sparse`` and the new NDArray methods, one call each,
+#: deterministic; ``check="sorted"`` compares complex values sorted (the
+#: order of eigenvalues is the solver's)
+REST_CASES = [
+    C("np.partition", (A("x2"), 2)), C("np.argpartition", (A("x2"), 1),
+                                       dict(axis=0)),
+    C("np.lexsort", ([A("v5"), A("v5b")],)),
+    C("np.choose", (A("pick"), [A("v4"), A("vals4")]), dict(mode="wrap")),
+    C("np.compress", (A("mask5"), A("v5"))),
+    C("np.delete", (A("x2"), [0, 2]), dict(axis=1)),
+    C("np.insert", (A("v5"), [1, 3], 7.5)),
+    C("np.ravel_multi_index", ([A("ci"), A("cj")], (4, 6))),
+    C("np.indices", ((2, 3),)), C("np.unique_all", (A("gidx"),)),
+    C("np.trim_zeros", (A("zeros_in"),)),
+    C("np.select", ([A("mask")], [A("x2")]), dict(default=-1.0)),
+    C("np.array_equiv", (A("x2"), A("row"))),
+    C("np.resize", (A("v5"), (3, 4))),
+    C("np.fill_diagonal", (A("sq"), 2.0), dict(inplace=False)),
+    C("np.convolve", (A("v5"), A("v4")), dict(mode="same")),
+    C("np.correlate", (A("v5"), A("v4")), dict(mode="full")),
+    C("np.gradient", (A("x2"), 0.5)), C("np.interp", (
+        A("x2"), A("xp"), A("v4"))),
+    C("np.polyval", (A("v4"), A("v5"))),
+    C("np.polyfit", (A("v5"), A("v5sq"), 2)),
+    C("np.histogram", (A("x2"),), dict(bins=4)),
+    C("np.histogram2d", (A("v5"), A("v5sq")), dict(bins=3)),
+    C("np.histogramdd", (A("x2"),), dict(bins=2)),
+    C("np.cumulative_sum", (A("x2"),), dict(axis=1, include_initial=True)),
+    C("np.apply_along_axis", (_double_sum, 1, A("x2"))),
+    C("np.piecewise", (A("v5"), [A("mask5")], [_halve, 3.0])),
+    C("np.sort_complex", (A("v5"),)),
+    C("np.roots", (A("cubic"),), check="sorted"),
+    C("np.packbits", (A("bits"),), dict(axis=1)),
+    C("np.unpackbits", (A("bytes"),), dict(count=10)),
+    C("np.real_if_close", (A("v5"),)),
+    C("np.logspace", (0.0, 2.0, 5)), C("np.geomspace", (1.0, 50.0, 4)),
+    C("np.empty", ((2, 3),)), C("np.empty_like", (A("x2"),)),
+    C("np.asarray", (A("v5"),)), C("np.copy", (A("x2"),)),
+    C("np.astype", (A("gidx"), "float32")),
+    C("np.row_stack", ([A("v5"), A("v5")],)),
+    C("np.block", ([A("v4"), A("v5")],)),
+    C("np.hanning", (6,)), C("np.hamming", (5,)), C("np.blackman", (7,)),
+    C("np.diag_indices_from", (A("sq"),)),
+    C("np.tril_indices_from", (A("x2"),), dict(k=1)),
+    C("np.triu_indices_from", (A("sq"),)),
+    C("nd.sparse.cast_storage", (A("sparse"), "csr")),
+    C("nd.sparse.csr_matrix", (A("sparse"),)),
+    C("nd.sparse.row_sparse_array", (A("sparse"),)),
+    C("nd.sparse.dot", (S("sparse", "csr"), A("w_fc")),
+      dict(transpose_b=True)),
+    C("nd.sparse.dot", (S("sparse", "csr"), A("y2")),
+      dict(transpose_a=True)),
+    C("nd.sparse.dot", (S("sparse", "row_sparse"), A("v5"))),
+    C("nd.sparse.retain", (S("sparse", "row_sparse"), A("keep"))),
+    C("nd.sparse.add", (S("sparse", "row_sparse"), S("x2", "row_sparse"))),
+    C("nd.sparse.subtract", (S("x2", "row_sparse"),
+                             S("sparse", "row_sparse"))),
+    C("nd.sparse.multiply", (S("sparse", "csr"), A("x2"))),
+    C("NDArray.norm", (A("x2"),), dict(ord=1, axis=0)),
+    C("NDArray.split", (A("x2"), 2)),
+    C("NDArray.split", (A("x2"),), dict(num_outputs=5)),
+    C("NDArray.take", (A("x2"), A("gidx")), dict(axis=1)),
+    C("NDArray.tostype", (A("sparse"), "row_sparse")),
+]
+# the sparse storage ops (ndarray/sparse.py)
+CASES += [
+    C("cast_storage", (A("sparse"), "csr")),
+    C("cast_storage", (A("sparse"), "row_sparse")),
+    C("cast_storage", (S("sparse", "csr"), "default")),
+    C("_sparse_retain", (S("sparse", "row_sparse"), A("keep"))),
+]
+
 # the _linalg_* twins of la_op.cc
 CASES += [dataclasses.replace(c, key="_" + c.key) for c in CASES
           if c.key.startswith("linalg_")]
@@ -503,8 +605,12 @@ del _ns, _name, _args, _kw
 
 def function_of(mx, key):
     """The function a case calls in ``mx`` (either package): a registry op
-    as ``mx.ndarray.register.make_eager`` wraps it, or the namespace
-    function."""
+    as ``mx.ndarray.register.make_eager`` wraps it, the namespace
+    function, or for ``"NDArray.<name>"`` the method of the first
+    argument."""
+    if key.startswith("NDArray."):
+        method = key.split(".", 1)[1]
+        return lambda self, *a, **k: getattr(self, method)(*a, **k)
     if "." not in key:
         import importlib
 
@@ -524,6 +630,8 @@ def materialize(case, data, make):
     def fill(v):
         if isinstance(v, A):
             return make(data[v.name])
+        if isinstance(v, S):
+            return make(data[v.name]).tostype(v.stype)
         if isinstance(v, list):
             return [fill(x) for x in v]
         return v

@@ -65,7 +65,8 @@ def _over_last(x, axis, keepdims, fn):
     ax = np_axes(x.dim(), axis)
     rest = [d for d in range(x.dim()) if d not in ax]
     n = math.prod(x.shape[d] for d in ax)
-    t = x.permute(*rest, *ax).reshape(*[x.shape[d] for d in rest], n)
+    t = x.permute(*rest, *ax).reshape(*[x.shape[d] for d in rest], n) \
+        if x.dim() else x.reshape(1)
     out = fn(t)
     if keepdims:
         out = out.reshape([1 if d in ax else x.shape[d]

@@ -39,8 +39,17 @@ A rule that reads its update count computes ``beta^t`` from ``hyper["t"]``
 with libm's ``powf``, in f32. The layer-wise rules (LAMB, LANS, LARS) keep
 their trust ratios on the device (``torch.where``), so a step reads no
 norm on the host. Beside them: the bookkeeping a checkpoint carries
-(``bookkeeping_state``) and the kvstore-side ``Updater``. Row-sparse
-gradients wait for ``ndarray/sparse.py``.
+(``bookkeeping_state``) and the kvstore-side ``Updater``.
+
+A row-sparse gradient (ndarray/sparse.py:RowSparseNDArray, what the Trainer
+gives a ``grad_stype='row_sparse'`` parameter) takes the lazy update
+(``_update_row_sparse``, optimizer.py:403): the stored rows of the weight
+and of its states are gathered, the same ``_rule`` runs on them, and only
+rows whose gradient is not all zero are written back; every other row,
+and its state, keeps its bits. ``lazy_update=False``, and the rules whose
+update couples rows (LAMB, LANS, LARS: ``_row_local = False``), densify the
+gradient and take the dense update; SGLD densifies (its noise reaches every
+row). It is plain PyTorch on every device, as the JAX package's is XLA.
 """
 from __future__ import annotations
 
@@ -92,6 +101,31 @@ def _s(x, like=None):
     if like is not None and like.dtype in _LOW_PRECISION:
         return torch.tensor(v, dtype=like.dtype).item()
     return v
+
+
+def _map_state(fn, state):
+    """``fn`` over every tensor of a state (None, a tensor, or tuples of
+    them), in the same nesting."""
+    if state is None:
+        return None
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    return type(state)(_map_state(fn, s) for s in state)
+
+
+def _write_rows(state, rows, new_rows, live):
+    """Rows ``rows`` of each state tensor take ``new_rows`` where ``live``,
+    as ``s.at[rows].add(where(live, new - s[rows], 0))`` does."""
+    if state is None:
+        return
+    if isinstance(state, torch.Tensor):
+        old = state.index_select(0, rows)
+        mask = live.reshape((-1,) + (1,) * (old.dim() - 1))
+        delta = torch.where(mask, new_rows - old, 0).to(state.dtype)
+        state.index_copy_(0, rows, old + delta)
+        return
+    for s, ns in zip(state, new_rows):
+        _write_rows(s, rows, ns, live)
 
 
 def _write_state(state, new_state):
@@ -275,13 +309,55 @@ class Optimizer:
             total = total + torch.sum(g32 * g32)
         return total
 
+    # -- the lazy row-sparse update ----------------------------------------
+    #: False for rules whose update couples rows (layer-wise norms): they
+    #: cannot run on a gathered subset of rows and densify instead
+    _row_local = True
+
+    def _update_row_sparse(self, index, weight, grad, state):
+        """The lazy update of ``weight`` by the RowSparseNDArray ``grad``
+        (optimizer.py:403, :358): its rows of the weight and of every state
+        tensor are gathered, rescaled and clipped gradient rows go through
+        the class ``_rule``, and each row whose gradient is not all zero is
+        written back as ``w + (new - w)``; all other rows keep their bits.
+        The rows are exactly the stored ones (no padding)."""
+        if not self.lazy_update or not type(self)._row_local:
+            self.update(index, weight, grad.todense()._data, state)
+            return
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        hyper = dict(self._hyper())
+        hyper["rescale_grad"] = self.rescale_grad
+        hyper["t"] = self._index_update_count[index]
+        rows = grad._idx.to(device=weight.device, dtype=torch.int64)
+        with torch.no_grad():
+            g = grad._values.to(device=weight.device, dtype=weight.dtype)
+            g = g * _s(self.rescale_grad, g)
+            if self.clip_gradient is not None:
+                c = _s(self.clip_gradient, g)
+                g = g.clamp(-c, c)
+            w_rows = weight.index_select(0, rows)
+            s_rows = _map_state(lambda t: t.index_select(0, rows), state)
+            nw_rows, ns_rows = type(self)._rule(w_rows, g, s_rows, lr, wd,
+                                                hyper)
+            # a touched row whose gradient is exactly zero is no update (a
+            # recorded forward that was never backpropagated)
+            live = g.reshape(g.shape[0], -1).ne(0).any(dim=1)
+            _write_rows(weight, rows, nw_rows, live)
+            _write_rows(state, rows, ns_rows, live)
+
     # -- public update -----------------------------------------------------
     def update(self, index, weight, grad, state):
         """Single-parameter update, in place; list inputs take the fused
-        bucketed step."""
+        bucketed step, a RowSparseNDArray gradient the lazy update."""
         if isinstance(index, (list, tuple)):
             self._update_list(index, weight, grad, state,
                               multi_precision=False)
+            return
+        from ..ndarray.sparse import RowSparseNDArray
+
+        if isinstance(grad, RowSparseNDArray):
+            self._update_row_sparse(index, weight, grad, state)
             return
         self._update_count(index)
         lr = self._get_lr(index)
@@ -385,7 +461,22 @@ class Optimizer:
         call into a vector of bucket sums, read on the host once; then the
         device part (:meth:`_fused_device`) gives each bucket one
         kernels/opt.py:bucket_step call: the CUDA kernels for CUDA tensors,
-        ``_fused_sqnorm`` and ``_fused_param_step`` for CPU tensors."""
+        ``_fused_sqnorm`` and ``_fused_param_step`` for CPU tensors.
+        Row-sparse gradients are peeled off first, each to its own update
+        (optimizer.py:493)."""
+        from ..ndarray.sparse import RowSparseNDArray
+
+        if any(isinstance(g, RowSparseNDArray) for g in grad):
+            dense = []
+            for i, w, g, s in zip(index, weight, grad, state):
+                if not isinstance(g, RowSparseNDArray):
+                    dense.append((i, w, g, s))
+                elif multi_precision:
+                    self.update_multi_precision(i, w, g, s)
+                else:
+                    self.update(i, w, g, s)
+            index, weight, grad, state = (
+                [d[k] for d in dense] for k in range(4))
         steps = self._resolve(index)
         buckets = {}
         for key, w, g, s, step in zip(
@@ -408,7 +499,14 @@ class Optimizer:
             self.update(index, weight, grad, state)
             return
         master, inner = state
-        self.update(index, master, grad.detach().float(), inner)
+        from ..ndarray.sparse import RowSparseNDArray
+
+        if isinstance(grad, RowSparseNDArray):
+            grad32 = RowSparseNDArray(grad._values.float(), grad._idx,
+                                      grad.shape)
+        else:
+            grad32 = grad.detach().float()
+        self.update(index, master, grad32, inner)
         with torch.no_grad():
             weight.copy_(master)
 
@@ -598,6 +696,10 @@ class SGLD(Optimizer):
             self._update_list(index, weight, grad, state,
                               multi_precision=False)
             return
+        from ..ndarray.sparse import RowSparseNDArray
+
+        if isinstance(grad, RowSparseNDArray):
+            grad = grad.todense()._data   # the noise reaches every row
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         with torch.no_grad():
@@ -846,6 +948,8 @@ class LAMB(Optimizer):
     Adam's step scaled per tensor by ``||w|| / ||r||``, kept on the
     device."""
 
+    _row_local = False  # the layer-wise trust ratio needs every row
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-6, lower_bound=None, upper_bound=None,
                  bias_correction=True, **kwargs):
@@ -910,6 +1014,8 @@ class LANS(LAMB):
 class LARS(Optimizer):
     """Layer-wise adaptive rate scaling (optimizer.py:LARS), the trust
     ratio kept on the device."""
+
+    _row_local = False  # the layer-wise norms need every row
 
     def __init__(self, learning_rate=0.1, momentum=0.9, eta=0.001,
                  epsilon=1e-8, **kwargs):

@@ -436,8 +436,54 @@ def test_every_generated_np_name_matches_the_jax_package():
         "matrix_transpose": [((T3,), {})],
         "floor_divide": [((G, F), {})],
     })
+    W = onp.array([3.0, 1.0, 2.0, 5.0, 4.0, 2.0, 0.5], "f")
+    K = onp.array([3, 1, 2, 5, 4, 2, 7], "int32")
+    calls.update({
+        "apply_along_axis": [((lambda r: (r * 2).sum(), 1, F), {})],
+        "argpartition": [((W, 3), {}), ((K, 2), {})],
+        "partition": [((W, 2), {}), ((F, 1), {"axis": 0})],
+        "array_equiv": [((W, W), {}), ((F[:1], F), {})],
+        "choose": [((onp.array([0, 4, -1], "int32"), [W[:3], W[3:6]]),
+                    {"mode": "wrap"})],
+        "compress": [((W > 2, W), {})],
+        "convolve": [((W, W[:3]), {}), ((K, K[:3]), {"mode": "same"})],
+        "correlate": [((W, W[:3]), {})],
+        "cumulative_sum": [((K,), {}), ((F,), {"axis": 1})],
+        "delete": [((W, 2), {}), ((W, W > 2), {})],
+        "fill_diagonal": [((F, 7.5), {"inplace": False})],
+        "gradient": [((F, 0.5), {"axis": 1})],
+        "histogram": [((F.ravel(),), {"bins": 5})],
+        "histogram2d": [((W, W[::-1].copy()), {"bins": 3})],
+        "indices": [(((2, 3),), {})],
+        "insert": [((W, 2, 9.0), {})],
+        "interp": [((W, onp.array([0.0, 1.5, 3.0, 4.5], "f"),
+                     onp.array([1.0, -1.0, 2.0, 0.0], "f")), {})],
+        "lexsort": [(([W, K],), {})],
+        "packbits": [((onp.array([1, 0, 1, 1, 0, 0, 0, 1, 1], "uint8"),),
+                      {})],
+        "unpackbits": [((onp.array([[177, 3], [0, 255]], "uint8"),),
+                        {"axis": 1})],
+        "piecewise": [((W, [W < 2, W > 3], [lambda x: x * 2, 7.0, 1.0]),
+                       {})],
+        "polyfit": [((onp.array([0.0, 1.0], "f"),
+                      onp.array([1.0, 3.0], "f"), 1), {})],
+        "polyval": [((onp.array([1.0, -2.0, 0.5], "f"), W), {})],
+        "ravel_multi_index": [(((onp.array([1, 0, 3], "int32"),
+                                 onp.array([2, 5, 1], "int32")), (4, 6)),
+                               {"mode": "clip"})],
+        "resize": [((W, (3, 4)), {})],
+        "roots": [((onp.array([1.0, -2.0], "f"),), {})],
+        "select": [(([W < 2, W > 3], [W, W * 2]), {})],
+        "sort_complex": [((W,), {})],
+        "trim_zeros": [((onp.array([0, 0, 1.5, 0, 2, 0], "f"),), {})],
+        "unique_all": [((K,), {})],
+    })
+    # held in test_torch_np_rest.py instead: the JAX package lacks
+    # real_if_close (jnp has none), and its histogramdd returns its edges
+    # as one NDArray that cannot be read back
+    elsewhere = {"real_if_close", "histogramdd"}
     failures, compared, absent = {}, [], []
-    for name in sorted(tmulti.GENERATED):
+    for name in sorted(set(tmulti.GENERATED) - elsewhere):
         if not hasattr(jmx.np, name):
             absent.append(name)
             continue

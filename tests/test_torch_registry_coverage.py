@@ -34,10 +34,6 @@ DEFERRED = {
     "mx.np, *_scalar, mp_*/multi_*/preloaded_* updates, ...)": dict(
         modules=("mxnet_tpu.ops.aliases", "jax.numpy", "jax.numpy.linalg",
                  "mxnet_tpu.numpy.multiarray")),
-    "queue 1 item 4: ndarray/sparse.py": dict(
-        modules=("mxnet_tpu.ndarray.sparse",),
-        names=("sparse", "BaseSparseNDArray", "CSRNDArray",
-               "RowSparseNDArray")),
     "queue 1 item 5: the image ops": dict(
         modules=("mxnet_tpu.image.image",), names=("image",)),
     "queue 1 item 8: contrib/quantization.py": dict(
@@ -141,8 +137,11 @@ def test_sweep_runs_on_cpu_ndarrays():
 
 
 def _ndarrays(out):
+    """The NDArrays of a result: a sparse array's are its stored ones."""
     if isinstance(out, (list, tuple)):
         return [x for o in out for x in _ndarrays(o)]
+    if isinstance(out, mt.nd.BaseSparseNDArray):
+        return [out.data, out.indices]
     return [out] if isinstance(out, mt.NDArray) else []
 
 
