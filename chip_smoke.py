@@ -282,14 +282,40 @@ failure exits non-zero, nothing is caught and carried on:
      indication. (c) every case of ``_sweep_cases.REST_CASES`` (the rest
      of ``mx.np``, ``mx.nd.sparse``, the new NDArray methods) on the card
      against the CPU, as 22c: the number swept and failed (0).
- 24. a ``timing`` line (profiler windows taken, windows that came back
+ 24. data-parallel training across processes, a main path (BASELINE
+     config #3), each part launched through ``mxnet_tpu_torch/tools/
+     launch.py``, a rank's failure the phase's: (a) two ranks of
+     ``tools/distributed_train.py --model resnet50_v1`` on the one card
+     over gloo (NCCL refuses two ranks on a card): ResNet-50 v1 as phase 8
+     builds it, 128 images a rank (global 256), 3 steps through
+     ``Trainer(kvstore='tpu_dist')``, the counts zeroed in each rank just
+     before its steps and read just after (K1 = K2 = 53 a step, K3 = 2
+     a step, one a bucket); K1 and K2 against their plain versions at
+     the 53 sites at a rank's batch of 128 (bf16 NHWC, phase 3's checks
+     by ``bn_case``); every trainable parameter and optimizer state bit
+     for bit equal across the ranks, and the parameters within phase 8's
+     measure (plus one bf16 ulp for a bf16 weight) of this process taking
+     the same two half-batches (``grad_req='add'`` over two backward
+     passes, then ``trainer.step(256)``); step ms, the pushpull's ms and
+     bytes a step (``collective_*``), the gradient list's bucketed sum
+     alone after a barrier (ms), the backend. (b) NCCL at world size
+     1: the store's bucketed reduce over (a)'s gradient list gives its
+     input back bit for bit; ms a call. (c) the example at its defaults
+     (two ranks, the MLP, 5 steps): ranks bit for bit equal, rank 0's
+     loss over its batches lower after training; its compressed mode
+     (2-bit, threshold 0.5, two rounds): each pulled sum equals the sum
+     of the ranks' dequantized values. (d) 2-bit and 1-bit compression
+     of a 2^24-element f32 gradient on the card: packed bytes and
+     residuals bit for bit the CPU's over two rounds.
+ 25. a ``timing`` line (profiler windows taken, windows that came back
      without device events, and times taken with CUDA events instead
      where the profiler recorded none), a ``{"kernels": [...]}`` line
      (with each kernel's launches on the TrainStep paths, on the resumed
      steps, on the LAMB steps, in the ring, on the vision zoo's steps and
-     in the data phase's runs, a row for each hop kernel and one for K6's
-     ring; K3 with each training path's sweep and K1, K2 with
-     MobileNetV2's and ResNet-18's CIFAR sites in ``per_path``), the card
+     in the data phase's runs and in phase 24's ranks, a row for each hop
+     kernel and one for K6's ring; K3 with each training path's sweep and
+     K1, K2 with MobileNetV2's and ResNet-18's CIFAR sites and phase 24's
+     launches and errors in ``per_path``), the card
      line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -5389,6 +5415,345 @@ def phase_sparse(torch, mt):
     return dict(mf=mf_run, dot=dot, sweep=sweep, seconds=seconds)
 
 
+# -- data-parallel training across processes (phase 24) ----------------------
+
+DIST_BATCH = 128            # a rank's share of config #3's global 256
+DIST_STEPS = 3
+DIST_COMPRESS_N = 1 << 24   # f32 elements of 24d's gradient
+# K3 launches a rank a step: one a bucket, bf16 weights with f32 masters
+# and f32 BatchNorm parameters, each well under a launch's 384 tensors
+DIST_LADDER_BUCKETS = 2
+_RANK_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+              "MASTER_ADDR", "MASTER_PORT")
+
+
+def dist_launch(n, args, out, timeout=240):
+    """``tools/distributed_train.py`` with ``args`` as ``n`` ranks through
+    the port's launcher, each writing into ``out``; a rank's failure fails
+    the phase. Returns the seconds the launch took and its output; each
+    rank's ``wall`` times in its record become seconds from the launch."""
+    here = Path(__file__).resolve().parent
+    out.mkdir(parents=True, exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if k not in _RANK_VARS}
+    env["PYTHONPATH"] = str(here) + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(n), "--timeout", str(timeout), sys.executable, "-m",
+           "mxnet_tpu_torch.tools.distributed_train", "--out", str(out),
+           *args]
+    t0, wall = time.perf_counter(), time.time()
+    proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                          text=True, timeout=timeout + 60)
+    check(proc.returncode == 0,
+          f"{n} ranks of distributed_train {args}: exit "
+          f"{proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    for r in range(n):
+        path = out / f"rank{r}.json"
+        rec = json.loads(path.read_text())
+        rec["seconds_from_launch"] = {k: v - wall
+                                      for k, v in rec["wall"].items()}
+        path.write_text(json.dumps(rec))
+    return time.perf_counter() - t0, proc.stdout
+
+
+def _dist_results(torch, out, n, files="params"):
+    recs = [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(n)]
+    states = [torch.load(out / f"{files}_rank{r}.pt") for r in range(n)]
+    return recs, states
+
+
+def _bitwise_across(torch, states, label):
+    """Fail unless every rank ended with the same tensors, bit for bit."""
+    for r, st in enumerate(states[1:], 1):
+        check(st.keys() == states[0].keys()
+              and all(torch.equal(st[k], states[0][k]) for k in st),
+              f"{label}: rank {r} differs from rank 0 in "
+              f"{[k for k in st if not torch.equal(st[k], states[0][k])]}")
+
+
+def dist_reference(torch, mt, batch, steps, narrow):
+    """One process taking the ranks' two half-batches a step:
+    ``grad_req='add'`` over two backward passes, then ``trainer.step(2 x
+    batch)``. Each rank keeps BatchNorm's running statistics of its own
+    (nothing reduces them, as in the JAX package), and BatchNorm's
+    training forward shifts its sums by them, so each half's forward here
+    runs with the statistics its rank would hold. Returns the trained
+    state (``distributed_train.trained_state``), the largest gradient of
+    the last step and its gradients (the trainable list, on the card)."""
+    from mxnet_tpu_torch.tools import distributed_train as dtr
+    from mxnet_tpu_torch.tools import train_resnet
+
+    kw = dtr.resnet_kwargs(narrow)
+    dev = mt.gpu(0)
+    net, trainer, _ = train_resnet.build_resnet_train(batch=batch,
+                                                      device=dev, **kw)
+    halves = [train_resnet.synthetic_batch(
+        batch, "NHWC", kw.get("image", 224), kw.get("classes", 1000), 1 + r,
+        dev) for r in range(2)]
+    with mt.autograd.pause(), torch.no_grad():
+        net(halves[0][0])   # the deferred shapes; predict mode moves nothing
+    params = net.collect_params().values()
+    trainable = [p for p in params if p.grad_req != "null"]
+    running = [p._tensor() for p in params if p.grad_req == "null"]
+    held = [[t.detach().clone() for t in running] for _ in range(2)]
+    for p in trainable:
+        p.grad_req = "add"
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    for _ in range(steps):
+        trainer.zero_grad()
+        for (x, y), mine in zip(halves, held):
+            with torch.no_grad():
+                for t, h in zip(running, mine):
+                    t.copy_(h)
+            with mt.autograd.record():
+                loss = loss_fn(net(x).float(), y)
+            mt.autograd.backward(loss)
+            with torch.no_grad():
+                for t, h in zip(running, mine):
+                    h.copy_(t)
+        trainer.step(2 * batch)
+    grads = [p.grad() for p in trainable]
+    big = max(g.abs().max().item() for g in grads)
+    return dtr.trained_state(net, trainer), big, grads
+
+
+def dist_bn_sites(torch, batch):
+    """K1 and K2 against their plain versions on the card at the 53
+    BatchNorm sites of ResNet-50 at a rank's ``batch`` (bf16 NHWC, the
+    shapes 24a's ranks run; phase 3 checks them at batch 256), each site
+    by :func:`bn_case` (its tolerances, its bit-for-bit repeat, the
+    kernels a captured call launched); the largest errors."""
+    from mxnet_tpu_torch.kernels import norm as knorm
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(79)
+    rows = []
+    for shape, sites in resnet50_bn_sites(batch):
+        label = "resnet50_b{}_{}x{}x{}".format(*shape)
+        row, ops = bn_case(torch, knorm, gen, dev, label, shape, -1,
+                           torch.bfloat16, "f32", False, 0)
+        row["sites"] = sites
+        rows.append(row)
+        del ops
+        torch.cuda.empty_cache()
+    check(sum(r["sites"] for r in rows) == 53, "ResNet-50 has 53 BN sites")
+    return dict(
+        batch=batch, sites=53, distinct_shapes=len(rows),
+        fwd_max_abs_err=max(r["out_max_abs_err"] for r in rows),
+        bwd_max_abs_err=max(r["dx_max_abs_err"] for r in rows),
+        stats_max_rel_err=max(r["stats_max_rel_err"] for r in rows),
+        regimes=sorted({r["regime"]["fwd"] for r in rows}
+                       | {r["regime"]["bwd"] for r in rows}))
+
+
+def phase_dist_resnet(torch, mt, out, narrow=False, batch=DIST_BATCH,
+                      steps=DIST_STEPS):
+    """24a: config #3, two ranks over gloo on the one card (module note).
+    Returns the ranks' figures, the gates' measures and the reference's
+    gradients (for 24b)."""
+    gc_collect(torch)
+    seconds, _ = dist_launch(
+        2, ["--model", "resnet50_v1", "--batch", str(batch), "--steps",
+            str(steps)] + (["--narrow"] if narrow else []), out)
+    recs, states = _dist_results(torch, out, 2)
+    check(all(rec["backend"] == "gloo" for rec in recs),
+          f"24a backends {[rec['backend'] for rec in recs]}, want gloo "
+          f"(two ranks, one card)")
+    for rec in recs:
+        want = rec["bn_layers"] * steps
+        got = rec["launches"]
+        check(got["bn_train_fwd"] == got["bn_train_bwd"] == want
+              and got["opt_ladder"] == DIST_LADDER_BUCKETS * steps,
+              f"24a rank {rec['rank']}: launches {got}, want K1 = K2 = "
+              f"{want} and K3 = {DIST_LADDER_BUCKETS * steps}")
+        check(all(math.isfinite(v) for v in rec["losses"]),
+              f"24a rank {rec['rank']}: losses {rec['losses']}")
+    _bitwise_across(torch, states, "24a")
+    bn = dist_bn_sites(torch, batch)
+    ref, big, grads = dist_reference(torch, mt, batch, steps, narrow)
+    # phase 8's measure: a parameter's error over 1e-5 of its largest
+    # value plus 0.1 of the step the largest gradient takes; a bf16 weight
+    # may round its master the other way, one bf16 ulp (2^-7 of it)
+    floor = 0.1 * RESNET_LR * big / (2 * batch)
+    worst = {}
+    for k, want in ref.items():
+        a, b = states[0][k].float(), want.float()
+        tol = 1e-5 * b.abs().max().item() + floor
+        if want.dtype == torch.bfloat16:
+            tol = tol + b.abs() * 2.0 ** -7
+        worst[k] = ((a - b).abs() / tol).max().item()
+    params = {k: v for k, v in worst.items() if not k.startswith("state")}
+    check(max(params.values()) <= 1.0,
+          f"24a: parameters against one process over two half-batches, "
+          f"the 3 worst over tolerance "
+          f"{sorted((v, k) for k, v in params.items())[-3:]}")
+    per_rank = []
+    for rec in recs:
+        pp = rec["collectives"].get("pushpull", {})
+        per_rank.append(dict(
+            rank=rec["rank"], step_ms=rec["step_ms"],
+            step_ms_p50=sorted(rec["step_ms"])[len(rec["step_ms"]) // 2],
+            pushpull_ms_per_step=1e3 * pp.get("seconds", 0.0) / steps,
+            pushpull_bytes_per_step=pp.get("bytes", 0.0) / steps,
+            pushpull_calls=pp.get("calls", 0),
+            allreduce_alone_ms=rec["allreduce_ms"],
+            allreduce_alone_ms_p50=sorted(rec["allreduce_ms"])[1],
+            launches=rec["launches"],
+            losses=rec["losses"],
+            seconds_from_launch=rec["seconds_from_launch"]))
+    return dict(
+        ranks=per_rank, backend=recs[0]["backend"], seconds=seconds,
+        global_batch=2 * batch, steps=steps, bn_layers=recs[0]["bn_layers"],
+        bn=bn,
+        params_worst_over_tol=max(params.values()),
+        states_worst_over_tol=max(v for k, v in worst.items()
+                                  if k.startswith("state")),
+        tensors_bitwise_across_ranks=len(states[0])), grads
+
+
+def phase_dist_nccl(torch, mt, tensors):
+    """24b: NCCL at world size 1: the store's bucketed reduce over
+    ``tensors`` (the ranks' gradient list) gives back its input bit for
+    bit; ms a call."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.kvstore import tpu_dist
+
+    backend = tpu_dist.choose_backend(1, torch.cuda.device_count())
+    check("nccl" in backend, f"24b: one rank on a card took {backend}")
+    # port 0: the store binds a free port itself
+    store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True)
+    dist.init_process_group(backend, store=store, world_size=1, rank=0)
+    try:
+        kv = mt.kvstore.create("tpu_dist")
+        got = kv.allreduce_flat(tensors)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, tensors)),
+              "24b: NCCL's sum over one rank is not its input")
+        ms = _p50_ms(torch, lambda _: kv.allreduce_flat(tensors))
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        return dict(backend=kv.backend, ms=ms, bytes=nbytes,
+                    tensors=len(tensors),
+                    dtypes=sorted({str(t.dtype) for t in tensors}))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dequantized_sum(torch, ranks):
+    """Each round's sum over ``ranks`` of what the compressed example
+    pushes, quantized and dequantized on the CPU."""
+    import numpy as onp
+
+    from mxnet_tpu_torch.kvstore.gradient_compression import \
+        GradientCompression
+
+    want = [torch.zeros(6, 5), torch.zeros(6, 5)]
+    for r in range(ranks):
+        rs = onp.random.RandomState(100 + r)
+        gc = GradientCompression(type="2bit", threshold=0.5)
+        for i in range(2):
+            g = torch.from_numpy(rs.uniform(-1.2, 1.2, (6, 5)).astype("f"))
+            want[i] += gc.compress_pipeline("w:0", g)
+    return want
+
+
+def phase_dist_example(torch, out):
+    """24c: the example at its defaults and its compressed mode, each two
+    ranks over gloo on the card, the two jobs at once."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(dist_launch, 2, args, out / name)
+                for args, name in (([], "example"),
+                                   (["--compress"], "compress"))]
+        (seconds, _), (c_seconds, _) = [job.result() for job in jobs]
+    recs, states = _dist_results(torch, out / "example", 2)
+    _bitwise_across(torch, states, "24c")
+    seen = recs[0]["seen_loss"]
+    check(seen["after"] < seen["before"],
+          f"24c: rank 0's loss over its batches did not fall: {seen}")
+    pulled = [torch.load(out / "compress" / f"kv_rank{r}.pt")
+              for r in range(2)]
+    want = _dequantized_sum(torch, 2)
+    for r, got in enumerate(pulled):
+        for i, key in enumerate(("round1", "round2")):
+            check(torch.equal(got[key], want[i]),
+                  f"24c: rank {r}'s {key} is not the sum of the ranks' "
+                  f"dequantized values")
+    return dict(seconds=seconds, compressed_seconds=c_seconds,
+                backend=recs[0]["backend"], losses=recs[0]["losses"],
+                seen_loss=seen,
+                seconds_from_launch=[rec["seconds_from_launch"]
+                                     for rec in recs])
+
+
+def phase_dist_compression(torch, n=DIST_COMPRESS_N):
+    """24d: 2-bit and 1-bit compression of an ``n``-element f32 gradient on
+    the card against the CPU, two rounds (the residual fed back): packed
+    bytes and residuals bit for bit; the card's ms a compress_pipeline."""
+    from mxnet_tpu_torch.kvstore.gradient_compression import \
+        GradientCompression
+
+    gen = torch.Generator().manual_seed(24)
+    grads = [torch.randn(n, generator=gen) * 0.6 for _ in range(2)]
+    out = {}
+    for kind in ("2bit", "1bit"):
+        cpu = GradientCompression(type=kind, threshold=0.5)
+        card = GradientCompression(type=kind, threshold=0.5)
+        for g in grads:
+            packed = cpu.compress("g", g)
+            packed_card = card.compress("g", g.cuda())
+            check(torch.equal(packed, packed_card.cpu())
+                  and torch.equal(cpu._residuals["g"],
+                                  card._residuals["g"].cpu()),
+                  f"24d: {kind} on the card differs from the CPU")
+        g = grads[0].cuda()
+        out[kind] = dict(
+            packed_bytes=packed.numel(),
+            ms=_p50_ms(torch, lambda _: card.compress_pipeline("t", g)))
+    return out
+
+
+def phase_distributed(torch, mt, narrow=False, batch=DIST_BATCH,
+                      steps=DIST_STEPS):
+    """Phase 24 (module note): 24a, 24b, 24c, 24d."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        tmp = Path(tmp)
+        resnet, grads = phase_dist_resnet(torch, mt, tmp / "resnet",
+                                          narrow, batch, steps)
+        nccl = phase_dist_nccl(torch, mt, grads)
+        del grads
+        gc_collect(torch)
+        example = phase_dist_example(torch, tmp)
+    compression = phase_dist_compression(torch)
+    seconds = time.perf_counter() - t0
+    ranks = resnet["ranks"]
+    say(f"distributed: config #3, {len(ranks)} ranks over "
+        f"{resnet['backend']} on one card, global batch "
+        f"{resnet['global_batch']}: step p50 "
+        f"{[round(r['step_ms_p50'], 2) for r in ranks]} ms, pushpull "
+        f"{[round(r['pushpull_ms_per_step'], 2) for r in ranks]} ms and "
+        f"{ranks[0]['pushpull_bytes_per_step'] / 1e6:.1f} MB a step (the "
+        f"bucketed sum alone after a barrier "
+        f"{[round(r['allreduce_alone_ms_p50'], 2) for r in ranks]} ms), "
+        f"K1/K2/K3 "
+        f"{[tuple(r['launches'].values()) for r in ranks]} a rank; "
+        f"K1/K2 at the 53 sites at batch {resnet['bn']['batch']}: max err "
+        f"{resnet['bn']['fwd_max_abs_err']:.3g}/"
+        f"{resnet['bn']['bwd_max_abs_err']:.3g}; parameters {resnet['params_worst_over_tol']:.3g} of phase 8's "
+        f"tolerance from one process; NCCL at world size 1 "
+        f"{nccl['ms']:.3f} ms over {nccl['bytes'] / 1e6:.1f} MB; example "
+        f"{example['seen_loss']}; compression 2-bit "
+        f"{compression['2bit']['ms']:.3f} ms, 1-bit "
+        f"{compression['1bit']['ms']:.3f} ms over 2^24 f32; phase "
+        f"{seconds:.1f} s; card: {card_line()}")
+    out = dict(resnet=resnet, nccl=nccl, example=example,
+               compression=compression, seconds=seconds)
+    say("distributed " + json.dumps(out))
+    return out
+
+
 def main():
     import torch
 
@@ -5485,8 +5850,11 @@ def main():
     # matrix-factorization example at MovieLens-20M's table sizes, sparse
     # dot at a realistic size, the sweep of the slice's new names
     phase_sparse(torch, mt)
+    # 24. data-parallel training across processes: config #3 by two ranks,
+    # NCCL at world size 1, the example, compression card against CPU
+    dist = phase_distributed(torch, mt)
 
-    # 24. the kernels line, card, ok. Each row's case is the main paths'
+    # 25. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over
@@ -5509,6 +5877,9 @@ def main():
     # of phase 9 at their main-path shapes, each timed alone; the row
     # carries their sums and max_abs_err the largest of the three (each
     # against its own tolerance), and "cases" each kernel's own numbers.
+    # phase 24's ranks: their ResNet-50 steps, counted in each rank
+    dist_ranks = {f"rank{r['rank']}": r["launches"]
+                  for r in dist["resnet"]["ranks"]}
     by_label = {r["case"]: r for r in cases}
     bwd_by_label = {r["case"]: r for r in bwd_cases}
     measured = {}
@@ -5606,7 +5977,16 @@ def main():
                         "parameter; "
                         "library_ms in per_path: torch's fused rule, "
                         "another function, an indication only",
-            per_path=per_path),
+            per_path=dict(per_path, distributed_resnet50=dict(
+                launches={rank: n["opt_ladder"]
+                          for rank, n in dist_ranks.items()},
+                launches_from=f"phase 24a: {dist['resnet']['steps']} "
+                              f"steps a rank",
+                buckets=DIST_LADDER_BUCKETS,
+                max_abs_err=per_path["resnet50"]["max_abs_err"],
+                max_abs_err_from="phase 8's sweep over the same ResNet-50 "
+                                 "parameter list (the batch changes no "
+                                 "parameter's shape)"))),
         "opt_sqnorm": dict(
             launches=train["launches"]["opt_sqnorm"],
             launches_from="BERT training, phase 6 (ResNet-50 and LeNet "
@@ -5657,7 +6037,16 @@ def main():
                         "MobileNetV2-1.0's 53 sites, bf16 NCHW (phase 20), "
                         "ResNet-18's 20 CIFAR sites at batch 64, bf16 NCHW "
                         "(phase 21)",
-            per_path={"resnet18_cifar": dict(
+            per_path={"distributed_resnet50": dict(
+                launches={rank: n[name] for rank, n in dist_ranks.items()},
+                launches_from=f"phase 24a: {dist['resnet']['steps']} steps "
+                              f"a rank",
+                max_abs_err=dist["resnet"]["bn"][f"{side}_max_abs_err"],
+                stats_max_rel_err=dist["resnet"]["bn"]["stats_max_rel_err"],
+                max_abs_err_from=f"the 53 sites at a rank's batch of "
+                                 f"{dist['resnet']['bn']['batch']}, bf16 "
+                                 f"NHWC, against the plain versions (phase "
+                                 f"24a)"), "resnet18_cifar": dict(
                 launches=data["runs"]["a_caller"]["launches"][name],
                 sites_by_regime=data["bn"]["sites_by_regime"][side],
                 cuda_launches_per_step=data["bn"][
@@ -5748,6 +6137,9 @@ def main():
                 k["name"], 0),
             "flash_attention_op": registry["attention"]["launches"].get(
                 k["name"], 0)}
+        # and in phase 24's ranks (their ResNet-50 steps)
+        m["distributed_launches"] = {
+            rank: n.get(k["name"], 0) for rank, n in dist_ranks.items()}
         kernels.append(dict(name=k["name"], route=k["route"],
                             source=k["source"], replaces=k["replaces"], **m))
     # K6, the ring: its Python schedule (ring_attention.py) over the hop

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from . import amp, autograd, env, gluon, initializer, io, lr_scheduler
 from . import attribute, base, context, device, error, log, name
-from . import ndarray
+from . import kvstore, ndarray
+from . import kvstore as kv
 from . import ndarray as nd
 from . import numpy as np
 from . import numpy_extension as npx
@@ -24,7 +25,8 @@ from .name import NameManager
 from .ndarray import NDArray, waitall
 from .numpy import random
 
-__all__ = ["amp", "autograd", "env", "gluon", "initializer", "io",
+__all__ = ["amp", "autograd", "env", "gluon", "initializer", "io", "kv",
+           "kvstore",
            "lr_scheduler", "observability", "optimizer", "nd", "ndarray",
            "np", "npx", "parallel", "random", "recordio", "rtc", "serving",
            "seed", "waitall", "NDArray", "MXNetError", "Context", "Device",

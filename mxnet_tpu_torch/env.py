@@ -159,6 +159,18 @@ register(
     "(parallel.collectives.psum_tree_flat): leaves are concatenated into "
     "flat buffers of roughly this size, one collective per buffer.")
 register(
+    "MXTPU_FUSED_UPDATE", bool, True,
+    "Trainer.allreduce_grads hands every gradient to the kvstore in ONE "
+    "list-form pushpull, which tpu_dist reduces in flat buckets of "
+    "MXTPU_FUSED_BUCKET_MB (one all_reduce a bucket across processes); 0 "
+    "issues one pushpull a parameter in descending priority. The update's "
+    "buckets are not affected: device, rule and dtype decide those.")
+register(
+    "MXNET_KVSTORE_BIGARRAY_BOUND", int, 1 << 20,
+    "Element count above which kvstore='p3' reduces a value of several "
+    "copies in chunks of this many, each summed across processes on its "
+    "own (P3 slicing, p3store_dist.h).")
+register(
     "MXTPU_DEVICE_PREFETCH", int, 0,
     "Default DataLoader device_prefetch depth: keep up to N batches ahead "
     "of the consumer already copied from pinned host memory to the card "

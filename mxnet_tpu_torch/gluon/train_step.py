@@ -196,6 +196,16 @@ class TrainStep:
                     "update_multi_precision or lacks _rule")
         if opt.clip_global_norm is not None:
             return "clip_global_norm needs the host-combined norm pre-pass"
+        # the store's reasons, in the JAX package's words: the port has no
+        # mesh, so a store of several workers always sums outside the graph
+        if tr._update_on_kvstore:
+            return "update_on_kvstore runs the optimizer inside the store"
+        kv = tr._kvstore
+        if kv is not None:
+            if getattr(kv, "_compression", None) is not None:
+                return "gradient compression is eager-only"
+            if getattr(kv, "num_workers", 1) > 1:
+                return "multi-worker kvstore without a mesh"
         block_params = {id(p) for p in self._net.collect_params().values()}
         seen = set()
         for p in tr._params:

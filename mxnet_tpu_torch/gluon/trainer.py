@@ -1,10 +1,18 @@
 """Gluon Trainer (counterpart of mxnet_tpu/gluon/trainer.py).
 
-Applies an Optimizer to a set of Parameters on one device. There is no
-kvstore yet: ``allreduce_grads`` has nothing to reduce, and the arguments
-that ask for one (a distributed ``kvstore``, ``mesh=``, ``sharding_plan=``,
-``compression_params=``, ``update_on_kvstore=``) raise
-``NotImplementedError``.
+Applies an Optimizer to a set of Parameters, each on one device, with the
+gradients summed through a KVStore (``kvstore=``: a name of
+``kvstore.create`` or a store). ``allreduce_grads`` hands every gradient
+to the store in one list-form pushpull under ``MXTPU_FUSED_UPDATE`` (the
+default), else one pushpull a parameter in descending priority ``-i``;
+the store writes the sums back into the gradient buffers, and each write
+counts as a fresh gradient. A single copy and a local store need no
+reduce. Across processes a row-sparse parameter is updated over the rows
+that any process touched. ``compression_params=`` goes to the store;
+``update_on_kvstore=True`` hands the store the optimizer, and the Trainer
+still updates locally, as the JAX package's does. ``mesh=`` and
+``sharding_plan=`` raise ``NotImplementedError``: a parameter over several
+positions of a mesh waits for ROADMAP.md queue 1 item 9.
 
 ``save_states`` / ``load_states`` read and write the JAX package's format-2
 pickle (mxnet_tpu/gluon/trainer.py:save_states): the states as numpy
@@ -32,20 +40,21 @@ import time
 import numpy as _np
 import torch
 
+from .. import env as _env
 from .. import optimizer as opt_mod
 from .._dtype_codec import dtype_name, pickle_leaf, pickle_load
+from ..kvstore import KVStoreBase, create as kv_create
+from ..ndarray.ndarray import NDArray
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
 
-_LOCAL_KVSTORES = (None, "None", "device", "local")
-
 
 def _later(what):
     return NotImplementedError(
-        f"Trainer({what}) is not ported yet: the PyTorch port trains on one "
-        f"device; kvstores, meshes and sharding plans come with the "
-        f"multi-device slice")
+        f"Trainer({what}) is not ported yet: a parameter lives on one "
+        f"device in the port; meshes and sharding plans wait for "
+        f"ROADMAP.md queue 1 item 9")
 
 
 class Trainer:
@@ -63,21 +72,29 @@ class Trainer:
         for p in param_list:
             if not isinstance(p, Parameter):
                 raise ValueError(f"expected Parameter, got {type(p)}")
-        if not (kvstore is None or kvstore in _LOCAL_KVSTORES):
-            raise _later(f"kvstore={kvstore!r}")
         if mesh is not None:
             raise _later("mesh=...")
         if sharding_plan is not None:
             raise _later("sharding_plan=...")
-        if compression_params is not None:
-            raise _later("compression_params=...")
-        if update_on_kvstore:
-            raise _later("update_on_kvstore=True")
         self._params = param_list
         self._scale = 1.0
         optimizer_params = optimizer_params or {}
         self._optimizer = opt_mod.create(optimizer, **optimizer_params)
         self._optimizer.param_dict = dict(enumerate(self._params))
+        if isinstance(kvstore, KVStoreBase):
+            self._kvstore = kvstore
+        elif isinstance(kvstore, str) and kvstore != "None":
+            self._kvstore = kv_create(kvstore)
+        else:
+            self._kvstore = None
+        if compression_params is not None:
+            if self._kvstore is None:
+                raise ValueError("compression_params requires a kvstore")
+            self._kvstore.set_gradient_compression(compression_params)
+        self._update_on_kvstore = bool(update_on_kvstore) and \
+            self._kvstore is not None
+        if self._update_on_kvstore:
+            self._kvstore.set_optimizer(self._optimizer)
         self._states = [None] * len(self._params)
         self._states_created = [False] * len(self._params)
         # param index -> gradient version seen at its last update; a
@@ -107,10 +124,45 @@ class Trainer:
                 i, weight)
             self._states_created[i] = True
 
-    def allreduce_grads(self, ignore_stale_grad=False):  # noqa: ARG002
-        """Nothing to reduce: one device holds the one copy of every
-        gradient."""
-        return
+    def allreduce_grads(self, ignore_stale_grad=False):
+        """Sum the gradients through the kvstore (trainer.py:
+        allreduce_grads): one list-form pushpull under
+        ``MXTPU_FUSED_UPDATE``, else one a parameter in priority ``-i``
+        (layer 0 first: its weights gate the next forward). A store that
+        cannot pushpull, in one process, has nothing to sum over one copy.
+        ``ignore_stale_grad`` skips a gradient untouched since its last
+        update: summing it would add stale values and make it look
+        fresh. Across processes, a row-sparse parameter's rows become
+        those any process touched (``_merge_row_hints``)."""
+        kv = self._kvstore
+        if kv is None:
+            return
+        distributed = getattr(kv, "num_workers", 1) > 1 or \
+            kv.is_capable("pushpull")
+        if not distributed:
+            return
+        fused = _env.get("MXTPU_FUSED_UPDATE")
+        keys, views = [], []
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null":
+                continue
+            if ignore_stale_grad and \
+                    self._grad_versions.get(i) == p._grad_version:
+                continue
+            view = NDArray(p.grad())
+            if fused:
+                keys.append(i)
+                views.append(view)
+            else:
+                kv.pushpull(i, [view], out=[view], priority=-i)
+                _land_sum(p, view, kv)
+        if len(keys) == 1:
+            kv.pushpull(keys[0], [views[0]], out=[views[0]], priority=0)
+        elif keys:
+            kv.pushpull(keys, [[v] for v in views],
+                        out=[[v] for v in views], priority=0)
+        for i, view in zip(keys, views):
+            _land_sum(self._params[i], view, kv)
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Optimizer update with the gradients scaled by 1/batch_size."""
@@ -261,6 +313,32 @@ class Trainer:
             else None
         self._states[i] = _to_device(state, device)
         self._states_created[i] = True
+
+
+def _land_sum(p, view, kv):
+    """The store's write-back into ``view`` (an NDArray over ``p``'s
+    gradient buffer) lands in the buffer, and each write counts as a new
+    gradient version, as the JAX package's store bumps ``_version``."""
+    if view._data is not p._grad:
+        with torch.no_grad():
+            p._grad.copy_(view._data)
+    p._grad_version += view._version
+    if p.grad_stype == "row_sparse" and getattr(kv, "num_workers", 1) > 1:
+        _merge_row_hints(p, kv)
+
+
+def _merge_row_hints(p, kv):
+    """After the sum across processes, ``p``'s row-sparse update covers the
+    rows that any process's forwards touched: a row only another process
+    looked up has a nonzero summed gradient here too. If a process
+    recorded no rows (a hybridized forward), every process updates
+    densely. Each process keeps the same rows, so the ranks stay equal
+    (the JAX package keeps its own rows only, and its ranks drift)."""
+    hints = p._sparse_row_hints
+    ids = torch.cat([h.to("cpu", torch.int64) for h in hints]) \
+        if hints else None
+    merged = kv.allgather_rows(ids)
+    p._sparse_row_hints = [] if merged is None else [merged]
 
 
 def _state_tensors(s):

@@ -9,10 +9,15 @@ Modules:
   ring_attention — K/V-streaming sequence parallelism (the flash ring runs
                    the attention kernels on every hop)
   ulysses        — all-to-all head<->sequence parallelism
+  data_parallel  — data-parallel step builders (whole batch; per-shard
+                   bodies with a mean over the positions)
 
-``moe``, ``pipeline`` and ``data_parallel`` are not ported yet.
+``moe`` and ``pipeline`` are not ported yet.
 """
-from . import collectives, mesh, ring_attention, ulysses  # noqa: F401
+from . import (collectives, data_parallel, mesh,  # noqa: F401
+               ring_attention, ulysses)
+from .data_parallel import (make_data_parallel_step,  # noqa: F401
+                            make_shard_map_step)
 from .mesh import (ShardingError, make_mesh, shard_batch,  # noqa: F401
                    shard_params)
 from .ring_attention import (  # noqa: F401

@@ -12,8 +12,9 @@ single CPU device, and a one-card host runs a four-position ring on
 next card. A sharded value is held as the list of its per-position shards
 in mesh order (:func:`split`, :func:`assemble`).
 
-Data-parallel training over a mesh (``shard_params``, ``shard_batch``, the
-GSPMD entry of ``kvstore='tpu_dist'``) is not ported yet: it raises.
+Laying parameters and batches over a mesh (``shard_params``,
+``shard_batch``) is not ported yet: it raises. Data parallelism across
+processes is ``kvstore='tpu_dist'``; on a mesh, ``data_parallel.py``.
 """
 from __future__ import annotations
 
@@ -178,9 +179,9 @@ def assemble(shards, dim):
 
 def _later(name):
     return NotImplementedError(
-        f"{name} is not ported yet: data-parallel training over a mesh "
-        f"(kvstore='tpu_dist', data_parallel) waits for the multi-process "
-        f"slice (ROADMAP.md, queue 1, item 6)")
+        f"{name} is not ported yet: a parameter lives on one device in the "
+        f"port, and laying parameters or batches over a mesh waits for "
+        f"ROADMAP.md, queue 1, item 9")
 
 
 def shard_params(params, mesh, spec_fn=None):  # noqa: ARG001

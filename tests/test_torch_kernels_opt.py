@@ -59,11 +59,14 @@ def _step(cls, w, st, g, mp=True, hyper=HYPER):
 
 
 def test_no_mode_switch_device_rule_and_dtype_alone_decide(monkeypatch):
-    """The JAX package's MXTPU_KERNELS and MXTPU_FUSED_UPDATE are not
-    registered in the port, and setting them changes no decision."""
+    """The JAX package's MXTPU_KERNELS is not registered in the port,
+    MXTPU_FUSED_UPDATE only for the kvstore's allreduce (the Trainer's
+    list-form pushpull), and setting them changes no decision."""
     for name in ("MXTPU_KERNELS", "MXTPU_KERNELS_INTERPRET",
-                 "MXTPU_FUSED_UPDATE", "MXTPU_DONATE_UPDATE"):
+                 "MXTPU_DONATE_UPDATE"):
         assert name not in tenv._REGISTRY
+    assert "allreduce" in tenv._REGISTRY["MXTPU_FUSED_UPDATE"].help
+    monkeypatch.setenv("MXTPU_FUSED_UPDATE", "0")
     assert not hasattr(dispatch, "mode")
     w, st, g = _torch_operands()
     for raw in (None, "off", "auto", "force"):

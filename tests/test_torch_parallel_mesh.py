@@ -91,7 +91,7 @@ def test_sharding_errors_read_as_in_the_jax_package():
         with pytest.raises(mt.MXNetError, match="CUDA"):
             tmesh.make_mesh({"sp": -1})
     for fn in (tmesh.shard_params, tmesh.shard_batch):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
             fn({}, tm)
 
 

@@ -219,12 +219,16 @@ def test_stale_gradients_are_skipped_on_request():
 def test_arguments_that_wait_raise():
     _, tnet = _dense_pair()
     params = tnet.collect_params()
-    for kw in (dict(kvstore="tpu_dist"), dict(kvstore="dist_sync"),
-               dict(mesh=(("dp", -1),)), dict(sharding_plan=object()),
-               dict(compression_params={"type": "2bit"}),
-               dict(update_on_kvstore=True)):
+    for kw in (dict(mesh=(("dp", -1),)), dict(sharding_plan=object())):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             mt.gluon.Trainer(params, "sgd", **kw)
+    # the store's arguments are ported (tests/test_torch_trainer_kvstore.py)
+    for kw in (dict(kvstore="tpu_dist"), dict(kvstore="dist_sync"),
+               dict(kvstore="local", compression_params={"type": "2bit"}),
+               dict(kvstore="local", update_on_kvstore=True)):
+        mt.gluon.Trainer(params, "sgd", **kw)
+    with pytest.raises(ValueError, match="requires a kvstore"):
+        mt.gluon.Trainer(params, "sgd", compression_params={"type": "2bit"})
     for kv in (None, "device", "local"):
         mt.gluon.Trainer(params, "sgd", kvstore=kv)
     tr = mt.gluon.Trainer(params, "sgd")
