@@ -307,7 +307,36 @@ failure exits non-zero, nothing is caught and carried on:
      of the ranks' dequantized values. (d) 2-bit and 1-bit compression
      of a 2^24-element f32 gradient on the card: packed bytes and
      residuals bit for bit the CPU's over two rounds.
- 25. a ``timing`` line (profiler windows taken, windows that came back
+ 25. INT8 inference, a main path (BASELINE config #5): (a) Q1 and Q2
+     (``kernels/int8.py``: ``csrc/int8_quant.cu``, ``csrc/int8_conv.cu``)
+     against their plain versions on the card at each of ResNet-50 v1's
+     54 quantized sites (53 convolutions and the Dense as a 1x1
+     convolution) at batch 1, 8 and 32 (the served rungs), and at a site
+     each of dilation 2, groups 2 and depthwise: Q1's codes and ranges, Q2's
+     int32 sums (against the float64 convolution's) and its f32 epilogue
+     bit for bit; at batch 32 each timed alone and host-issued beside its
+     plain version and its bound (bytes at 3.35 TB/s, int8 operations at
+     1979 TOPS), with cuDNN's f32 and bf16 convolutions, ``torch._int_mm``
+     at the Dense and ``torch.quantize_per_tensor`` as indications. (b)
+     ``tools/int8_inference.py``: ``resnet50_v1(classes=1000)`` f32 NCHW
+     from seed 0, calibrated by ``quantize_net(calib_mode="entropy")``
+     over 4 batches of 8 (host seconds printed), served through
+     InferenceEngine with captured rungs 1, 8 and 32, 24 requests of 1-8
+     images with the counts zeroed just before and read just after: Q1 and
+     Q2 54 launches each a batch, from the replays; every rung dispatched
+     (the dispatches by rung printed); no capture after warmup; each
+     result within 1e-4 of an eager forward of its rows; at each rung's
+     batch, every quantized layer's Q1 codes, Q2 sums and output bit for
+     bit their plain versions on its own input on the card; 8 images'
+     logits against the same quantized net on the CPU with the card's
+     ranges (1e-2 of the largest, the same top-1; the int8 codes that
+     differ counted); int8 against fp32 top-1 agreement over 8 batches of
+     32 (no gate: random weights); the int8 and fp32 forwards at batch 32,
+     each a captured rung, and one replay of each under the profiler (Q1's
+     and Q2's share of the int8 forward's device time). (c)
+     ``tools/quantize_int8.py`` on the card, its own gate: int8 accuracy
+     at least fp32's less 0.05.
+ 26. a ``timing`` line (profiler windows taken, windows that came back
      without device events, and times taken with CUDA events instead
      where the profiler recorded none), a ``{"kernels": [...]}`` line
      (with each kernel's launches on the TrainStep paths, on the resumed
@@ -415,6 +444,19 @@ KERNELS = [
          replaces="mxnet_tpu/parallel/ring_attention.py:210",
          wrapper="mxnet_tpu_torch.ops.ring_hop:ring_hop_bwd",
          plain="mxnet_tpu_torch.ops.ring_hop:ring_hop_bwd_reference"),
+    # INT8 inference (config #5): XLA in the JAX package (its _q and its
+    # int8 conv_general_dilated / dot_general), no pallas_call; written by
+    # hand here
+    dict(name="int8_quantize", route="cuda",
+         source="mxnet_tpu_torch/csrc/int8_quant.cu",
+         replaces="mxnet_tpu/contrib/quantization.py:40",
+         wrapper="mxnet_tpu_torch.kernels.int8:quantize",
+         plain="mxnet_tpu_torch.kernels.int8:quantize_reference"),
+    dict(name="int8_conv", route="cuda",
+         source="mxnet_tpu_torch/csrc/int8_conv.cu",
+         replaces="mxnet_tpu/contrib/quantization.py:311",
+         wrapper="mxnet_tpu_torch.kernels.int8:conv",
+         plain="mxnet_tpu_torch.kernels.int8:conv_reference"),
     # K7: user CUDA C++ (the RTC_* sources below) through mx.rtc
     dict(name="rtc", route="cuda", source="mxnet_tpu_torch/rtc.py",
          replaces="mxnet_tpu/rtc.py:65",
@@ -5754,6 +5796,518 @@ def phase_distributed(torch, mt, narrow=False, batch=DIST_BATCH,
     return out
 
 
+# -- INT8 inference, BASELINE config #5 (phase 25) ----------------------------
+
+#: int8 operations a second at the card's dense tensor-core peak (H100 SXM)
+PEAK_INT8_OPS = 1979e12
+INT8_BATCH = 32            # the rung whose forward the kernel rows time
+INT8_RUNGS = (1, 8, 32)    # the served rungs: 25a's and 25b's checks at each
+INT8_REQUESTS = 24         # 25b's requests of 1-8 images
+INT8_TWIN_IMAGES = 8       # 25b's images held against the CPU twin
+#: 25b: card logits against the CPU twin's, relative to the largest. The
+#: f32 layers between the int8 ones (BatchNorm, the pools) round in other
+#: places on the card and the CPU, which moves some int8 codes by one at a
+#: rounding boundary, and 53 random-weight layers carry that on (the codes
+#: that differ are counted and printed); each layer itself is held bit for
+#: bit on the card at every rung (int8_layer_check)
+INT8_TWIN_TOL = 1e-2
+
+
+def int8_sites(torch, mt, vision, dev, batches):
+    """``{batch: [(site, count)]}`` of ResNet-50 v1 (NCHW) at each of
+    ``batches``: each Conv2D's and the Dense's (as a 1x1 convolution of a
+    1x1 plane) input shape, weight shape, stride, padding, dilation,
+    groups, bias and relu, read by hooks from a forward at batch 1, with
+    how many layers share it."""
+    from mxnet_tpu_torch.contrib import quantization as qz
+
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(device=dev, generator=torch.Generator().manual_seed(0))
+    seen = []
+
+    def hook(block, inputs, out):  # noqa: ARG001
+        x = inputs[0]
+        w = block.weight._tensor()
+        bias = block.bias is not None
+        relu = block._activation == "relu"
+        if isinstance(block, mt.gluon.nn.Dense):
+            seen.append(((1, w.shape[1], 1, 1), tuple(w.shape) + (1, 1),
+                         (1, 1), (0, 0), (1, 1), 1, bias, relu))
+        else:
+            seen.append(((1,) + tuple(x.shape[1:]), tuple(w.shape),
+                         block._strides, block._padding, block._dilation,
+                         block._groups, bias, relu))
+
+    handles = [child.register_forward_hook(hook)
+               for _, _, _, child in qz._targets(net, set())]
+    with torch.no_grad():
+        net(torch.zeros((1, 3, 224, 224), device=dev))
+    for h in handles:
+        h.remove()
+    check(len(seen) == 54, f"ResNet-50 has 54 quantized sites, saw "
+                           f"{len(seen)}")
+    counts = {}
+    for site in seen:
+        counts[site] = counts.get(site, 0) + 1
+    return {b: [(((b,) + site[0][1:],) + site[1:], n)
+                for site, n in counts.items()] for b in batches}
+
+
+def int8_bounds(site):
+    """Least ms of Q1 and Q2 at one site, and what bounds Q2: Q1 reads x
+    (f32) and writes its codes; Q2 reads the codes, the int8 weight and
+    its per-channel f32 scales (and bias), writes f32 out, and does 2 * K
+    int8 operations an output (K = C/groups * kh * kw) at the dense
+    tensor-core peak."""
+    xs, ws, stride, pad, dil, groups, bias, _ = site
+    n = math.prod(xs)
+    q1 = 1e3 * 5 * n / HBM_BYTES_PER_S
+    from mxnet_tpu_torch.kernels import int8 as kint8
+
+    out = kint8.conv_out_shape(xs, ws, stride, pad, dil)
+    k = math.prod(ws[1:])
+    nbytes = n + math.prod(ws) + 4 * math.prod(out) + 4 * ws[0] * (
+        2 if bias else 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * math.prod(out) * k / PEAK_INT8_OPS
+    return q1, 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+
+
+def phase_int8_kernels(torch, mt, vision, batch=INT8_BATCH):
+    """25a: Q1 and Q2 against their plain versions on the card at each of
+    ResNet-50's 54 quantized sites at every served rung's batch (1, 8, 32;
+    and at a site each of dilation 2, groups 2 and depthwise): Q1's codes
+    and (-amax, amax, scale) bit for bit, Q2's int32 sums bit for bit those
+    of the float64 convolution of the codes (cuDNN off: im2col and a GEMM,
+    exact on integers), its f32 epilogue bit for bit the plain version's.
+    Times at ``batch`` per
+    site, summed over the sites by their counts: each kernel alone (summed
+    kernel events, inputs rotated over copies exceeding the L2) and
+    host-issued (CUDA events around back-to-back calls), the plain
+    versions, the bound; as indications, cuDNN's f32 and bf16
+    convolutions of the same shapes (other functions), ``torch._int_mm``
+    at the Dense's shape and ``torch.quantize_per_tensor`` (x / scale,
+    another rounding and range) beside Q1."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.kernels import int8 as kint8
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    by_batch = int8_sites(torch, mt, vision, dev, INT8_RUNGS)
+    sites = by_batch[batch]
+    extra = [(((2, 16, 28, 28), (32, 16, 3, 3), (1, 1), (2, 2), (2, 2), 1,
+               True, True), 0),
+             (((2, 16, 28, 28), (32, 8, 3, 3), (2, 2), (1, 1), (1, 1), 2,
+               True, False), 0),
+             (((2, 32, 28, 28), (32, 1, 3, 3), (1, 1), (1, 1), (1, 1), 32,
+               False, True), 0)]
+    lohi = torch.tensor([-2.0, 2.0], device=dev)
+    keys = ("q1_ms", "q1_ms_host_issued", "q1_plain_ms", "q1_bound_ms",
+            "q1_library_ms", "q2_ms", "q2_ms_host_issued", "q2_plain_ms",
+            "q2_bound_ms", "cudnn_f32_ms", "cudnn_bf16_ms")
+    total = dict.fromkeys(keys, 0.0)
+    worst = dict(q1_codes=0, q1_info=0.0, q2_acc=0, q2_f32=0.0,
+                 q2_f32_ulps=0)
+    per_site, bound_by = [], {"bytes": 0.0, "operations": 0.0}
+    t0 = time.perf_counter()
+    cases = [(b, site, count) for b in INT8_RUNGS
+             for site, count in by_batch[b]] + [(None, site, 0)
+                                                for site, _ in extra]
+    for at, site, count in cases:
+        xs, ws, stride, pad, dil, groups, has_bias, relu = site
+        x = torch.rand(xs, device=dev, generator=gen) * 5 - 2
+        wq = torch.randint(-127, 128, ws, device=dev, generator=gen,
+                           dtype=torch.int32).to(torch.int8)
+        wscale = torch.rand(ws[0], device=dev, generator=gen) * 200 + 50
+        bias = (torch.rand(ws[0], device=dev, generator=gen) - 0.5
+                if has_bias else None)
+        codes, info = kint8.quantize(x, lohi, clip=True)
+        want_codes, want_info = kint8.quantize_reference(x, lohi, True)
+        worst["q1_codes"] = max(worst["q1_codes"], int(
+            (codes.int() - want_codes.int()).abs().max()))
+        worst["q1_info"] = max(worst["q1_info"],
+                               float((info - want_info).abs().max()))
+        args = (stride, pad, dil, groups)
+        acc = kint8.conv(codes, wq, *args)
+        with torch.backends.cudnn.flags(enabled=False):
+            want_acc = kint8.conv_reference(codes, wq, *args)
+        worst["q2_acc"] = max(worst["q2_acc"], int(
+            (acc.long() - want_acc.long()).abs().max()))
+        xscale = info[2:3]
+        y = kint8.conv(codes, wq, *args, xscale, wscale, bias, relu)
+        want_y = kint8._epilogue(want_acc, xscale, wscale, bias, relu)
+        worst["q2_f32"] = max(worst["q2_f32"],
+                              float((y - want_y).abs().max()))
+        ulps = (y.view(torch.int32).long()
+                - want_y.view(torch.int32).long()).abs()
+        worst["q2_f32_ulps"] = max(worst["q2_f32_ulps"], int(
+            torch.where(y == want_y, 0, ulps).max()))
+        del acc, want_acc, want_y, want_codes
+        if at != batch or not count:    # checked, not timed
+            continue
+        q1_bound, q2_bound, by = int8_bounds(site)
+        bound_by[by] += q2_bound * count
+        cold_x = cold_copies(torch, [x])
+        cold_c = cold_copies(torch, [codes])
+        wf = wq.float()
+        xf16 = x.bfloat16()
+        cold_bf = cold_copies(torch, [xf16])
+        scale = 1.0 / info[2].item()
+        try:
+            q1_lib = device_ms(torch, [partial(
+                torch.quantize_per_tensor, c[0], scale, 0, torch.qint8)
+                for c in cold_x])
+        except RuntimeError:
+            q1_lib = None
+        times = dict(
+            q1_ms=device_ms(torch, [partial(kint8.quantize, c[0], lohi, True)
+                                    for c in cold_x]),
+            q1_ms_host_issued=cuda_ms(torch, partial(kint8.quantize, x, lohi,
+                                                     True)),
+            q1_plain_ms=cuda_ms(torch, partial(kint8.quantize_reference, x,
+                                               lohi, True), iters=5),
+            q1_bound_ms=q1_bound, q1_library_ms=q1_lib,
+            q2_ms=device_ms(torch, [partial(
+                kint8.conv, c[0], wq, *args, xscale, wscale, bias, relu)
+                for c in cold_c]),
+            q2_ms_host_issued=cuda_ms(torch, partial(
+                kint8.conv, codes, wq, *args, xscale, wscale, bias, relu)),
+            q2_plain_ms=cuda_ms(torch, partial(
+                kint8.conv_reference, codes, wq, *args, xscale, wscale, bias,
+                relu), iters=3),
+            q2_bound_ms=q2_bound,
+            cudnn_f32_ms=device_ms(torch, [partial(
+                F.conv2d, c[0], wf, None, stride, pad, dil, groups)
+                for c in cold_x]),
+            cudnn_bf16_ms=device_ms(torch, [partial(
+                F.conv2d, c[0], wf.bfloat16(), None, stride, pad, dil,
+                groups) for c in cold_bf]))
+        if ws[2:] == (1, 1) and xs[2:] == (1, 1):   # the Dense
+            a = codes.reshape(xs[0], xs[1])
+            b = wq.reshape(ws[0], ws[1]).t().contiguous()
+            cold_a = cold_copies(torch, [a])
+            # _int_mm refuses 16 rows or fewer
+            times["int_mm_ms"] = device_ms(torch, [partial(
+                torch._int_mm, c[0], b) for c in cold_a]) \
+                if xs[0] > 16 else None
+            times["int_mm_ms_host_issued"] = cuda_ms(torch, partial(
+                torch._int_mm, a, b)) if xs[0] > 16 else None
+            dense = dict(site=[list(v) if isinstance(v, tuple) else v
+                               for v in site], **times)
+        for key in keys:
+            if times[key] is None or total[key] is None:
+                total[key] = None
+            else:
+                total[key] += times[key] * count
+        per_site.append(dict(site=[list(v) if isinstance(v, tuple) else v
+                                   for v in site], count=count, **times))
+        del cold_x, cold_c, cold_bf
+        gc_collect(torch)
+    torch.cuda.synchronize()
+    check(worst["q1_codes"] == 0 and worst["q1_info"] == 0.0,
+          f"int8 quantize differs from its plain version: {worst}")
+    check(worst["q2_acc"] == 0, f"int8 conv sums differ: {worst}")
+    check(worst["q2_f32_ulps"] == 0,
+          f"int8 conv f32 epilogue differs from its plain version: {worst}")
+    out = dict(batch=batch, sites=len(sites),
+               layers=sum(c for _, c in sites), extra_sites=len(extra),
+               checked_at={b: sum(c for _, c in by_batch[b])
+                           for b in INT8_RUNGS},
+               worst=worst, total=total,
+               q2_bound_ms_by=bound_by,
+               q2_bound_by=max(bound_by, key=bound_by.get),
+               dense=dense, per_site=per_site,
+               seconds=time.perf_counter() - t0)
+    say("int8_kernels " + json.dumps(out))
+    return out
+
+
+def int8_inputs(torch, layers, run, out=False):
+    """Each quantized layer's input during ``run()``, on the host (and
+    ``run()``'s result, with ``out``)."""
+    seen = {}
+
+    def hook(name):
+        def fn(block, inputs, output):  # noqa: ARG001
+            seen[name] = inputs[0].detach().cpu()
+        return fn
+
+    handles = [layer.register_forward_hook(hook(name))
+               for name, layer in layers]
+    result = run()
+    for h in handles:
+        h.remove()
+    return (seen, result.cpu()) if out else seen
+
+
+def int8_code_flips(torch, layers, card_in, cpu_in):
+    """Of every quantized layer's input codes (each net's input quantized
+    with the layer's range by Q1's plain version): how many differ between
+    the card and the CPU, the largest difference, the first layer where
+    any does and its share there."""
+    from mxnet_tpu_torch.kernels import int8 as kint8
+
+    differ = total = largest = 0
+    first = None
+    for name, layer in layers:
+        lohi = layer._lohi.cpu()
+        a = kint8.quantize_reference(card_in[name], lohi, True)[0].int()
+        b = kint8.quantize_reference(cpu_in[name], lohi, True)[0].int()
+        d = (a - b).abs()
+        n = int((d > 0).sum())
+        differ += n
+        total += d.numel()
+        largest = max(largest, int(d.max()))
+        if n and first is None:
+            first = dict(layer=name, share=n / d.numel(),
+                         largest=int(d.max()))
+    return dict(differ=differ, codes=total, share=differ / total,
+                largest=largest, first_layer=first)
+
+
+def int8_layer_check(torch, layers, run):
+    """Every quantized layer in ``run()`` (an eager forward on the card at
+    a rung's batch), on its own input there: Q1's codes and (-amax, amax,
+    scale) against its plain version, Q2's int32 sums of those codes
+    against the float64 convolution (cuDNN off), and the layer's output
+    against the plain epilogue of those sums. Returns the worst of each
+    (all 0 when bit for bit) and how many layers were held."""
+    from mxnet_tpu_torch.contrib import quantization as qz
+    from mxnet_tpu_torch.kernels import int8 as kint8
+
+    worst = dict(layers=0, q1_codes=0, q1_info=0.0, q2_acc=0, out_ulps=0)
+
+    def hook(block, inputs, y):
+        x, wq, lohi = inputs[0], block._wq, block._lohi
+        args = (1, 0, 1, 1)
+        if isinstance(block, qz.QuantizedDense):   # a 1x1 convolution
+            x = x.reshape(x.shape[0], -1, 1, 1)
+            wq = wq.view(*wq.shape, 1, 1)
+            y = y.reshape(y.shape[0], -1, 1, 1)
+        else:
+            args = (block._strides, block._padding, block._dilation,
+                    block._groups)
+        codes, info = kint8.quantize(x, lohi, clip=True)
+        want_codes, want_info = kint8.quantize_reference(x, lohi, True)
+        acc = kint8.conv(codes, wq, *args)
+        with torch.backends.cudnn.flags(enabled=False):
+            want_acc = kint8.conv_reference(want_codes, wq, *args)
+        want_y = kint8._epilogue(want_acc, want_info[2:3], block._wscale,
+                                 block._bias, block._activation == "relu")
+        worst["layers"] += 1
+        worst["q1_codes"] = max(worst["q1_codes"], int(
+            (codes.int() - want_codes.int()).abs().max()))
+        worst["q1_info"] = max(worst["q1_info"],
+                               float((info - want_info).abs().max()))
+        worst["q2_acc"] = max(worst["q2_acc"], int(
+            (acc.long() - want_acc.long()).abs().max()))
+        ulps = (y.view(torch.int32).long()
+                - want_y.view(torch.int32).long()).abs()
+        worst["out_ulps"] = max(worst["out_ulps"], int(
+            torch.where(y == want_y, 0, ulps).max()))
+
+    handles = [layer.register_forward_hook(hook) for _, layer in layers]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return worst
+
+
+def int8_replay_profile(torch, net, batch=INT8_BATCH):
+    """One replay of ``net``'s captured rung of ``batch`` under the
+    profiler: the device ms of its kernels in all and of Q1's and Q2's,
+    with their counts, and whether the window holds a Q1 and a Q2 kernel
+    of every quantized layer (late in the smoke the profiler drops events
+    now and then, PERF.md section 7: up to three windows are taken for one
+    that does); None where the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.tools import int8_inference as ii
+
+    layers = len(ii.int8_layers(net))
+    x = torch.rand((batch,) + ii.IMAGE, device=net.device)
+    net.call_cached_graph(x)
+    torch.cuda.synchronize()
+    out = None
+    for window in range(3):
+        TIMING["profiler_windows"] += 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            net.call_cached_graph(x)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not ev:
+            TIMING["empty_windows"] += 1
+            continue
+        out = dict(window=window + 1, kernels=len(ev), device_ms=sum(
+            e.time_range.elapsed_us() for e in ev) / 1e3)
+        # the kernels' names in csrc/int8_quant.cu and csrc/int8_conv.cu
+        for key, tag in (("q1", "quantize_kernel"), ("q2", "conv_kernel")):
+            mine = [e for e in ev if tag in e.name]
+            out[key + "_kernels"] = len(mine)
+            out[key + "_ms"] = sum(e.time_range.elapsed_us()
+                                   for e in mine) / 1e3
+            out[key + "_share"] = out[key + "_ms"] / out["device_ms"]
+        out["complete"] = out["q1_kernels"] == out["q2_kernels"] == layers
+        if out["complete"]:
+            break
+    return out
+
+
+def phase_int8_serving(torch, mt):
+    """25b: config #5 served (``tools/int8_inference.py``): ResNet-50 v1 f32
+    NCHW from seed 0, entropy-calibrated over 4 batches of 8 and quantized
+    (53 QuantizedConv2D, 1 QuantizedDense), served through InferenceEngine
+    with captured rungs 1, 8 and 32: the counts zeroed just before the
+    requests and read just after, Q1 and Q2 each 54 times a batch (from the
+    rungs' replays), every rung dispatched at least once, no capture and no
+    new signature after warmup, every result finite and within 1e-4 of its
+    largest logit of an eager forward of its own rows on the card; at each
+    rung's batch, every quantized layer's Q1, Q2 and output bit for bit
+    their plain versions on its own input on the card
+    (:func:`int8_layer_check`); 8 images' logits against the same
+    quantized net on the CPU (the kernels' plain versions) with the card's
+    calibrated ranges, within INT8_TWIN_TOL of the largest, the same
+    top-1, the int8 codes that differ counted; int8 against
+    fp32 top-1 agreement over 8 batches of 32 (random weights: printed, no
+    gate); the forwards at batch 32, int8 and fp32, each a captured
+    rung, and one replay of each under the profiler (Q1's and Q2's share
+    of the int8 forward's device time)."""
+    from mxnet_tpu_torch.kernels import int8 as kint8
+    from mxnet_tpu_torch.tools import int8_inference as ii
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    fp32, net, info = ii.build_int8_resnet50(dev, 0, 4, 8, "entropy")
+    check(info["swapped"] == {"QuantizedConv2D": 53, "QuantizedDense": 1},
+          f"config #5: swapped {info['swapped']}")
+    say(f"int8 calibration: {json.dumps(info)}")
+    results, served = ii.serve(net, INT8_REQUESTS)
+    check(served["warmup"]["graphs"] == dict.fromkeys(ii.RUNGS, 1),
+          f"int8 warmup: one graph a rung, got {served['warmup']}")
+    check(served["outcomes"] == {"ok": INT8_REQUESTS},
+          f"int8 serving outcomes {served['outcomes']}")
+    check(served["captures_after_warmup"] == 0
+          and served["recompiles_since_warmup"] == 0,
+          f"int8 serving captured or traced online: {served}")
+    want = {kint8.KERNEL_QUANT: 54 * served["batches"],
+            kint8.KERNEL_CONV: 54 * served["batches"]}
+    check(served["launches"] == want and served["batches"] > 0,
+          f"int8 launches {served['launches']} != 54 x "
+          f"{served['batches']} batches each")
+    check(sum(served["by_rung"].values()) == served["batches"]
+          and all(served["by_rung"].get(r, 0) > 0 for r in ii.RUNGS),
+          f"int8 serving: every rung serves, got {served['by_rung']}")
+    worst = 0.0
+    with mt.autograd.pause(), torch.inference_mode():
+        for x, res in results:
+            check(tuple(res.shape) == (len(x), 1000)
+                  and bool(torch.isfinite(res).all()),
+                  "an int8 result's shape or values")
+            ref = net(torch.from_numpy(x).to(dev))
+            err = (res - ref).abs().max().item()
+            check(err <= 1e-4 * max(1.0, ref.abs().max().item()),
+                  f"an int8 result differs from its direct forward: {err}")
+            worst = max(worst, err)
+        gen = torch.Generator().manual_seed(26)
+        layers, gen_rungs = {}, torch.Generator().manual_seed(27)
+        for b in ii.RUNGS:
+            xb = torch.rand((b,) + ii.IMAGE, generator=gen_rungs).to(dev)
+            layers[b] = int8_layer_check(torch, ii.int8_layers(net),
+                                         partial(net, xb))
+        check(all(w["layers"] == 54 and w["q1_codes"] == w["q2_acc"]
+                  == w["out_ulps"] == 0 and w["q1_info"] == 0.0
+                  for w in layers.values()),
+              f"int8 layers at the rungs differ from their plain versions: "
+              f"{layers}")
+        x8 = torch.rand((INT8_TWIN_IMAGES,) + ii.IMAGE, generator=gen)
+        got = net.call_cached_graph(x8.to(dev)).cpu()
+        twin = ii.cpu_twin(net, fp32)
+        card_in = int8_inputs(torch, ii.int8_layers(net),
+                              lambda: net(x8.to(dev)))
+        cpu_in, ref = int8_inputs(torch, ii.int8_layers(twin),
+                                  lambda: twin(x8), out=True)
+    flips = int8_code_flips(torch, ii.int8_layers(twin), card_in, cpu_in)
+    scale = ref.abs().max().item()
+    twin_err = (got - ref).abs().max().item()
+    top1 = bool((got.argmax(-1) == ref.argmax(-1)).all())
+    check(twin_err <= INT8_TWIN_TOL * scale and top1,
+          f"int8 logits on the card differ from the CPU twin's by "
+          f"{twin_err} (largest {scale}; top-1 equal {top1}; codes {flips})")
+    del twin
+    agree = ii.agreement(fp32, net)
+    times = dict(int8_forward_ms_batch32=ii.forward_ms(net),
+                 fp32_forward_ms_batch32=ii.forward_ms(fp32),
+                 int8_forward_ms_batch32_again=ii.forward_ms(net),
+                 fp32_forward_ms_batch32_again=ii.forward_ms(fp32))
+    profiles = dict(int8=int8_replay_profile(torch, net),
+                    fp32=int8_replay_profile(torch, fp32))
+    out = dict(calibration=info, serving=served,
+               results_max_abs_err_vs_direct=worst, layers_at_rungs=layers,
+               replay_profile=profiles,
+               twin=dict(images=INT8_TWIN_IMAGES, max_abs_err=twin_err,
+                         max_abs_logit=scale, tol=INT8_TWIN_TOL * scale,
+                         code_flips=flips,
+                         top1_equal=top1),
+               agreement_top1=agree, seconds=time.perf_counter() - t0,
+               **times)
+    del fp32, net
+    gc_collect(torch)
+    return out
+
+
+def phase_int8(torch, mt, build, vision):
+    """Phase 25 (module note): 25a, 25b, 25c."""
+    from mxnet_tpu_torch.kernels import int8 as kint8
+    from mxnet_tpu_torch.tools import quantize_int8
+
+    t0 = time.perf_counter()
+    kernels = phase_int8_kernels(torch, mt, vision)
+    serving = phase_int8_serving(torch, mt)
+    # 25c: the example on the card, its own gate
+    build.reset_counters()
+    try:
+        example = quantize_int8.main([])
+    except SystemExit as e:
+        fail(f"tools/quantize_int8.py: {e}")
+    example = dict(fp32_acc=example["fp32_acc"], int8_acc=example["int8_acc"],
+                   launches={kint8.KERNEL_QUANT: kint8.LAUNCHES_QUANT.value,
+                             kint8.KERNEL_CONV: kint8.LAUNCHES_CONV.value})
+    check(all(example["launches"].values()),
+          f"the int8 example launched no int8 kernel: {example}")
+    seconds = time.perf_counter() - t0
+    tot = kernels["total"]
+    prof = serving["replay_profile"]["int8"] or {}
+    say(f"int8: config #5, ResNet-50 v1 NCHW served in int8 "
+        f"(calibration {serving['calibration']['calib_host_s']:.1f} host s, "
+        f"{serving['serving']['batches']} batches, by rung "
+        f"{serving['serving']['by_rung']}, Q1/Q2 "
+        f"{list(serving['serving']['launches'].values())}); a rung-32 "
+        f"replay's device ms {prof.get('device_ms')}, Q1 "
+        f"{prof.get('q1_ms')}, Q2 {prof.get('q2_ms')} (every kernel in "
+        f"the window: {prof.get('complete')}); forward at "
+        f"batch {INT8_BATCH}: int8 {serving['int8_forward_ms_batch32']:.3f} "
+        f"ms, fp32 {serving['fp32_forward_ms_batch32']:.3f} ms; the 54 "
+        f"sites: Q1 {tot['q1_ms']:.3f} ms alone (bound "
+        f"{tot['q1_bound_ms']:.3f}), Q2 {tot['q2_ms']:.3f} ms alone (bound "
+        f"{tot['q2_bound_ms']:.3f}; cuDNN f32 {tot['cudnn_f32_ms']:.3f}, bf16 "
+        f"{tot['cudnn_bf16_ms']:.3f}); _int_mm at the Dense "
+        f"{kernels['dense']['int_mm_ms']:.4f} ms against Q2's "
+        f"{kernels['dense']['q2_ms']:.4f}; twin "
+        f"{serving['twin']['max_abs_err']:.3g} of "
+        f"{serving['twin']['max_abs_logit']:.3g}; agreement "
+        f"{serving['agreement_top1']:.4f}; example fp32 "
+        f"{example['fp32_acc']:.3f} int8 {example['int8_acc']:.3f}; phase "
+        f"{seconds:.1f} s; card: {card_line()}")
+    out = dict(kernels={k: v for k, v in kernels.items() if k != "per_site"},
+               serving=serving, example=example, seconds=seconds)
+    say("int8 " + json.dumps(out))
+    return out
+
+
 def main():
     import torch
 
@@ -5853,8 +6407,11 @@ def main():
     # 24. data-parallel training across processes: config #3 by two ranks,
     # NCCL at world size 1, the example, compression card against CPU
     dist = phase_distributed(torch, mt)
+    # 25. INT8 inference, config #5: Q1 and Q2 at ResNet-50's sites, the
+    # calibrated ResNet-50 served in int8, the int8 example
+    int8_run = phase_int8(torch, mt, build, vision)
 
-    # 25. the kernels line, card, ok. Each row's case is the main paths'
+    # 26. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over
@@ -6070,6 +6627,40 @@ def main():
                    for key, v in zoo["bn"][
                        "mobilenet_v2_batch256_53_sites"].items()
                    if side in key})})
+    # Q1 and Q2: the 54 sites of ResNet-50's int8 forward at batch 32
+    # (phase 25a, each site timed and summed by its count); launches from
+    # the served requests' rung replays (25b)
+    k8, s8 = int8_run["kernels"], int8_run["serving"]
+    for name, q in (("int8_quantize", "q1"), ("int8_conv", "q2")):
+        tot = k8["total"]
+        measured[name] = dict(
+            launches=s8["serving"]["launches"][name],
+            launches_from=f"phase 25b: {s8['serving']['batches']} served "
+                          f"batches of the int8 ResNet-50, from the rungs' "
+                          f"replays",
+            max_abs_err=(k8["worst"]["q1_codes"] if q == "q1"
+                         else k8["worst"]["q2_f32"]),
+            ms=tot[f"{q}_ms"], ms_host_issued=tot[f"{q}_ms_host_issued"],
+            plain_ms=tot[f"{q}_plain_ms"], bound_ms=tot[f"{q}_bound_ms"],
+            bound_by="bytes" if q == "q1" else k8["q2_bound_by"],
+            library_ms=None,
+            times_cover=f"the 54 quantized sites of ResNet-50 v1 (NCHW) at "
+                        f"batch {k8['batch']}, each timed and summed by its "
+                        f"count: ms alone (summed kernel events, inputs "
+                        f"rotated over copies exceeding the L2), "
+                        f"host-issued beside; no PyTorch call computes this "
+                        f"function (indications beside)",
+            checks=k8["worst"],
+            example_launches=int8_run["example"]["launches"][name])
+    measured["int8_quantize"]["indication_quantize_per_tensor_ms"] = \
+        k8["total"]["q1_library_ms"]
+    measured["int8_conv"].update(
+        bound_ms_by=k8["q2_bound_ms_by"],
+        indication_cudnn_f32_ms=k8["total"]["cudnn_f32_ms"],
+        indication_cudnn_bf16_ms=k8["total"]["cudnn_bf16_ms"],
+        dense_batch32=k8["dense"],
+        int8_forward_ms_batch32=s8["int8_forward_ms_batch32"],
+        fp32_forward_ms_batch32=s8["fp32_forward_ms_batch32"])
     hop = ring_run["hop"]
     for name, way in (("ring_flash_fwd", "fwd"), ("ring_flash_bwd", "bwd")):
         measured[name] = dict(

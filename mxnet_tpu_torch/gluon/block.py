@@ -260,10 +260,21 @@ class Block(torch.nn.Module):
 
     @property
     def device(self):
-        """The device of this block's parameters."""
+        """The device of this block's parameters (of its buffers where it
+        has none: a quantized layer's int8 weights)."""
         for p in self.collect_params().values():
             return p.device
+        for b in self.buffers():
+            return b.device
         raise RuntimeError(f"{type(self).__name__} has no parameters")
+
+    def _clear_cached(self):
+        """Drop what was captured of this block's and its children's
+        forwards, after the forward itself changed (block.py:200; a
+        ``quantize_net`` module rewrite)."""
+        for child in self.children():
+            if isinstance(child, Block):
+                child._clear_cached()
 
     def hybridize(self, active=True, **kwargs):
         """Pass ``active`` and the flags (``static_alloc``,
@@ -564,6 +575,13 @@ class HybridBlock(Block):
                 _HOOKS.boundary = None
         finally:
             _HYBRID.depth -= 1
+
+    def _clear_cached(self):
+        """Also drop this block's served CUDA graphs (the next call of each
+        signature captures again; ``capture_count`` counts it)."""
+        with self._served.lock:
+            self._served.graphs.clear()
+        super()._clear_cached()
 
     def infer_shape(self, *args):
         """Run the forward once, unrecorded and with op hooks silent, so

@@ -86,8 +86,8 @@ def one_device(device, name):
 
 class Parameter:
     def __init__(self, name="weight", grad_req="write", shape=None,
-                 dtype="float32", init=None, allow_deferred_init=False,
-                 differentiable=True, lr_mult=1.0, wd_mult=1.0,
+                 dtype="float32", lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):  # noqa: ARG002
         if grad_req not in ("write", "add", "null"):
             raise ValueError(

@@ -725,7 +725,11 @@ def _host_to_tensor(source, dtype, device):
             dtype = torch.float32
         elif arr.dtype == _np.int64:
             dtype = torch.int32
-    t = torch.from_numpy(_np.ascontiguousarray(arr))
+    # np.ascontiguousarray would make a 0-d array 1-d: a scalar keeps its
+    # shape (), as in the JAX package
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
+        arr = _np.array(arr, order="C")
+    t = torch.from_numpy(arr)
     # one copy: the host array is never aliased
     return t.to(device=device, dtype=normalize_dtype(dtype)
                 if dtype is not None else t.dtype, copy=True)

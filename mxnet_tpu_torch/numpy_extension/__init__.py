@@ -89,12 +89,27 @@ def activation(data, act_type="relu"):
     return apply_op(lambda x: _activation(x, act_type), data)
 
 
-def relu(data):
-    return activation(data, "relu")
+_UNSET = object()
 
 
-def sigmoid(data):
-    return activation(data, "sigmoid")
+def _one_of(fn, first, first_name, second, second_name):
+    """The one argument given of two spellings of it (MXNet's and the JAX
+    package's); both or neither raise ``TypeError``."""
+    if (first is _UNSET) == (second is _UNSET):
+        raise TypeError(f"{fn}() takes its argument as {first_name}= or "
+                        f"{second_name}=, once")
+    return second if first is _UNSET else first
+
+
+def relu(data=_UNSET, x=_UNSET):
+    """ReLU; the argument as ``data`` (MXNet's name) or ``x`` (the JAX
+    package's, numpy_extension/__init__.py:77)."""
+    return activation(_one_of("relu", data, "data", x, "x"), "relu")
+
+
+def sigmoid(data=_UNSET, x=_UNSET):
+    """Sigmoid; ``data`` or ``x``, as :func:`relu`."""
+    return activation(_one_of("sigmoid", data, "data", x, "x"), "sigmoid")
 
 
 def softmax(data, axis=-1, length=None, temperature=None):
@@ -161,8 +176,10 @@ def use_np(func):
     return func
 
 
-def seed(seed_state, ctx="all"):
-    _random.seed(seed_state, ctx)
+def seed(seed_state=_UNSET, ctx="all", s=_UNSET):
+    """Seed the generators; the seed as ``seed_state`` (MXNet's name) or
+    ``s`` (the JAX package's, numpy_extension/__init__.py:235)."""
+    _random.seed(_one_of("seed", seed_state, "seed_state", s, "s"), ctx)
 
 
 # -- the stateful ops -----------------------------------------------------

@@ -141,6 +141,19 @@ def inputs(seed=0):
         cubic=onp.array([1.0, -6.0, 11.0, -6.0], f),
         bits=r.uniform(0, 1, (3, 10)) > 0.5,
         bytes=r.randint(0, 256, (2, 3)).astype("uint8"))
+    # int8 codes and their f32 ranges (contrib/quantization.py's ops)
+    d.update(
+        qx=r.randint(-127, 128, (2, 3, 6, 6)).astype("int8"),
+        qx2=r.randint(-127, 128, (2, 3, 6, 6)).astype("int8"),
+        qw=r.randint(-127, 128, (4, 3, 3, 3)).astype("int8"),
+        qb=r.randint(-127, 128, (4,)).astype("int8"),
+        qfc=r.randint(-127, 128, (6, 108)).astype("int8"),
+        qbfc=r.randint(-127, 128, (6,)).astype("int8"),
+        qemb=r.randint(-127, 128, (6, 5)).astype("int8"),
+        acc32=r.randint(-2 ** 30, 2 ** 30, (4, 5)).astype("int32"),
+        qlo=onp.array(-2.0, f), qhi=onp.array(3.0, f),
+        qlo2=onp.array(-0.5, f), qhi2=onp.array(0.25, f),
+        calib=r.normal(0, 1, 4096).astype(f))
     return d
 
 
@@ -198,6 +211,40 @@ CASES = [
     C("sequence_last", (A("seq"), A("seqlen"), True)),
     C("sequence_reverse", (A("seq"), A("seqlen"), True)),
     C("l2_normalization", (A("x4"),), dict(mode="channel")),
+    # -- contrib/quantization.py -----------------------------------------------
+    C("_contrib_quantize", (A("x2"), A("qlo"), A("qhi"))),
+    C("_contrib_quantize_v2", (A("x2"),)),
+    C("_contrib_quantize_v2", (A("x2"),),
+      dict(min_calib_range=-0.5, max_calib_range=0.5)),
+    C("_contrib_dequantize", (A("qx"), A("qlo"), A("qhi"))),
+    C("_contrib_requantize", (A("acc32"), A("qlo"), A("qhi"))),
+    C("_contrib_requantize", (A("acc32"), A("qlo"), A("qhi")),
+      dict(min_calib_range=-1.0, max_calib_range=1.0)),
+    C("_contrib_calibrate_entropy", (A("calib"),)),
+    C("_contrib_quantized_act", (A("qx"), A("qlo"), A("qhi")),
+      dict(act_type="relu")),
+    C("_contrib_quantized_flatten", (A("qx"), A("qlo"), A("qhi"))),
+    C("_contrib_quantized_pooling", (A("qx"), A("qlo"), A("qhi")),
+      dict(kernel=(2, 2), stride=(2, 2))),
+    C("_contrib_quantized_elemwise_add", (A("qx"), A("qx2"), A("qlo"),
+                                          A("qhi"), A("qlo2"), A("qhi2"))),
+    C("_contrib_quantized_elemwise_mul", (A("qx"), A("qx2"), A("qlo"),
+                                          A("qhi"), A("qlo2"), A("qhi2"))),
+    C("_contrib_quantized_concat", (A("qx"), A("qx2"), A("qlo"), A("qhi"),
+                                    A("qlo2"), A("qhi2")), dict(dim=1)),
+    C("_contrib_quantized_embedding", (A("idx"), A("qemb"), A("qlo"),
+                                       A("qhi"))),
+    C("_contrib_quantized_batch_norm", (A("qx"), A("g3"), A("b3"), A("m3"),
+                                        A("v3"), A("qlo"), A("qhi"))),
+    C("_contrib_quantized_conv", (A("qx"), A("qw"), A("qb"), A("qlo"),
+                                  A("qhi"), A("qlo2"), A("qhi2"), A("qlo"),
+                                  A("qhi")), dict(pad=(1, 1))),
+    C("_contrib_quantized_conv", (A("qx"), A("qw"), None, A("qlo"),
+                                  A("qhi"), A("qlo2"), A("qhi2")),
+      dict(stride=(2, 2), no_bias=True)),
+    C("_contrib_quantized_fully_connected", (A("qx"), A("qfc"), A("qbfc"),
+                                             A("qlo"), A("qhi"), A("qlo2"),
+                                             A("qhi2"), A("qlo"), A("qhi"))),
     C("upsampling", (A("x4"),), dict(scale=2, sample_type="bilinear")),
     C("moments", (A("x4"),), dict(axes=(0, 2, 3))),
     # -- ops/legacy.py ----------------------------------------------------

@@ -56,12 +56,27 @@ def _channels_last(layout):
     return layout is not None and layout[-1] == "C"
 
 
+def _to_kernel_spec(weight, kernel_layout, layout, nd):
+    """``weight``, whose axes ``kernel_layout`` names (``O``, ``I`` and the
+    layout's spatial letters), permuted to the layout's own weight spec:
+    ``OI`` + spatial channels-first, ``O`` + spatial + ``I`` channels-last
+    (ops/nn.py:_layout_spec)."""
+    sp = ("DHW"[-nd:] if layout is None
+          else layout.replace("N", "").replace("C", ""))
+    want = "O" + sp + "I" if _channels_last(layout) else "OI" + sp
+    if sorted(kernel_layout) != sorted(want):
+        raise ValueError(f"kernel_layout {kernel_layout!r} does not name the "
+                         f"axes of {want!r}")
+    return weight.permute(*[kernel_layout.index(a) for a in want])
+
+
 def conv(x, weight, bias=None, stride=None, pad=None, dilate=None, groups=1,
-         layout=None):
+         layout=None, kernel_layout=None):
     """N-d convolution (ops/nn.py:71) in the NCHW family (default) or the
     NHWC family. Weights are ``(O, I/g, *k)`` channels-first and
     ``(O, *k, I/g)`` channels-last, the JAX package's shapes, so checkpoints
-    map 1:1.
+    map 1:1. ``kernel_layout`` (e.g. ``"HWIO"``) names the weight's own
+    axes instead; the weight is permuted to the layout's spec first.
 
     Channels-last tensors go to ``F.conv*d`` as ``movedim`` views, which
     are channels_last in memory: cuDNN takes them as they are, and its
@@ -76,6 +91,8 @@ def conv(x, weight, bias=None, stride=None, pad=None, dilate=None, groups=1,
         bias = bias.to(dt)
     x, weight = x.to(dt), weight.to(dt)
     last = _channels_last(layout)
+    if kernel_layout is not None:
+        weight = _to_kernel_spec(weight, kernel_layout, layout, nd)
     if last:
         x, weight = x.movedim(-1, 1), weight.movedim(-1, 1)
     fn = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]

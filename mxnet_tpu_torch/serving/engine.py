@@ -271,6 +271,8 @@ class InferenceEngine:
         self._g_inflight_batches = _instr.serve_inflight_batches.labels(
             self.name)
         self._c_dispatch = _instr.serve_dispatch_total.labels(self.name)
+        # dispatches by bucket rung (keys fixed here: only values change)
+        self._bucket_dispatches = dict.fromkeys(self.buckets, 0)
 
     # -- lifecycle ---------------------------------------------------------
     @property
@@ -589,6 +591,7 @@ class InferenceEngine:
             for r in batch:
                 r.t_dispatch = now
             self._c_dispatch.inc()
+            self._bucket_dispatches[bucket] += 1
             return _Flight(batch, datas, ready, rows, bucket,
                            batch_id=batch_id, traced=traced)
         except Exception as e:  # noqa: BLE001 — batch failure -> per-request
@@ -750,6 +753,11 @@ class InferenceEngine:
         if self._sched.at_bound():
             return "overloaded"
         return "ok"
+
+    def bucket_dispatches(self):
+        """``{rung: dispatches}`` since the engine was made (the keys of
+        ``stats()`` stay the JAX package's)."""
+        return dict(self._bucket_dispatches)
 
     def stats(self):
         """Live snapshot: queue/in-flight, outcome counters, batch shape,

@@ -88,7 +88,8 @@ def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
     (the optimizer's global-norm pre-pass: the reference's jitted XLA
     norm, which no Pallas kernel computes; the ring's hop kernels: the
     reference's ring forward and backward, which run the Pallas attention
-    kernels on each hop)."""
+    kernels on each hop; the INT8 kernels: the reference's XLA quantize and
+    int8 convolution)."""
     import importlib
 
     sys.path.insert(0, str(ROOT))
@@ -107,7 +108,7 @@ def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
 
     sources = sorted(str(p.relative_to(ROOT))
                      for p in (ROOT / "mxnet_tpu_torch/csrc").glob("*.cu"))
-    assert len(sources) == 6
+    assert len(sources) == 8
     assert sorted({k["source"] for k in chip_smoke.KERNELS
                    if "/csrc/" in k["source"]}) == sources
     # the runtime-compiled kernels (K7) come from user sources through rtc
@@ -128,6 +129,11 @@ def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
         if k["name"] in ("ring_flash_fwd", "ring_flash_bwd"):
             assert text[int(line) - 1].startswith(
                 ("def _ring_flash_fwd_impl(", "def _ring_flash_vjp_bwd(")), \
+                k["replaces"]
+            continue
+        if k["name"] in ("int8_quantize", "int8_conv"):
+            assert text[int(line) - 1].lstrip().startswith(
+                ("def _q(", "acc = jax.lax.conv_general_dilated(")), \
                 k["replaces"]
             continue
         assert ("_kernel(" in text[int(line) - 1]

@@ -36,8 +36,6 @@ DEFERRED = {
                  "mxnet_tpu.numpy.multiarray")),
     "queue 1 item 5: the image ops": dict(
         modules=("mxnet_tpu.image.image",), names=("image",)),
-    "queue 1 item 8: contrib/quantization.py": dict(
-        modules=("mxnet_tpu.contrib.quantization",)),
     "queue 1 item 11: contrib/ (ops, dgl), operator.Custom, ops/rnn.py, "
     "the symbol executor's CachedOp": dict(
         modules=("mxnet_tpu.contrib.ops", "mxnet_tpu.contrib.dgl",
