@@ -308,32 +308,42 @@ failure exits non-zero, nothing is caught and carried on:
      of a 2^24-element f32 gradient on the card: packed bytes and
      residuals bit for bit the CPU's over two rounds.
  25. INT8 inference, a main path (BASELINE config #5): (a) Q1 and Q2
-     (``kernels/int8.py``: ``csrc/int8_quant.cu``, ``csrc/int8_conv.cu``)
+     (``kernels/int8.py``: ``csrc/int8_quant.cu``; Q2's wgmma variant
+     ``csrc/int8_conv_wgmma.cu`` with its split-K epilogue launch, and its
+     gather variant ``csrc/int8_conv.cu``, as ``plan_conv`` picks them)
      against their plain versions on the card at each of ResNet-50 v1's
      54 quantized sites (53 convolutions and the Dense as a 1x1
      convolution) at batch 1, 8 and 32 (the served rungs), and at a site
-     each of dilation 2, groups 2 and depthwise: Q1's codes and ranges, Q2's
-     int32 sums (against the float64 convolution's) and its f32 epilogue
-     bit for bit; at batch 32 each timed alone and host-issued beside its
-     plain version and its bound (bytes at 3.35 TB/s, int8 operations at
-     1979 TOPS), with cuDNN's f32 and bf16 convolutions, ``torch._int_mm``
-     at the Dense and ``torch.quantize_per_tensor`` as indications. (b)
+     each of dilation 2, groups 2 and depthwise, the operands stored as
+     the layers store them (channels-last codes and weight where the
+     wgmma variant runs): Q1's codes, layout and ranges, Q2's int32 sums
+     (against the float64 convolution's) and its f32 epilogue bit for
+     bit; at batch 32 each site's plan (variant, tile, split) and each
+     kernel timed alone and host-issued beside its plain version and its
+     bound (bytes at 3.35 TB/s, int8 operations at 1979 TOPS), with the
+     earlier designs timed in the same run (Q1's flat NCHW pass, Q2's
+     gather variant forced at every site), cuDNN's f32 and bf16
+     convolutions, ``torch._int_mm`` at the Dense and
+     ``torch.quantize_per_tensor`` as indications. (b)
      ``tools/int8_inference.py``: ``resnet50_v1(classes=1000)`` f32 NCHW
      from seed 0, calibrated by ``quantize_net(calib_mode="entropy")``
      over 4 batches of 8 (host seconds printed), served through
      InferenceEngine with captured rungs 1, 8 and 32, 24 requests of 1-8
-     images with the counts zeroed just before and read just after: Q1 and
-     Q2 54 launches each a batch, from the replays; every rung dispatched
-     (the dispatches by rung printed); no capture after warmup; each
-     result within 1e-4 of an eager forward of its rows; at each rung's
-     batch, every quantized layer's Q1 codes, Q2 sums and output bit for
-     bit their plain versions on its own input on the card; 8 images'
-     logits against the same quantized net on the CPU with the card's
-     ranges (1e-2 of the largest, the same top-1; the int8 codes that
-     differ counted); int8 against fp32 top-1 agreement over 8 batches of
-     32 (no gate: random weights); the int8 and fp32 forwards at batch 32,
-     each a captured rung, and one replay of each under the profiler (Q1's
-     and Q2's share of the int8 forward's device time). (c)
+     images with the counts zeroed just before and read just after: Q1 54
+     launches a batch, Q2 53 on the wgmma variant and 1 (the stem) on the
+     gather one, a split-K epilogue launch for each site the plan splits
+     at the rung served, all from the replays; every rung dispatched (the
+     dispatches by rung printed); no capture after warmup; each result
+     within 1e-4 of an eager forward of its rows; at each rung's batch,
+     every quantized layer's Q1 codes, Q2 sums and output bit for bit
+     their plain versions on its own input on the card; 8 images' logits
+     against the same quantized net on the CPU with the card's ranges
+     (1e-2 of the largest, the same top-1; the int8 codes that differ
+     counted); int8 against fp32 top-1 agreement over 8 batches of 32 (no
+     gate: random weights); the int8 and fp32 forwards at batch 32, each
+     a captured rung, and one replay of each under the profiler, its
+     device time split by kernel group (Q1, each Q2 variant, BatchNorm,
+     pooling, adds, ReLU, copies, the rest by name). (c)
      ``tools/quantize_int8.py`` on the card, its own gate: int8 accuracy
      at least fp32's less 0.05.
  26. a ``timing`` line (profiler windows taken, windows that came back
@@ -358,6 +368,16 @@ MobileNetV2-1.0's 19 (phase 20's, NCHW) and ResNet-18's 5 CIFAR shapes
 card in one call. It prints a ``bn_site`` line for each NCHW shape, one
 ``bn_sites`` line with the sums over each set's sites, and no ``ok``
 line.
+
+``python3 chip_smoke.py --int8-plans [BATCHES]`` runs no phase but this:
+at ResNet-50 v1's quantized sites that Q2's wgmma variant takes, at each
+of the comma-separated BATCHES (default 1,8,32), the variant timed alone
+(summed kernel events, inputs rotated over copies exceeding the L2) at
+every tile (BM 64 and 128 output pixels by 64 channels) and split of K that
+``INT8_SWEEP_SPLITS`` and the plan's own allow, one ``int8_plan_site``
+line a site (the plan's choice, the fastest, the bound) and an
+``int8_plans`` line with the sums over the sites by their counts; no
+``ok`` line.
 """
 import concurrent.futures
 import contextlib
@@ -366,6 +386,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -452,7 +473,20 @@ KERNELS = [
          replaces="mxnet_tpu/contrib/quantization.py:40",
          wrapper="mxnet_tpu_torch.kernels.int8:quantize",
          plain="mxnet_tpu_torch.kernels.int8:quantize_reference"),
-    dict(name="int8_conv", route="cuda",
+    # Q2's variants (kernels/int8.py:plan_conv): wgmma at every site whose
+    # C/groups is a multiple of 16, with its split-K epilogue launch where
+    # the plan splits K; gather at the rest
+    dict(name="int8_conv_wgmma", route="cuda",
+         source="mxnet_tpu_torch/csrc/int8_conv_wgmma.cu",
+         replaces="mxnet_tpu/contrib/quantization.py:311",
+         wrapper="mxnet_tpu_torch.kernels.int8:conv",
+         plain="mxnet_tpu_torch.kernels.int8:conv_reference"),
+    dict(name="int8_conv_splitk", route="cuda",
+         source="mxnet_tpu_torch/csrc/int8_conv_wgmma.cu",
+         replaces="mxnet_tpu/contrib/quantization.py:311",
+         wrapper="mxnet_tpu_torch.kernels.int8:conv",
+         plain="mxnet_tpu_torch.kernels.int8:conv_reference"),
+    dict(name="int8_conv_gather", route="cuda",
          source="mxnet_tpu_torch/csrc/int8_conv.cu",
          replaces="mxnet_tpu/contrib/quantization.py:311",
          wrapper="mxnet_tpu_torch.kernels.int8:conv",
@@ -5874,21 +5908,70 @@ def int8_bounds(site):
                                            else "operations")
 
 
+def int8_device_parts(torch, fns, tag, iters=20):
+    """``(all, tagged)``: as :func:`device_ms`, the mean device ms of one
+    call, and of it the ms of the kernels whose name holds ``tag`` (None
+    where the profiler recorded no device activity: then ``all`` is
+    :func:`device_ms`'s CUDA-event time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fns = list(fns)
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(1 if TIMING["event_timed_calls"] else 3):
+        TIMING["profiler_windows"] += 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ev:
+            us = sum(e.time_range.elapsed_us() for e in ev)
+            mine = sum(e.time_range.elapsed_us() for e in ev
+                       if tag in e.name)
+            return us / 1e3 / iters, mine / 1e3 / iters
+        TIMING["empty_windows"] += 1
+    return device_ms(torch, fns, iters), None
+
+
+def int8_site_operands(torch, kint8, site, gen, dev):
+    """One site's random f32 input and int8 weight (stored as the layer
+    stores it: channels-last where the wgmma variant takes the site), its
+    per-channel scales and bias."""
+    xs, ws, _, _, _, _, has_bias, _ = site
+    x = torch.rand(xs, device=dev, generator=gen) * 5 - 2
+    wq = torch.randint(-127, 128, ws, device=dev, generator=gen,
+                       dtype=torch.int32).to(torch.int8)
+    if kint8.wgmma_site(ws):
+        wq = wq.contiguous(memory_format=torch.channels_last)
+    wscale = torch.rand(ws[0], device=dev, generator=gen) * 200 + 50
+    bias = (torch.rand(ws[0], device=dev, generator=gen) - 0.5
+            if has_bias else None)
+    return x, wq, wscale, bias
+
+
 def phase_int8_kernels(torch, mt, vision, batch=INT8_BATCH):
     """25a: Q1 and Q2 against their plain versions on the card at each of
     ResNet-50's 54 quantized sites at every served rung's batch (1, 8, 32;
-    and at a site each of dilation 2, groups 2 and depthwise): Q1's codes
-    and (-amax, amax, scale) bit for bit, Q2's int32 sums bit for bit those
-    of the float64 convolution of the codes (cuDNN off: im2col and a GEMM,
+    and at a site each of dilation 2, groups 2 and depthwise), each in the
+    variant, tile and split that ``kernels/int8.py:plan_conv`` picks, its
+    operands stored as the quantized layers store them (Q1's codes and
+    the weight channels-last where the wgmma variant runs): Q1's codes and
+    (-amax, amax, scale) bit for bit, Q2's int32 sums bit for bit those of
+    the float64 convolution of the codes (cuDNN off: im2col and a GEMM,
     exact on integers), its f32 epilogue bit for bit the plain version's.
-    Times at ``batch`` per
-    site, summed over the sites by their counts: each kernel alone (summed
-    kernel events, inputs rotated over copies exceeding the L2) and
-    host-issued (CUDA events around back-to-back calls), the plain
-    versions, the bound; as indications, cuDNN's f32 and bf16
-    convolutions of the same shapes (other functions), ``torch._int_mm``
-    at the Dense's shape and ``torch.quantize_per_tensor`` (x / scale,
-    another rounding and range) beside Q1."""
+    Times at ``batch`` per site, summed over the sites by their counts:
+    each kernel alone (summed kernel events, inputs rotated over copies
+    exceeding the L2; the wgmma variant's split-K epilogue launch apart)
+    and host-issued (CUDA events around back-to-back calls), the plain
+    versions, the bound; beside them the earlier designs in the same run:
+    Q1's flat pass writing NCHW codes, and Q2's gather variant forced at
+    every site on NCHW codes and OIHW weights; as indications, cuDNN's f32
+    and bf16 convolutions of the same shapes (other functions),
+    ``torch._int_mm`` at the Dense's shape and ``torch.quantize_per_tensor``
+    (x / scale, another rounding and range) beside Q1."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.kernels import int8 as kint8
 
@@ -5903,31 +5986,43 @@ def phase_int8_kernels(torch, mt, vision, batch=INT8_BATCH):
              (((2, 32, 28, 28), (32, 1, 3, 3), (1, 1), (1, 1), (1, 1), 32,
                False, True), 0)]
     lohi = torch.tensor([-2.0, 2.0], device=dev)
+    gather = kint8.ConvPlan("gather", 64, 1)
     keys = ("q1_ms", "q1_ms_host_issued", "q1_plain_ms", "q1_bound_ms",
-            "q1_library_ms", "q2_ms", "q2_ms_host_issued", "q2_plain_ms",
-            "q2_bound_ms", "cudnn_f32_ms", "cudnn_bf16_ms")
+            "q1_library_ms", "q1_flat_ms", "q2_ms", "q2_ms_host_issued",
+            "q2_plain_ms", "q2_bound_ms", "q2_gather_ms", "cudnn_f32_ms",
+            "cudnn_bf16_ms")
     total = dict.fromkeys(keys, 0.0)
-    worst = dict(q1_codes=0, q1_info=0.0, q2_acc=0, q2_f32=0.0,
-                 q2_f32_ulps=0)
+    # the kernels line's Q2 rows: each variant's sites, and the split-K
+    # epilogue launches of the split ones
+    by_variant = {v: dict.fromkeys(("ms", "ms_host_issued", "plain_ms",
+                                    "bound_ms", "gather_ms", "sites",
+                                    "layers"), 0)
+                  for v in ("wgmma", "gather", "splitk")}
+    worst = dict(q1_codes=0, q1_info=0.0, q1_layout_wrong=0, q2_acc=0,
+                 q2_f32=0.0, q2_f32_ulps=0)
+    checked = {}
     per_site, bound_by = [], {"bytes": 0.0, "operations": 0.0}
     t0 = time.perf_counter()
     cases = [(b, site, count) for b in INT8_RUNGS
              for site, count in by_batch[b]] + [(None, site, 0)
                                                 for site, _ in extra]
     for at, site, count in cases:
-        xs, ws, stride, pad, dil, groups, has_bias, relu = site
-        x = torch.rand(xs, device=dev, generator=gen) * 5 - 2
-        wq = torch.randint(-127, 128, ws, device=dev, generator=gen,
-                           dtype=torch.int32).to(torch.int8)
-        wscale = torch.rand(ws[0], device=dev, generator=gen) * 200 + 50
-        bias = (torch.rand(ws[0], device=dev, generator=gen) - 0.5
-                if has_bias else None)
-        codes, info = kint8.quantize(x, lohi, clip=True)
+        xs, ws, stride, pad, dil, groups, _, relu = site
+        x, wq, wscale, bias = int8_site_operands(torch, kint8, site, gen,
+                                                 dev)
+        plan = kint8.plan_conv(xs, ws, stride, pad, dil, groups)
+        cl = plan.variant == "wgmma"
+        key = f"{plan.variant}/{plan.bm}x64/split{plan.split}"
+        checked[key] = checked.get(key, 0) + 1
+        codes, info = kint8.quantize(x, lohi, clip=True, channels_last=cl)
         want_codes, want_info = kint8.quantize_reference(x, lohi, True)
         worst["q1_codes"] = max(worst["q1_codes"], int(
             (codes.int() - want_codes.int()).abs().max()))
         worst["q1_info"] = max(worst["q1_info"],
                                float((info - want_info).abs().max()))
+        worst["q1_layout_wrong"] += int(not codes.is_contiguous(
+            memory_format=torch.channels_last if cl
+            else torch.contiguous_format))
         args = (stride, pad, dil, groups)
         acc = kint8.conv(codes, wq, *args)
         with torch.backends.cudnn.flags(enabled=False):
@@ -5948,8 +6043,11 @@ def phase_int8_kernels(torch, mt, vision, batch=INT8_BATCH):
             continue
         q1_bound, q2_bound, by = int8_bounds(site)
         bound_by[by] += q2_bound * count
+        # the earlier designs' operands: NCHW codes, OIHW weight
+        codes_nchw, wq_oihw = codes.contiguous(), wq.contiguous()
         cold_x = cold_copies(torch, [x])
         cold_c = cold_copies(torch, [codes])
+        cold_n = cold_copies(torch, [codes_nchw])
         wf = wq.float()
         xf16 = x.bfloat16()
         cold_bf = cold_copies(torch, [xf16])
@@ -5960,23 +6058,31 @@ def phase_int8_kernels(torch, mt, vision, batch=INT8_BATCH):
                 for c in cold_x])
         except RuntimeError:
             q1_lib = None
+        q2_all, q2_splitk = int8_device_parts(torch, [partial(
+            kint8.conv, c[0], wq, *args, xscale, wscale, bias, relu)
+            for c in cold_c], "splitk_epilogue_kernel")
         times = dict(
-            q1_ms=device_ms(torch, [partial(kint8.quantize, c[0], lohi, True)
-                                    for c in cold_x]),
+            plan=plan._asdict(),
+            q1_ms=device_ms(torch, [partial(kint8.quantize, c[0], lohi, True,
+                                            cl) for c in cold_x]),
             q1_ms_host_issued=cuda_ms(torch, partial(kint8.quantize, x, lohi,
-                                                     True)),
+                                                     True, cl)),
             q1_plain_ms=cuda_ms(torch, partial(kint8.quantize_reference, x,
                                                lohi, True), iters=5),
             q1_bound_ms=q1_bound, q1_library_ms=q1_lib,
-            q2_ms=device_ms(torch, [partial(
-                kint8.conv, c[0], wq, *args, xscale, wscale, bias, relu)
-                for c in cold_c]),
+            q1_flat_ms=device_ms(torch, [partial(kint8.quantize, c[0], lohi,
+                                                 True) for c in cold_x]),
+            q2_ms=q2_all,
+            q2_splitk_ms=q2_splitk if plan.split > 1 else 0.0,
             q2_ms_host_issued=cuda_ms(torch, partial(
                 kint8.conv, codes, wq, *args, xscale, wscale, bias, relu)),
             q2_plain_ms=cuda_ms(torch, partial(
                 kint8.conv_reference, codes, wq, *args, xscale, wscale, bias,
                 relu), iters=3),
             q2_bound_ms=q2_bound,
+            q2_gather_ms=device_ms(torch, [partial(
+                kint8.conv, c[0], wq_oihw, *args, xscale, wscale, bias, relu,
+                plan=gather) for c in cold_n]),
             cudnn_f32_ms=device_ms(torch, [partial(
                 F.conv2d, c[0], wf, None, stride, pad, dil, groups)
                 for c in cold_x]),
@@ -5995,32 +6101,85 @@ def phase_int8_kernels(torch, mt, vision, batch=INT8_BATCH):
                 torch._int_mm, a, b)) if xs[0] > 16 else None
             dense = dict(site=[list(v) if isinstance(v, tuple) else v
                                for v in site], **times)
-        for key in keys:
-            if times[key] is None or total[key] is None:
-                total[key] = None
+        for k in keys:
+            if times[k] is None or total[k] is None:
+                total[k] = None
             else:
-                total[key] += times[key] * count
+                total[k] += times[k] * count
+        row = by_variant[plan.variant]
+        split = times["q2_splitk_ms"]
+        row["ms"] = None if split is None or row["ms"] is None else (
+            row["ms"] + (times["q2_ms"] - split) * count)
+        row["ms_host_issued"] += times["q2_ms_host_issued"] * count
+        row["plain_ms"] += times["q2_plain_ms"] * count
+        row["bound_ms"] += q2_bound * count
+        row["gather_ms"] += times["q2_gather_ms"] * count
+        row["sites"] += 1
+        row["layers"] += count
+        if plan.split > 1:
+            sk = by_variant["splitk"]
+            sk["ms"] = None if split is None or sk["ms"] is None else (
+                sk["ms"] + split * count)
+            # its plain version: the splits' int32 sums added, then the
+            # epilogue
+            parts = torch.randint(-2 ** 20, 2 ** 20, (plan.split,) + tuple(
+                y.shape), device=dev, generator=gen, dtype=torch.int32)
+            sk["plain_ms"] += count * cuda_ms(torch, lambda: kint8._epilogue(
+                parts.sum(0, dtype=torch.int32), xscale, wscale, bias, relu),
+                iters=5)
+            del parts
+            sk["bound_ms"] += splitk_bound(kint8, site, plan) * count
+            sk["sites"] += 1
+            sk["layers"] += count
         per_site.append(dict(site=[list(v) if isinstance(v, tuple) else v
                                    for v in site], count=count, **times))
-        del cold_x, cold_c, cold_bf
+        del cold_x, cold_c, cold_n, cold_bf
         gc_collect(torch)
     torch.cuda.synchronize()
-    check(worst["q1_codes"] == 0 and worst["q1_info"] == 0.0,
+    check(worst["q1_codes"] == 0 and worst["q1_info"] == 0.0
+          and worst["q1_layout_wrong"] == 0,
           f"int8 quantize differs from its plain version: {worst}")
     check(worst["q2_acc"] == 0, f"int8 conv sums differ: {worst}")
     check(worst["q2_f32_ulps"] == 0,
           f"int8 conv f32 epilogue differs from its plain version: {worst}")
+    check(by_variant["wgmma"]["layers"] == 53
+          and by_variant["gather"]["layers"] == 1,
+          f"int8 plan at batch {batch}: 53 wgmma layers and the stem on "
+          f"the gather variant, got {by_variant}")
     out = dict(batch=batch, sites=len(sites),
                layers=sum(c for _, c in sites), extra_sites=len(extra),
                checked_at={b: sum(c for _, c in by_batch[b])
                            for b in INT8_RUNGS},
-               worst=worst, total=total,
+               checked_plans=checked, worst=worst, total=total,
+               by_variant=by_variant,
                q2_bound_ms_by=bound_by,
                q2_bound_by=max(bound_by, key=bound_by.get),
                dense=dense, per_site=per_site,
                seconds=time.perf_counter() - t0)
     say("int8_kernels " + json.dumps(out))
     return out
+
+
+def splitk_bound(kint8, site, plan):
+    """Least ms of the split-K epilogue launch at one site: it reads the
+    splits' int32 sums and the per-channel scales (and bias) and writes
+    the output (f32), bytes at the memory rate."""
+    xs, ws, stride, pad, dil, _, bias, _ = site
+    out = math.prod(kint8.conv_out_shape(xs, ws, stride, pad, dil))
+    nbytes = 4 * out * (plan.split + 1) + 4 * ws[0] * (2 if bias else 1)
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def int8_split_launches(torch, mt, vision, dev, by_rung):
+    """The split-K epilogue launches a served ResNet-50 makes: the sites
+    that :func:`kernels.int8.plan_conv` splits at each rung's batch, times
+    that rung's dispatches (``by_rung``)."""
+    from mxnet_tpu_torch.kernels import int8 as kint8
+
+    sites = int8_sites(torch, mt, vision, dev, tuple(by_rung))
+    return sum(n * sum(count for site, count in sites[rung]
+                       if kint8.plan_conv(*site[:6]).split > 1)
+               for rung, n in by_rung.items())
 
 
 def int8_inputs(torch, layers, run, out=False):
@@ -6116,42 +6275,205 @@ def int8_layer_check(torch, layers, run):
     return worst
 
 
+#: the kernel groups of a replay's profile: Q1 and Q2's kernels by name
+#: (csrc/int8_quant.cu, csrc/int8_conv_wgmma.cu, csrc/int8_conv.cu), the
+#: f32 layers' PyTorch kernels by the layer that launched them
+INT8_KERNEL_NAMES = (
+    ("q1", r"quantize(_nhwc)?_kernel"),
+    ("q2_wgmma", r"conv_wgmma_kernel"),
+    ("q2_splitk", r"splitk_epilogue_kernel"),
+    ("q2_gather", r"(^|::|\s)conv_kernel\b"),
+)
+INT8_LAYER_GROUPS = {
+    "BatchNorm": "batchnorm", "MaxPool2D": "pooling",
+    "GlobalAvgPool2D": "pooling", "Activation": "relu",
+    "QuantizedConv2D": "int8_other", "QuantizedDense": "int8_other",
+    "Conv2D": "conv_f32", "Dense": "dense_f32", "Flatten": "other"}
+#: a kernel launched outside every layer: the residual add, the ReLU after
+#: it, the input's copy into the captured graph
+INT8_LOOSE_NAMES = (("add", r"(?i)add"), ("relu", r"(?i)relu|clamp|threshold"),
+                    ("copy", r"(?i)copy|memcpy"))
+
+
+def int8_name_group(name, table):
+    """The first group of ``table`` whose pattern the kernel's name holds."""
+    for group, pattern in table:
+        if re.search(pattern, name):
+            return group
+    return None
+
+
+def int8_window_kernels(torch, prof):
+    """The device kernels (and copies) of a profiler window in order, the
+    marker's and those before it dropped (:func:`int8_window_marker`), and
+    no synchronisation the profiler records on the device, nor the device
+    span of a named range (:func:`int8_kernel_sequence`'s layers)."""
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not re.search(r"(?i)sync", e.name)
+                 and not e.name.startswith("int8group:")),
+                key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(ev) if "arange" in e.name]
+    return ev[marks[-1] + 1:] if marks else ev
+
+
+def int8_window_marker(torch, dev):
+    """A kernel that opens a profiler window: the profiler has been seen to
+    lose the first kernels launched after it starts (the stem's Q1 and Q2,
+    on the H100), so a window opens with this marker and drops it after."""
+    torch.arange(2, device=dev)
+    torch.cuda.synchronize()
+
+
+def int8_kernel_sequence(torch, net, x):
+    """Every device kernel of one eager forward of ``net`` on ``x``, in
+    order, as ``(name, group, us)``: Q1's and Q2's by name, the rest by the
+    layer that launched it (each layer bracketed by synchronisations and a
+    named profiler range, so that its kernels fall inside its range), else
+    by name (:data:`INT8_LOOSE_NAMES`)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    open_ranges = []
+
+    def pre(block, inputs):  # noqa: ARG001
+        torch.cuda.synchronize()
+        rf = record_function("int8group:" + INT8_LAYER_GROUPS[
+            type(block).__name__])
+        rf.__enter__()
+        open_ranges.append(rf)
+
+    def post(block, inputs, out):  # noqa: ARG001
+        torch.cuda.synchronize()
+        open_ranges.pop().__exit__(None, None, None)
+
+    handles = []
+    for m in net.modules():
+        if type(m).__name__ in INT8_LAYER_GROUPS:
+            handles += [m.register_forward_pre_hook(pre),
+                        m.register_forward_hook(post)]
+    try:
+        net(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            int8_window_marker(torch, x.device)
+            net(x)
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    spans = [(e.time_range.start, e.time_range.end, e.name.split(":", 1)[1])
+             for e in prof.events() if e.name.startswith("int8group:")]
+    seq = []
+    for e in int8_window_kernels(torch, prof):
+        group = int8_name_group(e.name, INT8_KERNEL_NAMES)
+        if group is None:
+            inside = [g for a, b, g in spans
+                      if a <= e.time_range.start <= b]
+            group = inside[-1] if inside else (
+                int8_name_group(e.name, INT8_LOOSE_NAMES) or "other")
+        seq.append((e.name, group, e.time_range.elapsed_us()))
+    return seq
+
+
+def int8_groups(seq):
+    """``{group: {"kernels": n, "ms": x}}`` of a kernel sequence."""
+    out = {}
+    for _, group, us in seq:
+        g = out.setdefault(group, dict(kernels=0, ms=0.0))
+        g["kernels"] += 1
+        g["ms"] += us / 1e3
+    return out
+
+
+def int8_align(eager, ev):
+    """The groups of a replay's kernels ``ev`` by position: a graph replays
+    the kernels of the forward it captured in the order they were launched,
+    so the replay's names are aligned in order with those of an eager
+    forward (``eager``, :func:`int8_kernel_sequence`; difflib's matching
+    blocks, each name equal to its partner's) and each aligned kernel takes
+    its partner's group. A kernel left over goes by name. Returns
+    ``(seq, aligned, loose, eager_only)``: the replay as ``(name, group,
+    us)``, the count aligned, the leftover replay kernels' groups and the
+    unaligned eager kernels' groups as counts."""
+    import difflib
+
+    sm = difflib.SequenceMatcher(None, [n for n, _, _ in eager],
+                                 [e.name for e in ev], autojunk=False)
+    at = {}
+    for a, b, size in sm.get_matching_blocks():
+        for i in range(size):
+            at[b + i] = a + i
+    seq, loose = [], {}
+    for j, e in enumerate(ev):
+        if j in at:
+            group = eager[at[j]][1]
+        else:
+            group = (int8_name_group(e.name, INT8_KERNEL_NAMES)
+                     or int8_name_group(e.name, INT8_LOOSE_NAMES)
+                     or "other")
+            loose[group] = loose.get(group, 0) + 1
+        seq.append((e.name, group, e.time_range.elapsed_us()))
+    eager_only = {}
+    for i in sorted(set(range(len(eager))) - set(at.values())):
+        eager_only[eager[i][1]] = eager_only.get(eager[i][1], 0) + 1
+    return seq, len(at), loose, eager_only
+
+
 def int8_replay_profile(torch, net, batch=INT8_BATCH):
     """One replay of ``net``'s captured rung of ``batch`` under the
-    profiler: the device ms of its kernels in all and of Q1's and Q2's,
-    with their counts, and whether the window holds a Q1 and a Q2 kernel
-    of every quantized layer (late in the smoke the profiler drops events
-    now and then, PERF.md section 7: up to three windows are taken for one
-    that does); None where the profiler recorded no device activity."""
+    profiler: the device ms of its kernels in all, split by kernel group
+    (Q1, each Q2 variant, BatchNorm, pooling, ReLU, the residual adds, the
+    input copy, the f32 convolutions of an fp32 net) by each kernel's
+    position against an eager forward (:func:`int8_align`); the split is
+    ``split_complete`` where every replayed kernel but the input's and the
+    output's copies was aligned and the window is complete. The window
+    opens with :func:`int8_window_marker`; Q1's and Q2's ms, counts and
+    shares, and whether the window holds a Q1 and a Q2 kernel of every
+    quantized layer (late in the smoke the profiler drops events now and
+    then, PERF.md section 7: up to three windows are taken for one that
+    does); None where the profiler recorded no device activity. The eager
+    forward's own split (``eager_groups``, each kernel in the layer range
+    that launched it) beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     from mxnet_tpu_torch.tools import int8_inference as ii
 
     layers = len(ii.int8_layers(net))
     x = torch.rand((batch,) + ii.IMAGE, device=net.device)
+    with torch.inference_mode():
+        eager = int8_kernel_sequence(torch, net, x)
     net.call_cached_graph(x)
     torch.cuda.synchronize()
     out = None
     for window in range(3):
         TIMING["profiler_windows"] += 1
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            int8_window_marker(torch, x.device)
             net.call_cached_graph(x)
             torch.cuda.synchronize()
-        ev = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        ev = int8_window_kernels(torch, prof)
         if not ev:
             TIMING["empty_windows"] += 1
             continue
+        seq, aligned, loose, eager_only = int8_align(eager, ev)
+        groups = int8_groups(seq)
         out = dict(window=window + 1, kernels=len(ev), device_ms=sum(
-            e.time_range.elapsed_us() for e in ev) / 1e3)
-        # the kernels' names in csrc/int8_quant.cu and csrc/int8_conv.cu
-        for key, tag in (("q1", "quantize_kernel"), ("q2", "conv_kernel")):
-            mine = [e for e in ev if tag in e.name]
-            out[key + "_kernels"] = len(mine)
-            out[key + "_ms"] = sum(e.time_range.elapsed_us()
-                                   for e in mine) / 1e3
+            e.time_range.elapsed_us() for e in ev) / 1e3, groups=groups,
+            aligned=aligned, loose=loose, eager_kernels=len(eager),
+            eager_only=eager_only, eager_groups=int8_groups(eager),
+            other_kernels=sorted({n[:160] for n, g, _ in seq
+                                  if g == "other"}))
+        q2 = ("q2_wgmma", "q2_gather")
+        for key, names in (("q1", ("q1",)), ("q2", q2 + ("q2_splitk",))):
+            out[key + "_kernels"] = sum(groups.get(n, {}).get("kernels", 0)
+                                        for n in names)
+            out[key + "_ms"] = sum(groups.get(n, {}).get("ms", 0.0)
+                                   for n in names)
             out[key + "_share"] = out[key + "_ms"] / out["device_ms"]
-        out["complete"] = out["q1_kernels"] == out["q2_kernels"] == layers
+        q2_launches = sum(groups.get(n, {}).get("kernels", 0) for n in q2)
+        out["complete"] = out["q1_kernels"] == q2_launches == layers
+        out["split_complete"] = out["complete"] and set(loose) <= {"copy"}
         if out["complete"]:
             break
     return out
@@ -6193,11 +6515,19 @@ def phase_int8_serving(torch, mt):
     check(served["captures_after_warmup"] == 0
           and served["recompiles_since_warmup"] == 0,
           f"int8 serving captured or traced online: {served}")
-    want = {kint8.KERNEL_QUANT: 54 * served["batches"],
-            kint8.KERNEL_CONV: 54 * served["batches"]}
-    check(served["launches"] == want and served["batches"] > 0,
-          f"int8 launches {served['launches']} != 54 x "
-          f"{served['batches']} batches each")
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    # Q1 and Q2 54 times a batch; of Q2, the stem on the gather variant
+    # and the 53 others on wgmma; a split-K epilogue launch for each site
+    # the plan splits at the rung that served the batch
+    nb = served["batches"]
+    want = {kint8.KERNEL_QUANT: 54 * nb, kint8.KERNEL_CONV_WGMMA: 53 * nb,
+            kint8.KERNEL_CONV_GATHER: nb,
+            kint8.KERNEL_CONV_SPLITK: int8_split_launches(
+                torch, mt, vision, dev, served["by_rung"])}
+    check(served["launches"] == want and nb > 0,
+          f"int8 launches {served['launches']} != {want} over {nb} "
+          f"batches")
     check(sum(served["by_rung"].values()) == served["batches"]
           and all(served["by_rung"].get(r, 0) > 0 for r in ii.RUNGS),
           f"int8 serving: every rung serves, got {served['by_rung']}")
@@ -6274,27 +6604,37 @@ def phase_int8(torch, mt, build, vision):
     except SystemExit as e:
         fail(f"tools/quantize_int8.py: {e}")
     example = dict(fp32_acc=example["fp32_acc"], int8_acc=example["int8_acc"],
-                   launches={kint8.KERNEL_QUANT: kint8.LAUNCHES_QUANT.value,
-                             kint8.KERNEL_CONV: kint8.LAUNCHES_CONV.value})
-    check(all(example["launches"].values()),
+                   launches={c.name: c.value for c in (
+                       kint8.LAUNCHES_QUANT, kint8.LAUNCHES_CONV_WGMMA,
+                       kint8.LAUNCHES_CONV_GATHER,
+                       kint8.LAUNCHES_CONV_SPLITK)})
+    check(example["launches"][kint8.KERNEL_QUANT]
+          and kint8.conv_launches(),
           f"the int8 example launched no int8 kernel: {example}")
     seconds = time.perf_counter() - t0
     tot = kernels["total"]
     prof = serving["replay_profile"]["int8"] or {}
+    groups = prof.get("groups", {})
     say(f"int8: config #5, ResNet-50 v1 NCHW served in int8 "
         f"(calibration {serving['calibration']['calib_host_s']:.1f} host s, "
         f"{serving['serving']['batches']} batches, by rung "
-        f"{serving['serving']['by_rung']}, Q1/Q2 "
-        f"{list(serving['serving']['launches'].values())}); a rung-32 "
+        f"{serving['serving']['by_rung']}, launches "
+        f"{serving['serving']['launches']}); a rung-32 "
         f"replay's device ms {prof.get('device_ms')}, Q1 "
         f"{prof.get('q1_ms')}, Q2 {prof.get('q2_ms')} (every kernel in "
-        f"the window: {prof.get('complete')}); forward at "
+        f"the window: {prof.get('complete')}; by group "
+        f"{ {g: round(v['ms'], 4) for g, v in groups.items()} }"
+        f", {prof.get('aligned')} of {prof.get('kernels')} aligned with an "
+        f"eager forward's {prof.get('eager_kernels')}, split complete "
+        f"{prof.get('split_complete')}); forward at "
         f"batch {INT8_BATCH}: int8 {serving['int8_forward_ms_batch32']:.3f} "
         f"ms, fp32 {serving['fp32_forward_ms_batch32']:.3f} ms; the 54 "
         f"sites: Q1 {tot['q1_ms']:.3f} ms alone (bound "
-        f"{tot['q1_bound_ms']:.3f}), Q2 {tot['q2_ms']:.3f} ms alone (bound "
-        f"{tot['q2_bound_ms']:.3f}; cuDNN f32 {tot['cudnn_f32_ms']:.3f}, bf16 "
-        f"{tot['cudnn_bf16_ms']:.3f}); _int_mm at the Dense "
+        f"{tot['q1_bound_ms']:.3f}; the flat NCHW pass "
+        f"{tot['q1_flat_ms']:.3f}), Q2 {tot['q2_ms']:.3f} ms alone (bound "
+        f"{tot['q2_bound_ms']:.3f}; the gather variant at every site "
+        f"{tot['q2_gather_ms']:.3f}; cuDNN f32 {tot['cudnn_f32_ms']:.3f}, "
+        f"bf16 {tot['cudnn_bf16_ms']:.3f}); _int_mm at the Dense "
         f"{kernels['dense']['int_mm_ms']:.4f} ms against Q2's "
         f"{kernels['dense']['q2_ms']:.4f}; twin "
         f"{serving['twin']['max_abs_err']:.3g} of "
@@ -6628,37 +6968,55 @@ def main():
                        "mobilenet_v2_batch256_53_sites"].items()
                    if side in key})})
     # Q1 and Q2: the 54 sites of ResNet-50's int8 forward at batch 32
-    # (phase 25a, each site timed and summed by its count); launches from
-    # the served requests' rung replays (25b)
+    # (phase 25a, each site timed and summed by its count; each Q2 row over
+    # the sites its variant takes, the split-K epilogue's over the split
+    # ones); launches from the served requests' rung replays (25b)
     k8, s8 = int8_run["kernels"], int8_run["serving"]
-    for name, q in (("int8_quantize", "q1"), ("int8_conv", "q2")):
-        tot = k8["total"]
+    tot, rows = k8["total"], k8["by_variant"]
+    cover = (f"ResNet-50 v1 (NCHW) at batch {k8['batch']}, each site timed "
+             f"and summed by its count: ms alone (summed kernel events, "
+             f"inputs rotated over copies exceeding the L2), host-issued "
+             f"beside; no PyTorch call computes this function (indications "
+             f"beside)")
+    common = dict(
+        launches_from=f"phase 25b: {s8['serving']['batches']} served "
+                      f"batches of the int8 ResNet-50, from the rungs' "
+                      f"replays",
+        library_ms=None, checks=k8["worst"])
+    measured["int8_quantize"] = dict(
+        common, launches=s8["serving"]["launches"]["int8_quantize"],
+        max_abs_err=k8["worst"]["q1_codes"], ms=tot["q1_ms"],
+        ms_host_issued=tot["q1_ms_host_issued"], plain_ms=tot["q1_plain_ms"],
+        bound_ms=tot["q1_bound_ms"], bound_by="bytes",
+        flat_nchw_ms=tot["q1_flat_ms"],
+        indication_quantize_per_tensor_ms=tot["q1_library_ms"],
+        times_cover="the 54 quantized sites of " + cover,
+        example_launches=int8_run["example"]["launches"]["int8_quantize"])
+    for name, variant in (("int8_conv_wgmma", "wgmma"),
+                          ("int8_conv_gather", "gather"),
+                          ("int8_conv_splitk", "splitk")):
+        row = rows[variant]
         measured[name] = dict(
-            launches=s8["serving"]["launches"][name],
-            launches_from=f"phase 25b: {s8['serving']['batches']} served "
-                          f"batches of the int8 ResNet-50, from the rungs' "
-                          f"replays",
-            max_abs_err=(k8["worst"]["q1_codes"] if q == "q1"
-                         else k8["worst"]["q2_f32"]),
-            ms=tot[f"{q}_ms"], ms_host_issued=tot[f"{q}_ms_host_issued"],
-            plain_ms=tot[f"{q}_plain_ms"], bound_ms=tot[f"{q}_bound_ms"],
-            bound_by="bytes" if q == "q1" else k8["q2_bound_by"],
-            library_ms=None,
-            times_cover=f"the 54 quantized sites of ResNet-50 v1 (NCHW) at "
-                        f"batch {k8['batch']}, each timed and summed by its "
-                        f"count: ms alone (summed kernel events, inputs "
-                        f"rotated over copies exceeding the L2), "
-                        f"host-issued beside; no PyTorch call computes this "
-                        f"function (indications beside)",
-            checks=k8["worst"],
+            common, launches=s8["serving"]["launches"][name],
+            max_abs_err=k8["worst"]["q2_f32"], ms=row["ms"],
+            ms_host_issued=row["ms_host_issued"] or None,
+            plain_ms=row["plain_ms"] or None, bound_ms=row["bound_ms"],
+            bound_by="bytes" if variant == "splitk" else k8["q2_bound_by"],
+            sites=row["sites"], layers=row["layers"],
+            times_cover=f"the {row['layers']} of the 54 quantized layers "
+                        f"that the plan gives this "
+                        + ("variant" if variant != "splitk"
+                           else "kernel (the sums of the split sites)")
+                        + " in " + cover,
             example_launches=int8_run["example"]["launches"][name])
-    measured["int8_quantize"]["indication_quantize_per_tensor_ms"] = \
-        k8["total"]["q1_library_ms"]
-    measured["int8_conv"].update(
+    measured["int8_conv_wgmma"].update(
+        all_q2_ms=tot["q2_ms"], all_q2_bound_ms=tot["q2_bound_ms"],
+        all_q2_gather_ms=tot["q2_gather_ms"],
+        gather_at_these_sites_ms=rows["wgmma"]["gather_ms"],
         bound_ms_by=k8["q2_bound_ms_by"],
-        indication_cudnn_f32_ms=k8["total"]["cudnn_f32_ms"],
-        indication_cudnn_bf16_ms=k8["total"]["cudnn_bf16_ms"],
-        dense_batch32=k8["dense"],
+        indication_cudnn_f32_ms=tot["cudnn_f32_ms"],
+        indication_cudnn_bf16_ms=tot["cudnn_bf16_ms"],
+        dense_batch32=k8["dense"], plans=k8["checked_plans"],
         int8_forward_ms_batch32=s8["int8_forward_ms_batch32"],
         fp32_forward_ms_batch32=s8["fp32_forward_ms_batch32"])
     hop = ring_run["hop"]
@@ -6845,9 +7203,72 @@ def bn_sites(root, names=tuple(BN_SITE_SETS)):
     say("bn_sites " + json.dumps(result))
 
 
+#: the splits of K that ``--int8-plans`` tries beside 1
+INT8_SWEEP_SPLITS = (2, 3, 4, 6, 8, 12, 16)
+
+
+def int8_plans(batches=INT8_RUNGS):
+    """``--int8-plans [BATCHES]`` (the module docstring)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.kernels import build, int8 as kint8
+
+    build.build(["int8_conv_wgmma", "int8_quant"])
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    lohi = torch.tensor([-2.0, 2.0], device=dev)
+    result = dict(card=card_line())
+    for batch, sites in int8_sites(torch, mt, vision, dev, batches).items():
+        total = dict(plan_ms=0.0, best_ms=0.0, bound_ms=0.0)
+        for site, count in sites:
+            xs, ws, stride, pad, dil, groups, _, relu = site
+            plan = kint8.plan_conv(*site[:6])
+            if plan.variant != "wgmma":
+                continue
+            x, wq, wscale, bias = int8_site_operands(torch, kint8, site,
+                                                     gen, dev)
+            codes, info = kint8.quantize(x, lohi, True, channels_last=True)
+            cold = cold_copies(torch, [codes])
+            steps = -(-ws[1] * ws[2] * ws[3] // 128)
+            times = {}
+            for bm in (64, 128):
+                for split in sorted({1, plan.split, *INT8_SWEEP_SPLITS}):
+                    per = -(-steps // split)
+                    if split > steps or (split - 1) * per >= steps:
+                        continue
+                    cand = kint8.ConvPlan("wgmma", bm, split)
+                    times[f"{bm}x64/{split}"] = device_ms(torch, [
+                        partial(kint8.conv, c[0], wq, stride, pad, dil,
+                                groups, info[2:3], wscale, bias, relu,
+                                plan=cand) for c in cold], iters=10)
+            best = min(times, key=times.get)
+            mine = f"{plan.bm}x64/{plan.split}"
+            bound = int8_bounds(site)[1]
+            total["plan_ms"] += times[mine] * count
+            total["best_ms"] += times[best] * count
+            total["bound_ms"] += bound * count
+            say("int8_plan_site " + json.dumps(dict(
+                batch=batch, site=[list(v) if isinstance(v, tuple) else v
+                                   for v in site], count=count, plan=mine,
+                plan_ms=times[mine], best=best, best_ms=times[best],
+                bound_ms=bound, times=times)))
+            del cold
+            gc_collect(torch)
+        result[f"batch{batch}"] = total
+    say("int8_plans " + json.dumps(result))
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--bn-sites"] and len(sys.argv) in (3, 4):
         bn_sites(sys.argv[2], *([sys.argv[3].split(",")]
                                 if len(sys.argv) == 4 else []))
+    elif sys.argv[1:2] == ["--int8-plans"] and len(sys.argv) in (2, 3):
+        int8_plans(*([tuple(int(b) for b in sys.argv[2].split(","))]
+                     if len(sys.argv) == 3 else []))
     else:
         main()

@@ -317,8 +317,13 @@ class _Quantized(HybridBlock):
         bias = None if layer.bias is None else torch.as_tensor(
             _np.asarray(layer.bias.data().asnumpy(), dtype=_np.float32),
             device=dev)
-        self.register_buffer("_wq", torch.from_numpy(wq).to(dev),
-                             persistent=False)
+        wq_t = torch.from_numpy(wq).to(dev)
+        channels_last = wq.ndim == 4 and _int8.wgmma_site(wq.shape)
+        if channels_last:
+            # OIHW logical, OHWI physical: the wgmma variant's operand rows,
+            # laid out once here (a served rung captures this address)
+            wq_t = wq_t.contiguous(memory_format=torch.channels_last)
+        self.register_buffer("_wq", wq_t, persistent=False)
         self.register_buffer("_wscale", torch.from_numpy(wscale).to(dev),
                              persistent=False)
         self.register_buffer("_bias", bias, persistent=False)
@@ -328,13 +333,17 @@ class _Quantized(HybridBlock):
         object.__setattr__(self, "_activation",
                            getattr(layer, "_activation", None))
         object.__setattr__(self, "_out_range", out_range)
+        object.__setattr__(self, "_channels_last", channels_last)
 
     def _quantize_input(self, x):
         """Q1 on the input: clipped to the calibrated range where there is
-        one, else over its own min and max."""
+        one, else over its own min and max; its codes stored channels-last
+        where Q2's wgmma variant reads them."""
         if self._lohi is None:
-            return _int8.quantize(x, _dynamic_lohi(x))
-        return _int8.quantize(x, self._lohi, clip=True)
+            return _int8.quantize(x, _dynamic_lohi(x),
+                                  channels_last=self._channels_last)
+        return _int8.quantize(x, self._lohi, clip=True,
+                              channels_last=self._channels_last)
 
     def _finish(self, y):
         act = self._activation

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the ring's hop kernels
-// (ring_flash_fwd.cu, ring_flash_bwd.cu), in inline PTX: mbarriers, TMA
+// (ring_flash_fwd.cu, ring_flash_bwd.cu) and of the int8 implicit-GEMM
+// convolution (int8_conv_wgmma.cu), in inline PTX: mbarriers, TMA
 // tile loads, wgmma and its shared-memory descriptors, register hand-over
 // between warpgroups (setmaxnreg), and the host's tensor maps. No CUTLASS
 // or CuTe: the sources build in seconds.
@@ -11,7 +12,8 @@
 // wgmma reads them through a descriptor: K-major (the reduction dim along
 // the row) advances 16 elements as +32 bytes, MN-major (the output dim
 // along the row) advances 16 reduction rows as +2048 bytes; 8-row groups
-// sit 1024 bytes apart either way.
+// sit 1024 bytes apart either way. A row of int8 codes is 128 values, and
+// a K-major k32 step of s8 advances the same 32 bytes as bf16's k16 step.
 #pragma once
 
 #include <cuda.h>
@@ -89,6 +91,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of a 2-D tensor map (coordinates innermost first) into shared
+// memory; its bytes complete on ``bar``
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
       : "memory");
 }
 
@@ -182,6 +196,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // two f32 as bf16x2, the first in the low half (the lower k index)
@@ -286,6 +306,32 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
         "n"(TRANS_B));
 }
+
+// D[64 x 64] (+)= A[64 x 32] * B[32 x 64], int8 codes with int32 sums, both
+// operands K-major from shared memory (the only layout s8 takes)
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 
 
 // ---- host: tensor maps -----------------------------------------------------

@@ -11,7 +11,8 @@ for int8 blocks (Q1 and Q2 on the card; BatchNorm, ReLU, the adds and the
 pools stay f32), and serves it through ``InferenceEngine`` with captured
 rungs at batch 1, 8 and 32. Prints, one JSON line each: the calibration's
 host seconds and the swapped children; the 24 served requests (outcomes,
-batches by rung, Q1 and Q2 launches counted from the rungs' replays);
+batches by rung, Q1's launches and each Q2 variant's counted from the
+rungs' replays);
 int8 against fp32 top-1 agreement over 8 batches of 32 (random weights:
 an indication, no gate) and the forwards' ms at batch 32 (a captured rung
 each), with the card's name. Needs a card.
@@ -127,8 +128,9 @@ def serve(net, requests, seed=0, max_inflight=2):
     results += [eng.submit(x).result(timeout=600) for x in batches[-2:]]
     wall = time.perf_counter() - t0
     eng.stop()
-    launches = {_int8.KERNEL_QUANT: _int8.LAUNCHES_QUANT.value,
-                _int8.KERNEL_CONV: _int8.LAUNCHES_CONV.value}
+    launches = {c.name: c.value for c in (
+        _int8.LAUNCHES_QUANT, _int8.LAUNCHES_CONV_WGMMA,
+        _int8.LAUNCHES_CONV_GATHER, _int8.LAUNCHES_CONV_SPLITK)}
     st = eng.stats()
     return list(zip(batches, results)), dict(
         warmup=warm, requests=len(batches), outcomes=st["requests"],

@@ -1,12 +1,15 @@
-"""The INT8 kernels on the card: Q1 (``csrc/int8_quant.cu``) and Q2
-(``csrc/int8_conv.cu``) against their plain versions on the same CUDA
-tensors (codes, ranges and int32 sums bit for bit; the f32 epilogue bit
-for bit), on .5 ties, K tails (3 x 7 x 7 = 147), padding, stride,
-dilation, groups 2 and depthwise, each launch counted; dequantize,
-requantize, quantized_conv and quantized_fully_connected on the card
-against the CPU, bit for bit; then a small net
-calibrated and quantized on the card against the same net quantized on
-the CPU with the card's ranges (bit for bit), and
+"""The INT8 kernels on the card: Q1 (``csrc/int8_quant.cu``, its flat and
+its channels-last form) and Q2's variants (``csrc/int8_conv_wgmma.cu`` and
+its split-K epilogue, ``csrc/int8_conv.cu``, the gather variant) against
+their plain versions on the same CUDA tensors (codes, ranges and int32
+sums bit for bit; the f32 epilogue bit for bit), on .5 ties, K tails
+(3 x 7 x 7 = 147), padding, stride, dilation, groups 2 and depthwise, each
+launch counted; the wgmma variant at every tile and with K split and not,
+at small and ResNet-50 shapes, from channels-last codes and through the
+wrapper's copy of NCHW ones; dequantize, requantize, quantized_conv and
+quantized_fully_connected on the card against the CPU, bit for bit; then
+a small net calibrated and quantized on the card against the same net
+quantized on the CPU with the card's ranges (bit for bit), and
 chip_smoke.py's phase 25b (config #5 served). Marked ``cuda``; the tests
 skip without a card. The file imports no JAX:
 
@@ -60,9 +63,9 @@ def test_q1_and_q2_against_their_plain_versions(card):
         wq = torch.randint(-127, 128, ws, device=card, generator=gen,
                            dtype=torch.int32).to(torch.int8)
         args = (stride, pad, dil, groups)
-        before = kint8.LAUNCHES_CONV.value
+        before = kint8.conv_launches()
         acc = kint8.conv(xq, wq, *args)
-        assert kint8.LAUNCHES_CONV.value == before + 1
+        assert kint8.conv_launches() == before + 1
         with torch.backends.cudnn.flags(enabled=False):
             want = kint8.conv_reference(xq, wq, *args)
         assert torch.equal(acc, want)
@@ -73,6 +76,90 @@ def test_q1_and_q2_against_their_plain_versions(card):
             y = kint8.conv(xq, wq, *args, xscale, wscale, b, relu)
             assert torch.equal(y, kint8._epilogue(want, xscale, wscale, b,
                                                   relu))
+
+
+@pytest.mark.cuda
+def test_q1_channels_last_against_its_plain_version(card):
+    gen = torch.Generator(device=card).manual_seed(2)
+    lohi = torch.tensor([-1.0, 1.5], device=card)
+    for shape in ((2, 64, 56, 56), (3, 48, 7, 7), (1, 3, 9, 10),
+                  (2, 130, 5, 3), (4, 2048, 1, 1)):
+        x = torch.randn(shape, device=card, generator=gen)
+        x.view(-1)[:6] = torch.tensor([-0.5, 0.5, 1.5, -1.5, 2.5, 0.0],
+                                      device=card) / 84.666664
+        want = kint8.quantize_reference(x, lohi, True)
+        for src in (x, x.contiguous(memory_format=torch.channels_last)):
+            before = kint8.LAUNCHES_QUANT.value
+            codes, info = kint8.quantize(src, lohi, True,
+                                         channels_last=True)
+            assert kint8.LAUNCHES_QUANT.value == before + 1
+            assert codes.is_contiguous(memory_format=torch.channels_last)
+            assert torch.equal(codes, want[0]) and torch.equal(info, want[1])
+
+
+#: (x shape, weight shape, stride, padding, dilation, groups): small
+#: shapes with K tails, padding, dilation, groups and a partial last tile,
+#: then ResNet-50 v1's at batch 8 (a 1x1, a strided 1x1, a 3x3 at each
+#: stage's width, the Dense as a 1x1 over a 1x1 plane)
+_Q2_SITES = (
+    ((2, 16, 9, 9), (24, 16, 3, 3), 1, 2, 2, 1),
+    ((3, 48, 11, 7), (40, 48, 3, 3), 2, 1, 1, 1),
+    ((2, 64, 8, 8), (48, 32, 3, 3), 1, 1, 1, 2),
+    ((5, 272, 5, 5), (200, 272, 1, 1), 1, 0, 1, 1),
+    ((8, 64, 56, 56), (256, 64, 1, 1), 1, 0, 1, 1),
+    ((8, 256, 56, 56), (128, 256, 1, 1), 2, 0, 1, 1),
+    ((8, 128, 28, 28), (128, 128, 3, 3), 1, 1, 1, 1),
+    ((8, 512, 7, 7), (512, 512, 3, 3), 1, 1, 1, 1),
+    ((8, 2048, 1, 1), (1000, 2048, 1, 1), 1, 0, 1, 1),
+)
+
+
+@pytest.mark.cuda
+def test_q2_wgmma_tiles_and_splits_bit_for_bit(card):
+    gen = torch.Generator(device=card).manual_seed(3)
+    for xs, ws, stride, pad, dil, groups in _Q2_SITES:
+        xq = torch.randint(-127, 128, xs, device=card, generator=gen,
+                           dtype=torch.int32).to(torch.int8)
+        wq = torch.randint(-127, 128, ws, device=card, generator=gen,
+                           dtype=torch.int32).to(torch.int8)
+        args = (stride, pad, dil, groups)
+        with torch.backends.cudnn.flags(enabled=False):
+            want = kint8.conv_reference(xq, wq, *args)
+        xscale = torch.tensor([41.25], device=card)
+        wscale = torch.rand(ws[0], device=card, generator=gen) * 100 + 1
+        bias = torch.randn(ws[0], device=card, generator=gen)
+        want_y = kint8._epilogue(want, xscale, wscale, bias, True)
+        xcl = xq.contiguous(memory_format=torch.channels_last)
+        wcl = wq.contiguous(memory_format=torch.channels_last)
+        steps = -(-ws[1] * ws[2] * ws[3] // 128)
+        splits = sorted({1, min(steps, 3), steps if steps <= 16 else 16})
+        plans = [kint8.ConvPlan("wgmma", bm, sp)
+                 for bm in (64, 128) for sp in splits
+                 if (sp - 1) * -(-steps // sp) < steps]
+        plans += [kint8.plan_conv(xs, ws, *args),
+                  kint8.ConvPlan("gather", 64, 1)]
+        for plan in plans:
+            counts = [c.value for c in (kint8.LAUNCHES_CONV_WGMMA,
+                                        kint8.LAUNCHES_CONV_GATHER,
+                                        kint8.LAUNCHES_CONV_SPLITK)]
+            acc = kint8.conv(xcl, wcl, *args, plan=plan)
+            # a contiguous NCHW input through the wrapper's explicit copy
+            y = kint8.conv(xq, wq, *args, xscale, wscale, bias, True,
+                           plan=plan)
+            wgmma, split = plan.variant == "wgmma", plan.split > 1
+            assert [c.value for c in (kint8.LAUNCHES_CONV_WGMMA,
+                                      kint8.LAUNCHES_CONV_GATHER,
+                                      kint8.LAUNCHES_CONV_SPLITK)] == [
+                counts[0] + 2 * wgmma, counts[1] + 2 * (not wgmma),
+                counts[2] + 2 * split], plan
+            assert acc.is_contiguous() and y.is_contiguous()
+            assert torch.equal(acc, want), (xs, ws, plan)
+            assert torch.equal(y, want_y), (xs, ws, plan)
+    with pytest.raises(ValueError):
+        xq = torch.zeros((1, 8, 4, 4), dtype=torch.int8, device=card)
+        kint8.conv(xq, torch.zeros((8, 8, 1, 1), dtype=torch.int8,
+                                   device=card),
+                   plan=kint8.ConvPlan("wgmma", 64, 1))
 
 
 @pytest.mark.cuda
@@ -136,13 +223,14 @@ def test_small_net_quantized_on_the_card_and_the_cpu(card):
                   if isinstance(m, (qz.QuantizedConv2D, qz.QuantizedDense))})
         build.reset_counters()
         got = gq(x.to(card))
-        assert kint8.LAUNCHES_QUANT.value == kint8.LAUNCHES_CONV.value == 3
+        assert kint8.LAUNCHES_QUANT.value == kint8.conv_launches() == 3
         assert torch.equal(got.cpu(), cq(x))
 
 
 @pytest.mark.cuda
 def test_config5_served_in_int8(card):  # noqa: ARG001
     out = chip_smoke.phase_int8_serving(torch, mt)
-    assert out["serving"]["launches"]["int8_conv"] == \
+    launches = out["serving"]["launches"]
+    assert launches["int8_conv_wgmma"] + launches["int8_conv_gather"] == \
         54 * out["serving"]["batches"]
     assert out["twin"]["top1_equal"]

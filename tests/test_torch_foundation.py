@@ -108,7 +108,7 @@ def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
 
     sources = sorted(str(p.relative_to(ROOT))
                      for p in (ROOT / "mxnet_tpu_torch/csrc").glob("*.cu"))
-    assert len(sources) == 8
+    assert len(sources) == 9
     assert sorted({k["source"] for k in chip_smoke.KERNELS
                    if "/csrc/" in k["source"]}) == sources
     # the runtime-compiled kernels (K7) come from user sources through rtc
@@ -131,7 +131,7 @@ def test_every_kernel_source_has_a_wrapper_a_counter_and_a_plain_version():
                 ("def _ring_flash_fwd_impl(", "def _ring_flash_vjp_bwd(")), \
                 k["replaces"]
             continue
-        if k["name"] in ("int8_quantize", "int8_conv"):
+        if k["name"].startswith("int8_"):
             assert text[int(line) - 1].lstrip().startswith(
                 ("def _q(", "acc = jax.lax.conv_general_dilated(")), \
                 k["replaces"]
