@@ -129,7 +129,8 @@ failure exits non-zero, nothing is caught and carried on:
      and time it, and 3b probes the mask with a seed drawn on the card.
  16. checkpoint and resume, a main path: BERT-base fine-tuning as 6
      (dropout 0: the Dropout generators' state is not part of
-     ``save_states``) takes 4 phased steps with the global-norm clip (A);
+     ``save_states``; the checkpoint manager of phase 26 carries it) takes
+     4 phased steps with the global-norm clip (A);
      a build from A's seed takes 2 and saves (``save_parameters``,
      ``save_states``); a build from another seed loads both and takes 2
      on A's batch, the counts zeroed just before and read just after:
@@ -346,12 +347,38 @@ failure exits non-zero, nothing is caught and carried on:
      pooling, adds, ReLU, copies, the rest by name). (c)
      ``tools/quantize_int8.py`` on the card, its own gate: int8 accuracy
      at least fp32's less 0.05.
- 26. a ``timing`` line (profiler windows taken, windows that came back
+ 26. the checkpoint manager (``mx.checkpoint``), a main path: BERT-base
+     QA fine-tuning as 15 (bf16, f32 masters, AdamW, batch 8, seq 384, no
+     clip, through TrainStep's graph) at dropout 0.1, CKPT_STEPS steps.
+     A, this process: the uninterrupted run, its losses and the sha256 of
+     every weight, master and moment. B, a worker (``chip_smoke.py
+     --ckpt-worker``, started with P while A runs): an async
+     ``CheckpointManager.save`` at CKPT_AT, committed, two more steps, a
+     second async save that ``_WRITE_BEGIN_HOOK`` holds open on the IO
+     thread, a step while it is held; SIGKILLed there. C, a fresh
+     worker: the latest committed step must be CKPT_AT and the killed
+     write's tmp dir reaped; it restores and takes the remaining steps,
+     the counts zeroed just before and read just after (K3 once per
+     bucket, K4, K5a, K5b 12 times a step); its losses and digests equal
+     A's bit for bit, dropout masks included (the checkpoint carries the
+     noise generators). Then this process restores CKPT_AT into A's live,
+     captured TrainStep: its replays equal A's steps bit for bit, with the
+     same launches and no new capture. P, a worker under
+     ``install_preemption_handler`` with MXTPU_CKPT_PREEMPT_EXIT_CODE set,
+     its signals blocked but for an instant between two steps: SIGTERM
+     must exit with that code and leave a committed ``preempt``
+     checkpoint at the step it had completed, which ``python -m
+     mxnet_tpu_torch.tools.ckpt verify`` passes. Printed beside the card:
+     bytes a checkpoint, the snapshot's device-to-host copy and crc32 ms,
+     the async save's return and its write + commit ms, restore ms (here
+     and in C), step ms with no save in flight and with one in flight.
+ 27. a ``timing`` line (profiler windows taken, windows that came back
      without device events, and times taken with CUDA events instead
      where the profiler recorded none), a ``{"kernels": [...]}`` line
      (with each kernel's launches on the TrainStep paths, on the resumed
      steps, on the LAMB steps, in the ring, on the vision zoo's steps and
-     in the data phase's runs and in phase 24's ranks, a row for each hop
+     in the data phase's runs and in phase 24's ranks and on phase 26's
+     resumed steps, a row for each hop
      kernel and one for K6's ring; K3 with each training path's sweep and
      K1, K2 with MobileNetV2's and ResNet-18's CIFAR sites and phase 24's
      launches and errors in ``per_path``), the card
@@ -3220,7 +3247,8 @@ def _resume_build(finetune, dev, seed, clip, **model_kwargs):
     """Phase 6's fine-tune (bf16 weights, f32 masters, AdamW, batch 8, seq
     384) from ``seed`` through TrainStep's partial, dropout 0: the Dropout
     generators' state is not part of ``save_states`` (nor of the JAX
-    package's); it belongs to the checkpoint manager. With the global-norm
+    package's); the checkpoint manager carries it (phase 26 resumes the
+    same fine-tune at dropout 0.1 bit for bit). With the global-norm
     clip TrainStep runs phased, the fine-tune default; without it, one CUDA
     graph a step on the card."""
     return finetune.build_bert_finetune(
@@ -3372,6 +3400,7 @@ def phase_resume(torch, mt, finetune, serving, build, kopt, dev,
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         net_b.save_parameters(params)
+        mt.waitall()   # the write runs on an IO thread: time it whole
         t1 = time.perf_counter()
         tr_b.save_states(states)
         t2 = time.perf_counter()
@@ -6648,6 +6677,423 @@ def phase_int8(torch, mt, build, vision):
     return out
 
 
+# -- the checkpoint manager on BERT-base fine-tuning (phase 26) --------------
+
+CKPT_STEPS = 6   # the uninterrupted run's steps
+CKPT_AT = 3      # the step committed before the kill
+CKPT_PREEMPT_CODE = 75   # the preempted worker's MXTPU_CKPT_PREEMPT_EXIT_CODE
+CKPT_SIGNALS = ("SIGTERM", "SIGUSR1")   # MXTPU_CKPT_PREEMPT_SIGNALS' default
+
+
+def _ckpt_build(finetune, dev, model_kwargs):
+    """BERT-base QA fine-tuning as the smoke's other BERT paths: bf16 with
+    f32 masters, AdamW, batch 8, seq 384, dropout 0.1 (the fine-tune
+    default), no global-norm clip, so each step is one CUDA graph on the
+    card; the weights and the batch from seed 0."""
+    return finetune.build_bert_finetune(
+        batch=8, seq=384, dropout=0.1, dtype="bfloat16",
+        learning_rate=TRAIN_LR, device=dev, seed=0, clip_global_norm=None,
+        train_step=True, **model_kwargs)
+
+
+def _state_digests(torch, kopt, net, trainer):
+    """sha256 of every weight and every optimizer-state leaf (f32 masters,
+    AdamW's m and v), over their bytes on the host."""
+    import hashlib
+
+    tensors = [p._tensor() for p in net.collect_params().values()]
+    tensors += [x for s in trainer._states for x in kopt._leaves(s)]
+    out = []
+    for t in tensors:
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out.append(hashlib.sha256(t.cpu().numpy()).hexdigest())
+    return out
+
+
+def _block_signals():
+    """Block the preemption signals in this thread and every thread it
+    starts later. Call before anything starts a thread: a signal that
+    another thread left unblocked would be delivered there, and its Python
+    handler would run on the main thread at any bytecode, mid-step."""
+    import signal
+
+    signal.pthread_sigmask(signal.SIG_BLOCK,
+                           [getattr(signal, s) for s in CKPT_SIGNALS])
+
+
+def _steps_between_signals(torch, step, n, done):
+    """n TrainStep calls with the preemption signals blocked
+    (:func:`_block_signals`) except for an instant between two steps, when a
+    pending signal's handler runs (``signal.pthread_sigmask`` runs it before
+    it returns): a preemption saves between steps. ``done[0]`` counts the
+    steps completed."""
+    import signal
+
+    sigs = [getattr(signal, s) for s in CKPT_SIGNALS]
+    for _ in range(n):
+        _resume_steps(torch, step.func, step.args, 1)
+        done[0] += 1
+        signal.pthread_sigmask(signal.SIG_UNBLOCK, sigs)
+        signal.pthread_sigmask(signal.SIG_BLOCK, sigs)
+
+
+def ckpt_worker(mode, workdir, model_kwargs):
+    """``--ckpt-worker MODE DIR KWARGS``: a process of phase 26 (its
+    docstring), on ``cuda:0``, building the attention and ladder kernels
+    (already built by the parent: loaded from build/kernels). It writes
+    DIR/<mode>.json; the checkpoints go to DIR/../ck (kill, resume) or
+    DIR/ck (preempt)."""
+    if mode == "preempt":
+        _block_signals()   # before torch starts its threads
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.checkpoint import manager as mgr_mod
+    from mxnet_tpu_torch.kernels import build, opt as kopt
+    from mxnet_tpu_torch.tools import finetune
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build(["flash_attention_fwd", "flash_attention_bwd", "opt_ladder"])
+    workdir = Path(workdir)
+    kwargs = json.loads(model_kwargs)
+    net, trainer, step = _ckpt_build(finetune, mt.gpu(0), kwargs)
+    ts = step.func
+    report = {}
+
+    def write(**kw):
+        report.update(kw)
+        (workdir / f"{mode}.json").write_text(json.dumps(report))
+
+    if mode == "kill":
+        mgr = mt.checkpoint.CheckpointManager(workdir.parent / "ck",
+                                              trainer)
+        losses = _resume_steps(torch, ts, step.args, CKPT_AT)
+        mgr.save(step=CKPT_AT)
+        mgr.flush()                   # committed: the resume target
+        losses += _resume_steps(torch, ts, step.args, 2)
+        held = []
+
+        def hold(path):               # on the IO thread
+            held.append(path)
+            time.sleep(600)           # the parent SIGKILLs us first
+
+        mgr_mod._WRITE_BEGIN_HOOK = hold
+        t0 = time.perf_counter()
+        mgr.save(step=CKPT_AT + 2)
+        save_s = time.perf_counter() - t0
+        while not held:
+            time.sleep(0.01)
+        # a step while the write is held open on the IO thread
+        losses += _resume_steps(torch, ts, step.args, 1)
+        write(losses=losses, held=held[0], save_returned_s=save_s,
+              last_path=ts.last_path, captures=ts.jit_trace_count())
+        time.sleep(600)               # killed here
+        return 1
+    if mode == "resume":
+        mgr = mt.checkpoint.CheckpointManager(workdir.parent / "ck",
+                                              trainer)
+        ck = workdir.parent / "ck"
+        tmp_left = sorted(n for n in os.listdir(ck) if n.startswith(".tmp-"))
+        latest = mgr.latest_step()
+        t0 = time.perf_counter()
+        result = mgr.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        build.reset_counters()
+        losses = _resume_steps(torch, ts, step.args, CKPT_STEPS - result.step)
+        launches = {c.name: c.value for c in build.COUNTERS.values()
+                    if c.value}
+        want = _want_launches(kopt, trainer, CKPT_STEPS - result.step, False,
+                              kwargs.get("num_layers", 12))
+        write(step=result.step, latest=latest, tmp_left=tmp_left,
+              losses=losses, launches=launches, want_launches=want,
+              restore_s=restore_s, last_path=ts.last_path,
+              captures=ts.jit_trace_count(),
+              digests=_state_digests(torch, kopt, net, trainer))
+        return 0
+    if mode == "preempt":
+        mgr = mt.checkpoint.CheckpointManager(workdir / "ck", trainer)
+        done = [0]
+        mt.checkpoint.install_preemption_handler(
+            mgr, user_state_fn=lambda: {"next_step": done[0] + 1})
+        _steps_between_signals(torch, step, 2, done)
+        write(ready=True)
+        _steps_between_signals(torch, step, 10000, done)  # SIGTERM first
+        return 3
+    fail(f"--ckpt-worker: unknown mode {mode!r}")
+
+
+def _ckpt_start(mode, workdir, model_kwargs, env=None):
+    """Start ``chip_smoke.py --ckpt-worker`` in its own directory, its
+    output there too."""
+    workdir.mkdir(parents=True)
+    log = open(workdir / "log.txt", "wb")  # noqa: SIM115 - closed by _ckpt_end
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--ckpt-worker",
+         mode, str(workdir), json.dumps(model_kwargs)],
+        stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, **(env or {})))
+    proc.log, proc.workdir, proc.mode = log, workdir, mode
+    return proc
+
+
+def _ckpt_report(proc):
+    path = proc.workdir / f"{proc.mode}.json"
+    return json.loads(path.read_text()) if path.exists() else {}
+
+
+def _ckpt_tail(proc):
+    return (proc.workdir / "log.txt").read_text(errors="replace")[-3000:]
+
+
+def _ckpt_wait_report(proc, key, timeout=600):
+    """Wait until the worker's report holds ``key``; fail if it exits
+    first."""
+    deadline = time.time() + timeout
+    while key not in _ckpt_report(proc):
+        if proc.poll() is not None:
+            fail(f"checkpoint worker {proc.mode} exited {proc.returncode} "
+                 f"early: {_ckpt_tail(proc)}")
+        check(time.time() < deadline,
+              f"checkpoint worker {proc.mode} never wrote {key}")
+        time.sleep(0.05)
+    return _ckpt_report(proc)
+
+
+def _ckpt_end(proc, timeout=600):
+    """The worker's exit code (killed first if it is still running after
+    ``timeout``); its log is closed."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+    proc.log.close()
+    return proc.returncode
+
+
+def _median_ms(seconds):
+    return statistics.median(seconds) * 1e3
+
+
+def phase_checkpoint(torch, mt, finetune, build, kopt, dev, **model_kwargs):
+    """26. The checkpoint manager on BERT-base fine-tuning at dropout 0.1
+    through TrainStep's graph (``model_kwargs`` cut it:
+    tests/test_torch_cuda_checkpoint.py).
+
+    A (this process): CKPT_STEPS steps from seed 0, their losses and the
+    digests of every weight, master and moment after them. B (a worker):
+    the same steps with an async save at CKPT_AT, committed, two more
+    steps, a second async save that ``_WRITE_BEGIN_HOOK`` holds open, a
+    step while it is held; then SIGKILL. C (a fresh worker): the latest
+    committed step must be CKPT_AT and the killed write's tmp dir reaped;
+    it restores, takes the remaining steps with the counts zeroed just
+    before and read just after (K3 once per bucket, K4, K5a, K5b once per
+    layer, a step), and its losses and digests must equal A's bit for bit,
+    dropout masks included. Then this process restores CKPT_AT into A's
+    live, captured TrainStep: the replays equal A's steps bit for bit with
+    no new capture. P (a worker, started with B): SIGTERM between steps
+    under ``install_preemption_handler`` must exit with
+    MXTPU_CKPT_PREEMPT_EXIT_CODE and leave a committed ``preempt``
+    checkpoint that ``python -m mxnet_tpu_torch.tools.ckpt verify`` passes.
+    Numbers on A's net: bytes a checkpoint, the snapshot's device-to-host
+    copy and its crc32 ms, the async save's return, write + commit and
+    restore ms, and step ms with no save in flight and with one in
+    flight."""
+    import signal
+    import tempfile
+    import threading as _threading
+
+    from mxnet_tpu_torch.checkpoint import manager as ckmgr
+    from mxnet_tpu_torch.checkpoint import snapshot as cksnap
+
+    gc_collect(torch)
+    t_phase = time.perf_counter()
+    layers = model_kwargs.get("num_layers", 12)
+    out = dict(card=card_line(), steps=CKPT_STEPS, committed_at=CKPT_AT)
+    root = Path(__file__).resolve().parent / "build" / "scratch"
+    root.mkdir(parents=True, exist_ok=True)
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="ckpt_", dir=root) as tmp:
+        tmp = Path(tmp)
+        try:
+            # B and P first: a process takes seconds to reach the card
+            b = _ckpt_start("kill", tmp / "b" / "w", model_kwargs)
+            p = _ckpt_start("preempt", tmp / "p", model_kwargs, env={
+                "MXTPU_CKPT_PREEMPT_EXIT_CODE": str(CKPT_PREEMPT_CODE)})
+            procs += [b, p]
+
+            # A: the uninterrupted run
+            net, trainer, step = _ckpt_build(finetune, dev, model_kwargs)
+            ts = step.func
+            losses_a = _resume_steps(torch, ts, step.args, CKPT_STEPS)
+            check(ts.last_path == "whole_step" and ts.jit_trace_count() == 1,
+                  f"A ran {ts.last_path} with {ts.jit_trace_count()} "
+                  f"captures: {ts.ineligible_reason()}")
+            digests_a = _state_digests(torch, kopt, net, trainer)
+            out["losses_a"] = losses_a
+
+            # B: killed in the middle of its second write
+            rep_b = _ckpt_wait_report(b, "held")
+            b.kill()
+            check(_ckpt_end(b) == -signal.SIGKILL,
+                  f"B exited {b.returncode}: {_ckpt_tail(b)}")
+            ck = tmp / "b" / "ck"
+            check(rep_b["losses"] == losses_a[:CKPT_AT + 3],
+                  f"B's steps differ from A's: {rep_b['losses']} "
+                  f"{losses_a}")
+            check(sorted(os.listdir(ck)) == [
+                f".tmp-step-{CKPT_AT + 2:08d}", f"step-{CKPT_AT:08d}"],
+                f"B left {sorted(os.listdir(ck))}")
+            out["b"] = dict(save_returned_s=rep_b["save_returned_s"],
+                            ck=sorted(os.listdir(ck)))
+
+            # C: resumes in a fresh process
+            c = _ckpt_start("resume", tmp / "b" / "c", model_kwargs)
+            procs.append(c)
+
+            # P: SIGTERM between steps
+            _ckpt_wait_report(p, "ready")
+            p.send_signal(signal.SIGTERM)
+            code = _ckpt_end(p)
+            check(code == CKPT_PREEMPT_CODE,
+                  f"the preempted worker exited {code}, not "
+                  f"{CKPT_PREEMPT_CODE}: {_ckpt_tail(p)}")
+            verify = subprocess.run(
+                [sys.executable, "-m", "mxnet_tpu_torch.tools.ckpt",
+                 "verify", str(tmp / "p" / "ck"), "--json"],
+                capture_output=True, text=True, timeout=600,
+                cwd=Path(__file__).resolve().parent)
+            check(verify.returncode == 0,
+                  f"tools/ckpt.py verify: {verify.returncode} "
+                  f"{verify.stdout[-2000:]} {verify.stderr[-2000:]}")
+            report = json.loads(verify.stdout)
+            manifest = json.loads((tmp / "p" / "ck" /
+                                   f"step-{report['step']:08d}" /
+                                   "MANIFEST.json").read_text())
+            nxt = manifest["meta"]["user_state"]["next_step"]
+            check(manifest["reason"] == "preempt" and
+                  manifest["meta"]["optimizer"]["num_update"] == nxt - 1
+                  == manifest["step"] >= 2,
+                  f"the preempt checkpoint: {manifest['reason']} at step "
+                  f"{manifest['step']}, {manifest['meta']['user_state']}, "
+                  f"{manifest['meta']['optimizer']['num_update']}")
+            out["preempt"] = dict(exit_code=code, verify=report,
+                                  next_step=nxt)
+
+            code = _ckpt_end(c)
+            rep_c = _ckpt_report(c)
+            check(code == 0 and rep_c, f"C exited {code}: {_ckpt_tail(c)}")
+            out["c"] = {k: v for k, v in rep_c.items() if k != "digests"}
+            check(rep_c["latest"] == rep_c["step"] == CKPT_AT
+                  and rep_c["tmp_left"] == [],
+                  f"C restored {rep_c['step']} (latest {rep_c['latest']}, "
+                  f"tmp left {rep_c['tmp_left']})")
+            same = rep_c["digests"] == digests_a
+            out["resumed_equals_uninterrupted"] = same
+            check(same and rep_c["losses"] == losses_a[CKPT_AT:],
+                  f"C differs from A: losses {rep_c['losses']} and "
+                  f"{losses_a[CKPT_AT:]}, "
+                  f"{sum(x != y for x, y in zip(rep_c['digests'], digests_a))}"
+                  f" of {len(digests_a)} tensors")
+            check(rep_c["last_path"] == "whole_step" and
+                  rep_c["captures"] == 1, f"C ran {rep_c['last_path']}")
+            if dev.type == "cuda":
+                check(rep_c["launches"] == rep_c["want_launches"],
+                      f"C's steps launched {rep_c['launches']}; want "
+                      f"{rep_c['want_launches']}")
+
+            # restore into A's live graph: no capture, the same replays
+            mgr = mt.checkpoint.CheckpointManager(ck, trainer)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.restore()
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            build.reset_counters()
+            losses_r = _resume_steps(torch, ts, step.args,
+                                     CKPT_STEPS - CKPT_AT)
+            launches_r = {x.name: x.value for x in build.COUNTERS.values()
+                          if x.value}
+            same_r = _state_digests(torch, kopt, net, trainer) == digests_a
+            check(same_r and losses_r == losses_a[CKPT_AT:],
+                  f"replays after a restore into the live graph differ: "
+                  f"{losses_r} {losses_a[CKPT_AT:]}")
+            check(ts.jit_trace_count() == 1 and ts.last_path == "whole_step",
+                  f"the restore made TrainStep capture again: "
+                  f"{ts.jit_trace_count()}, {ts.last_path}")
+            want = _want_launches(kopt, trainer, CKPT_STEPS - CKPT_AT,
+                                  False, layers)
+            check(launches_r == want or dev.type != "cuda",
+                  f"the replays launched {launches_r}; want {want}")
+            out["live"] = dict(losses=losses_r, bitwise=same_r,
+                               captures=ts.jit_trace_count(),
+                               launches=launches_r, restore_ms=restore_ms)
+
+            # numbers: the snapshot's copy and crc32, the save, a step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            arrays, _ = cksnap.capture(trainer)
+            copy_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            for a in arrays.values():
+                ckmgr._crc(a)
+            crc_ms = (time.perf_counter() - t0) * 1e3
+            nbytes = sum(ckmgr._bits(a)[0].nbytes for a in arrays.values())
+            del arrays
+            idle = _run_steps(torch, lambda: ts(*step.args), 5)[1]
+            tmgr = mt.checkpoint.CheckpointManager(tmp / "t", trainer,
+                                                   keep_last=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tmgr.save(step=CKPT_STEPS + 5)
+            t1 = time.perf_counter()
+            done = []
+            flusher = _threading.Thread(
+                target=lambda: (tmgr.flush(), done.append(
+                    time.perf_counter())))
+            flusher.start()
+            busy = []
+            while not done and len(busy) < 200:
+                busy += _run_steps(torch, lambda: ts(*step.args), 1)[1]
+            flusher.join()
+            check(bool(done), "the timed save did not land")
+            check(tmgr.steps() == [CKPT_STEPS + 5], f"{tmgr.steps()}")
+            out["numbers"] = dict(
+                bytes=nbytes, capture_copy_ms=copy_ms, capture_crc32_ms=crc_ms,
+                save_returned_ms=(t1 - t0) * 1e3,
+                write_commit_ms=(done[0] - t1) * 1e3, restore_ms=restore_ms,
+                c_restore_ms=rep_c["restore_s"] * 1e3,
+                step_ms_idle=_median_ms(idle),
+                step_ms_save_in_flight=_median_ms(busy),
+                steps_in_flight=len(busy))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                _ckpt_end(proc)
+    del net, trainer, step, ts
+    out["phase_s"] = time.perf_counter() - t_phase
+    n = out["numbers"]
+    say(f"checkpoint: {json.dumps(out)}")
+    say(f"checkpoint numbers: {n['bytes']} bytes a checkpoint; capture "
+        f"{n['capture_copy_ms']:.1f} ms device-to-host + "
+        f"{n['capture_crc32_ms']:.1f} ms crc32; save returned in "
+        f"{n['save_returned_ms']:.1f} ms, write + commit "
+        f"{n['write_commit_ms']:.1f} ms after; restore "
+        f"{n['restore_ms']:.1f} ms (fresh process {n['c_restore_ms']:.1f}); "
+        f"step {n['step_ms_idle']:.2f} ms idle, "
+        f"{n['step_ms_save_in_flight']:.2f} ms with a save in flight "
+        f"({n['steps_in_flight']} steps); phase {out['phase_s']:.1f} s; "
+        f"card {out['card']}")
+    gc_collect(torch)
+    return out
+
+
 def main():
     import torch
 
@@ -6750,8 +7196,12 @@ def main():
     # 25. INT8 inference, config #5: Q1 and Q2 at ResNet-50's sites, the
     # calibrated ResNet-50 served in int8, the int8 example
     int8_run = phase_int8(torch, mt, build, vision)
+    # 26. the checkpoint manager: BERT-base fine-tuning at dropout 0.1
+    # through TrainStep's graph, killed in the middle of a write, resumed
+    # in a fresh process, restored into a live graph, preempted by SIGTERM
+    ckpt = phase_checkpoint(torch, mt, finetune, build, kopt, mt.gpu(0))
 
-    # 26. the kernels line, card, ok. Each row's case is the main paths'
+    # 27. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over
@@ -7089,6 +7539,11 @@ def main():
         # and in phase 24's ranks (their ResNet-50 steps)
         m["distributed_launches"] = {
             rank: n.get(k["name"], 0) for rank, n in dist_ranks.items()}
+        # and over phase 26's resumed steps: in the fresh process, and
+        # through the live graph after its restore
+        m["checkpoint_launches"] = {
+            "resumed_process": ckpt["c"]["launches"].get(k["name"], 0),
+            "live_restore": ckpt["live"]["launches"].get(k["name"], 0)}
         kernels.append(dict(name=k["name"], route=k["route"],
                             source=k["source"], replaces=k["replaces"], **m))
     # K6, the ring: its Python schedule (ring_attention.py) over the hop
@@ -7267,6 +7722,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--bn-sites"] and len(sys.argv) in (3, 4):
         bn_sites(sys.argv[2], *([sys.argv[3].split(",")]
                                 if len(sys.argv) == 4 else []))
+    elif sys.argv[1:2] == ["--ckpt-worker"] and len(sys.argv) == 5:
+        sys.exit(ckpt_worker(*sys.argv[2:5]))
     elif sys.argv[1:2] == ["--int8-plans"] and len(sys.argv) in (2, 3):
         int8_plans(*([tuple(int(b) for b in sys.argv[2].split(","))]
                      if len(sys.argv) == 3 else []))

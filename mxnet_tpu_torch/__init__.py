@@ -16,7 +16,7 @@ from . import numpy as np
 from . import numpy_extension as npx
 from . import observability, optimizer, parallel, recordio, registry, rtc
 from . import serving, test_utils, util
-from . import contrib
+from . import checkpoint, contrib
 from ._random import seed
 from .attribute import AttrScope
 from .base import MXNetError
@@ -26,7 +26,11 @@ from .name import NameManager
 from .ndarray import NDArray, waitall
 from .numpy import random
 
-__all__ = ["amp", "autograd", "contrib", "env", "gluon", "initializer", "io", "kv",
+#: the JAX package's version, which the port mirrors (checkpoint manifests
+#: record it)
+__version__ = "0.1.0"
+
+__all__ = ["amp", "autograd", "checkpoint", "contrib", "env", "gluon", "initializer", "io", "kv",
            "kvstore",
            "lr_scheduler", "observability", "optimizer", "nd", "ndarray",
            "np", "npx", "parallel", "random", "recordio", "rtc", "serving",

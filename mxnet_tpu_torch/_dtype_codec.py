@@ -34,9 +34,9 @@ import pickle
 import numpy as _np
 import torch
 
-__all__ = ["DTYPE_KEY", "to_numpy", "encode_payload", "read_sidecar",
-           "decode_entry", "decode_npz", "dtype_name", "pickle_leaf",
-           "pickle_load"]
+__all__ = ["DTYPE_KEY", "to_numpy", "host_bits", "encode_payload",
+           "read_sidecar", "decode_entry", "decode_npz", "dtype_name",
+           "pickle_leaf", "pickle_load"]
 
 DTYPE_KEY = "__mx_npz_dtypes__"
 
@@ -46,25 +46,44 @@ _EXOTIC = {torch.bfloat16: "bfloat16"}
 
 def to_numpy(t):
     """``(array, sidecar dtype name or None)`` of a tensor, on the host: an
-    exotic tensor as its bit-equal ``uint`` view, any other as itself."""
-    t = t.detach().cpu().contiguous()
-    name = _EXOTIC.get(t.dtype)
+    exotic tensor as its bit-equal ``uint`` view, any other as itself.
+    The array is a copy that shares no memory with ``t``, made once: a
+    card tensor's device-to-host copy (synchronous, after the work queued
+    on the current stream) is that copy."""
+    src = t.detach()
+    host = src.cpu().contiguous()
+    if host.data_ptr() == src.data_ptr() and host.numel():
+        host = host.clone()
+    return host_bits(host)
+
+
+def host_bits(a):
+    """``(array, sidecar dtype name or None)`` of a numpy array or a CPU
+    tensor, without a copy: a bf16 tensor as a ``uint16`` view of its bits,
+    any other tensor as its numpy view, an array as itself."""
+    if not isinstance(a, torch.Tensor):
+        return a, None
+    a = a.detach().contiguous()
+    name = _EXOTIC.get(a.dtype)
     if name is None:
-        return t.numpy().copy(), None
-    return t.view(torch.int16).numpy().view(_np.uint16).copy(), name
+        return a.numpy(), None
+    return a.view(torch.int16).numpy().view(_np.uint16), name
 
 
-def encode_payload(arrays):
+def encode_payload(arrays, copy=True):
     """A dict safe for ``np.savez`` from ``{name: numpy array or tensor}``:
     exotic tensors become bit-equal ``uint`` views and their true dtypes
     land in the :data:`DTYPE_KEY` sidecar. Nothing exotic: the numpy
-    arrays, with no sidecar (the file is a plain npz)."""
+    arrays, with no sidecar (the file is a plain npz). Tensors are copied
+    to the host (:func:`to_numpy`); with ``copy=False`` they must be CPU
+    tensors that nothing changes until the file is written, and are read
+    in place (:func:`host_bits`)."""
     if DTYPE_KEY in arrays:
         raise ValueError(f"{DTYPE_KEY!r} is a reserved checkpoint key")
     out, sidecar = {}, {}
     for k, a in arrays.items():
         if isinstance(a, torch.Tensor):
-            a, name = to_numpy(a)
+            a, name = to_numpy(a) if copy else host_bits(a)
             if name is not None:
                 sidecar[k] = name
         out[k] = a

@@ -182,3 +182,41 @@ register(
     "DataLoader multiprocessing start method override: fork | spawn | "
     "forkserver. Default: fork from a parent without other Python "
     "threads, else spawn.")
+register(
+    "MXTPU_CKPT_ASYNC", bool, True,
+    "CheckpointManager default: write and commit checkpoints on an IO "
+    "thread so saves overlap training (the snapshot's host copies are "
+    "still taken inline). 0 makes every save synchronous.")
+register(
+    "MXTPU_CKPT_KEEP_LAST", int, 5,
+    "CheckpointManager retention: keep the newest N committed "
+    "checkpoints, deleting older ones at each commit. 0 disables "
+    "deletion.")
+register(
+    "MXTPU_CKPT_KEEP_EVERY_N", int, 0,
+    "CheckpointManager retention: checkpoints whose step is a multiple "
+    "of N are milestones kept forever, exempt from KEEP_LAST deletion. "
+    "0 disables milestones.")
+register(
+    "MXTPU_CKPT_VERIFY", bool, True,
+    "Verify per-array crc32 checksums against the manifest on restore; "
+    "mismatches raise CheckpointCorrupt (latest-checkpoint restores "
+    "then fall back to the previous committed step).")
+register(
+    "MXTPU_CKPT_MODE", str, "replicated",
+    "Distributed checkpoint layout: 'replicated' (rank 0 writes the "
+    "full state, others barrier) or 'sharded' (each rank persists its "
+    "share plus a fragment manifest; rank 0 merges).")
+register(
+    "MXTPU_CKPT_PREEMPT_SIGNALS", str, "SIGTERM,SIGUSR1",
+    "Comma-separated signals the PreemptionHandler intercepts for the "
+    "emergency synchronous snapshot.")
+register(
+    "MXTPU_CKPT_PREEMPT_EXIT_CODE", int, 0,
+    "Process exit code after a successful preemption snapshot (0 = "
+    "clean shutdown so supervisors treat the job as resumable, not "
+    "crashed).")
+register(
+    "MXTPU_CKPT_DIR", str, "",
+    "Default checkpoint directory for tools when none is passed "
+    "explicitly; empty = require an explicit directory.")

@@ -5,7 +5,8 @@ mxnet_tpu/gluon/block.py).
 first, then children in registration order), so weights carry across by
 name (``convert.load_jax_params``), and ``save_parameters`` /
 ``load_parameters`` read and write the JAX package's checkpoint: an npz
-keyed by those names, bf16 in its dtype sidecar (``_dtype_codec``).
+keyed by those names, bf16 in its dtype sidecar (``_dtype_codec``),
+written on an IO thread as the JAX package writes it.
 
 ``Block.__call__`` is the NDArray boundary: NDArray arguments are
 unwrapped, the children see tensors, and the outputs come back as NDArrays
@@ -59,10 +60,10 @@ import threading
 import numpy as _np
 import torch
 
+from .. import _checkpoint_io, _random
 from .. import autograd as _ag
 from .. import device as _device
-from .._dtype_codec import (DTYPE_KEY, decode_entry, dtype_name,
-                            encode_payload, read_sidecar)
+from .._dtype_codec import DTYPE_KEY, decode_entry, dtype_name, read_sidecar
 from ..ndarray.ndarray import NDArray
 from . import _graph
 from .parameter import Parameter, one_device, storage_epoch
@@ -238,6 +239,7 @@ class Block(torch.nn.Module):
         self._set_generators(
             torch.Generator().manual_seed(seeds[0]),
             torch.Generator(device=device).manual_seed(seeds[1]))
+        _random.register_net(self)   # a checkpoint finds its generators
         return self
 
     def _set_generators(self, cpu_generator, device_generator):
@@ -379,16 +381,20 @@ class Block(torch.nn.Module):
         package's file (mxnet_tpu/gluon/block.py:save_parameters), which it
         loads, bit for bit. The file is written through an open file, so
         ``filename`` keeps its name (``numpy.savez`` of a path would add
-        ``.npz``). The JAX package writes on an IO thread and returns at
-        once; this port writes synchronously: the file is complete when
-        the call returns. BatchNorm's running statistics are saved like
-        any other parameter."""
+        ``.npz``). BatchNorm's running statistics are saved like any other
+        parameter.
+
+        As in the JAX package, the write is asynchronous: the host copies
+        are taken before the call returns (training may change the weights
+        at once), and the file is written on the path's IO thread
+        (``_checkpoint_io``). :meth:`load_parameters`, ``mx.nd.load`` and
+        ``mx.waitall()`` wait for it and raise a failed write's error; any
+        other reader (another process, ``numpy.load``, a copy) calls
+        ``mx.waitall()`` first. ``mx.nd.save`` is complete on return."""
         arrays = {name: p._tensor()
                   for name, p in self._collect_params_with_prefix().items()
                   if p._var is not None}
-        arrays = encode_payload(arrays)
-        with open(filename, "wb") as f:
-            _np.savez(f, **arrays)
+        _checkpoint_io.async_save_npz(filename, arrays)
 
     def load_parameters(self, filename, device=None, allow_missing=False,
                         ignore_extra=False, cast_dtype=False,
@@ -411,8 +417,10 @@ class Block(torch.nn.Module):
         a retype (``'saved'``) replaces the storage, and the graphs capture
         again. A deferred parameter takes its shape from the file on the
         device it was given, an uninitialized one on ``device`` (``ctx``;
-        default the current device)."""
+        default the current device). A save of this path still on its IO
+        thread is waited for first, and its error raised."""
         path = str(filename)
+        _checkpoint_io.wait_for_path(path)
         if not os.path.exists(path) and os.path.exists(path + ".npz"):
             path = path + ".npz"
         if cast_dtype and dtype_source not in ("current", "saved"):

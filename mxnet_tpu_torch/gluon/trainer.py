@@ -43,6 +43,7 @@ import torch
 from .. import env as _env
 from .. import optimizer as opt_mod
 from .._dtype_codec import dtype_name, pickle_leaf, pickle_load
+from ..diagnostics import spans as _spans
 from ..kvstore import KVStoreBase, create as kv_create
 from ..ndarray.ndarray import NDArray
 from .parameter import Parameter
@@ -173,10 +174,13 @@ class Trainer:
 
     def _record_step_complete(self, batch_size):
         """Close one training step on the host, for ``step()`` and
-        ``gluon.TrainStep`` alike: count it and its examples, and time the
+        ``gluon.TrainStep`` alike: close the step's span bucket
+        (``diagnostics.spans.mark_step``, the step index a checkpoint
+        saved without one takes), count it and its examples, and time the
         interval since the previous step's end (the whole iteration; the
         first step is counted, not timed). Telemetry reads these when it is
         ported."""
+        _spans.mark_step()
         now = time.perf_counter()
         if self._last_step_end is not None:
             self._last_step_seconds = now - self._last_step_end

@@ -27,6 +27,7 @@ import functools
 import numpy as _np
 import torch
 
+from .. import _checkpoint_io
 from .. import autograd as _ag
 from ..base import normalize_dtype, numpy_dtype
 from ..device import current_device, is_pinned, pin, resolve
@@ -756,7 +757,11 @@ def array(source, dtype=None, device=None, ctx=None):
 
 
 def waitall():
-    """Wait for all work queued on the card (ndarray.py:884); nothing to
-    wait for without one."""
+    """Wait for all work queued on the card (ndarray.py:884) and for every
+    checkpoint write still on an IO thread (``_checkpoint_io``, as the JAX
+    package's ``engine.waitall`` drains its IO); the first failed write's
+    error is raised here."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+    _checkpoint_io.flush_all()
+    _checkpoint_io.reap_idle()  # all IO drained: drop per-path bookkeeping

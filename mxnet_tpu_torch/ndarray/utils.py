@@ -10,6 +10,7 @@ import os
 import numpy as _np
 import torch
 
+from .. import _checkpoint_io
 from .._dtype_codec import decode_npz, encode_payload
 from .ndarray import NDArray, array
 
@@ -46,9 +47,11 @@ def save(fname, data):
     else:
         raise ValueError("save expects an NDArray, a list of NDArrays or a "
                          f"dict of str -> NDArray, got {type(data)}")
-    payload = encode_payload(payload)
-    with open(fname, "wb") as f:
-        _np.savez(f, **payload)
+    # through the path's IO chain, so that this write is ordered after any
+    # save of the same path still in flight, then barrier: complete on
+    # return (utils.py:save), for a reader outside the framework
+    _checkpoint_io.async_save_npz(fname, payload)
+    _checkpoint_io.wait_for_path(fname)
 
 
 def savez(fname, *args, **kwargs):
@@ -67,7 +70,9 @@ def _array(v, device):
 def load(fname, device=None):
     """What :func:`save` (or the JAX package's) wrote, as NDArrays on
     ``device`` (default: the current device) with the stored dtypes,
-    bfloat16 included."""
+    bfloat16 included. A save of this path still on its IO thread is
+    waited for first."""
+    _checkpoint_io.wait_for_path(fname)   # barrier on an in-flight save
     if fname.endswith(".npy"):
         raw = _np.load(fname)
         return array(raw, dtype=raw.dtype, device=device)

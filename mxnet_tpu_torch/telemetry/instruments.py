@@ -1,9 +1,9 @@
-"""The serving, collective and input-pipeline subsets of the metric
-catalog and the record_* helpers their hot paths call (a copy of
+"""The serving, collective, input-pipeline and checkpoint subsets of the
+metric catalog and the record_* helpers their hot paths call (a copy of
 mxnet_tpu/telemetry/instruments.py: the ``serve_*`` instruments, the
-``collective_*`` ones with ``fused_bucket_size``, ``transfer_*`` and
-``data_prefetch_*``, and their helpers; the others wait for the modules
-that record them).
+``collective_*`` ones with ``fused_bucket_size``, ``transfer_*``,
+``data_prefetch_*`` and ``ckpt_*``, and their helpers; the others wait for
+the modules that record them).
 
 Every serving touchpoint goes through ONE helper here, so the catalog below
 is the single source of metric names, labels, and buckets, call sites stay
@@ -35,12 +35,16 @@ __all__ = [
     "fused_bucket_size", "record_collective", "record_fused_bucket",
     "transfer_total", "transfer_bytes_total", "record_transfer",
     "data_prefetch_total", "data_prefetch_depth", "record_device_prefetch",
+    "ckpt_save_total", "ckpt_save_ms", "ckpt_bytes_total",
+    "ckpt_restore_total", "record_ckpt_save", "record_ckpt_restore",
 ]
 
 _SERVE_LATENCY_BUCKETS = (.0005, .001, .0025, .005, .01, .025, .05, .1,
                           .25, .5, 1.0, 2.5, 5.0, 10.0)
 _SERVE_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 _FUSED_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+_CKPT_MS_BUCKETS = (1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+                    1000.0, 2500.0, 5000.0, 10000.0, 30000.0)
 
 
 # -- serving (serving/engine.py) ---------------------------------------------
@@ -155,6 +159,27 @@ data_prefetch_depth = gauge(
     "buffer (transferred or in flight, not yet consumed)")
 
 
+# -- checkpointing (checkpoint/manager.py) -----------------------------------
+ckpt_save_total = counter(
+    "ckpt_save_total",
+    "Checkpoint saves by mode (replicated / sharded) and outcome "
+    "(ok / error)", ["mode", "outcome"])
+ckpt_save_ms = histogram(
+    "ckpt_save_ms",
+    "Checkpoint save wall time in ms: snapshot capture through commit "
+    "rename (async saves: measured on the IO thread at commit, so this "
+    "is total latency, NOT time the training loop was blocked)",
+    buckets=_CKPT_MS_BUCKETS)
+ckpt_bytes_total = counter(
+    "ckpt_bytes_total",
+    "Bytes of training state committed to checkpoints (this rank's "
+    "share in sharded mode)")
+ckpt_restore_total = counter(
+    "ckpt_restore_total",
+    "Checkpoint restore attempts by outcome (ok / corrupt / not_found / "
+    "error)", ["outcome"])
+
+
 # -- helpers ----------------------------------------------------------------
 
 def record_serve_request(model, outcome, seconds=None):
@@ -236,3 +261,23 @@ def record_device_prefetch(depth):
         return
     data_prefetch_total.inc()
     data_prefetch_depth.set(depth)
+
+
+def record_ckpt_save(mode, ms, nbytes, outcome="ok"):
+    """One finished checkpoint save: `ms` capture->commit wall ms,
+    `nbytes` of committed array payload (this rank's share). The JAX
+    package also writes it into its flight record, which the port does not
+    have yet (ROADMAP.md queue 1 item 11)."""
+    if not REGISTRY.enabled:
+        return
+    ckpt_save_total.labels(mode, outcome).inc()
+    if outcome == "ok":
+        ckpt_save_ms.observe(ms)
+        ckpt_bytes_total.inc(nbytes)
+
+
+def record_ckpt_restore(outcome):
+    """One restore attempt: ok / corrupt / not_found / error."""
+    if not REGISTRY.enabled:
+        return
+    ckpt_restore_total.labels(outcome).inc()

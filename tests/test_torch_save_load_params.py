@@ -91,6 +91,7 @@ def test_bert_qa_f32_files_cross_both_ways(tmp_path):
         for p in tnet.collect_params().values():
             p._tensor().mul_(0.5)
     tnet.save_parameters(str(tmp_path / "port.params"))
+    mt.waitall()   # the port writes on an IO thread too
     jback = _jax_bert(12)
     jback.load_parameters(str(tmp_path / "port.params"))
     _assert_same_weights(tnet, jback)
@@ -113,6 +114,7 @@ def test_bert_qa_bf16_files_cross_both_ways(tmp_path):
         for p in tnet.collect_params().values():
             p._tensor().mul_(-2.0)
     tnet.save_parameters(str(tmp_path / "port.params"))
+    mt.waitall()   # the port writes on an IO thread too
     jback = _jax_bert(12, "bfloat16")
     jback.load_parameters(str(tmp_path / "port.params"))
     _assert_same_weights(tnet, jback)
@@ -157,6 +159,7 @@ def test_resnet_with_batchnorm_statistics_crosses_both_ways(tmp_path):
         for name in stats:
             tnet.collect_params()[name]._tensor().mul_(1.25)
     tnet.save_parameters(str(tmp_path / "port.params"))
+    mt.waitall()   # the port writes on an IO thread too
     jmx.seed(12)
     jback = _narrow(jresnet)
     jback.initialize()
@@ -303,9 +306,11 @@ def test_npz_suffix_lookup_and_names_kept(tmp_path):
     tnet.load_parameters(str(tmp_path / "j"))
     _assert_same_weights(tnet, jnet)
     tnet.save_parameters(str(tmp_path / "t.params"))
+    mt.waitall()   # the port writes on an IO thread too
     assert sorted(p.name for p in tmp_path.iterdir()) == ["j.npz",
                                                           "t.params"]
     tnet.save_parameters(str(tmp_path / "t2.npz"))
+    mt.waitall()   # the port writes on an IO thread too
     jback = _dense(jmx)
     jback.initialize()
     jback.load_parameters(str(tmp_path / "t2"))

@@ -117,6 +117,7 @@ def train_pair(make, x, y, steps=2, reset=lambda: None):
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "net.params")
         tnet.save_parameters(path)
+        mt.waitall()   # the port writes on an IO thread too
         jnet.load_parameters(path)
     jnet.hybridize()
     jtr = jmx.gluon.Trainer(jnet.collect_params(), "sgd", dict(OPT))
@@ -213,6 +214,7 @@ def test_mobilenet_v2_full_width_inferred_shapes():
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "mnv2.params")
         tnet.save_parameters(path)
+        mt.waitall()   # the port writes on an IO thread too
         fresh = jmx.gluon.model_zoo.vision.mobilenet_v2_1_0()
         fresh.load_parameters(path)
     assert _shapes(fresh) == _shapes(tnet)

@@ -81,6 +81,7 @@ def predict_pair(name, make, hw):
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "net.params")
         tnet.save_parameters(path)
+        mt.waitall()   # the port writes on an IO thread too
         jnet.load_parameters(path)
     jnet.hybridize()
     relu6_in = []
