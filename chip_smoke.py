@@ -372,13 +372,31 @@ failure exits non-zero, nothing is caught and carried on:
      bytes a checkpoint, the snapshot's device-to-host copy and crc32 ms,
      the async save's return and its write + commit ms, restore ms (here
      and in C), step ms with no save in flight and with one in flight.
- 27. a ``timing`` line (profiler windows taken, windows that came back
+ 27. sharding plans over positions of the card, a main path: BERT-base QA
+     fine-tuning as 26 (dropout 0.1, TrainStep's graph), SHARD_STEPS steps
+     (a) with no plan, under ``dp=4`` over four positions of the card (the
+     per-shard form) and under ``from_layout("dp=2,fsdp=2,tp=2")`` over
+     eight (the logical step, every parameter and its ZeRO state a block a
+     position): the last bit for bit with the first (losses, weights,
+     masters, moments), dp=4 within the AdamW step bound; one capture a
+     run; K3, K4, K5a, K5b counted, K3 under the hybrid plan as the placed
+     tables predict. (b) the hybrid run's optimizer-state bytes a
+     position. (c) its checkpoint: PlanMismatch into a world-4 plan, then
+     ``resharded_restore`` and ``verify_parity``, an unplaced restore, an
+     offline reshard for dp=4 restored as an exact match, the CLI's
+     ``verify --mesh`` and ``reshard``, a resumed run equal to the
+     uninterrupted one. (d) ``elastic.reenter`` of the live run to
+     ``dp=2,fsdp=2`` with the linear LR rule, bit for bit with the
+     unplaced run at half its LR, one new capture. Printed beside the
+     card: step host and device-busy ms, the gradient hand-out's and the
+     gathers' device ms, restore ms across plans, reenter's ms.
+ 28. a ``timing`` line (profiler windows taken, windows that came back
      without device events, and times taken with CUDA events instead
      where the profiler recorded none), a ``{"kernels": [...]}`` line
      (with each kernel's launches on the TrainStep paths, on the resumed
      steps, on the LAMB steps, in the ring, on the vision zoo's steps and
      in the data phase's runs and in phase 24's ranks and on phase 26's
-     resumed steps, a row for each hop
+     resumed steps and under phase 27's plans, a row for each hop
      kernel and one for K6's ring; K3 with each training path's sweep and
      K1, K2 with MobileNetV2's and ResNet-18's CIFAR sites and phase 24's
      launches and errors in ``per_path``), the card
@@ -7094,6 +7112,664 @@ def phase_checkpoint(torch, mt, finetune, build, kopt, dev, **model_kwargs):
     return out
 
 
+# -- sharding plans over mesh positions (phase 27) ----------------------------
+
+SHARD_STEPS = 5      # 27a: steps under each plan, counted from 0
+SHARD_MORE = 2       # 27c: steps after the save, resumed and uninterrupted
+SHARD_REENTER = 7    # 27d: steps after the re-entry (warm-up, capture, five
+                     # replays)
+SHARD_TIMED = 3      # steps timed at the end of each run
+SHARD_HYBRID = "dp=2,fsdp=2,tp=2"
+SHARD_REENTRY = "dp=2,fsdp=2"
+SHARD_GRAD_STEPS = 4  # 27a's gradient gate: steps at dropout 0 and lr 0,
+                      # a fresh batch each (warm-up, capture, two replays)
+SHARD_GRAD_LIMIT = 2.0 ** -4  # the gate: each tensor's first moment
+                              # within this relative L2 gap of (i)'s
+# the span head's bias: each sample's loss is a softmax over positions,
+# which a shift of all its logits leaves as it is, so its gradient is zero
+# in exact arithmetic and what any two runs hold there is rounding noise
+# (its gap is printed, not gated)
+SHARD_GRAD_EXEMPT = "span_classifier.bias"
+
+
+def adam_step_bound(lr, steps, beta1=0.9, beta2=0.999):
+    """How far two AdamW runs from the same weights can drift apart in
+    ``steps`` steps of learning rate ``lr``, whatever their gradients: each
+    step moves a weight by ``lr * (|m_hat| / (sqrt(v_hat) + eps) + wd |w|)``,
+    and by Cauchy-Schwarz ``|m_hat| / sqrt(v_hat)`` is at most ``B_t = (1 -
+    beta1) sqrt(1 - beta2^t) sqrt(S_t) / ((1 - beta1^t) sqrt(1 - beta2))``
+    with ``S_t = sum_{j<t} (beta1^2 / beta2)^j`` (1 at t = 1, 1.0108 at t =
+    5); the decay term contracts the difference. So the weights differ by
+    at most ``2 lr sum_t B_t``."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        s = sum((beta1 * beta1 / beta2) ** j for j in range(t))
+        total += ((1 - beta1) * math.sqrt(1 - beta2 ** t) * math.sqrt(s)
+                  / ((1 - beta1 ** t) * math.sqrt(1 - beta2)))
+    return 2.0 * lr * total
+
+
+def _shard_build(finetune, dev, plan, model_kwargs, dropout=0.1,
+                 lr=TRAIN_LR):
+    """Phase 26's fine-tune (bf16 weights, f32 masters, AdamW at ``lr``,
+    batch 8, seq 384, ``dropout``, no clip, TrainStep's graph), the
+    weights, batch and noise generators from seed 0, under ``plan`` (a
+    ShardingPlan, a
+    function of the net that returns one, or None)."""
+    return finetune.build_bert_finetune(
+        batch=8, seq=384, dropout=dropout, dtype="bfloat16",
+        learning_rate=lr, device=dev, seed=0, clip_global_norm=None,
+        train_step=True, sharding_plan=plan, **model_kwargs)
+
+
+def _shard_state(torch, net, trainer):
+    """Clones of every weight and every optimizer-state leaf, by kind:
+    weights, masters (multi-precision parameters' f32 copies), moments;
+    logical values, gathered from the positions' blocks."""
+    from mxnet_tpu_torch.gluon import _sharded
+
+    out = {"weights": [p._tensor().detach().clone()
+                       for p in net.collect_params().values()],
+           "masters": [], "moments": []}
+    for p, st in zip(trainer._params, trainer._states):
+        full = _sharded.full_state(st)
+        if full is None:
+            continue
+        mp = trainer.optimizer._is_mp_state(p._tensor(), full)
+        leaves = _sharded._leaves(full)
+        if mp:
+            out["masters"].append(leaves[0].detach().clone())
+            leaves = leaves[1:]
+        out["moments"] += [x.detach().clone() for x in leaves]
+    return out
+
+
+def _shard_equal(torch, a, b):
+    """{kind: bit for bit} of two :func:`_shard_state` snapshots."""
+    return {k: len(a[k]) == len(b[k]) and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(a[k], b[k])) for k in a}
+
+
+def _shard_steps(torch, build, step, n, count=False):
+    """n TrainStep calls on the fixed batch: their per-sample losses (host
+    lists), their synchronised host seconds and, with ``count``, the launch
+    counts zeroed just before and read just after."""
+    if count:
+        build.reset_counters()
+    losses, secs = [], []
+    for _ in range(n):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        losses.append(loss.float().cpu().tolist())
+        secs.append(time.perf_counter() - t0)
+    launches = {c.name: c.value for c in build.COUNTERS.values()
+                if c.value} if count else None
+    return losses, secs, launches
+
+
+def _placed_launches(kopt, upd):
+    """K3 launches of one placed update: each bucket's members (every
+    position's blocks) by state count, a table of TABLE_CAPACITY a launch
+    (kernels/opt.py:_launch_bucket_dev)."""
+    total = 0
+    for (_, mp), members in upd.buckets:
+        by_state = {}
+        for _j, w, st, _g in members:
+            if w.numel():
+                n = len(kopt._parts(mp, w, st)[1])
+                by_state[n] = by_state.get(n, 0) + 1
+        total += sum(-(-n // kopt.TABLE_CAPACITY) for n in by_state.values())
+    return total
+
+
+def _state_bytes(trainer):
+    """Optimizer-state bytes at each position (mesh order), their sum, the
+    unplaced total (each leaf's logical bytes) and what the plan's layouts
+    make of it (each leaf's bytes times positions over its distinct
+    blocks)."""
+    from mxnet_tpu_torch.gluon import _sharded
+    from mxnet_tpu_torch.parallel.mesh import Placed
+
+    per, unplaced, expected = None, 0, 0
+    for st in trainer._states:
+        for leaf in _sharded._leaves(st):
+            if not isinstance(leaf, Placed):
+                fail("27b: an optimizer-state leaf is not placed")
+            nb = leaf.nbytes()
+            per = nb if per is None else [a + b for a, b in zip(per, nb)]
+            logical = math.prod(leaf.shape) * leaf.shards[0].element_size()
+            unplaced += logical
+            expected += logical * len(nb) // leaf.layout.distinct()
+    return dict(per_position=per, total=sum(per), unplaced=unplaced,
+                expected_total=expected, largest=max(per))
+
+
+def _within_adam_bound(torch, a, b, tol):
+    """The largest excess of snapshot ``a``'s masters and weights over
+    ``b``'s beyond ``tol`` plus one bf16 ulp of the larger magnitude
+    (2^-7 of it: a bf16 weight is its master rounded to nearest, half an
+    ulp each side; f32 ones take it as slack for the two runs' f32
+    rounding): <= 0 holds."""
+    worst = -math.inf
+    for x, y in zip(a["weights"] + a["masters"], b["weights"] + b["masters"]):
+        if not x.numel():
+            continue
+        x, y = x.float(), y.float()
+        mag = torch.maximum(x.abs(), y.abs())
+        worst = max(worst, ((x - y).abs() - tol - mag * 2.0 ** -7)
+                    .max().item())
+    return worst
+
+
+def _grad_batches(torch, finetune, dev, n, seed=2):
+    """``n`` batches of the fine-tune's shapes (8 rows of 384 tokens,
+    segment 0, span starts and ends) from ``seed``: a fresh batch a step,
+    so a step that summed an earlier step's gradients would show."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        tok = torch.randint(0, finetune.VOCAB, (8, 384), generator=gen,
+                            dtype=torch.int32)
+        starts = torch.randint(0, 384, (8,), generator=gen)
+        ends = torch.randint(0, 384, (8,), generator=gen)
+        out.append([t.to(dev) for t in (tok, torch.zeros_like(tok),
+                                         starts, ends)])
+    return out
+
+
+def _first_moments(trainer):
+    """The logical first moments of the trainer's AdamW states by name, in
+    trainer order: ``m_t = beta1 m_{t-1} + (1 - beta1) g_t`` over the
+    summed, rescaled gradients ``g_t``."""
+    from mxnet_tpu_torch.gluon import _sharded
+
+    out = {}
+    for name, p, st in zip(trainer._param_names, trainer._params,
+                           trainer._states):
+        full = _sharded.full_state(st)
+        if full is None:
+            continue
+        leaves = _sharded._leaves(full)
+        if trainer.optimizer._is_mp_state(p._tensor(), full):
+            leaves = leaves[1:]
+        out[name] = leaves[0].detach().clone()
+    return out
+
+
+def _moment_gap(a, b):
+    """Each tensor's ``||a - b|| / ||b||`` of two :func:`_first_moments`
+    (sums in f64; tensors zero in both, which no loss reaches, left out):
+    ``{"worst": the largest, "name": its tensor, "over": how many exceed
+    SHARD_GRAD_LIMIT, "tensors": how many were held, "exempt":
+    SHARD_GRAD_EXEMPT's gap}``."""
+    gaps, exempt = {}, None
+    for name, y in b.items():
+        num = float((a[name].double() - y.double()).norm())
+        den = float(y.double().norm())
+        gap = num / den if den else (math.inf if num else None)
+        if name.endswith(SHARD_GRAD_EXEMPT):
+            exempt = gap
+        elif gap is not None:
+            gaps[name] = gap
+    name = max(gaps, key=gaps.get)
+    return dict(worst=gaps[name], name=name, tensors=len(gaps),
+                over=sum(g > SHARD_GRAD_LIMIT for g in gaps.values()),
+                exempt=exempt)
+
+
+@contextlib.contextmanager
+def _dropped_last_shard(torch):
+    """The control of 27a's gradient gate: inside it the shard_map form's
+    gradient sum (``psum_tree_flat_traced``, warm-up and capture alike)
+    leaves out the last data position's gradients, as a sum that dropped
+    a shard would."""
+    from mxnet_tpu_torch.gluon import train_step as ts_mod
+
+    real = ts_mod.psum_tree_flat_traced
+
+    def dropped(trees, axis=None, bucket_mb=None):
+        zeros = [torch.zeros_like(g) for g in trees[-1]]
+        return real(list(trees[:-1]) + [zeros], axis, bucket_mb)
+
+    ts_mod.psum_tree_flat_traced = dropped
+    try:
+        yield
+    finally:
+        ts_mod.psum_tree_flat_traced = real
+
+
+def _grad_run(torch, finetune, build, dev, plan, model_kwargs, batches,
+              label, ref=None, control=False):
+    """27a's gradient gate for one plan: ``len(batches)`` TrainStep calls
+    at dropout 0 and learning rate 0 from the fine-tune's weights, a fresh
+    batch each. The weights stay where they start, so every step's
+    gradients are taken at the same weights in every run, and the first
+    moments sum them. Returns the record: ``moments`` after each step
+    (with no ``ref``), else ``gaps`` to ``ref``'s after the same step."""
+    net, trainer, step = _shard_build(finetune, dev, plan, model_kwargs,
+                                      dropout=0.0, lr=0.0)
+    ts = step.func
+    per_step = []
+    with _dropped_last_shard(torch) if control else contextlib.nullcontext():
+        for k, b in enumerate(batches):
+            ts(*b)
+            m = _first_moments(trainer)
+            per_step.append(m if ref is None else _moment_gap(m, ref[k]))
+    check(ts.last_path == "whole_step" and ts.jit_trace_count() == 1,
+          f"27a gradients {label}: ran {ts.last_path} with "
+          f"{ts.jit_trace_count()} captures: {ts.ineligible_reason()}")
+    return {"form": ts._form,
+            ("moments" if ref is None else "gaps"): per_step}
+
+
+def _zero_blocks_match(torch, trainer, logical):
+    """Each position's block of every placed state leaf of ``trainer``
+    against the slice of ``logical`` (another trainer whose states hold
+    the same leaves unsharded) that its layout assigns it, bit for bit;
+    ``(blocks compared, blocks equal, leaves sharded over fsdp)``."""
+    from mxnet_tpu_torch.gluon import _sharded
+
+    n = same = split = 0
+    for st, ref in zip(trainer._states, logical._states):
+        ref_leaves = _sharded._leaves(_sharded.full_state(ref))
+        for leaf, full in zip(_sharded._leaves(st), ref_leaves):
+            split += leaf.layout.distinct() > 1
+            for blk, shard in zip(leaf.layout.blocks, leaf.shards):
+                n += 1
+                same += torch.equal(
+                    shard, full[tuple(slice(a, b) for a, b in blk)])
+    return n, same, split
+
+
+def phase_sharding(torch, mt, finetune, build, kopt, dev, **model_kwargs):
+    """27. Sharding plans over mesh positions of ``dev`` (every position a
+    position of the one card), on BERT-base QA fine-tuning at dropout 0.1
+    through TrainStep's graph (``model_kwargs`` cut it:
+    tests/test_torch_cuda_sharding.py).
+
+    27a: SHARD_STEPS steps each from the same weights, batch and noise
+    generators (i) with no plan, (ii) under ``ShardingPlan("dp=4",
+    devices=[dev] * 4)`` (the shard_map form: each position's forward and
+    backward over its two rows, the gradients summed in position order),
+    (iii) under ``ShardingPlan.from_layout("dp=2,fsdp=2,tp=2", net=net,
+    devices=[dev] * 8)`` with ZeRO (the logical step, the update over
+    every position's blocks). (iii) equals (i) bit for bit: losses, bf16
+    weights, f32 masters, both moments. (ii) draws its dropout masks per
+    shard, so it is held to (i) by :func:`adam_step_bound` (masters and
+    f32 weights within it, bf16 weights within it plus one bf16 ulp), and
+    its replicas' blocks equal each other. One capture a run; K3, K4, K5a
+    and K5b counted over the steps, K3 under (iii) as the placed tables
+    predict (:func:`_placed_launches`). The gradient gate: at dropout 0
+    and learning rate 0 (the weights stay put, so every step's gradients
+    are taken at the same weights), SHARD_GRAD_STEPS fresh batches, dp=4
+    and the layout-less dp=2,fsdp=2 keep every tensor's first moment within
+    SHARD_GRAD_LIMIT of (i)'s (relative L2), and a control whose sum drops
+    the last shard's gradients exceeds it at every step. The layout-less
+    ``ShardingPlan("dp=2,fsdp=2", devices=[dev] * 4)`` (replicated weights,
+    ZeRO state, the placed update) equals ``ShardingPlan("dp=2")`` over
+    SHARD_STEPS steps at dropout 0.1 bit for bit, each ZeRO block the
+    slice of dp=2's state, its launches counted.
+    27b: (iii)'s optimizer-state bytes a position, their sum (the unplaced
+    total times what the plan replicates, exactly) and the largest (at most
+    1/fsdp of the unplaced total).
+    27c: (iii) saved by CheckpointManager; a fresh trainer under
+    ``from_layout("dp=2,fsdp=2")`` (world 4) raises PlanMismatch, then
+    takes it through ``elastic.resharded_restore`` and ``verify_parity``
+    holds bit for bit; so does a fresh trainer with no plan; the checkpoint
+    rewritten offline for dp=4 (``reshard_checkpoint``) restores into a
+    dp=4 trainer as an exact plan match; ``python -m
+    mxnet_tpu_torch.tools.ckpt verify --mesh dp=4`` and ``reshard`` exit
+    0; SHARD_MORE steps resumed under (iii)'s plan equal SHARD_MORE more
+    steps of (iii), which never stopped, bit for bit.
+    27d: ``elastic.reenter`` moves the live (iii) run and its TrainStep to
+    ``from_layout("dp=2,fsdp=2")`` with the linear LR rule: world 8 -> 4,
+    lr factor 0.5, generation + 1, one new capture and none in the five
+    replays after it, and its SHARD_REENTER steps equal (i)'s with its LR
+    halved at the same step, bit for bit.
+    Printed beside the card: step host ms and device-busy ms under each
+    plan, the device ms of (iii)'s gradient hand-out and of its gathers
+    and shard copies a step, restore ms across plans, reenter's ms."""
+    import tempfile
+
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.checkpoint import manager as ckmgr
+    from mxnet_tpu_torch.gluon import _sharded
+    from mxnet_tpu_torch.sharding import ShardingPlan
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        gc_collect(torch)
+    t_phase = time.perf_counter()
+    layers = model_kwargs.get("num_layers", 12)
+    out = dict(card=card_line() if cuda else None, steps=SHARD_STEPS,
+               hybrid=SHARD_HYBRID, reentry=SHARD_REENTRY)
+    plans = {
+        "unplaced": None,
+        "dp4": lambda net: ShardingPlan("dp=4", devices=[dev] * 4),
+        "hybrid": lambda net: ShardingPlan.from_layout(
+            SHARD_HYBRID, net=net, devices=[dev] * 8),
+    }
+    runs = {}
+    for label, plan in plans.items():
+        net, trainer, step = _shard_build(finetune, dev, plan, model_kwargs)
+        losses, secs, launches = _shard_steps(torch, build, step,
+                                              SHARD_STEPS, count=True)
+        ts = step.func
+        check(ts.last_path == "whole_step" and ts.jit_trace_count() == 1,
+              f"27a {label}: ran {ts.last_path} with "
+              f"{ts.jit_trace_count()} captures: {ts.ineligible_reason()}")
+        runs[label] = dict(net=net, trainer=trainer, step=step,
+                           losses=losses, launches=launches,
+                           state=_shard_state(torch, net, trainer),
+                           form=ts._form)
+        if label == "dp4":
+            # (ii) against (i), then (ii) is timed and let go
+            ref, dp4 = runs["unplaced"], runs["dp4"]
+            tol = adam_step_bound(TRAIN_LR, SHARD_STEPS) * 1.001
+            worst = _within_adam_bound(torch, dp4["state"], ref["state"],
+                                       tol)
+            replicas = all(
+                all(torch.equal(s, p.placement.shards[0])
+                    for s in p.placement.shards)
+                for p in trainer._params)
+            check(worst <= 0.0 and replicas,
+                  f"27a dp4: weights past the Adam bound {tol:.6g} by "
+                  f"{worst:.3g}, replicas equal: {replicas}")
+            dp4["bound"] = dict(tol=tol, worst_excess=worst,
+                                replicas_bitwise=replicas,
+                                largest_loss_diff=max(
+                                    abs(a - b) for x, y in zip(
+                                        dp4["losses"], ref["losses"])
+                                    for a, b in zip(x, y)))
+            dp4["timed"] = _shard_times(torch, step) if cuda else None
+            for k in ("net", "trainer", "step", "state"):
+                dp4.pop(k)
+            del net, trainer, step, ts
+            if cuda:
+                gc_collect(torch)
+    ref, hyb = runs["unplaced"], runs["hybrid"]
+    same = _shard_equal(torch, hyb["state"], ref["state"])
+    check(hyb["losses"] == ref["losses"] and all(same.values()),
+          f"27a hybrid differs from the unplaced run: losses "
+          f"{hyb['losses'] == ref['losses']}, {same}")
+    hts = hyb["step"].func
+    upd = hts._placed
+    want_k3 = _placed_launches(kopt, upd) * SHARD_STEPS
+    for label, run in runs.items():
+        got = run["launches"]
+        want_attn = layers * SHARD_STEPS * (4 if label == "dp4" else 1)
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            check(not cuda or got.get(name, 0) == want_attn,
+                  f"27a {label}: {name} launched {got.get(name)}, want "
+                  f"{want_attn}")
+        check(not cuda or got.get("opt_ladder", 0) > 0,
+              f"27a {label}: no K3 launch")
+    check(not cuda or hyb["launches"].get("opt_ladder") == want_k3,
+          f"27a hybrid: K3 launched {hyb['launches'].get('opt_ladder')}, "
+          f"the tables predict {want_k3}")
+    out["a"] = {label: dict(form=run["form"], launches=run["launches"],
+                            losses_mean=[sum(x) / len(x)
+                                         for x in run["losses"]],
+                            **({k: run[k] for k in ("bound", "timed")}
+                               if label == "dp4" else {}))
+                for label, run in runs.items()}
+    out["a"]["hybrid_bitwise"] = same
+    out["a"]["k3_predicted"] = want_k3
+    out["a"]["placed_copies_per_step"] = upd.copies() + sum(
+        len(ul.blocks) for ul in upd._ulayouts)
+    if cuda:
+        out["a"]["hybrid_scatter_ms"] = device_ms(torch, [upd.scatter])
+        out["a"]["hybrid_gather_ms"] = device_ms(torch, [upd.finish])
+        # (i) and (iii) take the same timed steps, so they stay in step
+        out["timed"] = {"unplaced": _shard_times(torch, ref["step"]),
+                        "dp4": out["a"]["dp4"]["timed"],
+                        "hybrid": _shard_times(torch, hyb["step"])}
+
+    # 27a, the gradient gate: at dropout 0 and learning rate 0 a per-shard
+    # form computes (i)'s gradients at (i)'s weights but for the order of
+    # its sums, so after each step (a fresh batch each) every tensor's
+    # first moment stays within SHARD_GRAD_LIMIT of (i)'s; a control whose
+    # sum leaves out the last shard must not
+    batches = _grad_batches(torch, finetune, dev, SHARD_GRAD_STEPS)
+    ref_m = _grad_run(torch, finetune, build, dev, None, model_kwargs,
+                      batches, "unplaced").pop("moments")
+    grad = {}
+    for label, plan, control in (
+            ("dp4", plans["dp4"], False),
+            ("dp4_dropped_shard", plans["dp4"], True),
+            ("dp2_fsdp2", ShardingPlan(SHARD_REENTRY, devices=[dev] * 4),
+             False)):
+        grad[label] = _grad_run(torch, finetune, build, dev, plan,
+                                model_kwargs, batches, label, ref=ref_m,
+                                control=control)
+        if cuda:
+            gc_collect(torch)
+    del ref_m
+    worst = {label: max(g["worst"] for g in rec["gaps"])
+             for label, rec in grad.items()}
+    ctrl = grad["dp4_dropped_shard"]["gaps"]
+    control_least = min(g["worst"] for g in ctrl)
+    say(f"sharding gradient gate: largest first-moment gap to (i) "
+        f"{json.dumps(worst)}; the control's least {control_least:.6g}, "
+        f"tensors past the limit a step "
+        f"{[(g['over'], g['tensors']) for g in ctrl]}; limit "
+        f"{SHARD_GRAD_LIMIT:.6g}; {SHARD_GRAD_EXEMPT} "
+        f"{[[g['exempt'] for g in rec['gaps']] for rec in grad.values()]};"
+        f" card {out['card']}")
+    for label in ("dp4", "dp2_fsdp2"):
+        rec = grad[label]
+        check(rec["form"] == "mesh" and worst[label] <= SHARD_GRAD_LIMIT,
+              f"27a gradients {label}: form {rec['form']}, first moments "
+              f"{rec['gaps']} from (i)'s, past {SHARD_GRAD_LIMIT}")
+    check(control_least > SHARD_GRAD_LIMIT,
+          f"27a gradients: the control that drops a shard came within "
+          f"{control_least:.6g} of (i), inside the limit {SHARD_GRAD_LIMIT}")
+    out["a"]["gradient_gate"] = dict(
+        limit=SHARD_GRAD_LIMIT, steps=SHARD_GRAD_STEPS, worst=worst,
+        control_least=control_least, **grad)
+
+    # the layout-less dp=2,fsdp=2 plan (replicated weights, ZeRO state, the
+    # placed update) trains as dp=2 does, bit for bit, each of its ZeRO
+    # blocks the slice of dp=2's state
+    pair = {}
+    for label, n in (("dp=2", 2), (SHARD_REENTRY, 4)):
+        net0, tr0, step0 = _shard_build(
+            finetune, dev, ShardingPlan(label, devices=[dev] * n),
+            model_kwargs)
+        losses, _, launches = _shard_steps(torch, build, step0, SHARD_STEPS,
+                                           count=True)
+        pair[label] = dict(net=net0, trainer=tr0, step=step0.func,
+                           losses=losses, launches=launches)
+        del net0, tr0, step0
+    lo, z = pair["dp=2"], pair[SHARD_REENTRY]
+    zts = z["step"]
+    same_z = _shard_equal(torch, _shard_state(torch, z["net"], z["trainer"]),
+                          _shard_state(torch, lo["net"], lo["trainer"]))
+    blocks = dict(zip(("compared", "equal", "leaves_sharded"),
+                      _zero_blocks_match(torch, z["trainer"], lo["trainer"])))
+    check(zts._form == "mesh" and zts._placed is not None
+          and zts.jit_trace_count() == 1 and z["losses"] == lo["losses"]
+          and all(same_z.values()) and blocks["compared"] == blocks["equal"]
+          and blocks["leaves_sharded"] > 0,
+          f"27a dp2_fsdp2: form {zts._form}, placed update "
+          f"{zts._placed is not None}, captures {zts.jit_trace_count()}, "
+          f"losses equal {z['losses'] == lo['losses']}, against dp=2 "
+          f"{same_z}, ZeRO blocks {blocks}")
+    want_attn = layers * SHARD_STEPS * 2    # two data positions
+    got = z["launches"]
+    check(not cuda or (all(got.get(name, 0) == want_attn
+                           for name in ("flash_attention_fwd",
+                                        "flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv"))
+                       and got.get("opt_ladder", 0) > 0),
+          f"27a dp2_fsdp2: launches {got}, want attention {want_attn} "
+          f"each and K3")
+    out["a"]["dp2_fsdp2"] = dict(form=zts._form, launches=got,
+                                 bitwise_dp2=same_z, zero_blocks=blocks)
+    del pair, lo, z, zts
+    if cuda:
+        gc_collect(torch)
+
+    # 27b: ZeRO bytes
+    b = _state_bytes(hyb["trainer"])
+    unplaced_bytes = sum(
+        x.numel() * x.element_size()
+        for k in ("masters", "moments") for x in ref["state"][k])
+    fsdp = 2
+    check(b["unplaced"] == unplaced_bytes and b["total"] ==
+          b["expected_total"] and b["largest"] <= b["unplaced"] / fsdp,
+          f"27b: {b}, unplaced run's state {unplaced_bytes} bytes")
+    out["b"] = b
+
+    # 27c: checkpoints across plans
+    root = Path(__file__).resolve().parent / "build" / "scratch"
+    root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="shard_", dir=root) as tmp:
+        tmp = Path(tmp)
+        ck = tmp / "ck"
+        saved = hyb["trainer"].optimizer.num_update
+        mgr = mt.checkpoint.CheckpointManager(ck, hyb["trainer"])
+        mgr.save(step=saved)
+        mgr.flush()
+        arrays = ckmgr._read_checkpoint(
+            str(ck / ckmgr._STEP_FMT.format(saved)))[0]
+        c = {}
+
+        def fresh(plan):
+            return _shard_build(finetune, dev, plan, model_kwargs)
+
+        net4, tr4, _ = fresh(lambda net: ShardingPlan.from_layout(
+            SHARD_REENTRY, net=net, devices=[dev] * 4))
+        try:
+            mt.checkpoint.CheckpointManager(ck, tr4).restore()
+            fail("27c: a restore across world sizes did not raise")
+        except mt.checkpoint.PlanMismatch as e:
+            c["plan_mismatch"] = str(e)[:160]
+        t0 = time.perf_counter()
+        res, compat = elastic.resharded_restore(
+            mt.checkpoint.CheckpointManager(ck, tr4))
+        c["reshard_restore_ms"] = (time.perf_counter() - t0) * 1e3
+        c["compared_resharded"] = elastic.verify_parity(tr4, arrays)
+        c["resharded_verdict"] = compat["verdict"]
+        del net4, tr4
+        net1, tr1, _ = fresh(None)
+        t0 = time.perf_counter()
+        mt.checkpoint.CheckpointManager(ck, tr1).restore()
+        c["unplaced_restore_ms"] = (time.perf_counter() - t0) * 1e3
+        c["compared_unplaced"] = elastic.verify_parity(tr1, arrays)
+        del net1, tr1
+        report = elastic.reshard_checkpoint(ck, tmp / "dp4", "dp=4")
+        net4, tr4, _ = fresh(lambda net: ShardingPlan(
+            "dp=4", devices=[dev] * 4))
+        res = mt.checkpoint.CheckpointManager(tmp / "dp4", tr4).restore()
+        c["offline_verdict"] = elastic.plan_compatibility(
+            (res.manifest.get("meta") or {}).get("sharding_plan"),
+            tr4.sharding_plan)["verdict"]
+        c["compared_offline"] = elastic.verify_parity(tr4, arrays)
+        c["offline_report"] = {k: report[k] for k in ("arrays", "nbytes")}
+        del net4, tr4
+        check(c["resharded_verdict"] == "reshard"
+              and c["offline_verdict"] == "exact",
+              f"27c: verdicts {c}")
+        cli = {}
+        for argv in (["verify", str(ck), "--mesh", "dp=4", "--json"],
+                     ["reshard", str(ck), "--dest", str(tmp / "cli"),
+                      "--mesh", "dp=4", "--json"]):
+            proc = subprocess.run(
+                [sys.executable, "-m", "mxnet_tpu_torch.tools.ckpt", *argv],
+                capture_output=True, text=True, timeout=600,
+                cwd=Path(__file__).resolve().parent)
+            check(proc.returncode == 0,
+                  f"27c: ckpt {argv[0]} exited {proc.returncode}: "
+                  f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+            cli[argv[0]] = json.loads(proc.stdout).get(
+                "plan", {}).get("verdict", "written")
+        c["cli"] = cli
+        # the uninterrupted (iii) run and a resumed one, SHARD_MORE steps
+        netr, trr, stepr = fresh(plans["hybrid"])
+        t0 = time.perf_counter()
+        mt.checkpoint.CheckpointManager(ck, trr).restore()
+        c["exact_restore_ms"] = (time.perf_counter() - t0) * 1e3
+        resumed, _, _ = _shard_steps(torch, build, stepr, SHARD_MORE)
+        more, _, _ = _shard_steps(torch, build, hyb["step"], SHARD_MORE)
+        same_r = _shard_equal(torch, _shard_state(torch, netr, trr),
+                              _shard_state(torch, hyb["net"],
+                                           hyb["trainer"]))
+        check(resumed == more and all(same_r.values()),
+              f"27c: the resumed steps differ from the uninterrupted ones: "
+              f"{resumed == more}, {same_r}")
+        c["resumed_bitwise"] = same_r
+        del netr, trr, stepr
+    if cuda:
+        gc_collect(torch)
+    out["c"] = c
+
+    # 27d: elastic re-entry of the live (iii) run
+    ref_more, _, _ = _shard_steps(torch, build, ref["step"], SHARD_MORE)
+    check(ref_more == more, "27d: (i) and (iii) parted before re-entry")
+    captures = hts.jit_trace_count()
+    info = elastic.reenter(
+        hyb["trainer"], ShardingPlan.from_layout(
+            SHARD_REENTRY, net=hyb["net"], devices=[dev] * 4),
+        train_step=hts, lr_rescale="linear")
+    check(info["old_world"] == 8 and info["new_world"] == 4
+          and info["lr_factor"] == 0.5,
+          f"27d: reenter reported {info}")
+    ref["trainer"].set_learning_rate(ref["trainer"].learning_rate * 0.5)
+    first, _, _ = _shard_steps(torch, build, hyb["step"], 2)
+    after_capture = hts.jit_trace_count()
+    rest, _, d_launches = _shard_steps(torch, build, hyb["step"],
+                                       SHARD_REENTER - 2, count=True)
+    want, _, _ = _shard_steps(torch, build, ref["step"], SHARD_REENTER)
+    same_d = _shard_equal(torch, _shard_state(torch, hyb["net"],
+                                              hyb["trainer"]),
+                          _shard_state(torch, ref["net"], ref["trainer"]))
+    check(after_capture == captures + 1 and hts.jit_trace_count() ==
+          after_capture and first + rest == want and all(same_d.values()),
+          f"27d: captures {captures} -> {after_capture} -> "
+          f"{hts.jit_trace_count()}, losses equal {first + rest == want}, "
+          f"{same_d}")
+    out["d"] = dict(info=info, captures=[captures, after_capture,
+                                         hts.jit_trace_count()],
+                    launches=d_launches, bitwise=same_d,
+                    form=hts._form)
+    if cuda:
+        out["timed"]["reentered"] = _shard_times(torch, hyb["step"])
+    del runs, ref, hyb, upd, hts
+    if cuda:
+        gc_collect(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"sharding: {json.dumps(out)}")
+    if cuda:
+        t = out["timed"]
+        say(f"sharding numbers: step host/device-busy ms unplaced "
+            f"{t['unplaced']['host_ms']:.2f}/{t['unplaced']['device_ms']:.2f}"
+            f", dp4 {t['dp4']['host_ms']:.2f}/{t['dp4']['device_ms']:.2f}, "
+            f"dp2_fsdp2_tp2 {t['hybrid']['host_ms']:.2f}/"
+            f"{t['hybrid']['device_ms']:.2f}, "
+            f"dp2_fsdp2 after re-entry {t['reentered']['host_ms']:.2f}/"
+            f"{t['reentered']['device_ms']:.2f}; (iii)'s gradient hand-out "
+            f"{out['a']['hybrid_scatter_ms']:.3f} ms and gathers "
+            f"{out['a']['hybrid_gather_ms']:.3f} ms a step; restore across "
+            f"plans {c['reshard_restore_ms']:.1f} ms (no plan "
+            f"{c['unplaced_restore_ms']:.1f}, same plan "
+            f"{c['exact_restore_ms']:.1f}); reenter {info['ms']:.1f} ms; "
+            f"phase {out['phase_s']:.1f} s; card {out['card']}")
+    return out
+
+
+def _shard_times(torch, step):
+    """Host ms (synchronised, median) and device-busy ms (the kernels a
+    step launches, summed by the profiler) of SHARD_TIMED steps."""
+    _, secs, _ = _shard_steps(torch, None, step, SHARD_TIMED)
+    return dict(host_ms=_median_ms(secs),
+                device_ms=device_ms(torch, [step], iters=SHARD_TIMED))
+
+
 def main():
     import torch
 
@@ -7200,8 +7876,12 @@ def main():
     # through TrainStep's graph, killed in the middle of a write, resumed
     # in a fresh process, restored into a live graph, preempted by SIGTERM
     ckpt = phase_checkpoint(torch, mt, finetune, build, kopt, mt.gpu(0))
+    # 27. sharding plans over positions of the card: BERT-base fine-tuning
+    # unplaced, dp=4 and dp=2,fsdp=2,tp=2, ZeRO's bytes, checkpoints across
+    # plans, elastic re-entry
+    shard = phase_sharding(torch, mt, finetune, build, kopt, mt.gpu(0))
 
-    # 27. the kernels line, card, ok. Each row's case is the main paths'
+    # 28. the kernels line, card, ok. Each row's case is the main paths'
     # call: attention at (8, 12, 384, 64) bf16 (its f32 variants at the
     # same shape in f32, with their launches from the f32 parity of phase
     # 4: no main path runs them), the ladder and its norm as the sweep over
@@ -7544,6 +8224,14 @@ def main():
         m["checkpoint_launches"] = {
             "resumed_process": ckpt["c"]["launches"].get(k["name"], 0),
             "live_restore": ckpt["live"]["launches"].get(k["name"], 0)}
+        # and over phase 27's steps under each plan (5 each, the
+        # layout-less dp=2,fsdp=2 plan's too) and the 5 replays after the
+        # re-entry
+        m["sharding_launches"] = dict(
+            {label: run["launches"].get(k["name"], 0)
+             for label, run in shard["a"].items()
+             if isinstance(run, dict) and "launches" in run},
+            reentered=shard["d"]["launches"].get(k["name"], 0))
         kernels.append(dict(name=k["name"], route=k["route"],
                             source=k["source"], replaces=k["replaces"], **m))
     # K6, the ring: its Python schedule (ring_attention.py) over the hop

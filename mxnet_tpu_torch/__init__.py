@@ -16,7 +16,7 @@ from . import numpy as np
 from . import numpy_extension as npx
 from . import observability, optimizer, parallel, recordio, registry, rtc
 from . import serving, test_utils, util
-from . import checkpoint, contrib
+from . import checkpoint, contrib, elastic, sharding
 from ._random import seed
 from .attribute import AttrScope
 from .base import MXNetError

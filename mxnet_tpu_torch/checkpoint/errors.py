@@ -30,9 +30,7 @@ class PlanMismatch(CheckpointError):
     """The checkpoint's recorded sharding plan and the restoring trainer's
     plan disagree on world size (mesh device count). Restoring across world
     sizes is a topology migration, not a resume: ``restore(...,
-    allow_reshard=True)`` opts in. The port's trainers carry no plan yet
-    (ROADMAP.md queue 1 item 9), so a restore here never raises it; the
-    class is kept for the callers that catch it."""
+    allow_reshard=True)`` (or ``elastic.resharded_restore``) opts in."""
 
     def __init__(self, msg, saved_plan=None, target_plan=None):
         super().__init__(msg)

@@ -53,6 +53,7 @@ from .._dtype_codec import decode_npz, encode_payload, host_bits
 from ..diagnostics import spans as _spans
 from ..telemetry import instruments as _telemetry
 from . import snapshot as _snapshot
+from ..elastic.reshard import plan_compatibility, plan_world_size  # noqa: F401
 from .errors import (CheckpointCorrupt, CheckpointError,
                      CheckpointNotFound, PlanMismatch)
 
@@ -111,58 +112,6 @@ def _committed_steps(directory):
                 os.path.join(directory, n, MANIFEST_NAME)):
             out.append(s)
     return sorted(out)
-
-
-def plan_world_size(plan_manifest):
-    """Device count a plan manifest's mesh spans (the product of its axis
-    sizes); 1 for None (unsharded = one logical device view). A -1
-    (uninferred) size resolves against this host's device count (a copy of
-    mxnet_tpu/elastic/reshard.py:plan_world_size, counting cards)."""
-    if plan_manifest is None:
-        return 1
-    total, infer = 1, 0
-    for _name, size in plan_manifest.get("axes") or ():
-        if int(size) == -1:
-            infer += 1
-        else:
-            total *= int(size)
-    if infer:
-        import torch
-
-        n = max(torch.cuda.device_count(), 1)
-        total = n if total == 0 else max(n // total, 1) ** infer * total
-    return total
-
-
-def plan_compatibility(saved, target):
-    """Judge a saved plan manifest against a target one (either may be
-    None), as mxnet_tpu/elastic/reshard.py:plan_compatibility does:
-    ``verdict`` 'exact' (same axes), 'replace' (same world size) or
-    'reshard' (another world size), with the worlds, axes and notes."""
-    sw, tw = plan_world_size(saved), plan_world_size(target)
-    s_axes = [list(a) for a in (saved or {}).get("axes") or []]
-    t_axes = [list(a) for a in (target or {}).get("axes") or []]
-    notes = []
-    if s_axes == t_axes:
-        verdict = "exact"
-    elif sw == tw:
-        verdict = "replace"
-        notes.append("same world size: restore() re-places arrays "
-                     "under the target plan silently")
-    else:
-        verdict = "reshard"
-        notes.append(
-            f"world size changes {sw} -> {tw}: restore() raises "
-            f"PlanMismatch unless allow_reshard=True")
-    if (saved or {}).get("zero_axis") != (target or {}).get("zero_axis"):
-        notes.append(
-            f"ZeRO axis changes "
-            f"{(saved or {}).get('zero_axis')!r} -> "
-            f"{(target or {}).get('zero_axis')!r}: optimizer state "
-            f"re-extends along the target fsdp axis on restore")
-    return {"verdict": verdict, "compatible": verdict != "reshard",
-            "saved_world": sw, "target_world": tw,
-            "saved_axes": s_axes, "target_axes": t_axes, "notes": notes}
 
 
 class RestoreResult:
@@ -459,10 +408,12 @@ class CheckpointManager:
         RestoreResult.
 
         When both the checkpoint and the trainer carry a sharding plan and
-        their world sizes differ, restore is a topology migration and
-        raises PlanMismatch unless ``allow_reshard=True``. The port's
-        trainers carry no plan yet, so a checkpoint saved under a plan
-        restores here as into a plan-less trainer of the JAX package.
+        their world sizes (mesh position counts) differ, restore is a
+        topology migration and raises PlanMismatch unless
+        ``allow_reshard=True`` opts in (``elastic.resharded_restore`` is the
+        front door). Same-world plan changes place silently, as ever: the
+        arrays are logical, and ``snapshot.apply`` writes them into the
+        restoring trainer's blocks.
         """
         trainer = trainer or self._trainer
         if trainer is None:
@@ -499,16 +450,19 @@ class CheckpointManager:
             f"are corrupt") from last_err
 
     def _check_plan(self, manifest, trainer, allow_reshard, d):
-        """The PlanMismatch gate: only a plan-to-plan world-size change is
-        gated; restoring onto a plan-less trainer (every port trainer) or
-        from a plan-less checkpoint stays silent."""
+        """The PlanMismatch gate (manager.py:426): the compatibility report
+        when the restore crosses plans (None for an exact resume). Only a
+        plan-to-plan world-size change is gated; restoring onto a
+        plan-less trainer or from a plan-less checkpoint stays silent."""
         saved = (manifest.get("meta") or {}).get("sharding_plan")
         plan = getattr(trainer, "sharding_plan", None)
-        if saved is None or plan is None:
-            return
-        target = plan.to_manifest()
-        compat = plan_compatibility(saved, target)
-        if compat["verdict"] == "reshard" and not allow_reshard:
+        if saved is None and plan is None:
+            return None
+        compat = plan_compatibility(saved, plan)
+        if compat["verdict"] == "exact":
+            return None
+        if compat["verdict"] == "reshard" and saved is not None \
+                and plan is not None and not allow_reshard:
             _telemetry.record_ckpt_restore("plan_mismatch")
             raise PlanMismatch(
                 f"{d}: checkpoint was saved under a "
@@ -516,8 +470,11 @@ class CheckpointManager:
                 f"({compat['saved_axes']}) but the trainer's plan spans "
                 f"{compat['target_world']} devices "
                 f"({compat['target_axes']}): a topology migration. "
-                f"Pass allow_reshard=True to opt in",
-                saved_plan=saved, target_plan=target)
+                f"Pass allow_reshard=True (or use "
+                f"elastic.resharded_restore / tools/ckpt.py reshard) "
+                f"to opt in",
+                saved_plan=saved, target_plan=plan.to_manifest())
+        return compat
 
     def _load(self, step, trainer, allow_reshard=False):
         d = self.step_dir(step)
@@ -526,13 +483,21 @@ class CheckpointManager:
         except CheckpointError:
             _telemetry.record_ckpt_restore("corrupt")
             raise
-        self._check_plan(manifest, trainer, allow_reshard, d)
+        compat = self._check_plan(manifest, trainer, allow_reshard, d)
+        t0 = time.perf_counter()
         with _spans.span("ckpt.restore", cat="checkpoint"):
             try:
                 _snapshot.apply(trainer, arrays, manifest["meta"])
             except CheckpointError:
                 _telemetry.record_ckpt_restore("error")
                 raise
+        if compat is not None:
+            # a cross-plan restore IS the reshard (apply placed every
+            # array under the target plan): time it
+            _telemetry.record_reshard(
+                (time.perf_counter() - t0) * 1e3,
+                saved_world=compat["saved_world"],
+                target_world=compat["target_world"], site="restore")
         _telemetry.record_ckpt_restore("ok")
         return RestoreResult(step, manifest["meta"].get("user_state"),
                              manifest)

@@ -18,7 +18,14 @@ so a checkpoint of either package restores in the other:
     correction);
   * which parameters' gradients are stale, as indices (gradient versions
     are process-local), re-marked against the restoring process's;
-  * the loss scale and an opaque JSON user-state blob.
+  * the loss scale and an opaque JSON user-state blob;
+  * the trainer's sharding plan as its manifest
+    (``ShardingPlan.to_manifest``, the JAX package's record), for
+    provenance and the restore's plan gate. The arrays themselves are
+    logical: a placed parameter's value and a placed state leaf's blocks
+    gathered (``Placed.full``), so the payload does not depend on the plan,
+    and :func:`apply` writes it into the RESTORING trainer's placement
+    (its plan, not the saved one), as the JAX package re-places it.
 
 Host copies. A value is an array on the host: numpy, except a bf16 one,
 which is a CPU bf16 tensor over the uint16 bits that
@@ -60,6 +67,7 @@ import torch
 
 from .. import _random
 from .._dtype_codec import dtype_name, to_numpy
+from ..parallel.mesh import Placed
 from .errors import CheckpointError
 
 __all__ = ["capture", "apply"]
@@ -86,6 +94,9 @@ def _state_spec(state, prefix, out):
     None | "key-string" | [child specs]."""
     if state is None:
         return None
+    if isinstance(state, Placed):
+        out[prefix] = _host(state.full())
+        return prefix
     if isinstance(state, torch.Tensor):
         out[prefix] = _host(state)
         return prefix
@@ -137,9 +148,14 @@ def _noise_generators(trainer):
 
 
 def _sync_cards(trainer):
-    """Wait for the work queued on every card holding a parameter (a
-    captured step replays on the caller's stream; this covers any)."""
-    for dev in {p._tensor().device for p in trainer._params}:
+    """Wait for the work queued on every card holding a parameter or one
+    of its positions (a captured step replays on the caller's stream; this
+    covers any)."""
+    devices = {p._tensor().device for p in trainer._params}
+    for p in trainer._params:
+        if p._placement is not None:
+            devices.update(p._placement.layout.devices)
+    for dev in devices:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -172,10 +188,11 @@ def capture(trainer, user_state=None):
         "states_created": list(trainer._states_created),
         "optimizer": trainer._optimizer.bookkeeping_state(),
         "stale_indices": trainer._stale_indices(),
-        # the JAX package's NHWC re-layout and sharding plans have no
-        # counterpart in the port yet: every array is logical and whole
+        # the JAX package's NHWC re-layout has no counterpart in the port:
+        # every array is logical and whole
         "layout_perms": [None] * len(trainer._params),
-        "sharding_plan": None,
+        "sharding_plan": (trainer.sharding_plan.to_manifest()
+                          if trainer.sharding_plan is not None else None),
         "scale": trainer._scale,
         "user_state": user_state,
     }
@@ -266,6 +283,8 @@ def apply(trainer, arrays, meta):
     state tensors that exist with the same nesting, shapes and dtypes
     (``Trainer._put_state``), generators by ``set_state``, so a captured
     ``gluon.TrainStep`` replays on the restored values with no rebuild.
+    Under the trainer's sharding plan the values land in the positions'
+    blocks of that plan (module note).
 
     Validates param count, names, dtypes, shapes and the presence of every
     array against the payload and raises CheckpointError on a mismatch
@@ -287,6 +306,19 @@ def apply(trainer, arrays, meta):
         trainer._put_state(i, _state_from_spec(spec, arrays))
     trainer._states_created = list(
         meta.get("states_created") or [s is not None for s in specs])
+    plan = trainer.sharding_plan
+    if plan is not None and not trainer._plan_applied:
+        # parameters that were pending placement take it now, and every
+        # created state the plan's state layout (trainer.py:_maybe_apply)
+        trainer._maybe_apply_plan()
+        if trainer._plan_applied:
+            from ..optimizer import place_state_like
+
+            for i, p in enumerate(trainer._params):
+                if trainer._states_created[i]:
+                    trainer._states[i] = place_state_like(
+                        trainer._states[i], p, plan=plan,
+                        name=trainer._param_names[i])
     opt_meta = meta.get("optimizer")
     if opt_meta:
         trainer._optimizer.load_bookkeeping_state(opt_meta)

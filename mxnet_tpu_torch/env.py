@@ -220,3 +220,50 @@ register(
     "MXTPU_CKPT_DIR", str, "",
     "Default checkpoint directory for tools when none is passed "
     "explicitly; empty = require an explicit directory.")
+register(
+    "MXTPU_MESH", str, "",
+    "Mesh axis spec for the sharding subsystem (mxnet_tpu_torch/sharding), "
+    "e.g. 'dp=-1' (data parallel over every card) or 'dp=4,tp=2'. -1 "
+    "infers that axis from the card count. Consulted only when "
+    "MXTPU_SHARDING=auto and the Trainer was given no explicit "
+    "mesh=/sharding_plan=; empty (default) names no mesh.")
+register(
+    "MXTPU_SHARDING", str, "auto",
+    "Sharding-subsystem mode: 'off' disables it (mesh= arguments and "
+    "MXTPU_MESH are ignored, nothing is placed); 'auto' (default) builds "
+    "a plan from explicit Trainer arguments, else from MXTPU_MESH; 'plan' "
+    "accepts explicit arguments only.")
+register(
+    "MXTPU_SPEC_LAYOUT", bool, True,
+    "SpecLayout rule library for env-driven plans (sharding/layouts.py): "
+    "when MXTPU_MESH names the layout's model axes (fsdp/tp), the plan "
+    "places stock-block parameters by structural role. 0 keeps env meshes "
+    "placement-free (axes only, parameters replicate).")
+register(
+    "MXTPU_ZERO", bool, True,
+    "ZeRO optimizer-state sharding: when the plan's mesh carries the "
+    "layout's fsdp axis, optimizer state (momenta, variances, f32 masters) "
+    "shards along it on the first unsharded divisible dim, so each "
+    "position holds ~1/N of it. 0 places state exactly like its weight. "
+    "The numbers are the same either way.")
+register(
+    "MXTPU_ELASTIC_MAX_RESTARTS", int, 3,
+    "Restart budget of elastic.RestartPolicy: the lifetime cap on restarts "
+    "after rank deaths before the supervisor gives up. -1 = unlimited.")
+register(
+    "MXTPU_ELASTIC_BACKOFF_S", float, 1.0,
+    "Restart backoff base (seconds): restart N after a rank death waits "
+    "base * 2^N, capped at MXTPU_ELASTIC_BACKOFF_MAX_S.")
+register(
+    "MXTPU_ELASTIC_BACKOFF_MAX_S", float, 30.0,
+    "Cap on the exponential restart backoff (seconds).")
+register(
+    "MXTPU_ELASTIC_LR_RESCALE", str, "off",
+    "LR rescaling rule when the world size changes at elastic re-entry "
+    "(elastic.rescale_lr): 'off' (default), 'linear' (lr *= new/old) or "
+    "'sqrt' (lr *= sqrt(new/old)). Scheduled LRs are never touched.")
+register(
+    "MXTPU_ELASTIC_GENERATION", int, 0,
+    "World generation a relaunched rank inherits: 0 = first launch, +1 "
+    "per restart or in-process reenter(); read by "
+    "elastic.current_generation and the world_generation gauge.")

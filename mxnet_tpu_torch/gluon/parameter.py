@@ -24,6 +24,17 @@ weights keeps their addresses, so whoever replays one compares the epoch,
 one integer, on every call, and walks the weights' addresses only when it
 moved (gluon/_graph.py). ``set_data`` and the optimizer write in place and
 move nothing: a graph sees those values.
+
+A sharding plan places a Parameter (``parallel.mesh.shard_params``,
+``ShardingPlan.apply``): it then also holds a :class:`~mxnet_tpu_torch.
+parallel.mesh.Placed`, one contiguous allocation a mesh position holding
+the position's block under the plan's spec (replicated specs: a copy a
+position). The tensor the layers read stays the logical value, as
+``data()`` and ``list_data()`` give it in the JAX package (where
+``asnumpy()`` gathers every shard); the optimizer updates the positions'
+blocks and gathers them back into it (gluon/_sharded.py), and ``set_data``,
+a load, a write through ``data()`` and a re-initialization write through to
+every position. ``one_device`` still holds for the logical value.
 """
 from __future__ import annotations
 
@@ -54,13 +65,16 @@ def _storage_replaced():
 class _ParameterArray(NDArray):
     """The NDArray ``Parameter.data()`` returns: an in-place write copies
     into the parameter's tensor instead of swapping the handle, so the
-    parameter holds what was written."""
+    parameter holds what was written (and its positions, when placed)."""
 
-    __slots__ = ()
+    __slots__ = ("_param",)
 
     def _assign(self, data):
         with torch.no_grad():
             self._data.copy_(data)
+        placement = self._param._placement
+        if placement is not None:
+            placement.write(self._data)
         self._version += 1
 
 
@@ -118,6 +132,8 @@ class Parameter:
         # the collect_params() key of the Block that initialized it, which
         # Load and Mixed route by
         self._structured_name = None
+        # parallel.mesh.Placed: the positions' blocks under a sharding plan
+        self._placement = None
 
     # -- identity ----------------------------------------------------------
     @property
@@ -210,6 +226,8 @@ class Parameter:
         self._grad = None
         for module, attr in self._owners:
             module._parameters[attr] = self._var
+        if self._placement is not None:
+            self._place(self._placement.layout)
 
     def _finish_deferred_init(self, shape=None):
         """Complete deferred init once the full shape is known."""
@@ -249,7 +267,9 @@ class Parameter:
         if device is not None and torch.device(device) != t.device:
             raise RuntimeError(f"Parameter {self.name} not initialized on "
                                f"{device}; it lives on {t.device}")
-        return _ParameterArray(t)
+        arr = _ParameterArray(t)
+        arr._param = self
+        return arr
 
     def data_for(self, x):  # noqa: ARG002 - one device a parameter
         """The copy co-located with ``x`` (parameter.py:273): the one
@@ -262,8 +282,30 @@ class Parameter:
         return self.data(ctx=ctx, device=device)
 
     def list_data(self):
-        """``[data()]``: one device a parameter (parameter.py:294)."""
+        """``[data()]`` (parameter.py:294): one logical value, placed or
+        not."""
         return [self.data()]
+
+    # -- placement under a sharding plan -----------------------------------
+    def _place(self, layout):
+        """Hold the value's blocks under ``layout`` (a
+        ``parallel.mesh.Layout``), one new allocation a position, copied
+        from the logical value (module note)."""
+        from ..parallel.mesh import Placed
+
+        with torch.no_grad():
+            self._placement = Placed.from_tensor(self._tensor().detach(),
+                                                 layout)
+
+    def _unplace(self):
+        """Drop the positions' blocks; the logical value stays."""
+        self._placement = None
+
+    @property
+    def placement(self):
+        """The ``parallel.mesh.Placed`` of the positions' blocks, or None
+        when no plan placed the parameter."""
+        return self._placement
 
     def list_ctx(self):
         """The devices holding a copy: ``[device]``."""
@@ -314,6 +356,8 @@ class Parameter:
                 f"!= {tuple(self._var.shape)}")
         with torch.inference_mode(False), torch.no_grad():
             self._var.copy_(data)
+            if self._placement is not None:
+                self._placement.write(self._var)
 
     def _load_init(self, data, device):
         """Take ``data``, its shape and its value, into a parameter that
@@ -426,6 +470,8 @@ class Parameter:
                 _storage_replaced()
                 if self._grad is not None:
                     self._grad = self._grad.to(self.dtype)
+                if self._placement is not None:
+                    self._place(self._placement.layout)
 
 
 class Constant(Parameter):

@@ -52,8 +52,34 @@ output.
 An ineligible configuration runs phased and says why in
 :meth:`TrainStep.ineligible_reason`, with the reference's reasons;
 ``MXTPU_WHOLE_STEP=0`` runs phased. On an eligible configuration on the
-card a failed capture or replay raises; it never falls back. ``mesh=``
-raises ``NotImplementedError``, as ``Trainer(mesh=...)`` does.
+card a failed capture or replay raises; it never falls back.
+
+Meshes and sharding plans, split as the JAX package splits them
+(train_step.py:19-36). A trainer carrying a ShardingPlan makes its mesh
+and batch axis this step's; an explicit ``mesh=``/``axis=`` keeps the
+no-plan semantics (the parameters stay unplaced). Then:
+
+  * a mesh whose plan shards no parameter (pure data parallelism, or an
+    explicit mesh) runs the ``shard_map`` form: the batch splits over the
+    data axis, each position's forward and backward take its shard (the
+    loss must keep its batch dim), in position order on the parameters'
+    device (one replica computes for all), and the gradients are summed in
+    position order by the store's ``traced_allreduce`` or
+    ``parallel.collectives.psum_tree_flat_traced``; parameters the forward
+    writes (running statistics) take the mean of the positions' values.
+    Each position's forward draws its own dropout noise, in position order
+    (the JAX package hands every shard one key);
+  * a plan that shards parameters (fsdp/tp) runs the GSPMD form: the
+    logical forward and backward over the whole batch, as unplaced.
+
+Under a plan the update then runs over every position's blocks
+(gluon/_sharded.py): each position's slice of every gradient, K3 over
+every position's blocks (``ceil(parameters x positions / 384)`` launches
+a bucket), the blocks gathered back into the logical weights. The capture
+holds all of it, so a planned step is one graph replay too.
+:meth:`TrainStep.rebuild` re-adopts the trainer's plan after
+``Trainer.set_sharding_plan`` (elastic re-entry): the next call of a
+signature warms up and captures again.
 """
 from __future__ import annotations
 
@@ -63,10 +89,11 @@ from .. import autograd as _ag
 from .. import env as _env
 from ..kernels import opt as _kopt
 from ..ndarray.ndarray import NDArray
-from . import _graph
+from ..parallel.collectives import psum_tree_flat_traced
+from ..parallel.mesh import Mesh, ShardingError
+from . import _graph, _sharded
 from . import block as _block
 from .block import HybridBlock
-from .trainer import _later
 
 __all__ = ["TrainStep"]
 
@@ -140,12 +167,17 @@ class TrainStep:
     feed the net, the rest the loss. ``batch_size`` defaults to the first
     input's ``batch_axis`` extent and sets ``rescale_grad = scale /
     batch_size``, as ``Trainer.step`` does. Batch elements may be tensors
-    or NDArrays; the loss comes back as the same kind, detached."""
+    or NDArrays; the loss comes back as the same kind, detached.
+
+    ``mesh=`` (a ``parallel.mesh.Mesh``) and ``axis=`` run the shard_map
+    form with the parameters unplaced; without them the trainer's plan, if
+    any, decides (module note)."""
 
     def __init__(self, net, loss_fn, trainer, *, n_data=1, batch_axis=0,
-                 mesh=None, axis="dp"):  # noqa: ARG002
-        if mesh is not None:
-            raise _later("mesh=...")
+                 mesh=None, axis="dp"):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"TrainStep(mesh=...) takes a parallel.mesh.Mesh "
+                            f"(make_mesh), got {type(mesh).__name__}")
         self._net = net
         self._loss = loss_fn
         self._trainer = trainer
@@ -155,7 +187,7 @@ class TrainStep:
         self._last_path = None
         self._pool = None
         self._stream = None
-        self.rebuild()
+        self.rebuild(mesh, axis)
 
     # -- introspection -----------------------------------------------------
     @property
@@ -173,10 +205,22 @@ class TrainStep:
         """Why this step runs phased (None when eligible)."""
         return self._ineligible
 
-    def rebuild(self):
-        """Drop the captured graphs and the cached eligibility verdict; the
+    def rebuild(self, mesh=None, axis="dp"):
+        """Drop the captured graphs and the cached eligibility verdict and
+        re-adopt the trainer's (possibly new) plan (train_step.py:158): the
         next call of a signature warms up and captures again
-        (:meth:`jit_trace_count` keeps counting)."""
+        (:meth:`jit_trace_count` keeps counting). An explicit ``mesh=``
+        keeps the no-plan semantics, as in the constructor."""
+        self._plan = None
+        if mesh is None:
+            plan = getattr(self._trainer, "sharding_plan", None)
+            if plan is not None:
+                self._plan = plan
+                mesh = plan.mesh
+                axis = plan.batch_axis
+        self._mesh = mesh
+        self._axis = axis
+        self._form = "local"
         self._graphs = {}
         self._warm = set()
         self._seen = set()
@@ -196,16 +240,20 @@ class TrainStep:
                     "update_multi_precision or lacks _rule")
         if opt.clip_global_norm is not None:
             return "clip_global_norm needs the host-combined norm pre-pass"
-        # the store's reasons, in the JAX package's words: the port has no
-        # mesh, so a store of several workers always sums outside the graph
+        # the store's reasons, in the JAX package's words
         if tr._update_on_kvstore:
             return "update_on_kvstore runs the optimizer inside the store"
         kv = tr._kvstore
         if kv is not None:
             if getattr(kv, "_compression", None) is not None:
                 return "gradient compression is eager-only"
-            if getattr(kv, "num_workers", 1) > 1:
+            distributed = getattr(kv, "num_workers", 1) > 1
+            if distributed and self._mesh is None:
                 return "multi-worker kvstore without a mesh"
+            if self._mesh is not None and \
+                    not hasattr(kv, "traced_allreduce") and \
+                    kv.is_capable("pushpull"):
+                return f"kvstore {type(kv).__name__} has no traced reduce"
         block_params = {id(p) for p in self._net.collect_params().values()}
         seen = set()
         for p in tr._params:
@@ -225,17 +273,36 @@ class TrainStep:
         # every parameter: a member only its plain version takes would
         # read its scalars on the host, which a capture cannot
         cls = type(opt)
+        tr._maybe_apply_plan()
         for i, p in enumerate(tr._params):
-            if p.grad_req == "null" or not p._tensor().is_cuda:
+            if p.grad_req == "null":
                 continue
             w = p._tensor()
             tr._ensure_states(i, w)
             st = tr._states[i]
+            if p._placement is not None:
+                # a placed parameter updates block by block (_sharded.py)
+                if not _sharded.fused_eligible(opt, p, st):
+                    return (f"param {p.name}: {cls.__name__} does not "
+                            f"update a placed parameter block by block")
+                w, st = _sharded.update_block(
+                    p, st, tr._sharding_plan, tr._param_names[i], 0)
+            if not w.is_cuda:
+                continue
             mp = opt._is_mp_state(w, st)
-            outcome = _kopt._decide(cls, mp, w, st, p.grad())
+            outcome = _kopt._decide(cls, mp, w, st, w)
             if outcome != "kernel":
                 return (f"param {p.name}: the optimizer ladder kernel does "
                         f"not take it under {cls.__name__} ({outcome})")
+        if self._mesh is not None:
+            # a plan that shards parameters runs the logical step over the
+            # whole batch (the GSPMD form), any other mesh the per-position
+            # shard_map form
+            names_shapes = [(n, p.shape) for n, p in
+                            zip(tr._param_names, tr._params)
+                            if p.shape is not None]
+            self._form = "gspmd" if self._plan is not None and \
+                self._plan.shards_params(names_shapes) else "mesh"
         return None
 
     def _eligible(self):
@@ -263,18 +330,25 @@ class TrainStep:
             items.append((i, p))
         self._items = items
         self._indices = [i for i, _ in items]
-        keys = opt._bucket_keys([p._tensor() for _, p in items],
-                                [tr._states[i] for i, _ in items], True)
-        buckets = {}
-        for k, key in enumerate(keys):
-            buckets.setdefault(key, []).append(k)
-        # rows of the scalar buffer: bucket after bucket, trainer order
-        # within one; each bucket a contiguous slice
-        self._order, self._buckets = [], []
-        for (_, mp), ks in buckets.items():
-            start = len(self._order)
-            self._order.extend(ks)
-            self._buckets.append((mp, ks, start, len(self._order)))
+        self._placed = None
+        if any(p._placement is not None for _, p in items):
+            # the update over every position's blocks (_sharded.py); its
+            # members' rows, bucket after bucket
+            self._placed = tr.placed_update(self._indices)
+            self._order = list(self._placed.rows)
+        else:
+            keys = opt._bucket_keys([p._tensor() for _, p in items],
+                                    [tr._states[i] for i, _ in items], True)
+            buckets = {}
+            for k, key in enumerate(keys):
+                buckets.setdefault(key, []).append(k)
+            # rows of the scalar buffer: bucket after bucket, trainer order
+            # within one; each bucket a contiguous slice
+            self._order, self._buckets = [], []
+            for (_, mp), ks in buckets.items():
+                start = len(self._order)
+                self._order.extend(ks)
+                self._buckets.append((mp, ks, start, len(self._order)))
         self._device = items[0][1]._tensor().device if items else None
         self._built = True
 
@@ -283,7 +357,8 @@ class TrainStep:
         tensor and address, and each state's identity."""
         tr = self._trainer
         return (_graph.storage_fingerprint(p._var for _, p in self._items),
-                [id(tr._states[i]) for i, _ in self._items])
+                [(id(tr._states[i]), id(p._placement))
+                 for i, p in self._items])
 
     def _static_hyper(self):
         opt = self._trainer._optimizer
@@ -302,19 +377,81 @@ class TrainStep:
         """Forward, loss, backward and the optimizer's device part over
         ``inputs`` (the batch tensors) with the scalar rows ``scalars``;
         returns the loss tensor, detached. What a graph captures."""
+        if self._form == "mesh":
+            loss = self._shard_fwd_bwd(inputs)
+        else:
+            loss = _unwrap(self._fwd_bwd(inputs)).detach()
+        tr = self._trainer
+        if self._placed is not None:
+            self._placed.scatter()
+            tr._optimizer._fused_device_rows(self._placed.row_buckets(),
+                                             scalars)
+            self._placed.finish()
+            return loss
+        items = self._items
+        tr._optimizer._fused_device_rows(
+            [(mp, [(items[k][1]._tensor(), tr._states[items[k][0]],
+                    items[k][1].grad()) for k in ks], start, stop)
+             for mp, ks, start, stop in self._buckets], scalars)
+        return loss
+
+    def _fwd_bwd(self, inputs):
+        """Forward, loss and backward over ``inputs``; the loss."""
         args = [NDArray(t) for t in inputs] if self._nd else list(inputs)
         with _ag.record():
             out = self._net(*args[:self._n_data])
             loss = self._loss(out, *args[self._n_data:]) \
                 if self._loss is not None else out
         _ag.backward(loss)
-        tr = self._trainer
+        return loss
+
+    def _shard_fwd_bwd(self, inputs):
+        """The shard_map form (module note): each data position's forward
+        and backward over its shard of the batch, the gradients summed in
+        position order, the running statistics averaged; the per-sample
+        losses concatenated back in batch order."""
+        n = self._mesh.shape[self._axis]
+        ax = self._batch_axis
+        for t in inputs:
+            if t.dim() <= ax or t.shape[ax] % n:
+                raise ShardingError(
+                    f"batch dim {ax} of shape {tuple(t.shape)} is not "
+                    f"divisible by mesh axis {self._axis} (size {n})")
+        parts = [t.chunk(n, ax) for t in inputs]
         items = self._items
-        tr._optimizer._fused_device_rows(
-            [(mp, [(items[k][1]._tensor(), tr._states[items[k][0]],
-                    items[k][1].grad()) for k in ks], start, stop)
-             for mp, ks, start, stop in self._buckets], scalars)
-        return _unwrap(loss).detach()
+        frozen = [p for p in self._net.collect_params().values()
+                  if p.grad_req == "null" and p._var is not None]
+        before = [p._var.detach().clone() for p in frozen]
+        after = []
+        losses, trees = [], []
+        for k in range(n):
+            with torch.no_grad():
+                for p, v in zip(frozen, before):
+                    p._var.copy_(v)
+            for _, p in items:
+                p._grad = None
+            loss = _unwrap(self._fwd_bwd([c[k] for c in parts])).detach()
+            if loss.dim() == 0:
+                raise ValueError(
+                    "TrainStep with a mesh needs a per-sample loss (batch "
+                    "dim kept) so shards concatenate back to the global "
+                    "loss; got a scalar")
+            losses.append(loss)
+            trees.append([p.grad() for _, p in items])
+            after.append([p._var.detach().clone() for p in frozen])
+        kv = self._trainer._kvstore
+        reduce_tree = getattr(kv, "traced_allreduce", None)
+        sums = reduce_tree(trees, self._axis) if reduce_tree is not None \
+            else psum_tree_flat_traced(trees, self._axis)
+        for (_, p), g in zip(items, sums[0]):
+            p._grad = g
+        with torch.no_grad():
+            for j, p in enumerate(frozen):
+                total = after[0][j]
+                for a in after[1:]:
+                    total = total + a[j]
+                p._var.copy_(total / n)
+        return torch.cat(losses, ax if losses[0].dim() > ax else 0)
 
     def _rows(self, batch_size):
         """The host part of the update: ``rescale_grad``, then counts, lr,
@@ -341,6 +478,9 @@ class TrainStep:
             return self._phased(batch, batch_size)
         if not self._built:
             self._ensure_initialized(batch)
+            # deferred parameters just took their shapes: the trainer's
+            # plan, if any, can place them now
+            self._trainer._maybe_apply_plan()
         if not self._eligible():
             return self._phased(batch, batch_size)
         if not self._built:
@@ -352,6 +492,7 @@ class TrainStep:
         Trainer.step): the fallback contract and the reference semantics
         the whole step is held against."""
         self._last_path = "phased"
+        self._trainer._maybe_apply_plan()
         with _ag.record():
             out = self._net(*batch[:self._n_data])
             loss = self._loss(out, *batch[self._n_data:]) \

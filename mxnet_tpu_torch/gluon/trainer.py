@@ -10,9 +10,20 @@ counts as a fresh gradient. A single copy and a local store need no
 reduce. Across processes a row-sparse parameter is updated over the rows
 that any process touched. ``compression_params=`` goes to the store;
 ``update_on_kvstore=True`` hands the store the optimizer, and the Trainer
-still updates locally, as the JAX package's does. ``mesh=`` and
-``sharding_plan=`` raise ``NotImplementedError``: a parameter over several
-positions of a mesh waits for ROADMAP.md queue 1 item 9.
+still updates locally, as the JAX package's does.
+
+``sharding_plan=`` (a ``sharding.ShardingPlan``) or ``mesh=`` (its axes
+shorthand, or a built ``parallel.mesh.Mesh``) places every parameter and
+its optimizer state by the plan once all parameters are initialized
+(``_maybe_apply_plan``; ``sharding.resolve_plan`` folds in MXTPU_MESH and
+MXTPU_SHARDING, and None keeps every path below as it was): each
+parameter keeps one block a position beside its logical value, its state
+one block a position under the plan's state spec (ZeRO), and ``update``
+runs the optimizer over every position's blocks (gluon/_sharded.py). A
+rule whose update is not elementwise (LAMB, LANS, LARS), an optimizer
+without a fused rule, or a row-sparse gradient updates the logical value
+and writes it through to the positions. ``set_sharding_plan`` moves a
+live trainer onto another plan (elastic re-entry).
 
 ``save_states`` / ``load_states`` read and write the JAX package's format-2
 pickle (mxnet_tpu/gluon/trainer.py:save_states): the states as numpy
@@ -46,16 +57,11 @@ from .._dtype_codec import dtype_name, pickle_leaf, pickle_load
 from ..diagnostics import spans as _spans
 from ..kvstore import KVStoreBase, create as kv_create
 from ..ndarray.ndarray import NDArray
+from ..parallel.mesh import Placed
+from . import _sharded
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
-
-
-def _later(what):
-    return NotImplementedError(
-        f"Trainer({what}) is not ported yet: a parameter lives on one "
-        f"device in the port; meshes and sharding plans wait for "
-        f"ROADMAP.md queue 1 item 9")
 
 
 class Trainer:
@@ -73,10 +79,6 @@ class Trainer:
         for p in param_list:
             if not isinstance(p, Parameter):
                 raise ValueError(f"expected Parameter, got {type(p)}")
-        if mesh is not None:
-            raise _later("mesh=...")
-        if sharding_plan is not None:
-            raise _later("sharding_plan=...")
         self._params = param_list
         self._scale = 1.0
         optimizer_params = optimizer_params or {}
@@ -107,6 +109,19 @@ class Trainer:
         self._examples_completed = 0
         self._last_step_end = None
         self._last_step_seconds = None
+        # hybrid parallelism (module note): resolve_plan returns None when
+        # the subsystem is off or nothing names a mesh
+        from ..sharding import resolve_plan
+
+        self._sharding_plan = resolve_plan(
+            sharding_plan if sharding_plan is not None else mesh)
+        self._plan_applied = False
+        self._placed_updates = {}
+        if self._sharding_plan is not None and self._kvstore is not None:
+            setter = getattr(self._kvstore, "set_sharding_plan", None)
+            if setter is not None:
+                setter(self._sharding_plan)
+        self._maybe_apply_plan()
 
     @property
     def optimizer(self):
@@ -119,11 +134,66 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    @property
+    def sharding_plan(self):
+        """The resolved ShardingPlan, or None (unsharded)."""
+        return self._sharding_plan
+
+    def set_sharding_plan(self, plan):
+        """Move this trainer onto a new ShardingPlan (or None: unplaced),
+        the elastic re-entry hook (trainer.py:98): parameters are placed
+        under the new plan at once when they are live, and created
+        optimizer state under its state specs, so state held 1/N along one
+        fsdp axis re-extends along the new one. A caller owning a TrainStep
+        must also call its ``rebuild()``: the captured graph holds the old
+        blocks."""
+        self._sharding_plan = plan
+        self._plan_applied = False
+        self._placed_updates = {}
+        if self._kvstore is not None:
+            setter = getattr(self._kvstore, "set_sharding_plan", None)
+            if setter is not None:
+                setter(plan)
+        if plan is None:
+            for i, p in enumerate(self._params):
+                p._unplace()
+                if self._states_created[i]:
+                    self._states[i] = opt_mod.place_state_like(
+                        self._states[i], p)
+            return
+        self._maybe_apply_plan()
+        if self._plan_applied:
+            for i, p in enumerate(self._params):
+                if self._states_created[i]:
+                    self._states[i] = opt_mod.place_state_like(
+                        self._states[i], p, plan=plan,
+                        name=self._param_names[i])
+
+    def _maybe_apply_plan(self):
+        """Place every parameter per the plan once all are initialized
+        (trainer.py:146): deferred-shape models initialize at their first
+        forward, so ``step``/``update`` and TrainStep call this again; a
+        no-op after the first application and without a plan."""
+        plan = self._sharding_plan
+        if plan is None or self._plan_applied:
+            return
+        if any(p._var is None for p in self._params):
+            return
+        plan.apply(dict(zip(self._param_names, self._params)),
+                   label="trainer")
+        self._plan_applied = True
+
     def _ensure_states(self, i, weight):
         if not self._states_created[i]:
             self._states[i] = self._optimizer.create_state_multi_precision(
                 i, weight)
             self._states_created[i] = True
+            if self._plan_applied:
+                # state mirrors its weight: its placement, or the ZeRO
+                # layout under a plan with a live fsdp axis
+                self._states[i] = opt_mod.place_state_like(
+                    self._states[i], self._params[i],
+                    plan=self._sharding_plan, name=self._param_names[i])
 
     def allreduce_grads(self, ignore_stale_grad=False):
         """Sum the gradients through the kvstore (trainer.py:
@@ -199,9 +269,11 @@ class Trainer:
                _skip_rescale=False):
         if not _skip_rescale:
             self._optimizer.rescale_grad = self._scale / batch_size
+        self._maybe_apply_plan()
         # every dense parameter goes to ONE list-form call, which buckets
-        # by (dtype, multi-precision)
+        # by (dtype, multi-precision); placed ones update by position
         f_idx, f_w, f_g, f_s = [], [], [], []
+        placed, logical = [], []
         for i, p in enumerate(self._params):
             if p.grad_req == "null":
                 continue
@@ -212,6 +284,11 @@ class Trainer:
             w = p._tensor()
             self._ensure_states(i, w)
             self._grad_versions[i] = p._grad_version
+            if p._placement is not None:
+                (placed if _sharded.fused_eligible(
+                    self._optimizer, p, self._states[i]) else
+                 logical).append(i)
+                continue
             if p.grad_stype == "row_sparse":
                 # updated here, in list order as the JAX package does
                 # (trainer.py:292): only the rows its forwards touched
@@ -224,6 +301,59 @@ class Trainer:
             f_s.append(self._states[i])
         if f_idx:
             self._optimizer.update_multi_precision(f_idx, f_w, f_g, f_s)
+        if placed:
+            self._update_placed(placed)
+        for i in logical:
+            self._update_logical(i)
+
+    def placed_update(self, indices):
+        """The :class:`~._sharded.PlacedUpdate` of the placed parameters
+        ``indices``, listed again when a weight or a state was placed
+        anew."""
+        key = tuple(indices)
+        upd = self._placed_updates.get(key)
+        if upd is None or upd.key != _sharded.PlacedUpdate.storage_key(
+                self, indices):
+            upd = _sharded.PlacedUpdate(self, indices)
+            upd.set_frozen([p for p in self._params
+                            if p.grad_req == "null"])
+            self._placed_updates[key] = upd
+        return upd
+
+    def _update_placed(self, indices):
+        """The fused update over every position's blocks of ``indices``
+        (gluon/_sharded.py): gradients handed out, lr/wd/t resolved once a
+        parameter, the global-norm scale over the logical gradients (the
+        buckets' membership and order of the unplaced step), K3 over the
+        blocks, the blocks gathered back."""
+        opt = self._optimizer
+        upd = self.placed_update(indices)
+        upd.scatter()
+        steps = opt._resolve(indices)
+        scale = 1.0
+        if opt.clip_global_norm is not None:
+            logical = {}
+            for key, members in upd.buckets:
+                js = sorted({j for j, *_ in members})
+                logical[key] = [(None, None, upd.params[j].grad())
+                                for j in js]
+            scale = opt._global_norm_scale(logical)
+        opt._fused_device(upd.members(steps), opt._fused_hyper(), scale)
+        upd.finish()
+
+    def _update_logical(self, i):
+        """A placed parameter that cannot update block by block: its
+        logical state gathered, the update on the logical value, both
+        written through to the positions."""
+        p = self._params[i]
+        st = self._states[i]
+        full = _sharded.full_state(st)
+        g = p.grad()
+        if p.grad_stype == "row_sparse":
+            g = p._as_row_sparse_grad(g)
+        self._optimizer.update_multi_precision(i, p._tensor(), g, full)
+        p._placement.write(p._tensor())
+        _sharded.write_state(st, full)
 
     def zero_grad(self):
         for p in self._params:
@@ -244,6 +374,8 @@ class Trainer:
         def to_np(s):
             if s is None:
                 return None
+            if isinstance(s, Placed):
+                return pickle_leaf(s.full())
             if isinstance(s, torch.Tensor):
                 return pickle_leaf(s)
             return [to_np(x) for x in s]
@@ -317,6 +449,10 @@ class Trainer:
             else None
         self._states[i] = _to_device(state, device)
         self._states_created[i] = True
+        if self._plan_applied and p._placement is not None:
+            self._states[i] = opt_mod.place_state_like(
+                self._states[i], p, plan=self._sharding_plan,
+                name=self._param_names[i])
 
 
 def _land_sum(p, view, kv):
@@ -360,6 +496,9 @@ def _state_tensors(s):
 def _fits(cur, new):
     if cur is None or new is None:
         return cur is None and new is None
+    if isinstance(cur, Placed):
+        return (isinstance(new, torch.Tensor)
+                and tuple(new.shape) == cur.shape and new.dtype == cur.dtype)
     if isinstance(cur, torch.Tensor) or isinstance(new, torch.Tensor):
         return (isinstance(cur, torch.Tensor) and isinstance(new, torch.Tensor)
                 and cur.shape == new.shape and cur.dtype == new.dtype)
@@ -368,7 +507,9 @@ def _fits(cur, new):
 
 
 def _copy_into(cur, new):
-    if isinstance(cur, torch.Tensor):
+    if isinstance(cur, Placed):
+        cur.write(new)
+    elif isinstance(cur, torch.Tensor):
         cur.copy_(new)
     elif cur is not None:
         for a, b in zip(cur, new):

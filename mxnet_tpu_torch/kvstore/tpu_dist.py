@@ -25,9 +25,16 @@ sums), and a single copy needs no dispatch, only the write-back. Every
 write-back bumps the out's ``_version``, which the Trainer's
 stale-gradient test reads.
 
-``allreduce_sharded``, ``reduce_scatter_sharded``, ``set_sharding_plan``
-and ``traced_allreduce`` need a parameter laid over several positions of a
-mesh, which the port does not have yet: they raise.
+Over a mesh of positions (parallel/mesh.py): ``set_sharding_plan`` adopts
+the Trainer's plan, whose mesh and data axis then default
+``allreduce_sharded`` (the bucketed flat psum of whole tensors split over
+the axis, ``collectives.psum_tree_flat``; ``psum_tree`` without
+``MXTPU_FUSED_UPDATE``) and whose ZeRO axis defaults
+``reduce_scatter_sharded`` (``collectives.reduce_scatter`` a leaf); both
+sum over this process's positions, as one process drives every position.
+``traced_allreduce`` is the sum a captured ``gluon.TrainStep`` makes of its
+positions' gradients (``collectives.psum_tree_flat_traced``), then, with
+several processes, over the processes through the flat buckets.
 """
 from __future__ import annotations
 
@@ -123,12 +130,6 @@ def _write_back(o, data):
     o._version += 1
 
 
-def _later(name):
-    return NotImplementedError(
-        f"TPUDist.{name} is not ported yet: it needs a parameter laid over "
-        f"several positions of a mesh (ROADMAP.md, queue 1, item 9)")
-
-
 class TPUDist(KVStoreBase):
     """``kvstore='tpu_dist'``: sums over every copy in the process and over
     every process of the group."""
@@ -137,6 +138,7 @@ class TPUDist(KVStoreBase):
         init_distributed_from_env()
         self._devices = devices
         self._optimizer = None
+        self._sharding_plan = None   # set by the Trainer
         if self.num_workers > 1:
             # meet every rank now, while they are close together: a later
             # first collective may follow long per-rank set-up
@@ -292,18 +294,65 @@ class TPUDist(KVStoreBase):
         _telemetry.record_collective("broadcast", _nbytes(src),
                                      time.perf_counter() - t0)
 
-    # -- what waits for parameters over a mesh ------------------------------
-    def allreduce_sharded(self, arrays, mesh=None, axis="dp"):  # noqa: ARG002
-        raise _later("allreduce_sharded")
+    # -- over a mesh of positions ---------------------------------------------
+    def allreduce_sharded(self, arrays, mesh=None, axis="dp"):
+        """Allreduce a pytree of tensors split batch-first over a mesh axis
+        (tpu_dist.py:318): each leaf's blocks summed. Mesh and axis default
+        from the adopted plan; ``MXTPU_FUSED_UPDATE`` (the default) takes
+        the bucketed flat sum, one sum a bucket."""
+        from ..parallel import collectives
 
-    def reduce_scatter_sharded(self, arrays, mesh=None, axis=None):  # noqa: ARG002
-        raise _later("reduce_scatter_sharded")
+        if mesh is None and self._sharding_plan is not None:
+            mesh = self._sharding_plan.mesh
+            axis = self._sharding_plan.batch_axis
+        if _env.get("MXTPU_FUSED_UPDATE"):
+            return collectives.psum_tree_flat(arrays, mesh=mesh, axis=axis)
+        return collectives.psum_tree(arrays, mesh=mesh, axis=axis)
 
-    def set_sharding_plan(self, plan):  # noqa: ARG002
-        raise _later("set_sharding_plan")
+    def reduce_scatter_sharded(self, arrays, mesh=None, axis=None):
+        """Reduce-scatter a pytree along the plan's ZeRO axis
+        (tpu_dist.py:335): each position keeps the summed block of every
+        leaf that the ZeRO state layout assigns it. Mesh and axis default
+        from the adopted plan's mesh and ``zero_axis()``; raises without
+        them."""
+        if mesh is None and self._sharding_plan is not None:
+            mesh = self._sharding_plan.mesh
+        if axis is None and self._sharding_plan is not None:
+            axis = self._sharding_plan.zero_axis()
+        if mesh is None or axis is None:
+            raise ValueError(
+                "reduce_scatter_sharded needs a mesh and a ZeRO axis: "
+                "pass them explicitly or set_sharding_plan() a plan "
+                "whose zero_axis() is not None (fsdp axis present and "
+                "MXTPU_ZERO on)")
+        from ..parallel import collectives
 
-    def traced_allreduce(self, tree, axis="dp", bucket_mb=None):  # noqa: ARG002
-        raise _later("traced_allreduce")
+        leaves, rebuild = collectives._flatten(arrays)
+        return rebuild([collectives.reduce_scatter(v, mesh, axis=axis)
+                        for v in leaves])
+
+    def set_sharding_plan(self, plan):
+        """Adopt a ShardingPlan (the Trainer calls this): its mesh and data
+        axis default ``allreduce_sharded``, its ``zero_axis()``
+        ``reduce_scatter_sharded``."""
+        self._sharding_plan = plan
+
+    def traced_allreduce(self, tree, axis="dp", bucket_mb=None):
+        """The gradient sum inside a captured step (tpu_dist.py:360):
+        ``tree`` is the list of the positions' pytrees along ``axis``; they
+        are summed in position order in flat buckets
+        (``collectives.psum_tree_flat_traced``) and, with several
+        processes, over the processes a bucket at a time. Returns the
+        positions' summed trees. No host read: a CUDA graph captures it
+        (over NCCL across processes)."""
+        from ..parallel import collectives
+
+        sums = collectives.psum_tree_flat_traced(tree, axis, bucket_mb)
+        if self.num_workers > 1:
+            leaves, rebuild = collectives._flatten(sums[0])
+            total = rebuild(self.allreduce_flat(leaves))
+            sums = [total] * len(sums)
+        return sums
 
 
 # the reference's spelling: KVStoreBase.find('tpudist')

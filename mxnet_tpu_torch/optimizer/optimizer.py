@@ -64,7 +64,8 @@ from ..kernels import opt as _kopt
 __all__ = ["Optimizer", "register", "create", "SGD", "NAG", "Signum",
            "Adam", "AdamW", "SGLD", "DCASGD", "Nadam", "AdaBelief", "Adamax",
            "FTML", "RMSProp", "AdaGrad", "AdaDelta", "Ftrl", "LAMB", "LANS",
-           "LARS", "GroupAdaGrad", "Updater", "get_updater"]
+           "LARS", "GroupAdaGrad", "Updater", "get_updater",
+           "place_state_like"]
 
 _REG = {}
 
@@ -137,6 +138,61 @@ def _write_state(state, new_state):
         return
     for s, ns in zip(state, new_state):
         _write_state(s, ns)
+
+
+def _placement_of(weight):
+    """The ``parallel.mesh.Placed`` of a weight given as a Parameter or as
+    the NDArray ``Parameter.data()`` returns; None for anything else."""
+    if hasattr(weight, "_placement"):
+        return weight._placement
+    param = getattr(weight, "_param", None)
+    return param._placement if param is not None else None
+
+
+def place_state_like(state, weight, plan=None, name=None):
+    """Give optimizer state its weight's placement or, under a ZeRO plan,
+    the sharded layout (mxnet_tpu/optimizer/optimizer.py:617).
+
+    State leaves (momenta, variances, f32 masters) mirror the weight's
+    shape, so under a sharding plan they take the weight's layout verbatim,
+    each position holding its own block (a ``parallel.mesh.Placed``). With
+    ``plan``/``name`` given and the plan's ZeRO axis live (MXTPU_ZERO and an
+    fsdp mesh axis), same-shape leaves take ``plan.state_spec_for(name,
+    shape)`` instead, so each position holds ~1/N of the state. Leaves
+    whose shape differs, and every leaf of an unplaced weight without a
+    ZeRO plan, stay or become plain tensors (the logical value, on the
+    first position's device). ``weight`` is the Parameter or its
+    ``data()``. Returns the state in the same nesting, with the placed
+    leaves in it (the JAX package re-places its leaves in place; torch
+    tuples are immutable, so the caller keeps the return)."""
+    from ..parallel.mesh import Layout, Placed
+
+    placement = _placement_of(weight)
+    shape = tuple(weight.shape)
+    if plan is not None and name is not None and plan.zero_axis() \
+            is not None:
+        layout = Layout(plan.mesh, plan.state_spec_for(name, shape), shape)
+    elif placement is not None:
+        layout = placement.layout
+    else:
+        layout = None
+
+    def _place(s):
+        if s is None:
+            return None
+        if isinstance(s, Placed):
+            if layout is None:
+                return s.full()
+            if s.layout.mesh is layout.mesh and s.layout.spec == layout.spec:
+                return s
+            return Placed.from_tensor(s.full(), layout)
+        if isinstance(s, torch.Tensor):
+            if layout is not None and tuple(s.shape) == shape:
+                return Placed.from_tensor(s.detach(), layout)
+            return s
+        return type(s)(_place(x) for x in s)
+
+    return _place(state)
 
 
 class Optimizer:

@@ -15,9 +15,11 @@ them), lists and tuples of tensors; None holds no leaf.
 
 Every wrapper opens a ``collective`` span and records call count, input
 bytes and host time under the JAX package's op names (``collective_*``
-series). ``psum_tree_flat_traced`` (the in-program form used inside a
-compiled whole step) and the watchdog guard wait for data-parallel
-training and ``diagnostics/``.
+series). :func:`psum_tree_flat_traced` is the in-program form that a
+captured training step uses: it takes per-position trees (what each
+position holds inside the JAX package's ``shard_map``) and returns them
+summed, with no span, no telemetry and no host synchronisation, so a CUDA
+graph can capture it. The watchdog guard waits for ``diagnostics/``.
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ from ..diagnostics import spans as _spans
 from ..telemetry import instruments as _telemetry
 from .mesh import ShardingError, assemble, split
 
-__all__ = ["psum_tree", "psum_tree_flat", "allreduce_mean", "all_gather",
-           "reduce_scatter", "ring_permute", "axis_size"]
+__all__ = ["psum_tree", "psum_tree_flat", "psum_tree_flat_traced",
+           "allreduce_mean", "all_gather", "reduce_scatter", "ring_permute",
+           "axis_size"]
 
 
 def axis_size(axis_name, mesh):
@@ -148,6 +151,37 @@ def psum_tree_flat(tree, mesh, axis="dp", bucket_mb=None):
     for bucket in buckets:
         _telemetry.record_fused_bucket("allreduce", len(bucket))
     return rebuild(out)
+
+
+def psum_tree_flat_traced(trees, axis=None, bucket_mb=None):  # noqa: ARG001
+    """The bucketed flat sum inside a step (mxnet_tpu/parallel/
+    collectives.py:psum_tree_flat_traced): ``trees`` is the list of the
+    positions' pytrees along the reduced axis, in position order (``axis``
+    names it, for the JAX signature). Each position's leaves are
+    concatenated into dtype-homogeneous buffers of ~``bucket_mb`` MB, the
+    buffers are summed in position order (the partial sums travel from one
+    position to the next), and every position gets the sum back, split to
+    its leaves' shapes, on its own device. Returns the list of summed
+    trees. Nothing here reads the host, so a CUDA graph captures it."""
+    flat = [_flatten(t) for t in trees]
+    leaves = [f[0] for f in flat]
+    if not leaves or not leaves[0]:
+        return list(trees)
+    buckets = _flat_buckets(leaves[0], _resolve_bucket_mb(bucket_mb) << 20)
+    out = [[None] * len(leaves[0]) for _ in trees]
+    for bucket in buckets:
+        parts = [ls[bucket[0]].reshape(-1) if len(bucket) == 1
+                 else torch.cat([ls[i].reshape(-1) for i in bucket])
+                 for ls in leaves]
+        red = _sum_shards(parts)
+        for p, ls in enumerate(leaves):
+            mine = red.to(ls[0].device, non_blocking=True)
+            off = 0
+            for i in bucket:
+                n = ls[i].numel()
+                out[p][i] = mine[off:off + n].view(ls[i].shape)
+                off += n
+    return [rebuild(o) for (_, rebuild), o in zip(flat, out)]
 
 
 def allreduce_mean(tree, mesh, axis="dp"):

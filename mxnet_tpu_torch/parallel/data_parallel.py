@@ -13,14 +13,20 @@ grads, opt_state, lr)`` gives ``(new_params, new_opt_state)``, both on
 pytrees of tensors (nested dicts, lists and tuples, as
 ``parallel/collectives.py`` flattens them); a step returns ``(params,
 opt_state, loss)``. Positions share devices as the mesh says: one replica
-computes the update for all.
+computes the update for all. ``param_specs`` (a PartitionSpec, or a pytree
+of them, or of None for replicated, over ``params``' structure) says how the
+JAX package's step lays the parameters and their state out; the step
+computes the same logical function either way, so here each parameter's
+spec is checked against the mesh at the first call (a dim its axes do not
+divide raises ``ShardingError`` naming the parameter) and the values stay
+whole, as the JAX package's global arrays read.
 """
 from __future__ import annotations
 
 import torch
 
 from .collectives import _flatten, _sum_shards
-from .mesh import ShardingError, split
+from .mesh import PartitionSpec, ShardingError, _check_divisible, split
 
 __all__ = ["make_data_parallel_step", "make_shard_map_step"]
 
@@ -47,21 +53,36 @@ def _shards(batch, mesh, axis):
     return [rebuild([p[i] for p in parts]) for i in range(n)]
 
 
+def _spec_pairs(tree, specs, path=""):
+    """``[(name, leaf, spec)]`` of ``tree``'s leaves under the spec pytree
+    prefix ``specs`` (a PartitionSpec or None covers a whole subtree)."""
+    if specs is None or isinstance(specs, PartitionSpec):
+        spec = specs if specs is not None else PartitionSpec()
+        leaves, _ = _flatten(tree)
+        return [(path or "param", x, spec) for x in leaves]
+    if isinstance(specs, dict):
+        return [pair for k in sorted(tree)
+                for pair in _spec_pairs(tree[k], specs.get(k),
+                                        f"{path}{k}" if not path
+                                        else f"{path}.{k}")]
+    return [pair for j, (t, sp) in enumerate(zip(tree, specs))
+            for pair in _spec_pairs(t, sp, f"{path}[{j}]")]
+
+
 def make_data_parallel_step(loss_fn, update_fn, mesh, axis="dp",
                             param_specs=None, donate=True):  # noqa: ARG001
     """``step(params, opt_state, batch, lr) -> (params, opt_state, loss)``
     over the whole batch, which must split evenly over ``axis``.
-    ``param_specs`` (tensor parallelism) waits for ROADMAP.md queue 1
-    item 9; ``donate`` is accepted for the JAX signature (torch updates
-    need no donation)."""
-    if param_specs is not None:
-        raise NotImplementedError(
-            "make_data_parallel_step(param_specs=...) is not ported yet: "
-            "parameters sharded over a mesh wait for ROADMAP.md queue 1, "
-            "item 9")
+    ``param_specs`` lays the parameters out (module note); ``donate`` is
+    accepted for the JAX signature (torch updates need no donation)."""
     n = mesh.shape[axis]
+    checked = []
 
     def step(params, opt_state, batch, lr):
+        if param_specs is not None and not checked:
+            for name, x, spec in _spec_pairs(params, param_specs):
+                _check_divisible(name, tuple(x.shape), spec, mesh)
+            checked.append(True)
         for x in _flatten(batch)[0]:
             if x.shape[0] % n:
                 raise ShardingError(

@@ -2,8 +2,9 @@
 metric catalog and the record_* helpers their hot paths call (a copy of
 mxnet_tpu/telemetry/instruments.py: the ``serve_*`` instruments, the
 ``collective_*`` ones with ``fused_bucket_size``, ``transfer_*``,
-``data_prefetch_*`` and ``ckpt_*``, and their helpers; the others wait for
-the modules that record them).
+``data_prefetch_*``, ``ckpt_*``, the sharding plan's and the elastic
+re-entry's, and their helpers; the others wait for the modules that record
+them).
 
 Every serving touchpoint goes through ONE helper here, so the catalog below
 is the single source of metric names, labels, and buckets, call sites stay
@@ -37,6 +38,10 @@ __all__ = [
     "data_prefetch_total", "data_prefetch_depth", "record_device_prefetch",
     "ckpt_save_total", "ckpt_save_ms", "ckpt_bytes_total",
     "ckpt_restore_total", "record_ckpt_save", "record_ckpt_restore",
+    "sharding_plan_applied_total", "sharding_mesh_axis_size",
+    "record_sharding_apply",
+    "elastic_restart_total", "reshard_ms", "world_generation",
+    "record_elastic_restart", "record_reshard", "set_world_generation",
 ]
 
 _SERVE_LATENCY_BUCKETS = (.0005, .001, .0025, .005, .01, .025, .05, .1,
@@ -180,6 +185,37 @@ ckpt_restore_total = counter(
     "error)", ["outcome"])
 
 
+# -- sharding plans (sharding/plan.py) ---------------------------------------
+sharding_plan_applied_total = counter(
+    "sharding_plan_applied_total",
+    "ShardingPlan.apply placements: every param laid out a block a "
+    "position of the plan's mesh (once per trainer, counted again after a "
+    "restore or a re-entry places arrays)", ["label"])
+sharding_mesh_axis_size = gauge(
+    "sharding_mesh_axis_size",
+    "Resolved size of each mesh axis of the most recently applied plan "
+    "(-1 specs shown after inference)", ["axis"])
+
+
+# -- elastic training (elastic/) ---------------------------------------------
+elastic_restart_total = counter(
+    "elastic_restart_total",
+    "Elastic topology-change events by origin: 'supervisor' (a relaunch "
+    "after a rank death) or 'reenter' (a live trainer swapped plans "
+    "in-process via elastic.reenter())", ["reason"])
+reshard_ms = histogram(
+    "reshard_ms",
+    "Wall ms of one plan-crossing state move, by site: 'restore' "
+    "(CheckpointManager placing a checkpoint's arrays under another "
+    "plan), 'offline' (elastic.reshard_checkpoint rewriting a checkpoint "
+    "for a target mesh), 'reenter' (the in-process plan swap)", ["site"],
+    buckets=_CKPT_MS_BUCKETS)
+world_generation = gauge(
+    "world_generation",
+    "Which incarnation of the elastic job this process runs: 0 at first "
+    "launch, +1 per restart or in-process reenter()")
+
+
 # -- helpers ----------------------------------------------------------------
 
 def record_serve_request(model, outcome, seconds=None):
@@ -281,3 +317,40 @@ def record_ckpt_restore(outcome):
     if not REGISTRY.enabled:
         return
     ckpt_restore_total.labels(outcome).inc()
+
+
+def record_sharding_apply(label, axis_sizes, params=0):
+    """One plan application: ``axis_sizes`` the resolved {axis: size},
+    ``params`` the number of parameters placed. (The JAX package also
+    mirrors it into its flight recorder, which the port does not have.)"""
+    if not REGISTRY.enabled:
+        return
+    sharding_plan_applied_total.labels(label).inc()
+    for axis, size in axis_sizes.items():
+        sharding_mesh_axis_size.labels(str(axis)).set(int(size))
+
+
+def record_elastic_restart(reason, generation=None):
+    """One topology-change event; also pins the world_generation gauge
+    when the new generation is known."""
+    if not REGISTRY.enabled:
+        return
+    elastic_restart_total.labels(str(reason)).inc()
+    if generation is not None:
+        world_generation.set(int(generation))
+
+
+def record_reshard(ms, saved_world=None, target_world=None,  # noqa: ARG001
+                   site="restore"):
+    """One plan-crossing state move of ``ms`` wall milliseconds (the
+    worlds go to the JAX package's flight record, which the port lacks)."""
+    if not REGISTRY.enabled:
+        return
+    reshard_ms.labels(str(site)).observe(float(ms))
+
+
+def set_world_generation(g):
+    """Pin the world_generation gauge (elastic.bump_generation)."""
+    if not REGISTRY.enabled:
+        return
+    world_generation.set(int(g))

@@ -13,6 +13,10 @@ only without the global-norm clip (``clip_global_norm=None``): with it, it
 runs phased, as the JAX package's does, for the reason
 ``ineligible_reason()`` gives.
 
+``sharding_plan=`` trains under a ``sharding.ShardingPlan`` (or a function
+of the net that returns one, for ``ShardingPlan.from_layout(axes, net=net,
+devices=...)``): the Trainer places every parameter and its state by it.
+
 ``optimizer=`` names the rule (``"lamb"`` for the large-batch recipe of
 You et al., arXiv:1904.00962), ``init=`` the global initializer
 (``mx.initializer.Xavier()``), and ``amp_loop=True`` makes each step
@@ -43,7 +47,7 @@ def build_bert_finetune(batch=8, seq=384, dropout=0.1, dtype="bfloat16",
                         learning_rate=1e-4, device=None, seed=0,
                         clip_global_norm=1.0, train_step=False,
                         optimizer="adamw", init=None, amp_loop=False,
-                        **model_kwargs):
+                        sharding_plan=None, **model_kwargs):
     """``(net, trainer, step)``: ``step()`` runs one recorded forward on
     the one fixed batch, backward on the per-sample loss vector and
     ``trainer.step(batch)``, and returns that loss vector (on the device,
@@ -71,7 +75,10 @@ def build_bert_finetune(batch=8, seq=384, dropout=0.1, dtype="bfloat16",
         opt["multi_precision"] = True
     elif dtype != "float32":
         raise ValueError(f"dtype must be bfloat16 or float32, got {dtype!r}")
-    trainer = Trainer(net.collect_params(), optimizer, opt)
+    if callable(sharding_plan):
+        sharding_plan = sharding_plan(net)
+    trainer = Trainer(net.collect_params(), optimizer, opt,
+                      sharding_plan=sharding_plan)
     if amp_loop:
         amp.init_trainer(trainer)
     gen = torch.Generator().manual_seed(seed + 1)

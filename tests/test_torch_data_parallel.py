@@ -79,8 +79,8 @@ def test_step_builders_match_jax(builder):
 
 def test_builders_agree_and_refuse_what_waits():
     """The whole-batch step and the per-shard mean agree (equal shards of
-    a mean loss); a batch that does not split over the axis and
-    ``param_specs`` raise."""
+    a mean loss); a batch that does not split over the axis raises;
+    ``param_specs`` gives the same step and checks each spec."""
     a = _run("make_data_parallel_step")
     b = _run("make_shard_map_step")
     for k in a:
@@ -93,6 +93,20 @@ def test_builders_agree_and_refuse_what_waits():
         step = getattr(tpar, builder)(_torch_loss, _torch_update, tm)
         with pytest.raises(tmesh.ShardingError, match="divisible"):
             step(p, s, odd, 0.1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tpar.make_data_parallel_step(_torch_loss, _torch_update, tm,
-                                     param_specs={"w1": None})
+    # param_specs lays the parameters out: the same logical step, and a
+    # spec its mesh axis does not divide raises naming the parameter
+    step = tpar.make_data_parallel_step(
+        _torch_loss, _torch_update, tm,
+        param_specs={"w1": None, "b1": tmesh.PartitionSpec(), "w2": None})
+    plain = tpar.make_data_parallel_step(_torch_loss, _torch_update, tm)
+    even = tuple(torch.from_numpy(a) for a in BATCHES[0])
+    for x, y in zip(step(p, s, even, 0.1), plain(p, s, even, 0.1)):
+        for k in (x if isinstance(x, dict) else {"loss": x}):
+            want = y[k] if isinstance(y, dict) else y
+            got = x[k] if isinstance(x, dict) else x
+            assert torch.equal(got, want), k
+    bad = tpar.make_data_parallel_step(
+        _torch_loss, _torch_update, tm,
+        param_specs={"w1": tmesh.PartitionSpec(None, "dp")})
+    with pytest.raises(tmesh.ShardingError, match="parameter w1"):
+        bad(p, s, even, 0.1)

@@ -174,12 +174,21 @@ def test_create_aliases_adapters_and_registry(caplog):
         mt.kvstore.KVStoreServer(None).run()
     with pytest.raises(ValueError, match="unknown kvstore"):
         mt.kvstore.create("no_such_store")
-    for method, args in (("allreduce_sharded", ([],)),
-                         ("reduce_scatter_sharded", ([],)),
-                         ("set_sharding_plan", (None,)),
-                         ("traced_allreduce", ({},))):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            getattr(mt.kv.create("tpu_dist"), method)(*args)
+    # the sharded methods over a mesh of CPU positions, their mesh and axes
+    # taken from an adopted plan (tests/test_torch_sharding_train.py holds
+    # them against the JAX package's)
+    kv = mt.kv.create("tpu_dist")
+    x = torch.arange(8.0).reshape(4, 2)
+    mesh = mt.parallel.make_mesh({"dp": 2}, [mt.cpu()] * 2)
+    assert torch.equal(kv.allreduce_sharded([x], mesh)[0], x[:2] + x[2:])
+    with pytest.raises(ValueError, match="ZeRO axis"):
+        kv.reduce_scatter_sharded([x])
+    kv.set_sharding_plan(mt.sharding.ShardingPlan(
+        "dp=2,fsdp=2", devices=[mt.cpu()] * 4))
+    assert torch.equal(kv.allreduce_sharded({"g": x})["g"], x[:2] + x[2:])
+    assert torch.equal(kv.reduce_scatter_sharded([x])[0], 2 * x)
+    summed = kv.traced_allreduce([{"g": x}, {"g": x}])
+    assert torch.equal(summed[1]["g"], 2 * x)
 
     # a store registered in the port is found by name, in the port alone
     class PortOnlyStore(KVStoreBase):

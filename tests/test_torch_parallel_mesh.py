@@ -90,9 +90,12 @@ def test_sharding_errors_read_as_in_the_jax_package():
     if not torch.cuda.is_available():
         with pytest.raises(mt.MXNetError, match="CUDA"):
             tmesh.make_mesh({"sp": -1})
-    for fn in (tmesh.shard_params, tmesh.shard_batch):
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            fn({}, tm)
+    # laying parameters and batches out (tests/test_torch_sharding_train.py
+    # holds their blocks against the JAX package's shards)
+    assert tmesh.shard_params({}, tm) is tm
+    placed = tmesh.shard_batch(torch.arange(8.0).reshape(8, 1), tm)
+    assert [b.flatten().tolist() for b in placed.shards] == [
+        [0.0, 1.0], [2.0, 3.0], [4.0, 5.0], [6.0, 7.0]]
 
 
 def test_psum_tree_allreduce_mean_and_reduce_scatter():

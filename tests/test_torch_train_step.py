@@ -268,7 +268,8 @@ def test_train_step_batchnorm_running_stats_match_jax():
 def test_fallback_reasons_equal_the_reference(monkeypatch):
     """clip_global_norm, an optimizer that overrides update, grad_req
     'add' and a net that is no HybridBlock run phased in both packages for
-    the same reason; MXTPU_WHOLE_STEP=0 runs phased; mesh= is not ported."""
+    the same reason; MXTPU_WHOLE_STEP=0 runs phased; a mesh= that is no
+    Mesh raises."""
     x = onp.random.RandomState(0).randn(BATCH, FEATS).astype("f")
     y = onp.random.RandomState(1).randn(BATCH, OUT).astype("f")
 
@@ -323,7 +324,7 @@ def test_fallback_reasons_equal_the_reference(monkeypatch):
     monkeypatch.delenv("MXTPU_WHOLE_STEP")
     ts(torch.from_numpy(x), torch.from_numpy(y))
     assert ts.last_path == "whole_step" and ts.jit_trace_count() == 1
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         mt.gluon.TrainStep(tnet, None, ts._trainer, mesh=object())
 
 

@@ -219,9 +219,20 @@ def test_stale_gradients_are_skipped_on_request():
 def test_arguments_that_wait_raise():
     _, tnet = _dense_pair()
     params = tnet.collect_params()
-    for kw in (dict(mesh=(("dp", -1),)), dict(sharding_plan=object())):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            mt.gluon.Trainer(params, "sgd", **kw)
+    # meshes and plans (tests/test_torch_sharding_*.py): a plan that names
+    # no positions spans the cards and raises without one; a plan that is
+    # no axes spelling raises; a built mesh of CPU positions places
+    if not torch.cuda.is_available():
+        with pytest.raises(mt.MXNetError, match="CUDA"):
+            mt.gluon.Trainer(params, "sgd", mesh=(("dp", -1),))
+    with pytest.raises(TypeError):
+        mt.gluon.Trainer(params, "sgd", sharding_plan=object())
+    _, placed_net = _dense_pair()
+    tr = mt.gluon.Trainer(placed_net.collect_params(), "sgd",
+                          mesh=mt.parallel.make_mesh({"dp": 2},
+                                                     [mt.cpu()] * 2))
+    assert tr.sharding_plan.axis_sizes() == {"dp": 2}
+    assert all(len(p.placement.shards) == 2 for p in tr._params)
     # the store's arguments are ported (tests/test_torch_trainer_kvstore.py)
     for kw in (dict(kvstore="tpu_dist"), dict(kvstore="dist_sync"),
                dict(kvstore="local", compression_params={"type": "2bit"}),
